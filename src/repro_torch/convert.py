@@ -1,0 +1,55 @@
+"""Carry state across from the JAX package as numpy arrays.
+
+The reference keeps a fleet as a stacked pytree whose leaves all carry
+the device axis, the shared basis included. These functions take those
+leaves as numpy arrays (``np.asarray`` of each leaf) and build the
+port's counterparts on a given device. This module imports neither JAX
+nor the JAX package: it only reads arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.elm import SLFNParams
+from repro_torch.core.oselm import OSELMState
+from repro_torch.kernels.fleet_ingest import validate_shared_basis
+from repro_torch.runtime.detector import DetectorState
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def oselm_state_from_numpy(
+    alpha, bias, beta, p, *, activation: str, forget: float,
+    device: str | torch.device | None = None,
+) -> OSELMState:
+    """One device's state, or a fleet's. A stacked basis (D, n, Ñ) must be
+    one basis broadcast over the fleet; the port keeps one copy of it."""
+    device = resolve_device(device)
+    alpha, bias = np.asarray(alpha), np.asarray(bias)
+    if alpha.ndim == 3:
+        validate_shared_basis(alpha)
+        alpha, bias = alpha[0], bias[0]
+    return OSELMState(
+        params=SLFNParams(alpha=_f32(alpha, device), bias=_f32(bias, device)),
+        beta=_f32(beta, device), p=_f32(p, device),
+        activation=activation, forget=float(forget),
+    )
+
+
+def detector_state_from_numpy(
+    ewma, mean, var, count, drifted, recovery, *, device: str | torch.device | None = None
+) -> DetectorState:
+    device = resolve_device(device)
+
+    def i32(x):
+        return torch.tensor(np.asarray(x, np.int32), device=device)
+
+    return DetectorState(
+        ewma=_f32(ewma, device), mean=_f32(mean, device), var=_f32(var, device),
+        count=i32(count), drifted=torch.tensor(np.asarray(drifted, bool), device=device),
+        recovery=i32(recovery),
+    )

@@ -1,0 +1,214 @@
+// Masked Eq. 8 merge kernels for Hopper (sm_90a).
+//
+// Replaces three TPU kernels of src/repro/kernels/topology_merge.py:
+//
+// * masked_segment_sum_mix (pallas_call :242, _masked_segsum_kernel :181):
+//     out[c] = Σ_{d: cid[d]=c} mask[d]·w[d] over the stacked payloads
+//     w = [U | V] of shape (D, Ñ, Ñ+m). Bound on an H100: bytes. At the har
+//     width it reads 90 MB (0.027 ms at 3.35 TB/s) and does one multiply-add
+//     per element read. One thread owns one element of the payload for one
+//     cluster and walks the cluster's members in ascending device order
+//     (cluster offsets from the sorted ids, checked on the host), so the
+//     sum has a fixed order and needs no atomics. The multiply and the add
+//     are rounded separately, as the plain version rounds them.
+//
+// * from_uv_solve (pallas_call :411, _solve_kernel :371, _gj_sweep :356):
+//     Gauss-Jordan without pivoting on [U+εI | I | V] per system, giving
+//     P = (U+εI)⁻¹ and β = PV (U+εI is SPD, so no pivoting, as in the
+//     reference). The augmented system at the har width is 128 × 817 × 4 B
+//     = 418 KB, more than the 227 KB of shared memory a block may use. So
+//     the right-hand side [I | V] is cut into 64-column tiles across
+//     blocks; each block holds A = U+εI (64 KB) and its own tile in shared
+//     memory and repeats the elimination of A. Bound: at one system
+//     (star, all_to_all) the 27 MFLOP run on a handful of SMs and the time
+//     is set by the n sequential elimination steps (latency), far above the
+//     FLOP bound.
+//
+// * banded_merge_solve (pallas_call :491, _banded_solve_kernel :425):
+//     the open ring. Each block sums its device's 2·hops+1 neighbour
+//     payloads at (d+o) mod D — the U part into A, the V columns of its own
+//     tile — and runs the same elimination, so the merged (U, V) never goes
+//     to device memory. Bound: f32 operations, about 6.9 GFLOP at D = 256
+//     (0.10 ms); the repeated elimination of A per tile adds to that.
+//
+// The elimination step is the reference's: row_k = w[k,:]/w[k,k],
+// w ← w − (w[:,k] − e_k)·row_k. Columns j < k of A are already e_j and
+// row_k is 0 there, so only the columns j > k of A are updated; the
+// right-hand side is updated in full.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kSolveTile = 64;  // right-hand-side columns per block
+
+__global__ void __launch_bounds__(kThreads)
+masked_segsum_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
+                     const float* __restrict__ mask, float* __restrict__ out,
+                     long long E) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E) return;
+  const int c = blockIdx.y;
+  const int d0 = seg_start[c], d1 = seg_start[c + 1];
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int d = d0; d < d1; ++d) acc = __fadd_rn(acc, __fmul_rn(w[(size_t)d * E + e], mask[d]));
+  out[(size_t)c * E + e] = acc;
+}
+
+// Eliminate A (n×n, row stride n+1) against the tile R (n×tc, row stride
+// tc+1), both in shared memory. rowbuf holds n+tc floats, colbuf n.
+__device__ void gj_sweep(float* A, float* R, float* rowbuf, float* colbuf, int n, int tc) {
+  const int lda = n + 1, ldr = tc + 1;
+  const int tid = threadIdx.x;
+  for (int k = 0; k < n; ++k) {
+    const float pivot = A[k * lda + k];
+    for (int i = tid; i < n + tc; i += kThreads)
+      rowbuf[i] = (i < n ? A[k * lda + i] : R[k * ldr + (i - n)]) / pivot;
+    for (int i = tid; i < n; i += kThreads)
+      colbuf[i] = A[i * lda + k] - (i == k ? 1.0f : 0.0f);
+    __syncthreads();
+    const int wa = n - k - 1;
+    for (int idx = tid; idx < n * wa; idx += kThreads) {
+      const int i = idx / wa, j = k + 1 + idx % wa;
+      A[i * lda + j] -= colbuf[i] * rowbuf[j];
+    }
+    for (int idx = tid; idx < n * tc; idx += kThreads) {
+      const int i = idx / tc, j = idx % tc;
+      R[i * ldr + j] -= colbuf[i] * rowbuf[n + j];
+    }
+    __syncthreads();
+  }
+}
+
+// Write the solved tile: column c < n of [P | β] goes to P, the rest to β.
+__device__ void store_tile(const float* R, float* p, float* beta, int n, int m, int c0,
+                           int tc) {
+  const int ldr = tc + 1;
+  for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
+    const int i = idx / tc, j = idx % tc, c = c0 + j;
+    if (c < n) p[(size_t)i * n + c] = R[i * ldr + j];
+    else if (c < n + m) beta[(size_t)i * m + (c - n)] = R[i * ldr + j];
+  }
+}
+
+// One block per (tile, system s). u and v have unit column stride; their
+// system and row strides are given, so slices of a packed [U | V] work.
+__global__ void __launch_bounds__(kThreads)
+uv_solve_kernel(const float* __restrict__ u, long long u_ss, long long u_rs,
+                const float* __restrict__ v, long long v_ss, long long v_rs,
+                float* __restrict__ p, float* __restrict__ beta, int n, int m, float ridge) {
+  extern __shared__ float smem[];
+  const int tc = kSolveTile, lda = n + 1, ldr = tc + 1;
+  float* A = smem;
+  float* R = A + n * lda;
+  float* rowbuf = R + n * ldr;
+  float* colbuf = rowbuf + n + tc;
+  const int s = blockIdx.y, c0 = blockIdx.x * tc;
+  const float* us = u + s * u_ss;
+  const float* vs = v + s * v_ss;
+  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+    const int i = idx / n, j = idx % n;
+    A[i * lda + j] = us[i * u_rs + j] + (i == j ? ridge : 0.0f);
+  }
+  for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
+    const int i = idx / tc, j = idx % tc, c = c0 + j;
+    float val = 0.0f;
+    if (c < n) val = (i == c) ? 1.0f : 0.0f;
+    else if (c < n + m) val = vs[i * v_rs + (c - n)];
+    R[i * ldr + j] = val;
+  }
+  __syncthreads();
+  gj_sweep(A, R, rowbuf, colbuf, n, tc);
+  store_tile(R, p + (size_t)s * n * n, beta + (size_t)s * n * m, n, m, c0, tc);
+}
+
+// One block per (tile, device d): sum the payloads of devices
+// (d − hops .. d + hops) mod D in that order, then solve.
+__global__ void __launch_bounds__(kThreads)
+banded_solve_kernel(const float* __restrict__ w, float* __restrict__ p,
+                    float* __restrict__ beta, int D, int n, int m, int hops, float ridge) {
+  extern __shared__ float smem[];
+  const int tc = kSolveTile, lda = n + 1, ldr = tc + 1, ldw = n + m;
+  float* A = smem;
+  float* R = A + n * lda;
+  float* rowbuf = R + n * ldr;
+  float* colbuf = rowbuf + n + tc;
+  const int d = blockIdx.y, c0 = blockIdx.x * tc;
+  const size_t per = (size_t)n * ldw;
+  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+    const int i = idx / n, j = idx % n;
+    float acc = 0.0f;
+    for (int o = -hops; o <= hops; ++o) {
+      const int src = ((d + o) % D + D) % D;
+      acc += w[src * per + (size_t)i * ldw + j];
+    }
+    A[i * lda + j] = acc + (i == j ? ridge : 0.0f);
+  }
+  for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
+    const int i = idx / tc, j = idx % tc, c = c0 + j;
+    float val = 0.0f;
+    if (c < n) {
+      val = (i == c) ? 1.0f : 0.0f;
+    } else if (c < n + m) {
+      for (int o = -hops; o <= hops; ++o) {
+        const int src = ((d + o) % D + D) % D;
+        val += w[src * per + (size_t)i * ldw + c];
+      }
+    }
+    R[i * ldr + j] = val;
+  }
+  __syncthreads();
+  gj_sweep(A, R, rowbuf, colbuf, n, tc);
+  store_tile(R, p + (size_t)d * n * n, beta + (size_t)d * n * m, n, m, c0, tc);
+}
+
+int solve_smem(int n) { return (n * (n + 1) + n * (kSolveTile + 1) + 2 * n + kSolveTile) * 4; }
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
+
+int repro_solve_smem(int n) { return solve_smem(n); }
+int repro_solve_tile() { return kSolveTile; }
+
+// w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E).
+int repro_masked_segment_sum(const float* w, const int* seg_start, const float* mask,
+                             float* out, int C, long long E, void* stream) {
+  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), C);
+  masked_segsum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, seg_start, mask, out, E);
+  return cudaGetLastError();
+}
+
+// S systems: u (S,n,n) and v (S,n,m) with the given strides → p (S,n,n),
+// beta (S,n,m), both contiguous.
+int repro_uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
+                   long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
+                   int m, float ridge, void* stream) {
+  const int smem = solve_smem(n);
+  cudaError_t e = cudaFuncSetAttribute(uv_solve_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + m + kSolveTile - 1) / kSolveTile, S);
+  uv_solve_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, ridge);
+  return cudaGetLastError();
+}
+
+// w (D, n, n+m) contiguous → p (D,n,n), beta (D,n,m).
+int repro_banded_merge_solve(const float* w, float* p, float* beta, int D, int n, int m,
+                             int hops, float ridge, void* stream) {
+  const int smem = solve_smem(n);
+  cudaError_t e = cudaFuncSetAttribute(banded_solve_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + m + kSolveTile - 1) / kSolveTile, D);
+  banded_solve_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      w, p, beta, D, n, m, hops, ridge);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,160 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources under ``repro_torch/csrc`` have a plain C interface. At
+first use they are compiled with ``nvcc`` for ``sm_90a`` (one process per
+source, all started together), linked into one shared library and loaded
+with ``ctypes``. The library lands in ``build/kernels/<hash>/`` at the
+root of the checkout, keyed by a hash of the sources, so an edited
+source is rebuilt and an unchanged one is not. Nothing is built when a
+module is imported, so the CPU tests import every module without a
+compiler.
+
+Every wrapper adds one to its entry of the launch counts each time it
+launches its kernel on a CUDA tensor; ``reset_launch_counts`` and
+``launch_counts`` let a run show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve")
+_launches = dict.fromkeys(KERNELS, 0)
+
+
+def count_launch(name: str) -> None:
+    _launches[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_launches)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
+        "kernels cannot be built"
+    )
+
+
+def _sources_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources into ``build/kernels/<hash>/librepro_torch.so``
+    unless that file exists; raise with the compiler's output on failure."""
+    out_dir = BUILD_ROOT / _sources_digest()
+    lib = out_dir / "librepro_torch.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failures = []
+        for cmd, _, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"$ {' '.join(cmd)}\n{out}")
+        if failures:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+        staged = Path(tmp) / lib.name
+        cmd = [nvcc, "-shared", "-o", str(staged), *(str(o) for _, o, _ in procs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"CUDA kernel link failed:\n$ {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(staged, lib)  # atomic: a concurrent build sees all or nothing
+    return lib
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+_SIGNATURES = {
+    "repro_fleet_ingest": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "repro_masked_segment_sum": [_P, _P, _P, _P, _I, _L, _P],
+    "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P],
+    "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "repro_ingest_gain_smem": [_I],
+    "repro_ingest_beta_smem": [_I],
+    "repro_ingest_beta_tile": [],
+    "repro_solve_smem": [_I],
+    "repro_solve_tile": [],
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, with every entry's ``argtypes`` set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [_I]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise when a C entry returned a CUDA error."""
+    if status != 0:
+        what = library().repro_error_string(status).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {status} ({what}) at launch")
+
+
+# 227 KB: the shared memory one block may use on Hopper
+MAX_SMEM = 232_448
+
+
+def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
+    """Every tensor a kernel reads must be a contiguous f32 CUDA tensor."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")

@@ -1,0 +1,107 @@
+"""The port's plain fused ingest against the reference on the CPU.
+
+``repro_torch.kernels.fleet_ingest_plain`` (what the wrapper runs for a
+CPU tensor) is held to the reference Pallas kernel in interpret mode and
+to the reference's sequential ``_fleet_train`` chain, on odd D/T/Ñ/n and
+with λ < 1. Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
+losses at rtol 1e-5 / atol 1e-7, state at 1e-5. With sigmoid the fixture
+carries the reference's ridge 5e-2: RLS parity in f32 degrades as κ(P)².
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ae_score
+from repro.fleet import init_fleet
+from repro.fleet.fleet import _fleet_train
+from repro.kernels.fleet_ingest import fleet_ingest_kernel
+from repro_torch.convert import oselm_state_from_numpy
+from repro_torch.kernels import fleet_ingest, fleet_ingest_plain, validate_shared_basis
+
+torch.set_num_threads(2)
+
+D_ODD, T_ODD, F_ODD, NH_ODD = 13, 17, 37, 10
+RIDGE = 1e-3
+
+
+def _fleet(activation, forget, ridge, seed=0):
+    rng = np.random.default_rng(seed)
+    x_init = rng.uniform(0, 1, (D_ODD, 4 * NH_ODD, F_ODD)).astype(np.float32)
+    return init_fleet(jax.random.PRNGKey(seed), D_ODD, F_ODD, NH_ODD, jnp.asarray(x_init),
+                      activation=activation, ridge=ridge, forget=forget)
+
+
+def _window(seed=1):
+    return np.random.default_rng(seed).uniform(0, 1, (D_ODD, T_ODD, F_ODD)).astype(np.float32)
+
+
+def _port(fleet):
+    return oselm_state_from_numpy(
+        fleet.params.alpha, fleet.params.bias, fleet.beta, fleet.p,
+        activation=fleet.activation, forget=fleet.forget, device="cpu",
+    )
+
+
+def _assert_state_close(got, ref, *, rtol=1e-5, atol=1e-5):
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("activation,forget", [
+    ("sigmoid", 1.0), ("identity", 0.95), ("identity", 1.0), ("sigmoid", 0.95),
+])
+def test_plain_ingest_matches_pallas_interpret(activation, forget):
+    ridge = 5e-2 if activation == "sigmoid" else RIDGE
+    fleet = _fleet(activation, forget, ridge)
+    win = _window()
+    ref, ref_loss = fleet_ingest_kernel(fleet, jnp.asarray(win), block_d=4, interpret=True)
+    got, loss = fleet_ingest_plain(_port(fleet), torch.from_numpy(win))
+    _assert_state_close(got, ref)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("activation,forget", [("identity", 0.95), ("sigmoid", 1.0)])
+def test_plain_ingest_matches_sequential_reference(activation, forget):
+    ridge = 5e-2 if activation == "sigmoid" else RIDGE
+    fleet = _fleet(activation, forget, ridge, seed=3)
+    win = _window(4)
+    ref = _fleet_train(fleet, jnp.asarray(win))
+    ref_loss = jax.vmap(lambda s, xb: jnp.mean(ae_score(s, xb)))(fleet, jnp.asarray(win))
+    got, loss = fleet_ingest(_port(fleet), torch.from_numpy(win))
+    _assert_state_close(got, ref)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
+
+
+def test_plain_ingest_supervised_targets():
+    """m ≠ n with explicit targets: one device's chain equals the port's
+    own single-sample k=1 steps."""
+    from repro_torch import core as tcore
+
+    rng = np.random.default_rng(5)
+    n, nh, m, t = 9, 5, 4, 7
+    params = tcore.SLFNParams(torch.from_numpy(rng.uniform(-1, 1, (n, nh)).astype(np.float32)),
+                              torch.from_numpy(rng.uniform(-1, 1, nh).astype(np.float32)))
+    x0 = torch.from_numpy(rng.uniform(0, 1, (3, 12, n)).astype(np.float32))
+    t0 = torch.from_numpy(rng.uniform(0, 1, (3, 12, m)).astype(np.float32))
+    fleet = tcore.init_oselm(params, x0, t0, activation="identity", ridge=1e-2, forget=0.9)
+    xs = torch.from_numpy(rng.uniform(0, 1, (3, t, n)).astype(np.float32))
+    ts = torch.from_numpy(rng.uniform(0, 1, (3, t, m)).astype(np.float32))
+    got, _ = fleet_ingest_plain(fleet, xs, ts)
+    one = fleet.replace(beta=fleet.beta[1], p=fleet.p[1])
+    for i in range(t):
+        one = tcore.oselm_step_k1(one, xs[1, i], ts[1, i])
+    np.testing.assert_allclose(got.p[1].numpy(), one.p.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.beta[1].numpy(), one.beta.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_ingest_rejects_bad_shapes_and_bases():
+    fleet = _port(_fleet("identity", 1.0, RIDGE))
+    with pytest.raises(ValueError, match="window"):
+        fleet_ingest(fleet, torch.zeros(D_ODD, F_ODD))
+    with pytest.raises(ValueError, match="m == n"):
+        fleet_ingest(fleet.replace(beta=fleet.beta[:, :, :5]), torch.zeros(D_ODD, 2, F_ODD))
+    stacked = np.stack([np.zeros((3, 2)), np.ones((3, 2))])
+    with pytest.raises(ValueError, match="shared SLFN basis"):
+        validate_shared_basis(stacked)
