@@ -4,11 +4,11 @@ machine with a CUDA device and ``nvcc``; without a card every test skips
 (decided inside the ``cuda`` fixture, so every worker collects the same
 tests).
 
-Tolerances are max |kernel − plain| / max |plain|, with the reasons of
-``chip_smoke.py``: 1e-6 for the fixed-order masked segment sum, 1e-5 for
-the Gauss-Jordan solves (the same fused elimination in both), 1e-4 for
-the ingest at these small, well-conditioned shapes (other summation
-orders in the GEMM and dot products).
+Tolerances are max |kernel − plain| / max |plain| of each output tensor
+on its own, with the reasons of ``chip_smoke.py``: 1e-6 for the
+fixed-order masked segment sum, 1e-5 for the Gauss-Jordan solves (the
+same fused elimination in both), 1e-4 for the ingest (other summation
+orders in the GEMM and dot products, amplified along the RLS chain).
 """
 import numpy as np
 import pytest
@@ -83,7 +83,8 @@ def test_ingest_kernel_at_har_width(cuda):
     ).to(cuda)
     got, loss = fleet_ingest(fleet, win)
     ref, ref_loss = fleet_ingest_plain(fleet, win)
-    assert _rel(got.beta, ref.beta) < 1e-3
+    assert _rel(got.p, ref.p) < 1e-4
+    assert _rel(got.beta, ref.beta) < 1e-4
     assert _rel(loss, ref_loss) < 1e-4
 
 
@@ -105,7 +106,8 @@ def _spd(rng, s, n, cuda):
     return torch.from_numpy(a @ a.transpose(0, 2, 1) / (3 * n)).to(cuda)
 
 
-@pytest.mark.parametrize("s,n,m", [(1, 10, 23), (3, 10, 23), (2, 128, 561)])
+# (32, 128, 561): the cluster solves of an isolated hierarchy at har width
+@pytest.mark.parametrize("s,n,m", [(1, 10, 23), (3, 10, 23), (2, 128, 561), (32, 128, 561)])
 def test_from_uv_solve_kernel_matches_plain(cuda, s, n, m):
     rng = np.random.default_rng(4)
     u = _spd(rng, s, n, cuda)
