@@ -11,17 +11,24 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    width (D = 256 devices, T = 32 samples per tick, n = m = 561 features,
    Ñ = 128 hidden, ring hops = 2, hierarchical C = D/8), with kernel, plain
    and library-call times from CUDA events and the bound from the shapes;
+   ``quantize_pack`` with and without a residual, bit for bit;
 3. end to end: the port's ``FleetRuntime`` at the har width on star,
    hierarchical, hierarchical isolated, all_to_all and ring, with a shift
    injected into a few devices' streams so the participation mask is not
-   all ones, and every routed kernel's launch count checked;
+   all ones, and every routed kernel's launch count checked; then int8
+   payloads (``payload_precision="int8"``) on star, hierarchical and ring,
+   with tick and merge p50 beside the f32 runs, the governor's bytes per
+   round and each round's f32 participants;
 4. card against CPU: the same ticks at D = 16 through the port on the CPU
-   (plain versions) and on the card, losses within bounds and flags and
-   merge decisions equal;
-5. ``torch.profiler`` over 7 ticks (2 merges) at the har width on star
+   (plain versions) and on the card, f32 and int8, losses within bounds
+   and flags and merge decisions equal;
+5. ``run_scenario`` on the ``driving``, ``har`` and ``mnist_like`` presets,
+   on ring and star, f32 and int8, on the card and on the CPU: merges and
+   detection stats equal, per-device AUCs within bounds;
+6. ``torch.profiler`` over 7 ticks (2 merges) at the har width on star
    and ring: wall time, device time, the device's busy share and the
    kernels that took the most device time;
-6. the kernel list, one JSON object per kernel, then the result line.
+7. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -67,6 +74,15 @@ TOL = {
 }
 # card against CPU, per tick: the same reasons as tests/test_torch_runtime.py
 LOSS_RTOL, LOSS_ATOL = 2e-4, 1e-6
+# int8 payloads after the first merge: a code that flips at a .5 boundary
+# moves a payload value by a whole quantization step. Twice the spread of
+# the reference's own XLA and kernel paths over 10 rounds
+# (tests/test_torch_runtime.py, up to 2.5e-2)
+INT8_LOSS_RTOL = 5e-2
+# run_scenario, card against CPU, per device: f32 AUCs as the reference's
+# (tests/test_torch_scenarios.py); int8 at twice the reference's own spread
+# between its XLA and kernel paths on har (6.5e-3, same test)
+AUC_TOL = {"f32": 1e-3, "int8": 1.3e-2}
 
 
 def log(msg: str) -> None:
@@ -234,8 +250,12 @@ def phase_kernels(fleet, window, topo_hier):
         library_ms=None,
     )
 
+    rows["quantize_pack"] = phase_quantize_pack(uv)
+
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["nbytes"])
+        if name == "quantize_pack":
+            continue
         rels = " ".join(f"{k}={v:.3e}" for k, v in r["rels"].items())
         log(f"  {name:24s} max_abs={r['abs']:.3e} max_rel: {rels} (tol {TOL[name]:.0e})"
             f"  ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']}"
@@ -244,6 +264,53 @@ def phase_kernels(fleet, window, topo_hier):
         for out, rel in r["rels"].items():
             assert rel <= TOL[name], f"{name}: {out} disagrees with the plain version ({rel:.3e})"
     return rows
+
+
+def mismatches(got, want) -> int:
+    """Elements that differ, NaN matching NaN."""
+    import torch
+
+    differ = got != want
+    if got.is_floating_point():
+        differ &= ~(torch.isnan(got) & torch.isnan(want))
+    return int(differ.sum())
+
+
+def phase_quantize_pack(uv):
+    """quantize_pack against its plain version at the har width, on the
+    merge's payloads: without a residual (a first round) and with the
+    residual that round leaves (every later round). Held bit for bit
+    (codes, scales, residual): the arithmetic has no order to differ in."""
+    from repro_torch.kernels import quantize_pack, quantize_pack_plain
+
+    d, n, _ = uv.u.shape
+    m = uv.v.shape[2]
+    e = d * n * (n + m)
+    first = quantize_pack(uv.u, uv.v)
+    resid = first[2].contiguous()
+    runs = {}
+    for label, r in (("no residual", None), ("residual", resid)):
+        got, want = quantize_pack(uv.u, uv.v, r), quantize_pack_plain(uv.u, uv.v, r)
+        mism = {k: mismatches(g, w) for k, g, w in zip(("codes", "scales", "residual"), got, want)}
+        nbytes = 4 * e * (1 if r is None else 2) + e + 4 * e + 4 * got[1].numel()
+        runs[label] = dict(
+            mism=mism, nbytes=nbytes,
+            abs=max(float((got[1] - want[1]).abs().max()),
+                    float((got[2] - want[2]).nan_to_num().abs().max())),
+            ms=cuda_ms(lambda: quantize_pack(uv.u, uv.v, r), 50),
+            plain_ms=cuda_ms(lambda: quantize_pack_plain(uv.u, uv.v, r), 3),
+        )
+        t_bytes = bound(5 * e, nbytes)
+        log(f"  quantize_pack ({label}): mismatches {mism}  ms={runs[label]['ms']:.4f}"
+            f" plain_ms={runs[label]['plain_ms']:.4f} library_ms=None"
+            f"  bound_ms={t_bytes[0]:.4f} ({t_bytes[1]}, {nbytes / 1e6:.1f} MB)")
+        for out, k in mism.items():
+            assert k == 0, f"quantize_pack ({label}): {k} {out} differ from the plain version"
+    # the kernel list carries the main path's shape: every round after the
+    # first publishes against a residual
+    row = runs["residual"]
+    return dict(abs=max(r["abs"] for r in runs.values()), rels={}, flops=5 * e,
+                nbytes=row["nbytes"], ms=row["ms"], plain_ms=row["plain_ms"], library_ms=None)
 
 
 ROUTES = {
@@ -267,52 +334,85 @@ def topologies(d: int):
     }
 
 
-def runtime_config(topology):
+INT8_TOPOLOGIES = ("star", "hierarchical", "ring")
+
+
+def runtime_config(topology, precision="f32"):
     from repro_torch.runtime import DetectorConfig, GovernorConfig, RuntimeConfig
 
     return RuntimeConfig(
         topology=topology, ridge=RIDGE,
         detector=DetectorConfig(warmup=5, warmup_skip=1, rel_sigma=0.05),
-        governor=GovernorConfig(merge_every=4),
+        governor=GovernorConfig(merge_every=4), payload_precision=precision,
     )
 
 
-def phase_end_to_end(fleet, ticks_dev, shifted):
-    """The port's FleetRuntime at the har width on every topology."""
-    import numpy as np
+def drive(fleet, ticks_dev, name, precision):
+    """One runtime over every tick, its launch counts set to 0 after the
+    warmup and read at the end."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.runtime import FleetRuntime
 
-    totals = dict.fromkeys(launch_counts(), 0)
-    for name, topo in topologies(D).items():
-        rt = FleetRuntime(fleet, runtime_config(topo), device="cuda")
-        rt.warmup(T)
-        reset_launch_counts()
-        tick_ms, merge_ms, masks = [], [], []
-        for t in range(TICKS):
-            t0 = time.perf_counter()
-            rep = rt.tick(ticks_dev[t])
-            tick_ms.append((time.perf_counter() - t0) * 1e3)
-            if rep.decision.merge:
-                merge_ms.append(rep.merge_seconds * 1e3)
-                masks.append(rep.decision.participants)
-        counts = launch_counts()
-        for k, v in counts.items():
-            totals[k] += v
-        assert bool(torch.isfinite(rt.states.p).all() and torch.isfinite(rt.states.beta).all())
-        flagged = rt.det.drifted.cpu().numpy()
-        merges = len(merge_ms)
-        log(f"  {name:22s} tick_ms p50={np.median(tick_ms):.2f} max={max(tick_ms):.2f}"
-            f"  merge_ms p50={np.median(merge_ms):.2f}"
-            f"  merges={merges} participants={masks} detections={rt.detections_total}"
-            f" flagged now: {int(flagged[shifted].sum())} shifted, {int(flagged[~shifted].sum())} other"
-            f"  launches={counts}")
-        assert merges >= 2, f"{name}: fewer than two admitted merges"
-        assert min(masks) < D, f"{name}: every merge had every device; the mask went untested"
-        for kernel in ROUTES[name]:
-            assert counts[kernel] > 0, f"{name}: {kernel} was never launched"
+    rt = FleetRuntime(fleet, runtime_config(topologies(D)[name], precision), device="cuda")
+    rt.warmup(T)
+    reset_launch_counts()
+    tick_ms, reports = [], []
+    for t in range(TICKS):
+        t0 = time.perf_counter()
+        reports.append(rt.tick(ticks_dev[t]))
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    assert bool(torch.isfinite(rt.states.p).all() and torch.isfinite(rt.states.beta).all())
+    return rt, reports, tick_ms, counts
+
+
+def phase_end_to_end(fleet, ticks_dev, shifted):
+    """The port's FleetRuntime at the har width on every topology, f32 and
+    then int8 payloads."""
+    import numpy as np
+
+    from repro_torch.fleet import payload_precision_nbytes
+
+    totals, p50 = {}, {}
+    for precision in ("f32", "int8"):
+        names = topologies(D) if precision == "f32" else INT8_TOPOLOGIES
+        for name in names:
+            rt, reports, tick_ms, counts = drive(fleet, ticks_dev, name, precision)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            rounds = [r for r in reports if r.decision.merge]
+            merge_ms = [r.merge_seconds * 1e3 for r in rounds]
+            masks = [r.decision.participants for r in rounds]
+            flagged = rt.det.drifted.cpu().numpy()
+            p50[precision, name] = (np.median(tick_ms), np.median(merge_ms))
+            log(f"  {precision} {name:22s} tick_ms p50={np.median(tick_ms):.2f} max={max(tick_ms):.2f}"
+                f"  merge_ms p50={np.median(merge_ms):.2f}"
+                f"  merges={len(rounds)} participants={masks} detections={rt.detections_total}"
+                f" flagged now: {int(flagged[shifted].sum())} shifted,"
+                f" {int(flagged[~shifted].sum())} other  launches={counts}")
+            assert len(rounds) >= 2, f"{name}: fewer than two admitted merges"
+            assert min(masks) < D, f"{name}: every merge had every device; the mask went untested"
+            for kernel in ROUTES[name]:
+                assert counts[kernel] > 0, f"{name}: {kernel} was never launched"
+            if precision == "int8":
+                assert counts["quantize_pack"] == len(rounds), (
+                    f"{name}: quantize_pack launched {counts['quantize_pack']} times in "
+                    f"{len(rounds)} int8 rounds")
+                fp = [r.decision.fp_participants for r in rounds]
+                log(f"    bytes per round {[r.decision.round_bytes for r in rounds]}"
+                    f" (all {D} at f32: {rt.governor.round_bytes(D, D)});"
+                    f" f32 participants per round {fp}")
+            else:
+                assert counts["quantize_pack"] == 0
+    f32_b = payload_precision_nbytes(N_HID, N_FEAT, "f32")
+    q_b = payload_precision_nbytes(N_HID, N_FEAT, "int8")
+    log(f"  bytes per payload: f32 {f32_b}, int8 {q_b} ({f32_b / q_b:.3f}x fewer)")
+    for name in INT8_TOPOLOGIES:
+        (tf, mf), (tq, mq) = p50["f32", name], p50["int8", name]
+        log(f"  {name:12s} p50 f32 -> int8: tick {tf:.2f} -> {tq:.2f} ms,"
+            f" merge {mf:.2f} -> {mq:.2f} ms")
     return totals
 
 
@@ -327,25 +427,79 @@ def phase_card_vs_cpu(fleet, ticks_np):
         params=type(small.params)(*(x.cpu() for x in small.params)),
         beta=small.beta.cpu(), p=small.p.cpu(),
     )
-    for name in ("star", "ring"):
-        topo = topologies(D_CPU)[name]
-        card = FleetRuntime(small, runtime_config(topo), device="cuda")
-        cpu = FleetRuntime(small_cpu, runtime_config(topo), device="cpu")
-        worst, merges, flags = 0.0, 0, 0
-        for t in range(TICKS):
-            batch = np.ascontiguousarray(ticks_np[t, :D_CPU])
-            a, b = card.tick(batch), cpu.tick(batch)
-            np.testing.assert_allclose(a.losses, b.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
-            assert np.array_equal(a.drifted, b.drifted), f"{name} tick {t}: drifted differs"
-            assert np.array_equal(a.fresh_detections, b.fresh_detections)
-            assert (a.decision.merge, a.decision.participants, a.decision.round_bytes) == (
-                b.decision.merge, b.decision.participants, b.decision.round_bytes)
-            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
-            merges += a.decision.merge
-            flags += int(a.fresh_detections.sum())
-        assert merges >= 2
-        log(f"  {name}: {TICKS} ticks at D={D_CPU}, losses max rel diff {worst:.3e} "
-            f"(rtol {LOSS_RTOL:.0e}), flags {flags}, merges {merges}: equal")
+    for precision in ("f32", "int8"):
+        for name in ("star", "ring"):
+            topo = topologies(D_CPU)[name]
+            card = FleetRuntime(small, runtime_config(topo, precision), device="cuda")
+            cpu = FleetRuntime(small_cpu, runtime_config(topo, precision), device="cpu")
+            worst, merges, flags, fp = 0.0, 0, 0, []
+            for t in range(TICKS):
+                batch = np.ascontiguousarray(ticks_np[t, :D_CPU])
+                a, b = card.tick(batch), cpu.tick(batch)
+                rtol = LOSS_RTOL if precision == "f32" or not merges else INT8_LOSS_RTOL
+                np.testing.assert_allclose(a.losses, b.losses, rtol=rtol, atol=LOSS_ATOL)
+                assert np.array_equal(a.drifted, b.drifted), f"{name} tick {t}: drifted differs"
+                assert np.array_equal(a.fresh_detections, b.fresh_detections)
+                da, db = a.decision, b.decision
+                assert (da.merge, da.participants, da.round_bytes, da.fp_participants) == (
+                    db.merge, db.participants, db.round_bytes, db.fp_participants)
+                worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+                merges += da.merge
+                flags += int(a.fresh_detections.sum())
+                if da.merge:
+                    fp.append(da.fp_participants)
+            assert merges >= 2
+            log(f"  {precision} {name}: {TICKS} ticks at D={D_CPU}, losses max rel diff"
+                f" {worst:.3e} (rtol {LOSS_RTOL:.0e}, int8 after a merge {INT8_LOSS_RTOL:.0e}),"
+                f" flags {flags}, merges {merges}, f32 participants {fp}: equal")
+
+
+def phase_scenarios():
+    """run_scenario on the three presets, ring and star, f32 and int8, on
+    the card (launch counts set to 0 just before, read just after) and on
+    the CPU."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.scenarios import make_scenario, run_scenario
+
+    totals = {}
+    for preset in ("driving", "har", "mnist_like"):
+        spec = make_scenario(preset)
+        sc = spec.build()
+        for topo in ("ring", "star"):
+            for precision in ("f32", "int8"):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                card = run_scenario(spec, topo, scenario=sc, payload_precision=precision,
+                                    device="cuda")
+                card_s = time.perf_counter() - t0
+                counts = launch_counts()
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                cpu = run_scenario(spec, topo, scenario=sc, payload_precision=precision,
+                                   device="cpu")
+                local = float(np.abs(card.local_aucs - cpu.local_aucs).max())
+                merged = float(np.abs(card.merged_aucs - cpu.merged_aucs).max())
+                det = card.detection
+                log(f"  {preset:10s} {topo:4s} {precision:4s} {card_s:5.2f} s:"
+                    f" local AUC mean/min {card.local_aucs.mean():.4f}/{card.local_aucs.min():.4f},"
+                    f" merged {card.merged_aucs.mean():.4f}/{card.merged_aucs.min():.4f};"
+                    f" merges {card.merges}, comm bytes {card.comm_bytes};"
+                    f" detections: delays {det['delays']} missed {det['missed']}"
+                    f" false positives {det['false_positives']};"
+                    f" card - CPU AUC max |diff| local {local:.2e} merged {merged:.2e}")
+                rounds = [(r.decision.participants, r.decision.fp_participants)
+                          for r in card.reports if r.decision.merge]
+                log(f"    rounds (participants, of them at f32): {rounds}")
+                assert (card.merges, card.comm_bytes) == (cpu.merges, cpu.comm_bytes)
+                assert card.detection == cpu.detection, f"{preset} {topo} {precision}: detections"
+                assert max(local, merged) <= AUC_TOL[precision], (
+                    f"{preset} {topo} {precision}: AUCs differ by {max(local, merged):.2e}")
+                routed = ("fleet_ingest",) + (("quantize_pack",) if precision == "int8" else ())
+                for kernel in routed:
+                    assert counts[kernel] > 0, f"{preset} {topo}: {kernel} was never launched"
+    log(f"  launches {totals}")
 
 
 def phase_profile(fleet, ticks_dev):
@@ -391,6 +545,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    start = time.perf_counter()
     log("phase 1: card and build")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -420,10 +575,13 @@ def main() -> int:
     log("phase 4: card against CPU")
     phase_card_vs_cpu(fleet, ticks_np)
 
-    log("phase 5: where a tick's time goes (torch.profiler)")
+    log("phase 5: run_scenario on the paper's three workloads, card against CPU")
+    phase_scenarios()
+
+    log("phase 6: where a tick's time goes (torch.profiler)")
     phase_profile(fleet, ticks_dev)
 
-    log("phase 6: kernels")
+    log(f"phase 7: kernels (phases 1-6 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),
@@ -433,6 +591,8 @@ def main() -> int:
                           "src/repro/kernels/topology_merge.py:411"),
         "banded_merge_solve": ("src/repro_torch/csrc/topology_merge.cu",
                                "src/repro/kernels/topology_merge.py:491"),
+        "quantize_pack": ("src/repro_torch/csrc/quantize_pack.cu",
+                          "src/repro/kernels/quantize_pack.py:106"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
     kernels = []

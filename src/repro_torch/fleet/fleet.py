@@ -3,15 +3,13 @@
 
 The whole fleet is ONE ``OSELMState`` whose ``beta``/``p`` carry a
 leading device axis and whose SLFN basis (α, b) is shared. Training goes
-through the fused ingest (``repro_torch.kernels.fleet_ingest``). Merges
-come in two forms:
-
-- ``fleet_merge`` / ``fleet_merge_masked`` — the plain forms, Cholesky
-  solves once per equivalence class of merged models (one for a fully
-  connected merge, one per isolated cluster, one per device otherwise);
-- ``fleet_merge_masked_kernel`` — the runtime's form, on the merge
-  kernels: the masked segment sum (star, hierarchical), the fused
-  banded merge+solve (open ring) and the Gauss-Jordan solve.
+through the fused ingest (``repro_torch.kernels.fleet_ingest``). The one
+merge is ``fleet_merge_masked_kernel``, on the merge kernels: the masked
+segment sum (star, hierarchical), the fused banded merge+solve (open
+ring) and the Gauss-Jordan solve. On CPU tensors the kernels run their
+plain versions. ``fleet_merge_quantized`` is the stateful lossy round on
+the same merge: payloads published through the int8 ``quantize_pack``
+kernel (or f16) with error feedback.
 
 A participation mask keeps masked-out devices out of every neighbour's
 sum, and they keep their own (P, β) bit for bit.
@@ -23,9 +21,11 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import UV, OSELMState, from_uv, init_oselm, init_slfn, to_uv
-from repro_torch.core.elm import hidden, invert_u, solve_beta
+from repro_torch.core.elm import hidden
+from repro_torch.fleet.quantize import apply_codec, quantize_roundtrip, validate_precision
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels.fleet_ingest import fleet_ingest
+from repro_torch.kernels.quantize_pack import dequantize_tiles, quantize_pack
 from repro_torch.kernels.topology_merge import (
     banded_merge_solve,
     from_uv_solve,
@@ -103,68 +103,8 @@ def fleet_from_uv(
     return from_uv(states, uv, ridge=ridge)
 
 
-def _solve_uv(u: torch.Tensor, v: torch.Tensor, ridge: float, nonfinite: str = "error"):
-    """One §4.2 step-5 solve (batched over leading axes) with the same
-    non-finite guard as ``fleet_from_uv``."""
-    _check_nonfinite(nonfinite)
-    ok = torch.isfinite(u).flatten(-2).all(-1) & torch.isfinite(v).flatten(-2).all(-1)
-    if nonfinite == "repair":
-        eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
-        keep = ok[..., None, None]
-        u, v = torch.where(keep, u, eye), torch.where(keep, v, 0.0)
-    elif not bool(ok.all()):
-        raise ValueError(
-            "non-finite (U, V) reached the §4.2 solve — reject the "
-            "corrupt payload upstream or pass nonfinite='repair'"
-        )
-    return invert_u(u, ridge=ridge), solve_beta(u, v, ridge=ridge)
-
-
 def _bcast(x: torch.Tensor, n_devices: int) -> torch.Tensor:
     return x[None].expand((n_devices,) + tuple(x.shape))
-
-
-def _segment_sum(x: torch.Tensor, cids: np.ndarray, n_clusters: int) -> torch.Tensor:
-    idx = torch.as_tensor(cids, dtype=torch.long, device=x.device)
-    out = torch.zeros((n_clusters,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)
-
-
-def _mix(topology: Topology, x: torch.Tensor) -> torch.Tensor:
-    """out[i] = Σⱼ Mᵢⱼ x[j] for an open ring or a dense mask."""
-    if topology.kind == "banded":
-        return sum(torch.roll(x, o, dims=0) for o in range(-topology.hops, topology.hops + 1))
-    m = torch.as_tensor(topology.matrix, dtype=x.dtype, device=x.device)
-    return torch.einsum("ij,j...->i...", m, x)
-
-
-def _masked_merge_body(
-    states: OSELMState, topology: Topology, mask: torch.Tensor, ridge: float
-) -> OSELMState:
-    """Participation-masked Eq. 8 merge, plain form (Cholesky solves)."""
-    uv = fleet_to_uv(states, ridge=ridge)
-    mf = mask.to(uv.u.dtype)
-    wu = uv.u * mf[:, None, None]
-    wv = uv.v * mf[:, None, None]
-    n_dev = topology.n_devices
-
-    if topology.kind == "segment":
-        su = _segment_sum(wu, topology.cluster_ids, topology.n_clusters)
-        sv = _segment_sum(wv, topology.cluster_ids, topology.n_clusters)
-        if topology.head_exchange:
-            p, beta = _solve_uv(su.sum(0), sv.sum(0), ridge)
-            p, beta = _bcast(p, n_dev), _bcast(beta, n_dev)
-        else:
-            pc, betac = _solve_uv(su, sv, ridge)
-            cids = torch.as_tensor(topology.cluster_ids, dtype=torch.long, device=su.device)
-            p, beta = pc[cids], betac[cids]
-    elif topology.is_fully_connected:
-        p, beta = _solve_uv(wu.sum(0), wv.sum(0), ridge)
-        p, beta = _bcast(p, n_dev), _bcast(beta, n_dev)
-    else:
-        merged = fleet_from_uv(states, UV(u=_mix(topology, wu), v=_mix(topology, wv)), ridge=ridge)
-        p, beta = merged.p, merged.beta
-    return _keep_participants(states, mf, p, beta)
 
 
 def _keep_participants(states, mf, p, beta) -> OSELMState:
@@ -175,27 +115,11 @@ def _keep_participants(states, mf, p, beta) -> OSELMState:
     )
 
 
-def fleet_merge_masked(
-    states: OSELMState, topology: Topology, mask: torch.Tensor, *, ridge: float = 0.0
+def _masked_kernel_merge_from_w(
+    states: OSELMState, topology: Topology, mask: torch.Tensor, w: torch.Tensor, ridge: float
 ) -> OSELMState:
-    """Plain masked merge: devices with mask 0 neither contribute their
-    (U, V) nor receive the merged model. Use ``ridge > 0`` so a cluster
-    with every member masked still solves a well-posed (discarded)
-    system."""
-    return _masked_merge_body(states, topology, mask, ridge)
-
-
-def fleet_merge(states: OSELMState, topology: Topology, *, ridge: float = 0.0) -> OSELMState:
-    """Plain unmasked merge: every device's merged (U, V) is the Eq. 8
-    sum over its neighbour set (self included)."""
-    ones = torch.ones(topology.n_devices, dtype=torch.float32, device=states.device)
-    return _masked_merge_body(states, topology, ones, ridge)
-
-
-def fleet_merge_masked_kernel(
-    states: OSELMState, topology: Topology, mask: torch.Tensor, *, ridge: float = 0.0
-) -> OSELMState:
-    """``fleet_merge_masked`` on the merge kernels, f32 payloads.
+    """The masked Eq. 8 merge of pre-packed (possibly codec'd) payloads
+    w (D, Ñ, Ñ+m) on the merge kernels.
 
     Segment topologies gate participation inside the masked segment sum;
     the open ring folds the mask into the payload before the fused
@@ -207,10 +131,8 @@ def fleet_merge_masked_kernel(
             "a dense topology that is not fully connected needs the dense_mix "
             "kernel, which the port does not have yet"
         )
-    uv = fleet_to_uv(states, ridge=ridge)
-    n = uv.u.shape[-1]
-    w = torch.cat([uv.u, uv.v], dim=2)
-    mf = mask.to(w.dtype)
+    n = states.p.shape[-1]
+    mf = mask.to(device=w.device, dtype=w.dtype)
     n_dev = topology.n_devices
 
     if topology.kind == "segment":
@@ -232,3 +154,71 @@ def fleet_merge_masked_kernel(
             p, beta = from_uv_solve(total[:, :, :n], total[:, :, n:], ridge=ridge)
             p, beta = _bcast(p[0], n_dev), _bcast(beta[0], n_dev)
     return _keep_participants(states, mf, p, beta)
+
+
+def _packed_uv(states: OSELMState, ridge: float):
+    uv = fleet_to_uv(states, ridge=ridge)
+    return uv, torch.cat([uv.u, uv.v], dim=2)
+
+
+def fleet_merge_masked_kernel(
+    states: OSELMState,
+    topology: Topology,
+    mask: torch.Tensor,
+    *,
+    ridge: float = 0.0,
+    payload_precision: str = "f32",
+) -> OSELMState:
+    """The masked Eq. 8 merge: devices with mask 0 neither contribute their
+    (U, V) nor receive the merged model. Use ``ridge > 0`` so a cluster
+    with every member masked still solves a well-posed (discarded)
+    system. ``payload_precision`` applies the one-shot wire codec (no
+    residual) to the payloads before the mix: int8 through the
+    ``quantize_pack`` kernel, f16 as a half-precision round trip."""
+    validate_precision(payload_precision)
+    uv, w = _packed_uv(states, ridge)
+    if payload_precision == "int8":
+        codes, scales, _ = quantize_pack(uv.u, uv.v)
+        w = dequantize_tiles(codes, scales)
+    else:
+        w = quantize_roundtrip(w, payload_precision)
+    return _masked_kernel_merge_from_w(states, topology, mask, w, ridge)
+
+
+def fleet_merge_quantized(
+    states: OSELMState,
+    topology: Topology,
+    *,
+    residual: torch.Tensor | None,
+    payload_precision: str = "int8",
+    ridge: float = 0.0,
+    mask: torch.Tensor | None = None,
+    fp_mask: torch.Tensor | None = None,
+) -> tuple[OSELMState, torch.Tensor | None]:
+    """The stateful lossy merge round: every participating device publishes
+    its error-feedback-compensated quantized payload, the topology mixes
+    the published payloads, and the per-device residuals advance.
+    Returns ``(merged_states, residual')``.
+
+    - ``residual`` — (D, Ñ, Ñ+m) backlog from ``init_residual`` (None = a
+      zero backlog);
+    - ``mask`` — participation, as in ``fleet_merge_masked_kernel`` (None =
+      every device); non-participants keep their residual;
+    - ``fp_mask`` — devices that ship exact f32 (quarantine risk); their
+      residual clears.
+
+    int8 payloads go through the ``quantize_pack`` kernel, f16 payloads
+    through a half-precision round trip."""
+    validate_precision(payload_precision)
+    uv, w = _packed_uv(states, ridge)
+    roundtrip = None
+    if payload_precision == "int8":
+        codes, scales, new_r = quantize_pack(uv.u, uv.v, residual)
+        roundtrip = (dequantize_tiles(codes, scales), new_r)
+    w_pub, new_resid = apply_codec(
+        w, payload_precision, residual=residual, fp_mask=fp_mask,
+        participate=mask, roundtrip=roundtrip,
+    )
+    if mask is None:
+        mask = torch.ones(topology.n_devices, dtype=torch.float32, device=w.device)
+    return _masked_kernel_merge_from_w(states, topology, mask, w_pub, ridge), new_resid

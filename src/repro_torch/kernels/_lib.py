@@ -31,7 +31,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve")
+KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve",
+           "quantize_pack")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -113,6 +114,8 @@ _SIGNATURES = {
     "repro_masked_segment_sum": [_P, _P, _P, _P, _I, _L, _P],
     "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P],
     "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "repro_quantize_pack": [_P] * 6 + [_I] * 3 + [_P],
+    "repro_quantize_pack_smem": [_I],
     "repro_ingest_gain_smem": [_I],
     "repro_ingest_beta_smem": [_I],
     "repro_ingest_beta_tile": [],
@@ -149,12 +152,17 @@ def check(status: int, kernel: str) -> None:
 MAX_SMEM = 232_448
 
 
-def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
-    """Every tensor a kernel reads must be a contiguous f32 CUDA tensor."""
+def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    """Every tensor a kernel touches must be a contiguous CUDA tensor of
+    ``dtype``."""
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
+    require_cuda(kernel, torch.float32, **tensors)

@@ -4,7 +4,9 @@ from repro_torch.runtime.detector import (
     DetectorState,
     detector_update,
     init_detector,
+    quarantine_risk,
 )
+from repro_torch.runtime.feed import TickFeed
 from repro_torch.runtime.governor import (
     GovernorConfig,
     GovernorState,
@@ -15,6 +17,7 @@ from repro_torch.runtime.runtime import FleetRuntime, RuntimeConfig, TickReport
 
 __all__ = [
     "DetectorConfig", "DetectorState", "detector_update", "init_detector",
+    "quarantine_risk", "TickFeed",
     "GovernorConfig", "GovernorState", "MergeDecision", "MergeGovernor",
     "FleetRuntime", "RuntimeConfig", "TickReport",
 ]

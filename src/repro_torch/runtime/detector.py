@@ -1,6 +1,6 @@
 """Online sequential drift detection over per-tick losses; port of
 ``repro.runtime.detector`` (``DetectorConfig``, ``DetectorState``,
-``init_detector``, ``detector_update``).
+``init_detector``, ``detector_update``, ``quarantine_risk``).
 
 Per device: ewma_t = (1−α)·ewma_{t−1} + α·loss_t, and drift ⇔
 ewma_t > μ_base + k·σ_base, with a Welford calibration window, slow
@@ -168,3 +168,12 @@ def detector_update(
         drifted=drifted, recovery=recovery,
     )
     return new, drifted, fresh
+
+
+def quarantine_risk(state: DetectorState, cfg: DetectorConfig) -> torch.Tensor:
+    """(D,) bool — devices whose payloads should not be lossy this round:
+    quarantined now, or calibrated and riding above the re-admission
+    band μ + k_re·σ. Devices still in warmup are not at risk."""
+    calibrated = state.count >= cfg.warmup
+    elevated = calibrated & (state.ewma > state.mean + cfg.k_readmit * _sigma(state, cfg))
+    return state.drifted | elevated

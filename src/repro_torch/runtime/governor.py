@@ -1,12 +1,14 @@
 """Merge governor: when and with whom the resident fleet merges; port of
-``repro.runtime.governor`` for f32 payloads.
+``repro.runtime.governor`` (without the robust-merge hooks).
 
 Each candidate round (every ``merge_every`` ticks) the governor builds a
 participation mask (quarantine drifted devices, AND any selection
 policies) and admits the merge only if enough devices take part and the
 average bytes per tick stay within ``budget_bytes_per_tick``. Rounds are
 priced with ``repro_torch.fleet.comm``, scaled by the participating
-fraction. All of it is host-side numpy between ticks.
+fraction; with a lossy ``payload_precision`` the participants the
+detector marks at risk (``fp_mask``) are priced at f32 and the rest at
+the wire precision. All of it is host-side numpy between ticks.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ class MergeDecision:
     reason: str            # "merge" | "cadence" | "budget" | "participants" | "degraded"
     participants: int
     round_bytes: int
+    fp_participants: int = 0   # participants shipping full-precision f32
 
 
 class MergeGovernor:
@@ -57,12 +60,17 @@ class MergeGovernor:
         cfg: GovernorConfig,
         *,
         policies: tuple[FleetMaskFn, ...] = (),
+        payload_precision: str = "f32",
     ) -> None:
         self.topology = topology
         self.cfg = cfg
         self.policies = policies
+        self.payload_precision = payload_precision
         self.state = GovernorState()
         self._full_round_bytes = topology_round_cost(topology, n_hidden, n_out).bytes_total
+        self._q_round_bytes = topology_round_cost(
+            topology, n_hidden, n_out, precision=payload_precision
+        ).bytes_total
 
     def participation(self, drifted: np.ndarray, losses: np.ndarray) -> np.ndarray:
         """Quarantine ∧ selection policies → (D,) bool mask."""
@@ -71,32 +79,61 @@ class MergeGovernor:
             mask &= np.asarray(policy(losses), bool)
         return mask
 
-    def round_bytes(self, participants: int) -> int:
-        """Round traffic with ``participants`` of D devices live."""
+    def round_bytes(self, participants: int, fp_participants: int = 0) -> int:
+        """Round traffic with ``participants`` of D devices live, of which
+        ``fp_participants`` ship f32 and the rest the wire precision."""
         d = max(self.topology.n_devices, 1)
-        return int(self._full_round_bytes * participants / d)
+        fp = min(fp_participants, participants)
+        q = participants - fp
+        return int((self._full_round_bytes * fp + self._q_round_bytes * q) / d)
 
-    def decide(self, tick: int, mask: np.ndarray, *, allow: bool = True) -> MergeDecision:
+    def round_bytes_by_precision(
+        self, participants: int, fp_participants: int = 0
+    ) -> dict[str, int]:
+        """The same round traffic split by wire format; sums exactly to
+        ``round_bytes`` (the quantized share takes the integer floor)."""
+        rb = self.round_bytes(participants, fp_participants)
+        if self.payload_precision == "f32":
+            return {"f32": rb}
+        d = max(self.topology.n_devices, 1)
+        fp = min(fp_participants, participants)
+        fp_part = min(rb, int(self._full_round_bytes * fp / d))
+        return {"f32": fp_part, self.payload_precision: rb - fp_part}
+
+    def decide(
+        self,
+        tick: int,
+        mask: np.ndarray,
+        fp_mask: np.ndarray | None = None,
+        *,
+        allow: bool = True,
+    ) -> MergeDecision:
         """Admission control for one tick; call exactly once per tick.
-        ``allow=False`` vetoes the merge (skip-merge degraded mode) while
-        the tick ledger keeps advancing."""
+        ``fp_mask`` is the detector's quarantine-risk vector: participants
+        it covers are priced at f32. ``allow=False`` vetoes the merge
+        (skip-merge degraded mode) while the tick ledger keeps advancing."""
         self.state.ticks = tick + 1
-        participants = int(np.asarray(mask).sum())
-        rb = self.round_bytes(participants)
+        mask = np.asarray(mask)
+        participants = int(mask.sum())
+        if self.payload_precision == "f32" or fp_mask is None:
+            fp = participants if self.payload_precision == "f32" else 0
+        else:
+            fp = int((mask.astype(bool) & np.asarray(fp_mask, bool)).sum())
+        rb = self.round_bytes(participants, fp)
         if not allow:
             if (tick + 1) % self.cfg.merge_every == 0:
                 self.state.deferred_degraded += 1
-            return MergeDecision(False, "degraded", participants, rb)
+            return MergeDecision(False, "degraded", participants, rb, fp)
         if (tick + 1) % self.cfg.merge_every != 0:
-            return MergeDecision(False, "cadence", participants, rb)
+            return MergeDecision(False, "cadence", participants, rb, fp)
         if participants < self.cfg.min_participants:
             self.state.deferred_participants += 1
-            return MergeDecision(False, "participants", participants, rb)
+            return MergeDecision(False, "participants", participants, rb, fp)
         if self.cfg.budget_bytes_per_tick is not None:
             projected = (self.state.bytes_spent + rb) / (tick + 1)
             if projected > self.cfg.budget_bytes_per_tick:
                 self.state.deferred_budget += 1
-                return MergeDecision(False, "budget", participants, rb)
+                return MergeDecision(False, "budget", participants, rb, fp)
         self.state.merges += 1
         self.state.bytes_spent += rb
-        return MergeDecision(True, "merge", participants, rb)
+        return MergeDecision(True, "merge", participants, rb, fp)

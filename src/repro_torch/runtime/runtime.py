@@ -1,5 +1,6 @@
-"""Resident streaming fleet runtime, exact-f32 path; port of
-``repro.runtime.runtime``.
+"""Resident streaming fleet runtime; port of ``repro.runtime.runtime``
+(exact-f32 and quantized payloads; no staleness, robust merge, faults,
+snapshots or telemetry yet).
 
 One ``tick`` runs the paper's loop over the whole fleet:
 
@@ -11,17 +12,24 @@ One ``tick`` runs the paper's loop over the whole fleet:
 3. **govern** — the merge governor builds the participation mask
    (drifted devices are quarantined) and admits or defers the round;
 4. **merge** — an admitted round runs the masked Eq. 8 merge on the
-   merge kernels (``fleet_merge_masked_kernel``).
+   merge kernels (``fleet_merge_masked_kernel``). With a lossy
+   ``payload_precision`` it is the error-feedback round
+   (``fleet_merge_quantized``): devices the detector marks at quarantine
+   risk ship exact f32, the rest int8 through the ``quantize_pack``
+   kernel (or f16), and the residual accumulator advances on admitted
+   rounds only.
 
-The fleet state and the detector bank stay on the device; only the (D,)
-losses and flags come back to the host, where the governor decides.
-The runtime always takes the kernel family: on a CUDA device every tick
-launches the ingest kernel and every admitted round the merge kernels
-of its topology.
+The fleet state, the residual and the detector bank stay on the device;
+only the (D,) losses and flags (and on candidate rounds of a quantized
+runtime the risk mask) come back to the host, where the governor
+decides. The runtime always takes the kernel family: on a CUDA device
+every tick launches the ingest kernel and every admitted round the
+merge kernels of its topology.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
@@ -30,7 +38,8 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.oselm import OSELMState
 from repro_torch.federated.selection import FleetMaskFn
-from repro_torch.fleet.fleet import fleet_merge_masked_kernel
+from repro_torch.fleet.fleet import fleet_merge_masked_kernel, fleet_merge_quantized
+from repro_torch.fleet.quantize import init_residual, validate_precision
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels.fleet_ingest import fleet_ingest
 from repro_torch.runtime.detector import (
@@ -38,8 +47,12 @@ from repro_torch.runtime.detector import (
     DetectorState,
     detector_update,
     init_detector,
+    quarantine_risk,
 )
+from repro_torch.runtime.feed import TickFeed
 from repro_torch.runtime.governor import GovernorConfig, MergeDecision, MergeGovernor
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +61,8 @@ class RuntimeConfig:
     ridge: float = 1e-3
     detector: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
     governor: GovernorConfig = dataclasses.field(default_factory=GovernorConfig)
+    gate_merges: bool = True          # False: no quarantine, every device merges
+    payload_precision: str = "f32"    # merge wire format: "f32" | "f16" | "int8"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +118,7 @@ class FleetRuntime:
             )
         if states.params.alpha.ndim != 2:
             raise ValueError("the fleet must carry one shared basis (α of shape (n, Ñ))")
+        validate_precision(config.payload_precision)
         dev = self.device
         self.states = states.replace(
             params=type(states.params)(*(t.to(dev).contiguous() for t in states.params)),
@@ -112,7 +128,12 @@ class FleetRuntime:
         self.det: DetectorState = init_detector(n_devices, device=dev)
         self.governor = MergeGovernor(
             config.topology, states.beta.shape[1], states.beta.shape[2], config.governor,
-            policies=policies,
+            policies=policies, payload_precision=config.payload_precision,
+        )
+        # error-feedback accumulator of the quantized path (None for f32),
+        # advanced only on admitted merge rounds
+        self._residual = (
+            None if config.payload_precision == "f32" else init_residual(self.states)
         )
         self.tick_no = 0
         self.detections_total = 0
@@ -134,10 +155,18 @@ class FleetRuntime:
         self.det = _where_served(keep, det_new, self.det)
         return losses, self.det.drifted, fresh & keep
 
-    def _merge(self, mask: np.ndarray) -> None:
+    def _merge(self, mask: np.ndarray, fp_mask: np.ndarray | None) -> None:
+        cfg = self.config
         mask_t = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
-        self.states = fleet_merge_masked_kernel(
-            self.states, self.config.topology, mask_t, ridge=self.config.ridge
+        if self._residual is None:
+            self.states = fleet_merge_masked_kernel(
+                self.states, cfg.topology, mask_t, ridge=cfg.ridge
+            )
+            return
+        self.states, self._residual = fleet_merge_quantized(
+            self.states, cfg.topology, residual=self._residual,
+            payload_precision=cfg.payload_precision, ridge=cfg.ridge, mask=mask_t,
+            fp_mask=torch.as_tensor(fp_mask, dtype=torch.bool, device=self.device),
         )
 
     def tick(
@@ -179,13 +208,22 @@ class FleetRuntime:
         fresh_np = fresh.cpu().numpy()
         self.detections_total += int(fresh_np.sum())
 
-        mask = self.governor.participation(drifted_np, losses_np)
-        decision = self.governor.decide(t, mask, allow=allow_merge)
+        # detector-gated precision: on candidate rounds of a quantized
+        # runtime, devices at quarantine risk are priced and shipped at f32
+        fp_mask = None
+        if self._residual is not None and (t + 1) % self.config.governor.merge_every == 0:
+            fp_mask = quarantine_risk(self.det, self.config.detector).cpu().numpy()
+
+        if self.config.gate_merges:
+            mask = self.governor.participation(drifted_np, losses_np)
+        else:
+            mask = np.ones(d, bool)
+        decision = self.governor.decide(t, mask, fp_mask, allow=allow_merge)
 
         merge_seconds = None
         if decision.merge:
             t0 = time.perf_counter()
-            self._merge(mask)
+            self._merge(mask, fp_mask)
             _synchronize(self.device)
             merge_seconds = time.perf_counter() - t0
             self._merge_mask = mask.copy()
@@ -197,15 +235,26 @@ class FleetRuntime:
             ingest_seconds=ingest_seconds, served=None if served is None else served_np,
         )
 
+    def run(self, feed: TickFeed, *, ticks: int | None = None) -> list[TickReport]:
+        """Drive the runtime over a feed (all of it by default). Asking for
+        more ticks than the feed holds processes what exists and warns."""
+        if ticks is not None and ticks > feed.n_ticks:
+            logger.warning(
+                "run(ticks=%d) exceeds the feed's %d ticks; truncating", ticks, feed.n_ticks
+            )
+        n = feed.n_ticks if ticks is None else min(ticks, feed.n_ticks)
+        return [self.tick(feed.tick_batch(t)) for t in range(n)]
+
     def warmup(self, batch_size: int) -> None:
-        """Build the kernels and launch each kernel the tick can reach once,
-        on all-zero operands, before live traffic arrives: the first real
-        tick then does not pay for ``nvcc``. Every output is discarded — no
-        model, detector or governor state changes."""
-        saved = (self.states, self.det)
+        """Build the kernels and launch each kernel the tick can reach once
+        (``quantize_pack`` too when the payloads are int8), on all-zero
+        operands, before live traffic arrives: the first real tick then
+        does not pay for ``nvcc``. Every output is discarded — no model,
+        detector, residual or governor state changes."""
+        saved = (self.states, self.det, self._residual)
         d, f = self.n_devices, self.states.params.alpha.shape[0]
         batch = torch.zeros((d, batch_size, f), dtype=torch.float32, device=self.device)
         self._ingest_detect(batch, np.zeros(d, bool))
-        self._merge(np.zeros(d, bool))
+        self._merge(np.zeros(d, bool), np.zeros(d, bool))
         _synchronize(self.device)
-        self.states, self.det = saved
+        self.states, self.det, self._residual = saved

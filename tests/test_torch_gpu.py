@@ -9,6 +9,8 @@ on its own, with the reasons of ``chip_smoke.py``: 1e-6 for the
 fixed-order masked segment sum, 1e-5 for the Gauss-Jordan solves (the
 same fused elimination in both), 1e-4 for the ingest (other summation
 orders in the GEMM and dot products, amplified along the RLS chain).
+``quantize_pack`` is held bit for bit: its arithmetic has no order to
+differ in.
 """
 import numpy as np
 import pytest
@@ -25,6 +27,8 @@ from repro_torch.kernels import (
     launch_counts,
     masked_segment_sum_mix,
     masked_segment_sum_mix_plain,
+    quantize_pack,
+    quantize_pack_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -141,3 +145,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w = torch.zeros((5, 9, 4), device=cuda).transpose(1, 2)  # (5, 4, 9), strided
     with pytest.raises(ValueError, match="contiguous"):
         banded_merge_solve(w, 1)
+
+
+# (256, 128, 561): the har width, tile 0 exactly U, a ragged last tile of
+# 49 columns; (13, 10, 300): tiles across the U | V seam, odd everything
+@pytest.mark.parametrize("d,n,m", [(256, 128, 561), (13, 10, 300)])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_quantize_pack_kernel_matches_plain(cuda, d, n, m, with_residual):
+    rng = np.random.default_rng(6)
+    u = torch.from_numpy(rng.standard_normal((d, n, n)).astype(np.float32) * 10).to(cuda)
+    v = torch.from_numpy(rng.standard_normal((d, n, m)).astype(np.float32) * 0.1).to(cuda)
+    u[0] = 0.0
+    v[0, :, : max(0, 128 - n)] = 0.0   # device 0: an all-zero first tile
+    v[1, 2, 5] = float("nan")          # device 1: a diverged payload
+    res = None
+    if with_residual:
+        res = torch.from_numpy(rng.standard_normal((d, n, n + m)).astype(np.float32) * 0.01)
+        res[0, :, :128] = 0.0
+        res = res.to(cuda)
+    before = launch_counts()["quantize_pack"]
+    got = quantize_pack(u, v, res)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_pack"] == before + 1
+    want = quantize_pack_plain(u, v, res)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    # scale 1.0 on the all-zero tile and on the tile holding the NaN
+    assert float(got[1][0, 0]) == 1.0 and float(got[1][1, (n + 5) // 128]) == 1.0

@@ -64,6 +64,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     never carries on on the CPU."""
     from repro_torch.fleet import init_fleet, star
     from repro_torch.runtime import FleetRuntime, RuntimeConfig
+    from repro_torch.scenarios import make_scenario, run_scenario
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x0 = np.zeros((3, 8, 6), np.float32)
@@ -72,6 +73,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     fleet = init_fleet(torch.Generator().manual_seed(0), 3, 6, 4, x0, ridge=1e-3, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FleetRuntime(fleet, RuntimeConfig(topology=star(3)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetRuntime(fleet, RuntimeConfig(topology=star(3), payload_precision="int8"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_scenario(make_scenario("har", n_devices=3, ticks=4, samples_per_class=8), "star")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

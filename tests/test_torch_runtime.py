@@ -20,6 +20,16 @@ interpret mode); the port runs its kernels' plain versions. Bounds:
 - ``drifted``, ``fresh_detections`` and the merge decision exactly;
 - the final state at rtol 1e-4 / atol 1e-5, the reference's own bound
   for a multi-tick accumulation of its kernel ingest.
+
+The int8 runtime (``payload_precision="int8"``) is held the same way, with
+one more source of spread: across frameworks U and V differ by ~1e-7, so
+a code can flip at a .5 boundary, and one flipped code moves a payload
+value by a whole quantization step. Flags, decisions and fp-participants
+are equal on every tick, losses at 1e-5 up to the first merge, and after
+it the port's largest loss deviation is at most twice the reference's own
+spread between its XLA path (XLA ingest, ``use_merge_kernel=False``) and
+its kernel path on the same ticks. Each round's flipped codes are counted from the
+residuals (a flip moves the residual by about one step).
 """
 import dataclasses
 
@@ -46,12 +56,19 @@ TOPOS = {"star": (star, ref_star), "ring": (lambda d: ring(d, 1), lambda d: ref_
 # the scenario's detector (warmup 20) never leaves calibration in 10 ticks;
 # the short one does, so flags and post-merge rebases are exercised too
 SHORT_DETECTOR = dict(warmup=3, warmup_skip=1, rel_sigma=0.05, k_sigma=1.0, patience=2)
+# the int8 runtime runs 40 ticks (10 rounds): with two rounds the spread
+# of either run rests on a handful of flipped codes, and by tick 40 the
+# scenario detector has flagged a device and priced one at f32
+INT8_TICKS = 40
 
 
-def _pair(topo_name, forget, detector, *, twin=False):
+def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=None):
     """(scenario, reference runtime on Pallas kernels, port runtime) and,
-    with ``twin``, the reference runtime on its XLA ingest as a fourth."""
+    with ``twin``, a fourth: the reference runtime on its XLA ingest, and
+    for a lossy precision on its XLA merge too."""
     over = dict(SPEC_ODD)
+    if ticks is not None:
+        over["ticks"] = ticks
     if forget != 1.0:
         over["forget"] = forget
     if detector == "short":
@@ -62,11 +79,12 @@ def _pair(topo_name, forget, detector, *, twin=False):
     port_topo, ref_topo = TOPOS[topo_name]
     d = sc.spec.n_devices
 
-    def reference(ingest_backend):
+    def reference(ingest_backend, merge_kernel=True):
         return RefRuntime(fleet, RefRuntimeConfig(
             topology=ref_topo(d), ridge=sc.spec.ridge, detector=sc.spec.detector,
             governor=RefGovernorConfig(merge_every=4), use_ingest_kernel=True,
-            ingest_backend=ingest_backend, use_merge_kernel=True,
+            ingest_backend=ingest_backend, use_merge_kernel=merge_kernel,
+            payload_precision=precision,
         ))
 
     ref = reference("pallas")
@@ -77,21 +95,25 @@ def _pair(topo_name, forget, detector, *, twin=False):
     port = FleetRuntime(port_fleet, RuntimeConfig(
         topology=port_topo(d), ridge=sc.spec.ridge,
         detector=DetectorConfig(**dataclasses.asdict(sc.spec.detector)),
-        governor=GovernorConfig(merge_every=4),
+        governor=GovernorConfig(merge_every=4), payload_precision=precision,
     ), device="cpu")
     if twin:
-        return sc, ref, port, reference("xla")
+        if precision == "f32":
+            return sc, ref, port, reference("xla")
+        return sc, ref, port, reference("xla", merge_kernel=False)
     return sc, ref, port
 
 
-def _assert_same_report(got, want):
-    np.testing.assert_allclose(got.losses, want.losses, rtol=2e-4, atol=1e-6)
+def _assert_same_report(got, want, *, losses=True):
+    if losses:
+        np.testing.assert_allclose(got.losses, want.losses, rtol=2e-4, atol=1e-6)
     assert np.array_equal(got.drifted, want.drifted)
     assert np.array_equal(got.fresh_detections, want.fresh_detections)
     assert got.decision.merge == want.decision.merge
     assert got.decision.reason == want.decision.reason
     assert got.decision.participants == want.decision.participants
     assert got.decision.round_bytes == want.decision.round_bytes
+    assert got.decision.fp_participants == want.decision.fp_participants
 
 
 def _max_rel(got, want):
@@ -133,6 +155,54 @@ def test_tick_reports_match_reference(topo_name, forget, detector):
         f"XLA ingest does; per tick, port {port_dev}, XLA ingest {twin_dev}"
     )
     _assert_state_close(port, ref)
+
+
+def _flipped_codes(got_r, want_r):
+    """Codes that differ between two runs of one merge round, read off
+    their residuals: a flip moves a residual by about one quantization
+    step, twice the largest residual of its (device, 128-column) tile."""
+    d, n, c = want_r.shape
+    pad = -c % 128
+    tiles = lambda r: np.pad(r, ((0, 0), (0, 0), (0, pad))).reshape(d, n, -1, 128)
+    diff, ref = tiles(np.abs(got_r - want_r)), tiles(np.abs(want_r))
+    step = 2 * ref.max(axis=(1, 3), keepdims=True)
+    return int((diff > 0.5 * step).sum())
+
+
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_int8_tick_reports_match_reference(topo_name):
+    sc, ref, port, twin = _pair(topo_name, 1.0, "scenario", twin=True, precision="int8",
+                                ticks=INT8_TICKS)
+    port.warmup(sc.spec.batch)
+    feed = sc.feed()
+    merges = fp_rounds = flags = 0
+    port_dev, twin_dev, flips, twin_flips = [], [], [], []
+    for t in range(feed.n_ticks):
+        batch = feed.tick_batch(t)
+        want = ref.tick(batch)
+        got = port.tick(batch)
+        _assert_same_report(got, want, losses=False)  # losses: the spread bound below
+        if not merges:
+            np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5, atol=1e-6)
+        port_dev.append(_max_rel(got.losses, want.losses))
+        twin_dev.append(_max_rel(twin.tick(batch).losses, want.losses))
+        if want.decision.merge:
+            merges += 1
+            fp_rounds += want.decision.fp_participants > 0
+            flips.append(_flipped_codes(port._residual.numpy(), np.asarray(ref._residual)))
+            twin_flips.append(_flipped_codes(np.asarray(twin._residual), np.asarray(ref._residual)))
+        flags += int(want.fresh_detections.sum())
+    assert merges > 0, "no merge admitted: the differential lost its teeth"
+    assert flags > 0, "no drift flag raised: the detector path went untested"
+    assert fp_rounds > 0, "no f32 participant: the precision gate went untested"
+    print(f"int8 {topo_name}: port {max(port_dev):.3e}, XLA path "
+          f"{max(twin_dev):.3e}, flipped codes per round {flips}, XLA path {twin_flips}; "
+          f"fp participants {fp_rounds}")
+    assert max(port_dev) <= 2 * max(twin_dev), (
+        f"the port strays further from the reference than the reference's own XLA "
+        f"path does; per tick, port {port_dev}, XLA path {twin_dev}; flipped codes "
+        f"per round {flips}"
+    )
 
 
 def test_selection_policies_match_reference():

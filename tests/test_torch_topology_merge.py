@@ -2,12 +2,14 @@
 
 - The three plain merge kernels (what the wrappers run for CPU tensors)
   against the reference's Pallas kernels in interpret mode, at 1e-5.
-- ``fleet_merge_masked_kernel`` and the plain ``fleet_merge_masked``
-  against the reference's ``fleet_merge_masked`` (the XLA Cholesky form)
-  on every topology the runtime routes, at D = 13 with random masks,
-  one of which empties a whole cluster. P is held at 1e-5; β at atol
-  5e-5, because the reference's own Gauss-Jordan and Cholesky solves
-  differ by up to 1.8e-5 on β at this conditioning (ROADMAP queue 3).
+- ``fleet_merge_masked_kernel``, the port's one merge, on the plain
+  versions of its kernels, against the reference's ``fleet_merge_masked``
+  (the XLA Cholesky form) on every topology the runtime routes, at
+  D = 13 with random masks, one of which empties a whole cluster, and
+  with the all-ones mask against the reference's unmasked
+  ``fleet_merge``. P is held at 1e-5; β at atol 5e-5, because the
+  reference's own Gauss-Jordan and Cholesky solves differ by up to
+  1.8e-5 on β at this conditioning (ROADMAP queue 3).
 - Non-participants keep their state bit for bit.
 """
 import jax
@@ -18,6 +20,7 @@ import torch
 
 from repro.fleet import (
     all_to_all as ref_all_to_all,
+    fleet_merge as ref_fleet_merge,
     fleet_merge_masked as ref_fleet_merge_masked,
     fleet_train as ref_fleet_train,
     hierarchical as ref_hierarchical,
@@ -36,8 +39,6 @@ from repro_torch.fleet import (
     Topology,
     all_to_all,
     fleet_from_uv,
-    fleet_merge,
-    fleet_merge_masked,
     fleet_merge_masked_kernel,
     fleet_to_uv,
     hierarchical,
@@ -148,21 +149,24 @@ def test_masked_merge_matches_reference(trained_fleet, topo_name, mask_name):
     mask = MASKS[mask_name]
     ref = ref_fleet_merge_masked(trained_fleet, ref_fn(D_ODD), jnp.asarray(mask), ridge=RIDGE)
     before = _port(trained_fleet)
-    for merge in (fleet_merge_masked_kernel, fleet_merge_masked):
-        got = merge(before, port_fn(D_ODD), torch.from_numpy(mask), ridge=RIDGE)
-        np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta), rtol=1e-5, atol=5e-5)
-        out = mask == 0
-        assert torch.equal(got.p[out], before.p[out])
-        assert torch.equal(got.beta[out], before.beta[out])
+    got = fleet_merge_masked_kernel(before, port_fn(D_ODD), torch.from_numpy(mask), ridge=RIDGE)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta), rtol=1e-5, atol=5e-5)
+    out = mask == 0
+    assert torch.equal(got.p[out], before.p[out])
+    assert torch.equal(got.beta[out], before.beta[out])
 
 
-def test_unmasked_merge_is_the_all_ones_mask(trained_fleet):
-    fleet = _port(trained_fleet)
-    topo = ring(D_ODD, 2)
-    got = fleet_merge(fleet, topo, ridge=RIDGE)
-    want = fleet_merge_masked(fleet, topo, torch.ones(D_ODD), ridge=RIDGE)
-    assert torch.equal(got.p, want.p) and torch.equal(got.beta, want.beta)
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_all_ones_mask_is_the_unmasked_merge(trained_fleet, topo_name):
+    """With every device taking part, the masked merge is the reference's
+    unmasked ``fleet_merge``."""
+    port_fn, ref_fn = TOPOS[topo_name]
+    ref = ref_fleet_merge(trained_fleet, ref_fn(D_ODD), ridge=RIDGE)
+    got = fleet_merge_masked_kernel(_port(trained_fleet), port_fn(D_ODD), torch.ones(D_ODD),
+                                    ridge=RIDGE)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta), rtol=1e-5, atol=5e-5)
 
 
 def test_dense_partial_mask_needs_dense_mix(trained_fleet):
@@ -210,17 +214,3 @@ def test_fleet_score_matches_reference(trained_fleet):
     want = ref_fleet_score(trained_fleet, jnp.asarray(x))
     got = fleet_score(_port(trained_fleet), torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
-
-
-def test_cluster_solve_guards_nonfinite_payloads(trained_fleet):
-    """The fully connected and cluster solves guard like ``fleet_from_uv``:
-    a non-finite merged payload raises, or is reset to (I, 0) on request."""
-    from repro_torch.fleet.fleet import _solve_uv
-
-    uv = fleet_to_uv(_port(trained_fleet), ridge=RIDGE)
-    u = uv.u.sum(0)
-    u[0, 0] = float("inf")
-    with pytest.raises(ValueError, match="non-finite"):
-        _solve_uv(u, uv.v.sum(0), RIDGE)
-    p_fix, b_fix = _solve_uv(u, uv.v.sum(0), RIDGE, nonfinite="repair")
-    assert torch.isfinite(p_fix).all() and not b_fix.any()
