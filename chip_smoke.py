@@ -11,20 +11,32 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    width (D = 256 devices, T = 32 samples per tick, n = m = 561 features,
    Ñ = 128 hidden, ring hops = 2, hierarchical C = D/8), with kernel, plain
    and library-call times from CUDA events and the bound from the shapes;
-   ``quantize_pack`` with and without a residual, bit for bit;
+   ``quantize_pack`` with and without a residual, ``robust_segment_sum_mix``
+   (star and hierarchical, trim 1 and 2, devices masked, clip scales below
+   1) and ``dense_mix`` (a seeded symmetric 0/1 mask), bit for bit;
 3. end to end: the port's ``FleetRuntime`` at the har width on star,
    hierarchical, hierarchical isolated, all_to_all and ring, with a shift
    injected into a few devices' streams so the participation mask is not
    all ones, and every routed kernel's launch count checked; then int8
    payloads (``payload_precision="int8"``) on star, hierarchical and ring,
    with tick and merge p50 beside the f32 runs, the governor's bytes per
-   round and each round's f32 participants;
+   round and each round's f32 participants; then the hardened runtime
+   (the ``adversarial`` preset's ×−25 scale attack on 10 % of the devices,
+   a NaN device and a crash window) with the robust merge (trim 1; trim 0
+   on a custom dense mask) on star, hierarchical, all_to_all, ring and a
+   custom dense mask, and the naive merge on star: tick and merge p50,
+   non-finite payloads and robust-quarantined devices per round, each
+   honest device's distance from a clean run's β, and launches of the two
+   robust-path kernels equal to the rounds routed to them;
 4. card against CPU: the same ticks at D = 16 through the port on the CPU
-   (plain versions) and on the card, f32 and int8, losses within bounds
-   and flags and merge decisions equal;
+   (plain versions) and on the card, f32, int8 and hardened, losses within
+   bounds and flags, merge decisions, non-finite counts and robust
+   quarantines equal;
 5. ``run_scenario`` on the ``driving``, ``har`` and ``mnist_like`` presets,
-   on ring and star, f32 and int8, on the card and on the CPU: merges and
-   detection stats equal, per-device AUCs within bounds;
+   on ring and star, f32 and int8, and on ``adversarial`` (robust merge),
+   on the card and on the CPU: merges and detection stats (and on
+   ``adversarial`` the robust quarantines) equal, per-device AUCs within
+   bounds;
 6. ``torch.profiler`` over 7 ticks (2 merges) at the har width on star
    and ring: wall time, device time, the device's busy share and the
    kernels that took the most device time;
@@ -83,6 +95,13 @@ INT8_LOSS_RTOL = 5e-2
 # (tests/test_torch_scenarios.py); int8 at twice the reference's own spread
 # between its XLA and kernel paths on har (6.5e-3, same test)
 AUC_TOL = {"f32": 1e-3, "int8": 1.3e-2}
+# hardened runtime, card against CPU, after the first merge: the robust arm
+# solves by Cholesky and eigh (cuSOLVER on the card, LAPACK on the CPU), and
+# the trimmed mean and κ(U) carry their last-bit differences into the
+# losses; tests/test_torch_runtime.py measured 2.3e-4 between the port and
+# the reference on the same kind of fixture and holds it at 5e-4
+HARD_LOSS_RTOL = 5e-4
+SCORE_RTOL, SCORE_ATOL = 1e-3, 1e-3   # outlier scores, as that test holds them
 
 
 def log(msg: str) -> None:
@@ -125,6 +144,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time per call of the CUDA kernels whose name holds ``kernel``,
+    from torch.profiler over ``reps`` calls: the kernel alone, without the
+    wrapper's host work, which bounds a short kernel's CUDA-event time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    assert us > 0, f"the profiler saw no {kernel}"
+    return us / 1e3 / reps
 
 
 def rel_err(got, want) -> tuple[float, list[float]]:
@@ -251,10 +289,12 @@ def phase_kernels(fleet, window, topo_hier):
     )
 
     rows["quantize_pack"] = phase_quantize_pack(uv)
+    rows["robust_segment_sum_mix"] = phase_robust_segment_sum(w, mask, topo_hier)
+    rows["dense_mix"] = phase_dense_mix(w)
 
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound(r["flops"], r["nbytes"])
-        if name == "quantize_pack":
+        if not r["rels"]:  # held bit for bit and logged by its own phase
             continue
         rels = " ".join(f"{k}={v:.3e}" for k, v in r["rels"].items())
         log(f"  {name:24s} max_abs={r['abs']:.3e} max_rel: {rels} (tol {TOL[name]:.0e})"
@@ -313,6 +353,96 @@ def phase_quantize_pack(uv):
                 nbytes=row["nbytes"], ms=row["ms"], plain_ms=row["plain_ms"], library_ms=None)
 
 
+def phase_robust_segment_sum(w, mask, topo_hier):
+    """robust_segment_sum_mix against its plain version at the har width on
+    the merge's payloads: one cluster (star) and the hierarchy's C = D/8,
+    trim 1 and 2, with the phase's masked devices and clip scales below 1
+    (clip norm at the median payload norm, so about half the devices are
+    clipped). Held bit for bit (tot, lo, hi): the plain version repeats
+    the kernel's operations in its order."""
+    import numpy as np
+
+    from repro_torch.fleet import payload_clip
+    from repro_torch.kernels import robust_segment_sum_mix, robust_segment_sum_mix_plain
+
+    d, n, c = w.shape
+    e = n * c
+    _, scale = payload_clip(w, float(w.flatten(1).norm(dim=1).median()))
+    log(f"  robust_segment_sum_mix: {int((scale < 1).sum())} of {d} devices clipped,"
+        f" {int((mask == 0).sum())} masked")
+    runs = {}
+    for topo, trim in (("star", 1), ("star", 2), ("hierarchical", 1), ("hierarchical", 2)):
+        if topo == "star":
+            cids, n_cl = np.zeros(d, np.int32), 1
+        else:
+            cids, n_cl = topo_hier.cluster_ids, topo_hier.n_clusters
+        args = (w, cids, mask, scale, n_cl, trim)
+        got, want = robust_segment_sum_mix(*args), robust_segment_sum_mix_plain(*args)
+        mism = {k: mismatches(g, x) for k, g, x in zip(("tot", "lo", "hi"), got, want)}
+        # reads x, mask, scale and the cluster offsets once, writes tot, lo
+        # and hi; per element read a scale multiply, a mask multiply-add
+        # and 2·trim min/max pairs
+        nbytes = 4 * (d * e + 2 * d + n_cl + 1 + 3 * n_cl * e)
+        flops = (4 + 4 * trim) * d * e
+        r = runs[topo, trim] = dict(
+            abs=max(float((g - x).abs().max()) for g, x in zip(got, want)), rels={},
+            flops=flops, nbytes=nbytes, library_ms=None,
+            ms=cuda_ms(lambda: robust_segment_sum_mix(*args), 50),
+            plain_ms=cuda_ms(lambda: robust_segment_sum_mix_plain(*args), 2),
+        )
+        kernel_ms = device_ms(lambda: robust_segment_sum_mix(*args), 20, "robust_segsum_kernel")
+        b = bound(flops, nbytes)
+        log(f"  robust_segment_sum_mix ({topo}, C={n_cl}, trim={trim}): mismatches {mism}"
+            f"  ms={r['ms']:.4f} (kernel alone {kernel_ms:.4f})"
+            f" plain_ms={r['plain_ms']:.4f} library_ms=None"
+            f"  bound_ms={b[0]:.4f} ({b[1]}, {nbytes / 1e6:.1f} MB)")
+        for out, k in mism.items():
+            assert k == 0, f"robust_segment_sum_mix ({topo}, trim={trim}): {k} {out} differ"
+    # the kernel list carries the adversarial preset's shape: star, trim 1
+    return runs["star", 1]
+
+
+def dense_mask(d: int):
+    """A seeded symmetric 0/1 mask with its diagonal set: each device
+    merges with itself and about 5 % of the fleet, no ring and no cluster."""
+    import numpy as np
+
+    m = (np.random.default_rng(SEED + 1).random((d, d)) < 0.05).astype(np.float32)
+    return np.maximum(np.maximum(m, m.T), np.eye(d, dtype=np.float32))
+
+
+def phase_dense_mix(w):
+    """dense_mix against its plain version at the har width, bit for bit
+    (one fused multiply-add per device in device order, in both), and
+    against torch.mm (TF32 off) as the library's time."""
+    import torch
+
+    from repro_torch.kernels import dense_mix, dense_mix_plain
+
+    d = w.shape[0]
+    e = w[0].numel()
+    m = dense_mask(d)
+    mt = torch.as_tensor(m, device="cuda")
+    wf = w.view(d, -1)
+    got, want = dense_mix(w, m), dense_mix_plain(w, m)
+    mism = mismatches(got, want)
+    lib_rel = rel_err((torch.mm(mt, wf).view_as(want),), (want,))[1][0]
+    flops, nbytes = 2 * d * d * e, 4 * (d * d + 2 * d * e)
+    r = dict(abs=float((got - want).abs().max()), rels={}, flops=flops, nbytes=nbytes,
+             ms=cuda_ms(lambda: dense_mix(w, m), 20),
+             plain_ms=cuda_ms(lambda: dense_mix_plain(w, m), 1),
+             library_ms=cuda_ms(lambda: torch.mm(mt, wf), 20))
+    kernel_ms = device_ms(lambda: dense_mix(w, m), 10, "dense_mix_kernel")
+    b = bound(flops, nbytes)
+    log(f"  dense_mix (D={d}, {int(m.sum())} ones): mismatches {mism}  ms={r['ms']:.4f}"
+        f" (kernel alone {kernel_ms:.4f})"
+        f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
+        f" (torch.mm against the plain version: max_rel={lib_rel:.3e})"
+        f"  bound_ms={b[0]:.4f} ({b[1]}, {flops / 1e9:.2f} GFLOP)")
+    assert mism == 0, f"dense_mix: {mism} elements differ from the plain version"
+    return r
+
+
 ROUTES = {
     "star": ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve"),
     "hierarchical": ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve"),
@@ -337,35 +467,52 @@ def topologies(d: int):
 INT8_TOPOLOGIES = ("star", "hierarchical", "ring")
 
 
-def runtime_config(topology, precision="f32"):
+def runtime_config(topology, precision="f32", **hardened):
+    """The phase's runtime; ``hardened`` takes ``robust=`` and ``faults=``."""
     from repro_torch.runtime import DetectorConfig, GovernorConfig, RuntimeConfig
 
     return RuntimeConfig(
         topology=topology, ridge=RIDGE,
         detector=DetectorConfig(warmup=5, warmup_skip=1, rel_sigma=0.05),
-        governor=GovernorConfig(merge_every=4), payload_precision=precision,
+        governor=GovernorConfig(merge_every=4), payload_precision=precision, **hardened,
     )
 
 
-def drive(fleet, ticks_dev, name, precision):
+def fault_injector(d: int):
+    """The ``adversarial`` preset's attack (×−25 on a seeded 10 % of the
+    devices, from tick 0), a device whose payload is NaN on the rounds at
+    ticks 7 and 15, and a device down for ticks 4-11."""
+    from repro_torch.fleet import FaultInjector, FaultSpec
+
+    return FaultInjector((
+        FaultSpec(kind="scale", frac=0.1, magnitude=-25.0, seed=7),
+        FaultSpec(kind="nan", devices=(5,), start_tick=7, period=8),
+        FaultSpec(kind="crash", devices=(9,), start_tick=4, end_tick=12),
+    ), d, seed=SEED)
+
+
+def drive(fleet, ticks_dev, config, *, finite=True):
     """One runtime over every tick, its launch counts set to 0 after the
-    warmup and read at the end."""
+    warmup and read at the end; also the count of robust-quarantined
+    devices after each tick."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.runtime import FleetRuntime
 
-    rt = FleetRuntime(fleet, runtime_config(topologies(D)[name], precision), device="cuda")
+    rt = FleetRuntime(fleet, config, device="cuda")
     rt.warmup(T)
     reset_launch_counts()
-    tick_ms, reports = [], []
+    tick_ms, reports, quarantined = [], [], []
     for t in range(TICKS):
         t0 = time.perf_counter()
         reports.append(rt.tick(ticks_dev[t]))
         tick_ms.append((time.perf_counter() - t0) * 1e3)
+        quarantined.append(int(rt.governor.robust_quarantined.sum()))
     counts = launch_counts()
-    assert bool(torch.isfinite(rt.states.p).all() and torch.isfinite(rt.states.beta).all())
-    return rt, reports, tick_ms, counts
+    if finite:
+        assert bool(torch.isfinite(rt.states.p).all() and torch.isfinite(rt.states.beta).all())
+    return rt, reports, tick_ms, counts, quarantined
 
 
 def phase_end_to_end(fleet, ticks_dev, shifted):
@@ -379,7 +526,8 @@ def phase_end_to_end(fleet, ticks_dev, shifted):
     for precision in ("f32", "int8"):
         names = topologies(D) if precision == "f32" else INT8_TOPOLOGIES
         for name in names:
-            rt, reports, tick_ms, counts = drive(fleet, ticks_dev, name, precision)
+            rt, reports, tick_ms, counts, _ = drive(
+                fleet, ticks_dev, runtime_config(topologies(D)[name], precision))
             for k, v in counts.items():
                 totals[k] = totals.get(k, 0) + v
             rounds = [r for r in reports if r.decision.merge]
@@ -413,6 +561,75 @@ def phase_end_to_end(fleet, ticks_dev, shifted):
         (tf, mf), (tq, mq) = p50["f32", name], p50["int8", name]
         log(f"  {name:12s} p50 f32 -> int8: tick {tf:.2f} -> {tq:.2f} ms,"
             f" merge {mf:.2f} -> {mq:.2f} ms")
+    return totals
+
+
+HARD_ROUTES = {
+    "star": ("fleet_ingest", "robust_segment_sum_mix"),
+    "hierarchical": ("fleet_ingest", "robust_segment_sum_mix"),
+    "all_to_all": ("fleet_ingest", "robust_segment_sum_mix"),
+    "ring": ("fleet_ingest",),   # the open ring trims by gather and sort, no kernel
+    "custom_dense": ("fleet_ingest", "dense_mix", "from_uv_solve"),
+    "star naive": ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve"),
+}
+
+
+def phase_hardened(fleet, ticks_dev, shifted):
+    """The hardened FleetRuntime at the har width: the robust merge (trim 1;
+    trim 0 on the custom dense mask, which has no neighbourhood to trim in)
+    on five topologies and the naive merge on star, each beside a clean run
+    (no faults, exact merge) of the same topology."""
+    import numpy as np
+
+    from repro_torch.fleet import RobustConfig, Topology
+
+    injector = fault_injector(D)
+    byzantine = np.zeros(D, bool)
+    byzantine[list(injector.byzantine_devices)] = True
+    honest = ~byzantine & ~shifted
+    log(f"  faults: {len(injector.byzantine_devices)} Byzantine devices"
+        f" {list(injector.byzantine_devices)}, NaN device 5, crashed device 9")
+    topos = {k: v for k, v in topologies(D).items()
+             if k in ("star", "hierarchical", "all_to_all", "ring")}
+    topos["custom_dense"] = Topology(name="custom_dense", n_devices=D, kind="dense",
+                                     matrix=dense_mask(D))
+    runs = [(k, t, RobustConfig(trim=0 if k == "custom_dense" else 1)) for k, t in topos.items()]
+    runs.append(("star naive", topos["star"], None))
+    totals = {}
+    for label, topo, robust in runs:
+        clean = drive(fleet, ticks_dev, runtime_config(topo))[0]
+        rt, reports, tick_ms, counts, quarantined = drive(
+            fleet, ticks_dev, runtime_config(topo, robust=robust, faults=injector),
+            finite=robust is not None)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        rounds = [t for t, r in enumerate(reports) if r.decision.merge]
+        merge_ms = [reports[t].merge_seconds * 1e3 for t in rounds]
+        ref = clean.states.beta[honest]
+        dist = ((rt.states.beta[honest] - ref).flatten(1).norm(dim=1)
+                / ref.flatten(1).norm(dim=1)).cpu().numpy()
+        log(f"  hardened {label:13s} tick_ms p50={np.median(tick_ms):.2f} max={max(tick_ms):.2f}"
+            f"  merge_ms p50={np.median(merge_ms):.2f} rounds at ticks {rounds}"
+            f" participants {[reports[t].decision.participants for t in rounds]}"
+            f" nonfinite {[reports[t].nonfinite_payloads for t in rounds]}"
+            f" quarantined {[quarantined[t] for t in rounds]}")
+        log(f"    honest devices' |β - clean β| / |clean β|: median {np.median(dist):.3e}"
+            f" max {np.max(dist):.3e}  launches={counts}")
+        log("    each honest device's: " + np.array2string(
+            dist, precision=2, max_line_width=1 << 20, threshold=1 << 20))
+        assert len(rounds) >= 2, f"hardened {label}: fewer than two admitted merges"
+        assert sum(reports[t].nonfinite_payloads for t in rounds) > 0, "the NaN fault went unseen"
+        for kernel in HARD_ROUTES[label]:
+            assert counts[kernel] > 0, f"hardened {label}: {kernel} was never launched"
+        trims = robust is not None and robust.trim > 0 and label != "ring"
+        assert counts["robust_segment_sum_mix"] == (len(rounds) if trims else 0), (
+            f"hardened {label}: robust_segment_sum_mix launched "
+            f"{counts['robust_segment_sum_mix']} times in {len(rounds)} rounds")
+        assert counts["dense_mix"] == (len(rounds) if label == "custom_dense" else 0), (
+            f"hardened {label}: dense_mix launched {counts['dense_mix']} times in "
+            f"{len(rounds)} rounds")
+        if robust is not None:
+            assert quarantined[-1] > 0, f"hardened {label}: no device was quarantined"
     return totals
 
 
@@ -452,6 +669,59 @@ def phase_card_vs_cpu(fleet, ticks_np):
             log(f"  {precision} {name}: {TICKS} ticks at D={D_CPU}, losses max rel diff"
                 f" {worst:.3e} (rtol {LOSS_RTOL:.0e}, int8 after a merge {INT8_LOSS_RTOL:.0e}),"
                 f" flags {flags}, merges {merges}, f32 participants {fp}: equal")
+    phase_card_vs_cpu_hardened(small, small_cpu, ticks_np)
+
+
+def phase_card_vs_cpu_hardened(small, small_cpu, ticks_np):
+    """The hardened runtime (phase 3's faults) at D_CPU on the CPU and on
+    the card: flags, decisions, non-finite counts and the robust quarantine
+    equal after every tick, scores and losses within bounds. The trim is
+    chosen so the attack is contained and the models stay well posed, as
+    two runs of a garbage model part at rounding amplified without bound:
+    on star 2 per side, as many as the fault has attackers in a 16-device
+    fleet (with trim 1 the merged model is garbage, losses ~1e6); on the
+    ring 1, as each ±2 neighbourhood holds at most one attacker (trim 2
+    leaves each coordinate the median of five, whose PSD repair is ill
+    conditioned)."""
+    import numpy as np
+
+    from repro_torch.fleet import RobustConfig
+    from repro_torch.runtime import FleetRuntime
+
+    for name, trim in (("star", 2), ("ring", 1)):
+        topo = topologies(D_CPU)[name]
+        card, cpu = (FleetRuntime(f, runtime_config(topo, robust=RobustConfig(trim=trim),
+                                                    faults=fault_injector(D_CPU)), device=dev)
+                     for f, dev in ((small, "cuda"), (small_cpu, "cpu")))
+        worst, worst_score, merges, nonfinite, quarantined = 0.0, 0.0, 0, [], []
+        for t in range(TICKS):
+            batch = np.ascontiguousarray(ticks_np[t, :D_CPU])
+            a, b = card.tick(batch), cpu.tick(batch)
+            rtol = LOSS_RTOL if not merges else HARD_LOSS_RTOL
+            np.testing.assert_allclose(a.losses, b.losses, rtol=rtol, atol=LOSS_ATOL)
+            assert np.array_equal(a.drifted, b.drifted), f"hardened {name} tick {t}: drifted"
+            assert np.array_equal(a.fresh_detections, b.fresh_detections)
+            da, db = a.decision, b.decision
+            assert (da.merge, da.participants, da.round_bytes) == (
+                db.merge, db.participants, db.round_bytes)
+            assert a.nonfinite_payloads == b.nonfinite_payloads
+            assert np.array_equal(card.governor.robust_quarantined,
+                                  cpu.governor.robust_quarantined), f"hardened {name} tick {t}"
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+            if da.merge:
+                merges += 1
+                np.testing.assert_allclose(a.robust_scores, b.robust_scores, rtol=SCORE_RTOL,
+                                           atol=SCORE_ATOL)
+                worst_score = max(worst_score, float(np.max(
+                    np.abs(a.robust_scores - b.robust_scores) / (1 + np.abs(b.robust_scores)))))
+                nonfinite.append(a.nonfinite_payloads)
+                quarantined.append(np.flatnonzero(card.governor.robust_quarantined).tolist())
+        assert merges >= 2 and sum(nonfinite) > 0
+        log(f"  hardened {name} trim {trim}: {TICKS} ticks at D={D_CPU}, losses max rel diff"
+            f" {worst:.3e}"
+            f" (rtol {LOSS_RTOL:.0e}, after a merge {HARD_LOSS_RTOL:.0e}), scores max rel diff"
+            f" {worst_score:.3e}; merges {merges}, nonfinite per round {nonfinite},"
+            f" quarantined per round {quarantined}: equal")
 
 
 def phase_scenarios():
@@ -500,18 +770,90 @@ def phase_scenarios():
                 for kernel in routed:
                     assert counts[kernel] > 0, f"{preset} {topo}: {kernel} was never launched"
     log(f"  launches {totals}")
+    phase_adversarial()
+
+
+def phase_adversarial():
+    """run_scenario on the adversarial preset (har with a ×−25 scale attack
+    on 10 % of the devices; the robust merge by default), ring and star,
+    on the card and on the CPU: merges, comm bytes, detections, every
+    round's participants and non-finite payloads, and the robust
+    quarantine after every round equal; scores and AUCs within bounds."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import GovernorConfig, MergeGovernor
+    from repro_torch.scenarios import make_scenario, run_scenario, scenario_topology
+
+    spec = make_scenario("adversarial")
+    sc = spec.build()
+
+    def quarantines(res, topo):
+        """The governor's robust quarantine after each round, replayed from
+        the round's scores as the runtime feeds them."""
+        gov = MergeGovernor(scenario_topology(topo, spec.n_devices), spec.n_hidden,
+                            sc.n_features, GovernorConfig(), robust=res.robust)
+        out = []
+        for r in res.reports:
+            if r.decision.merge:
+                gov.observe_robust(r.robust_scores)
+                out.append(np.flatnonzero(gov.robust_quarantined).tolist())
+        return out
+
+    for topo in ("ring", "star"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card = run_scenario(spec, topo, scenario=sc, device="cuda")
+        card_s = time.perf_counter() - t0
+        counts = launch_counts()
+        cpu = run_scenario(spec, topo, scenario=sc, device="cpu")
+        local = float(np.abs(card.local_aucs - cpu.local_aucs).max())
+        merged = float(np.abs(card.merged_aucs - cpu.merged_aucs).max())
+        clean = card.clean_devices
+        q_card, q_cpu = quarantines(card, topo), quarantines(cpu, topo)
+        det = card.detection
+        log(f"  adversarial {topo:4s} {card_s:5.2f} s: robust {card.robust}; Byzantine devices"
+            f" {list(spec.fault_devices())}; local AUC mean {card.local_aucs.mean():.4f},"
+            f" merged {card.merged_aucs.mean():.4f}, honest clean devices merged"
+            f" {card.merged_aucs[clean].mean():.4f}; merges {card.merges}, comm bytes"
+            f" {card.comm_bytes}; detections: delays {det['delays']} missed {det['missed']}"
+            f" false positives {det['false_positives']}; quarantined per round {q_card};"
+            f" card - CPU AUC max |diff| local {local:.2e} merged {merged:.2e}; launches {counts}")
+        assert card.robust is not None and card.robust == cpu.robust
+        assert (card.merges, card.comm_bytes) == (cpu.merges, cpu.comm_bytes)
+        assert card.detection == cpu.detection, f"adversarial {topo}: detections"
+        assert q_card == q_cpu, f"adversarial {topo}: quarantines {q_card} against {q_cpu}"
+        assert any(q_card), f"adversarial {topo}: no device was ever quarantined"
+        for a, b in zip(card.reports, cpu.reports):
+            assert a.decision.participants == b.decision.participants
+            assert a.nonfinite_payloads == b.nonfinite_payloads
+            if b.decision.merge:
+                np.testing.assert_allclose(a.robust_scores, b.robust_scores, rtol=SCORE_RTOL,
+                                           atol=SCORE_ATOL)
+        assert max(local, merged) <= AUC_TOL["f32"], (
+            f"adversarial {topo}: AUCs differ by {max(local, merged):.2e}")
+        routed = ("fleet_ingest",) + (("robust_segment_sum_mix",) if topo == "star" else ())
+        for kernel in routed:
+            assert counts[kernel] > 0, f"adversarial {topo}: {kernel} was never launched"
 
 
 def phase_profile(fleet, ticks_dev):
     """Where a tick's time goes: ticks 1–7 (merges at 3 and 7) under
-    torch.profiler, after a first tick outside the window."""
+    torch.profiler, after a first tick outside the window; f32 on star and
+    ring, and the hardened runtime (phase 3's faults, robust trim 1) on
+    star and ring."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.fleet import RobustConfig
     from repro_torch.runtime import FleetRuntime
 
-    for name in ("star", "ring"):
-        rt = FleetRuntime(fleet, runtime_config(topologies(D)[name]), device="cuda")
+    hard = dict(robust=RobustConfig(trim=1), faults=fault_injector(D))
+    for name, kw in (("star", {}), ("ring", {}), ("star", hard), ("ring", hard)):
+        if kw:
+            name = f"{name} hardened"
+        rt = FleetRuntime(fleet, runtime_config(topologies(D)[name.split()[0]], **kw),
+                          device="cuda")
         rt.warmup(T)
         rt.tick(ticks_dev[0])
         torch.cuda.synchronize()
@@ -571,11 +913,14 @@ def main() -> int:
 
     log("phase 3: end to end, FleetRuntime at the har width")
     launches = phase_end_to_end(fleet, ticks_dev, shifted)
+    for k, v in phase_hardened(fleet, ticks_dev, shifted).items():
+        launches[k] = launches.get(k, 0) + v
 
     log("phase 4: card against CPU")
     phase_card_vs_cpu(fleet, ticks_np)
 
-    log("phase 5: run_scenario on the paper's three workloads, card against CPU")
+    log("phase 5: run_scenario on the paper's three workloads and on adversarial,"
+        " card against CPU")
     phase_scenarios()
 
     log("phase 6: where a tick's time goes (torch.profiler)")
@@ -593,6 +938,10 @@ def main() -> int:
                                "src/repro/kernels/topology_merge.py:491"),
         "quantize_pack": ("src/repro_torch/csrc/quantize_pack.cu",
                           "src/repro/kernels/quantize_pack.py:106"),
+        "robust_segment_sum_mix": ("src/repro_torch/csrc/robust_merge.cu",
+                                   "src/repro/kernels/robust_merge.py:170"),
+        "dense_mix": ("src/repro_torch/csrc/topology_merge.cu",
+                      "src/repro/kernels/topology_merge.py:314"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
     kernels = []

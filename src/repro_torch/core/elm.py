@@ -62,14 +62,22 @@ def _ridged(u: torch.Tensor, ridge: float) -> torch.Tensor:
     return u + ridge * torch.eye(n, dtype=u.dtype, device=u.device)
 
 
+def _cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN for a matrix that is not positive
+    definite, as ``jnp.linalg.cholesky`` returns it (``torch.linalg.cholesky``
+    would raise, and on CUDA read the status back to the host)."""
+    factor, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], factor, torch.nan)
+
+
 def solve_beta(u: torch.Tensor, v: torch.Tensor, *, ridge: float = 0.0) -> torch.Tensor:
     """β = (U + εI)⁻¹V via Cholesky; batched over leading axes. The result
     is made contiguous (on CUDA the solver returns column-major)."""
-    return torch.cholesky_solve(v, torch.linalg.cholesky(_ridged(u, ridge))).contiguous()
+    return torch.cholesky_solve(v, _cholesky(_ridged(u, ridge))).contiguous()
 
 
 def invert_u(u: torch.Tensor, *, ridge: float = 0.0) -> torch.Tensor:
     """P = (U + εI)⁻¹ via Cholesky; batched over leading axes."""
     n = u.shape[-1]
     eye = torch.eye(n, dtype=u.dtype, device=u.device).expand_as(u)
-    return torch.cholesky_solve(eye, torch.linalg.cholesky(_ridged(u, ridge))).contiguous()
+    return torch.cholesky_solve(eye, _cholesky(_ridged(u, ridge))).contiguous()

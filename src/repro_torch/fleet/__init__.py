@@ -1,5 +1,6 @@
 """Fleet-scale OS-ELM federation on stacked tensors (port of ``repro.fleet``)."""
 from repro_torch.fleet.comm import RoundCost, payload_nbytes, topology_round_cost
+from repro_torch.fleet.faults import FAULT_KINDS, FaultInjector, FaultSpec
 from repro_torch.fleet.fleet import (
     fleet_from_uv,
     fleet_merge_masked_kernel,
@@ -25,6 +26,14 @@ from repro_torch.fleet.quantize import (
     quantize_tiles,
     validate_precision,
 )
+from repro_torch.fleet.robust import (
+    RobustConfig,
+    finite_payload_mask,
+    fleet_merge_robust,
+    payload_clip,
+    payload_outlier_scores,
+    robust_merge_from_w,
+)
 from repro_torch.fleet.topology import (
     Topology,
     all_to_all,
@@ -36,11 +45,14 @@ from repro_torch.fleet.topology import (
 
 __all__ = [
     "RoundCost", "payload_nbytes", "topology_round_cost",
+    "FAULT_KINDS", "FaultInjector", "FaultSpec",
     "fleet_from_uv", "fleet_merge_masked_kernel", "fleet_merge_quantized",
     "fleet_score", "fleet_to_uv", "fleet_train", "init_fleet",
     "DriftEvent", "FleetStreams", "make_fleet_streams", "random_drift_schedule",
     "PRECISIONS", "apply_codec", "dequantize_tiles", "init_residual",
     "payload_precision_nbytes", "quantize_roundtrip", "quantize_tiles",
     "validate_precision",
+    "RobustConfig", "finite_payload_mask", "fleet_merge_robust", "payload_clip",
+    "payload_outlier_scores", "robust_merge_from_w",
     "Topology", "all_to_all", "hierarchical", "make_topology", "ring", "star",
 ]

@@ -6,8 +6,9 @@ leading device axis and whose SLFN basis (α, b) is shared. Training goes
 through the fused ingest (``repro_torch.kernels.fleet_ingest``). The one
 merge is ``fleet_merge_masked_kernel``, on the merge kernels: the masked
 segment sum (star, hierarchical), the fused banded merge+solve (open
-ring) and the Gauss-Jordan solve. On CPU tensors the kernels run their
-plain versions. ``fleet_merge_quantized`` is the stateful lossy round on
+ring), the dense mix (any other mask) and the Gauss-Jordan solve. On CPU
+tensors the kernels run their plain versions.
+``fleet_merge_quantized`` is the stateful lossy round on
 the same merge: payloads published through the int8 ``quantize_pack``
 kernel (or f16) with error feedback.
 
@@ -28,6 +29,7 @@ from repro_torch.kernels.fleet_ingest import fleet_ingest
 from repro_torch.kernels.quantize_pack import dequantize_tiles, quantize_pack
 from repro_torch.kernels.topology_merge import (
     banded_merge_solve,
+    dense_mix,
     from_uv_solve,
     masked_segment_sum_mix,
 )
@@ -116,21 +118,24 @@ def _keep_participants(states, mf, p, beta) -> OSELMState:
 
 
 def _masked_kernel_merge_from_w(
-    states: OSELMState, topology: Topology, mask: torch.Tensor, w: torch.Tensor, ridge: float
+    states: OSELMState,
+    topology: Topology,
+    mask: torch.Tensor,
+    w: torch.Tensor,
+    ridge: float,
+    *,
+    receive: torch.Tensor | None = None,
 ) -> OSELMState:
     """The masked Eq. 8 merge of pre-packed (possibly codec'd) payloads
     w (D, Ñ, Ñ+m) on the merge kernels.
 
     Segment topologies gate participation inside the masked segment sum;
-    the open ring folds the mask into the payload before the fused
-    banded merge+solve; a fully connected merge is a plain sum and one
-    Gauss-Jordan solve. A dense topology that is not fully connected
-    would need the ``dense_mix`` kernel, which is not ported yet."""
-    if topology.kind == "dense" and not topology.is_fully_connected:
-        raise NotImplementedError(
-            "a dense topology that is not fully connected needs the dense_mix "
-            "kernel, which the port does not have yet"
-        )
+    the other kinds fold the mask into the payload first: the open ring
+    goes to the fused banded merge+solve, a fully connected merge is a
+    plain sum and one Gauss-Jordan solve, and any other dense mask goes
+    through ``dense_mix`` and a solve per device. ``receive`` widens the
+    set of devices that take the merged model beyond the contributors
+    (None: exactly the participants)."""
     n = states.p.shape[-1]
     mf = mask.to(device=w.device, dtype=w.dtype)
     n_dev = topology.n_devices
@@ -149,11 +154,15 @@ def _masked_kernel_merge_from_w(
         wm = w * mf[:, None, None]
         if topology.kind == "banded" and not topology.band_closed:
             p, beta = banded_merge_solve(wm, topology.hops, ridge=ridge)
-        else:
+        elif topology.is_fully_connected:
             total = wm.sum(0, keepdim=True)
             p, beta = from_uv_solve(total[:, :, :n], total[:, :, n:], ridge=ridge)
             p, beta = _bcast(p[0], n_dev), _bcast(beta[0], n_dev)
-    return _keep_participants(states, mf, p, beta)
+        else:
+            mixed = dense_mix(wm, topology.dense_matrix())
+            p, beta = from_uv_solve(mixed[:, :, :n], mixed[:, :, n:], ridge=ridge)
+    kf = mf if receive is None else receive.to(device=w.device, dtype=w.dtype)
+    return _keep_participants(states, kf, p, beta)
 
 
 def _packed_uv(states: OSELMState, ridge: float):

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve",
-           "quantize_pack")
+           "quantize_pack", "robust_segment_sum_mix", "dense_mix")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -115,6 +115,8 @@ _SIGNATURES = {
     "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P],
     "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "repro_quantize_pack": [_P] * 6 + [_I] * 3 + [_P],
+    "repro_robust_segment_sum": [_P] * 7 + [_I, _L, _I, _P],
+    "repro_dense_mix": [_P, _P, _P, _I, _L, _P],
     "repro_quantize_pack_smem": [_I],
     "repro_ingest_gain_smem": [_I],
     "repro_ingest_beta_smem": [_I],

@@ -6,12 +6,16 @@
 - ``from_uv_solve`` — Gauss-Jordan without pivoting on [U+εI | I | V],
   giving P = (U+εI)⁻¹ and β = PV per system;
 - ``banded_merge_solve`` — the open ring: each device sums its 2·hops+1
-  neighbour payloads and solves, in one kernel.
+  neighbour payloads and solves, in one kernel;
+- ``dense_mix`` — out = M @ flatten(x) for any (D, D) mask, the route of a
+  dense topology that is not fully connected.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 the CUDA kernel of ``csrc/topology_merge.cu`` for CUDA tensors, or raises.
 The plain versions keep the reference's arithmetic (the elimination step
-of ``_gj_sweep`` and the neighbour order of ``_banded_solve_kernel``).
+of ``_gj_sweep`` and the neighbour order of ``_banded_solve_kernel``);
+``dense_mix_plain`` keeps the kernel's: one fused multiply-add per
+device k, in increasing k.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from repro_torch.kernels import _lib
 __all__ = [
     "banded_merge_solve",
     "banded_merge_solve_plain",
+    "dense_mix",
+    "dense_mix_plain",
     "from_uv_solve",
     "from_uv_solve_plain",
     "masked_segment_sum_mix",
@@ -33,7 +39,9 @@ __all__ = [
 # ------------------------------------------------------ masked segment sum
 
 
-def _segment_starts(cluster_ids, n_devices: int, n_clusters: int) -> np.ndarray:
+def _segment_starts(
+    cluster_ids, n_devices: int, n_clusters: int, kernel: str = "masked_segment_sum_mix"
+) -> np.ndarray:
     """(C+1,) offsets of each cluster's run of devices; the ids must be
     sorted so that each cluster is one contiguous run."""
     cids = np.asarray(cluster_ids)
@@ -41,7 +49,7 @@ def _segment_starts(cluster_ids, n_devices: int, n_clusters: int) -> np.ndarray:
         raise ValueError(f"cluster_ids must be ({n_devices},); got {cids.shape}")
     if not np.all(np.diff(cids) >= 0):
         raise ValueError(
-            "masked_segment_sum_mix needs sorted (contiguous-cluster) cluster_ids; "
+            f"{kernel} needs sorted (contiguous-cluster) cluster_ids; "
             "sort the device axis by cluster first"
         )
     if cids.size and (cids[0] < 0 or cids[-1] >= n_clusters):
@@ -192,3 +200,43 @@ def banded_merge_solve(
     _lib.check(status, "banded_merge_solve")
     _lib.count_launch("banded_merge_solve")
     return p, beta
+
+
+# ------------------------------------------------------------- dense mix
+
+
+def _dense_operands(x: torch.Tensor, matrix) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.ndim != 3:
+        raise ValueError(f"need x (D, R, C); got {tuple(x.shape)}")
+    d = x.shape[0]
+    m = torch.as_tensor(matrix, dtype=torch.float32, device=x.device).contiguous()
+    if tuple(m.shape) != (d, d):
+        raise ValueError(f"matrix must be ({d}, {d}); got {tuple(m.shape)}")
+    return x.reshape(d, -1), m
+
+
+def dense_mix_plain(x: torch.Tensor, matrix) -> torch.Tensor:
+    xf, m = _dense_operands(x, matrix)
+    acc = torch.zeros_like(xf)
+    for k in range(xf.shape[0]):
+        acc = _fma(m[:, k : k + 1], xf[k : k + 1], acc)
+    return acc.reshape(x.shape)
+
+
+def dense_mix(x: torch.Tensor, matrix) -> torch.Tensor:
+    """out[i] = Σ_k M[i, k]·x[k] over a stacked (D, R, C) payload, for any
+    (D, D) mask M; each output element accumulates k = 0..D−1 in order,
+    one fused multiply-add per step (exact for a 0/1 mask, where every
+    product is exact)."""
+    if x.device.type == "cpu":
+        return dense_mix_plain(x, matrix)
+    xf, m = _dense_operands(x, matrix)
+    _lib.require_cuda_f32("dense_mix", x=x, matrix=m)
+    d, f = xf.shape
+    out = torch.empty_like(x)
+    status = _lib.library().repro_dense_mix(
+        m.data_ptr(), x.data_ptr(), out.data_ptr(), d, f, _lib.stream(),
+    )
+    _lib.check(status, "dense_mix")
+    _lib.count_launch("dense_mix")
+    return out

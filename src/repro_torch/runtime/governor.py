@@ -1,14 +1,18 @@
 """Merge governor: when and with whom the resident fleet merges; port of
-``repro.runtime.governor`` (without the robust-merge hooks).
+``repro.runtime.governor``.
 
 Each candidate round (every ``merge_every`` ticks) the governor builds a
-participation mask (quarantine drifted devices, AND any selection
-policies) and admits the merge only if enough devices take part and the
+participation mask (quarantine drifted devices and, with a robust merge,
+robust-quarantined ones, AND any selection policies) and admits the
+merge only if enough devices take part and the
 average bytes per tick stay within ``budget_bytes_per_tick``. Rounds are
 priced with ``repro_torch.fleet.comm``, scaled by the participating
 fraction; with a lossy ``payload_precision`` the participants the
 detector marks at risk (``fp_mask``) are priced at f32 and the rest at
-the wire precision. All of it is host-side numpy between ticks.
+the wire precision. With ``robust`` set, each round's contribution-outlier
+scores feed a strike/calm ledger (``observe_robust``): consecutive hot
+rounds quarantine a device, consecutive calm ones re-admit it. All of it
+is host-side numpy between ticks.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 
 from repro_torch.federated.selection import FleetMaskFn
 from repro_torch.fleet.comm import topology_round_cost
+from repro_torch.fleet.robust import RobustConfig
 from repro_torch.fleet.topology import Topology
 
 
@@ -61,23 +66,54 @@ class MergeGovernor:
         *,
         policies: tuple[FleetMaskFn, ...] = (),
         payload_precision: str = "f32",
+        robust: RobustConfig | None = None,
     ) -> None:
         self.topology = topology
         self.cfg = cfg
         self.policies = policies
         self.payload_precision = payload_precision
+        self.robust = robust
         self.state = GovernorState()
+        # robust-score quarantine ledger (used when ``robust`` is set)
+        d = topology.n_devices
+        self.robust_strikes = np.zeros(d, np.int64)
+        self.robust_calm = np.zeros(d, np.int64)
+        self.robust_quarantined = np.zeros(d, bool)
         self._full_round_bytes = topology_round_cost(topology, n_hidden, n_out).bytes_total
         self._q_round_bytes = topology_round_cost(
             topology, n_hidden, n_out, precision=payload_precision
         ).bytes_total
 
     def participation(self, drifted: np.ndarray, losses: np.ndarray) -> np.ndarray:
-        """Quarantine ∧ selection policies → (D,) bool mask."""
+        """Quarantine ∧ robust quarantine ∧ selection policies → (D,) bool
+        mask."""
         mask = ~np.asarray(drifted, bool)
+        if self.robust is not None:
+            mask &= ~self.robust_quarantined
         for policy in self.policies:
             mask &= np.asarray(policy(losses), bool)
         return mask
+
+    def observe_robust(self, scores: np.ndarray) -> None:
+        """Feed one merge round's outlier scores (every device's, so a
+        quarantined device that returns to normal accrues calm rounds)
+        into the strike/calm ledger: ``escalate_after`` consecutive scores
+        above ``score_threshold`` quarantine a device, ``readmit_after``
+        consecutive ones at or below ``score_readmit`` release it."""
+        if self.robust is None:
+            return
+        cfg = self.robust
+        scores = np.asarray(scores, np.float64)
+        hot = scores > cfg.score_threshold
+        self.robust_strikes = np.where(hot, self.robust_strikes + 1, 0)
+        escalated = ~self.robust_quarantined & (self.robust_strikes >= cfg.escalate_after)
+        self.robust_quarantined |= escalated
+        self.robust_strikes[escalated] = 0
+        calm_now = self.robust_quarantined & (scores <= cfg.score_readmit)
+        self.robust_calm = np.where(calm_now, self.robust_calm + 1, 0)
+        released = self.robust_calm >= cfg.readmit_after
+        self.robust_quarantined &= ~released
+        self.robust_calm[released] = 0
 
     def round_bytes(self, participants: int, fp_participants: int = 0) -> int:
         """Round traffic with ``participants`` of D devices live, of which

@@ -1,6 +1,6 @@
 """Resident streaming fleet runtime; port of ``repro.runtime.runtime``
-(exact-f32 and quantized payloads; no staleness, robust merge, faults,
-snapshots or telemetry yet).
+(exact-f32 and quantized payloads, robust merges and fault injection; no
+staleness, snapshots or telemetry yet).
 
 One ``tick`` runs the paper's loop over the whole fleet:
 
@@ -17,7 +17,13 @@ One ``tick`` runs the paper's loop over the whole fleet:
    (``fleet_merge_quantized``): devices the detector marks at quarantine
    risk ship exact f32, the rest int8 through the ``quantize_pack``
    kernel (or f16), and the residual accumulator advances on admitted
-   rounds only.
+   rounds only. With ``robust`` or ``faults`` set it is the hardened
+   round: the tick's faults corrupt the published payloads w = [U | V]
+   (``payload_scale``, ``payload_noise``, NaN and Inf markers), and then
+   either the naive arm merges whatever came out, or the robust arm
+   replaces each non-finite payload by that device's last finite one and
+   runs the clipped, trimmed and scored merge (``robust_merge_from_w``),
+   whose scores feed the governor's robust quarantine.
 
 The fleet state, the residual and the detector bank stay on the device;
 only the (D,) losses and flags (and on candidate rounds of a quantized
@@ -38,8 +44,15 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.oselm import OSELMState
 from repro_torch.federated.selection import FleetMaskFn
-from repro_torch.fleet.fleet import fleet_merge_masked_kernel, fleet_merge_quantized
+from repro_torch.fleet.faults import FaultInjector
+from repro_torch.fleet.fleet import (
+    _masked_kernel_merge_from_w,
+    _packed_uv,
+    fleet_merge_masked_kernel,
+    fleet_merge_quantized,
+)
 from repro_torch.fleet.quantize import init_residual, validate_precision
+from repro_torch.fleet.robust import RobustConfig, finite_payload_mask, robust_merge_from_w
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels.fleet_ingest import fleet_ingest
 from repro_torch.runtime.detector import (
@@ -63,6 +76,10 @@ class RuntimeConfig:
     governor: GovernorConfig = dataclasses.field(default_factory=GovernorConfig)
     gate_merges: bool = True          # False: no quarantine, every device merges
     payload_precision: str = "f32"    # merge wire format: "f32" | "f16" | "int8"
+    robust: RobustConfig | None = None   # clip/trim/score merge and robust
+                                         # quarantine; None: the exact merge
+    faults: FaultInjector | None = None  # deterministic faults at the payload
+                                         # boundary (repro_torch.fleet.faults)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +92,9 @@ class TickReport:
     fresh_detections: np.ndarray  # (D,) flags that rose this tick
     decision: MergeDecision
     merge_seconds: float | None   # wall clock of the admitted merge, else None
+    robust_scores: np.ndarray | None = None  # (D,) outlier scores of an admitted
+                                             # hardened round (zeros on the naive arm)
+    nonfinite_payloads: int = 0   # payloads the finite guard saw this tick
     ingest_seconds: float | None = None  # wall clock of ingest + detect
     served: np.ndarray | None = None     # (D,) served mask, None = every device
 
@@ -119,6 +139,16 @@ class FleetRuntime:
         if states.params.alpha.ndim != 2:
             raise ValueError("the fleet must carry one shared basis (α of shape (n, Ñ))")
         validate_precision(config.payload_precision)
+        if self._hardened(config) and config.payload_precision != "f32":
+            raise ValueError(
+                "robust/fault-injected merges require payload_precision='f32' "
+                "(the quantized codec path has its own publish boundary)"
+            )
+        if config.faults is not None and config.faults.n_devices != n_devices:
+            raise ValueError(
+                f"fault injector is for {config.faults.n_devices} devices, "
+                f"fleet has {n_devices}"
+            )
         dev = self.device
         self.states = states.replace(
             params=type(states.params)(*(t.to(dev).contiguous() for t in states.params)),
@@ -129,16 +159,26 @@ class FleetRuntime:
         self.governor = MergeGovernor(
             config.topology, states.beta.shape[1], states.beta.shape[2], config.governor,
             policies=policies, payload_precision=config.payload_precision,
+            robust=config.robust,
         )
         # error-feedback accumulator of the quantized path (None for f32),
         # advanced only on admitted merge rounds
         self._residual = (
             None if config.payload_precision == "f32" else init_residual(self.states)
         )
+        # each device's last finite published payload (hardened rounds): the
+        # finite guard publishes it in place of a non-finite one
+        self._last_good = (
+            _packed_uv(self.states, config.ridge)[1] if self._hardened(config) else None
+        )
         self.tick_no = 0
         self.detections_total = 0
         self._post_merge = False
         self._merge_mask = np.ones(n_devices, bool)
+
+    @staticmethod
+    def _hardened(config: RuntimeConfig) -> bool:
+        return config.robust is not None or config.faults is not None
 
     @property
     def n_devices(self) -> int:
@@ -155,19 +195,73 @@ class FleetRuntime:
         self.det = _where_served(keep, det_new, self.det)
         return losses, self.det.drifted, fresh & keep
 
-    def _merge(self, mask: np.ndarray, fp_mask: np.ndarray | None) -> None:
+    def _merge(
+        self, mask: np.ndarray, fp_mask: np.ndarray | None, drifted: np.ndarray, t: int
+    ) -> tuple[np.ndarray | None, int]:
+        """Run one admitted round; returns the outlier scores and the count
+        of non-finite payloads of a hardened round (None, 0 otherwise)."""
         cfg = self.config
         mask_t = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
+        if self._last_good is not None:
+            return self._merge_hardened(mask, mask_t, drifted, t)
         if self._residual is None:
             self.states = fleet_merge_masked_kernel(
                 self.states, cfg.topology, mask_t, ridge=cfg.ridge
             )
-            return
+            return None, 0
         self.states, self._residual = fleet_merge_quantized(
             self.states, cfg.topology, residual=self._residual,
             payload_precision=cfg.payload_precision, ridge=cfg.ridge, mask=mask_t,
             fp_mask=torch.as_tensor(fp_mask, dtype=torch.bool, device=self.device),
         )
+        return None, 0
+
+    def _merge_hardened(
+        self, mask: np.ndarray, mask_t: torch.Tensor, drifted: np.ndarray, t: int
+    ) -> tuple[np.ndarray, int]:
+        """The payload boundary of a hardened round: faults in, then the
+        naive arm or the finite guard and the robust merge."""
+        cfg, dev = self.config, self.device
+        injector = cfg.faults
+        _, w = _packed_uv(self.states, cfg.ridge)
+        if injector is not None:
+            mult, nonfin = injector.payload_scale(t)
+            if (mult != 1.0).any():
+                w = w * torch.as_tensor(mult, device=dev)[:, None, None]
+            # built only when a noise schedule is active: adding the
+            # reference's all-zero operand changes nothing but the sign of
+            # a zero, and at the har width it is a 90 MB copy per round
+            noise = injector.payload_noise(t, tuple(w.shape))
+            if noise is not None:
+                w = w + torch.as_tensor(noise, device=dev)
+            for code, value in ((1, torch.nan), (2, torch.inf)):
+                if (nonfin == code).any():
+                    hit = torch.as_tensor(nonfin == code, device=dev)[:, None, None]
+                    w = torch.where(hit, value, w)
+        finite = finite_payload_mask(w)
+        if cfg.robust is None:
+            # naive arm: whatever the faults produced flows into the plain
+            # masked Eq. 8 sum, the baseline the robust arm is held against
+            self.states = _masked_kernel_merge_from_w(
+                self.states, cfg.topology, mask_t, w, cfg.ridge
+            )
+            scores = np.zeros(self.n_devices, np.float32)
+        else:
+            # finite guard: a non-finite payload is replaced by the device's
+            # last finite one, so it never poisons a neighbourhood sum
+            w = torch.where(finite[:, None, None], w, self._last_good)
+            self._last_good = w
+            # robust-quarantined devices still download the merged model,
+            # unless drift-flagged or crashed this tick
+            rq = self.governor.robust_quarantined & ~np.asarray(drifted, bool)
+            if injector is not None:
+                rq &= ~injector.crash_mask(t)
+            receive = torch.as_tensor(mask | rq, dtype=torch.float32, device=dev)
+            self.states, scores_t = robust_merge_from_w(
+                self.states, cfg.topology, mask_t, w, cfg.robust, cfg.ridge, receive=receive
+            )
+            scores = scores_t.cpu().numpy()
+        return scores, int((~finite).sum())
 
     def tick(
         self,
@@ -184,6 +278,11 @@ class FleetRuntime:
         vetoes any merge this tick while the governor's ledger advances."""
         t = self.tick_no
         d = self.n_devices
+        injector = self.config.faults
+        if injector is not None and any(k == "poison" for k, _ in injector.active_faults(t)):
+            # data poisoning attacks through training itself, upstream of
+            # the payload boundary
+            batch = injector.poison_batch(torch.as_tensor(batch).cpu().numpy(), t)
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
         if x.ndim != 3 or x.shape[0] != d:
             raise ValueError(
@@ -218,21 +317,27 @@ class FleetRuntime:
             mask = self.governor.participation(drifted_np, losses_np)
         else:
             mask = np.ones(d, bool)
+        if injector is not None:
+            # crashed devices neither publish nor download, whatever the gating
+            mask = mask & ~injector.crash_mask(t)
         decision = self.governor.decide(t, mask, fp_mask, allow=allow_merge)
 
-        merge_seconds = None
+        merge_seconds, scores, nonfinite = None, None, 0
         if decision.merge:
             t0 = time.perf_counter()
-            self._merge(mask, fp_mask)
+            scores, nonfinite = self._merge(mask, fp_mask, drifted_np, t)
             _synchronize(self.device)
             merge_seconds = time.perf_counter() - t0
+            if scores is not None:
+                self.governor.observe_robust(scores)
             self._merge_mask = mask.copy()
         self._post_merge = decision.merge
         self.tick_no = t + 1
         return TickReport(
             tick=t, losses=losses_np, drifted=drifted_np, fresh_detections=fresh_np,
-            decision=decision, merge_seconds=merge_seconds,
-            ingest_seconds=ingest_seconds, served=None if served is None else served_np,
+            decision=decision, merge_seconds=merge_seconds, robust_scores=scores,
+            nonfinite_payloads=nonfinite, ingest_seconds=ingest_seconds,
+            served=None if served is None else served_np,
         )
 
     def run(self, feed: TickFeed, *, ticks: int | None = None) -> list[TickReport]:
@@ -247,14 +352,17 @@ class FleetRuntime:
 
     def warmup(self, batch_size: int) -> None:
         """Build the kernels and launch each kernel the tick can reach once
-        (``quantize_pack`` too when the payloads are int8), on all-zero
-        operands, before live traffic arrives: the first real tick then
-        does not pay for ``nvcc``. Every output is discarded — no model,
-        detector, residual or governor state changes."""
-        saved = (self.states, self.det, self._residual)
+        (``quantize_pack`` when the payloads are int8, ``robust_segment_sum_mix``
+        when a robust merge routes to it, ``dense_mix`` on a dense mask), on
+        all-zero operands and an all-zero mask, before live traffic arrives:
+        the first real tick then does not pay for ``nvcc``. Every output is
+        discarded — no model, detector, residual, payload or governor state
+        changes."""
+        saved = (self.states, self.det, self._residual, self._last_good)
         d, f = self.n_devices, self.states.params.alpha.shape[0]
         batch = torch.zeros((d, batch_size, f), dtype=torch.float32, device=self.device)
         self._ingest_detect(batch, np.zeros(d, bool))
-        self._merge(np.zeros(d, bool), np.zeros(d, bool))
+        none = np.zeros(d, bool)
+        self._merge(none, none, none, self.tick_no)
         _synchronize(self.device)
-        self.states, self.det, self._residual = saved
+        self.states, self.det, self._residual, self._last_good = saved

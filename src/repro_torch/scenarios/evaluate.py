@@ -9,7 +9,8 @@ two-device and BP-NN evaluations wait for the port of ``baselines/``).
 - ``run_scenario`` — a whole ``ScenarioSpec`` end to end through
   ``FleetRuntime`` on any topology, on the card unless ``device="cpu"``:
   local (pre-merge) per-device AUC, post-merge AUC, merges, comm bytes,
-  detection stats.
+  detection stats; a spec with fault schedules runs with its injector and,
+  by default, the robust merge.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.data.metrics import roc_auc
 from repro_torch.data.pipeline import anomaly_eval_arrays
 from repro_torch.data.synthetic import AnomalyDataset
 from repro_torch.fleet.fleet import fleet_score, fleet_train
+from repro_torch.fleet.robust import RobustConfig
 from repro_torch.fleet.topology import Topology, make_topology
 from repro_torch.runtime.governor import GovernorConfig
 from repro_torch.runtime.runtime import FleetRuntime, RuntimeConfig, TickReport
@@ -144,12 +146,14 @@ class ScenarioResult:
     detection: dict             # detection_stats output
     reports: list[TickReport]
     payload_precision: str = "f32"   # wire format the merges shipped at
+    robust: RobustConfig | None = None  # robust-merge config the run used
 
     @property
     def clean_devices(self) -> list[int]:
-        """The devices that never drift: the fleet the AUC claims are
-        stated over."""
+        """Honest devices that never drift: the fleet the AUC claims are
+        stated over (a Byzantine device's own model is the attacker's)."""
         drifted = {ev.device for ev in self.spec.drift_schedule()}
+        drifted |= set(self.spec.fault_devices())
         return [d for d in range(self.spec.n_devices) if d not in drifted]
 
     def auc_summary(self) -> dict[str, float]:
@@ -188,6 +192,7 @@ def run_scenario(
     payload_precision: str = "f32",
     key_seed: int = 0,
     scenario=None,
+    robust: RobustConfig | str | None = "auto",
     device: str | torch.device | None = None,
 ) -> ScenarioResult:
     """Drive one built scenario end to end through ``FleetRuntime``.
@@ -200,10 +205,18 @@ def run_scenario(
     merges. ``scenario`` takes a pre-built ``spec.build()`` so a topology
     grid shares one stream synthesis; the local baseline is cached per
     (spec, key_seed, device) across topologies. ``device`` defaults to the
-    card and raises without one."""
+    card and raises without one.
+
+    ``robust`` selects the merge's Byzantine defence: ``"auto"`` (default)
+    gives ``RobustConfig(trim=1)`` exactly when the spec carries fault
+    schedules, so clean presets keep the exact merge; pass a
+    ``RobustConfig`` to force one, or None to run a fault-carrying spec
+    through the naive merge."""
     device = resolve_device(device)
     sc = spec.build() if scenario is None else scenario
     topo = scenario_topology(topology, spec.n_devices, **(topology_kwargs or {}))
+    if robust == "auto":
+        robust = RobustConfig(trim=1) if spec.faults else None
     rt = FleetRuntime(
         sc.init_fleet(torch.Generator().manual_seed(key_seed), device=device),
         RuntimeConfig(
@@ -213,6 +226,8 @@ def run_scenario(
             governor=GovernorConfig(merge_every=merge_every),
             gate_merges=gate_merges,
             payload_precision=payload_precision,
+            robust=robust,
+            faults=spec.fault_injector(),
         ),
         device=device,
     )
@@ -225,7 +240,8 @@ def run_scenario(
         spec=spec,
         topology=topo.name,
         local_aucs=_local_aucs(sc, key_seed, device),
-        merged_aucs=fleet_aucs(rt.states, sc.x_eval, sc.y_eval),
+        merged_aucs=fleet_aucs(rt.states, sc.x_eval, sc.y_eval,
+                               nonfinite="coerce" if spec.faults else "strict"),
         merges=rt.governor.state.merges,
         comm_bytes=rt.governor.state.bytes_spent,
         detection=detection_stats(
@@ -233,4 +249,5 @@ def run_scenario(
         ),
         reports=reports,
         payload_precision=payload_precision,
+        robust=robust,
     )

@@ -1,6 +1,5 @@
 """Paper-fidelity scenario layer — workloads as streaming fleet feeds;
-port of ``repro.scenarios.spec`` (the clean presets: fault schedules
-wait for the port of ``fleet/faults.py``).
+port of ``repro.scenarios.spec``.
 
 The paper's whole evaluation (§5) is three streaming anomaly-detection
 workloads — a car-driving dataset, a human-activity dataset, and MNIST
@@ -26,13 +25,14 @@ turns a workload into something those mechanisms can run end-to-end:
   runtime's ``TickFeed`` so one spec drives ``FleetRuntime`` unchanged
   on every topology.
 
-Three paper-analog presets are registered (``make_scenario``):
+Four presets are registered (``make_scenario``), three paper analogs:
 ``driving`` (multi-regime correlated sensor channels — normal + drowsy
 regimes home, the high-entropy aggressive regime held out), ``har``
 (segmented activity windows with per-device Dirichlet user skew —
 sitting/standing home, laying held out), and ``mnist_like``
 (high-dimensional digit-pattern analog — digits 0–7 home, 8/9 held
-out). The evaluation harness on top lives in
+out); and ``adversarial``, the ``har`` workload with 10 % of the devices
+mounting a payload scale attack. The evaluation harness on top lives in
 ``repro_torch.scenarios.evaluate``. ``build`` is numpy only and gives the
 reference's arrays bit for bit; the fleet is made with a
 ``torch.Generator``.
@@ -52,6 +52,7 @@ from repro_torch.data.pipeline import (
     train_test_split,
 )
 from repro_torch.data.synthetic import DATASETS, AnomalyDataset, make_dataset
+from repro_torch.fleet.faults import FaultInjector, FaultSpec
 from repro_torch.fleet.partition import (
     DriftEvent,
     FleetStreams,
@@ -158,9 +159,11 @@ class ScenarioSpec:
     anomaly_ratio: float = 0.3                # eval positives / negatives
     train_frac: float = 0.8                   # §5.3.1 split
     seed: int = 0
-    # fault schedules (Byzantine payloads, crashes, poisoned streams) wait
-    # for the port of fleet/faults.py; a spec that carries any raises
-    faults: tuple = ()
+    # deterministic fault schedules (repro_torch.fleet.faults) applied at
+    # the payload boundary: Byzantine payloads, crashes, poisoned streams.
+    # A tuple of frozen FaultSpecs keeps the spec hashable (the local-AUC
+    # cache keys on it).
+    faults: tuple[FaultSpec, ...] = ()
 
     def __post_init__(self) -> None:
         if self.dataset not in DATASETS:
@@ -201,10 +204,17 @@ class ScenarioSpec:
             raise ValueError(f"need 0 < train_frac < 1, got {self.train_frac}")
         if not 0.0 < self.forget <= 1.0:
             raise ValueError(f"need 0 < forget <= 1, got {self.forget}")
-        if self.faults:
-            raise NotImplementedError(
-                "fault schedules need fleet/faults.py, which the port does not have yet"
-            )
+        for fs in self.faults:
+            if not isinstance(fs, FaultSpec):
+                raise ValueError(
+                    f"faults must be FaultSpec instances, got {type(fs).__name__}"
+                )
+            bad = [d for d in fs.devices if d >= self.n_devices]
+            if bad:
+                raise ValueError(
+                    f"fault devices {bad} out of range for a "
+                    f"{self.n_devices}-device scenario"
+                )
 
     # ------------------------------------------------------------ derived
 
@@ -242,6 +252,19 @@ class ScenarioSpec:
             home_classes=self.n_normal,
             targets=tuple(remap[t] for t in targets),
         )
+
+    def fault_injector(self) -> FaultInjector | None:
+        """The spec's resolved fault schedules (None when clean), seeded by
+        the spec seed, so victim choice is part of the scenario."""
+        if not self.faults:
+            return None
+        return FaultInjector(self.faults, self.n_devices, seed=self.seed)
+
+    def fault_devices(self) -> tuple[int, ...]:
+        """Byzantine device ids (payload and poison victims), excluded
+        from honest-fleet AUC summaries as drifted devices are."""
+        inj = self.fault_injector()
+        return () if inj is None else inj.byzantine_devices
 
     # -------------------------------------------------------------- build
 
@@ -332,11 +355,14 @@ def _mnist_spec() -> ScenarioSpec:
 
 
 def _adversarial_spec() -> ScenarioSpec:
-    """The HAR workload with 10% of devices mounting a payload scale
-    attack, in the reference. Its fault schedule needs fleet/faults.py,
-    which the port does not have yet."""
-    raise NotImplementedError(
-        "the adversarial preset needs fleet/faults.py, which the port does not have yet"
+    """Byzantine fleet: the HAR workload with 10% of devices mounting a
+    payload scale attack (×−25: one such contribution swamps an honest
+    neighbourhood's Eq. 8 sum under the naive merge). ``run_scenario``
+    arms the robust merge for fault-carrying specs (``robust="auto"``)."""
+    return dataclasses.replace(
+        _har_spec(),
+        name="adversarial",
+        faults=(FaultSpec(kind="scale", frac=0.1, magnitude=-25.0, seed=7),),
     )
 
 

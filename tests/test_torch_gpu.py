@@ -9,8 +9,9 @@ on its own, with the reasons of ``chip_smoke.py``: 1e-6 for the
 fixed-order masked segment sum, 1e-5 for the Gauss-Jordan solves (the
 same fused elimination in both), 1e-4 for the ingest (other summation
 orders in the GEMM and dot products, amplified along the RLS chain).
-``quantize_pack`` is held bit for bit: its arithmetic has no order to
-differ in.
+``quantize_pack``, ``robust_segment_sum_mix`` and ``dense_mix`` are held
+bit for bit: their plain versions repeat the kernels' operations in the
+kernels' order.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from repro_torch.core import SLFNParams, init_oselm
 from repro_torch.kernels import (
     banded_merge_solve,
     banded_merge_solve_plain,
+    dense_mix,
+    dense_mix_plain,
     fleet_ingest,
     fleet_ingest_plain,
     from_uv_solve,
@@ -29,6 +32,8 @@ from repro_torch.kernels import (
     masked_segment_sum_mix_plain,
     quantize_pack,
     quantize_pack_plain,
+    robust_segment_sum_mix,
+    robust_segment_sum_mix_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -174,3 +179,41 @@ def test_quantize_pack_kernel_matches_plain(cuda, d, n, m, with_residual):
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
     # scale 1.0 on the all-zero tile and on the tile holding the NaN
     assert float(got[1][0, 0]) == 1.0 and float(got[1][1, (n + 5) // 128]) == 1.0
+
+
+# (13, 10, 37): ragged clusters, one of them empty; (256, 128, 689): the
+# har width on 32 clusters, as a hierarchical fleet merges
+@pytest.mark.parametrize("d,r,c,n_clusters", [(13, 10, 37, 4), (256, 128, 689, 32)])
+@pytest.mark.parametrize("trim", [0, 1, 2, 4])
+def test_robust_segment_sum_kernel_matches_plain(cuda, d, r, c, n_clusters, trim):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((d, r, c)).astype(np.float32)).to(cuda)
+    if n_clusters == 4:
+        cids = np.array([0] * 4 + [2] * 6 + [3] * 3, np.int32)
+    else:
+        cids = (np.arange(d) * n_clusters // d).astype(np.int32)
+    mask = torch.from_numpy((rng.random(d) < 0.7).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(0.2, 1.0, d).astype(np.float32)).to(cuda)
+    before = launch_counts()["robust_segment_sum_mix"]
+    got = robust_segment_sum_mix(x, cids, mask, scale, n_clusters, trim)
+    torch.cuda.synchronize()
+    assert launch_counts()["robust_segment_sum_mix"] == before + 1
+    want = robust_segment_sum_mix_plain(x, cids, mask, scale, n_clusters, trim)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="MAX_TRIM"):
+        robust_segment_sum_mix(x, cids, mask, scale, n_clusters, 5)
+
+
+# (13, 10, 37): everything odd; (256, 128, 689): the har width
+@pytest.mark.parametrize("d,r,c", [(13, 10, 37), (256, 128, 689)])
+def test_dense_mix_kernel_matches_plain(cuda, d, r, c):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((d, r, c)).astype(np.float32)).to(cuda)
+    m = (rng.random((d, d)) < 0.3).astype(np.float32)
+    m = np.maximum(np.maximum(m, m.T), np.eye(d, dtype=np.float32))
+    before = launch_counts()["dense_mix"]
+    got = dense_mix(x, m)
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_mix"] == before + 1
+    assert torch.equal(got, dense_mix_plain(x, m))

@@ -30,6 +30,28 @@ it the port's largest loss deviation is at most twice the reference's own
 spread between its XLA path (XLA ingest, ``use_merge_kernel=False``) and
 its kernel path on the same ticks. Each round's flipped codes are counted from the
 residuals (a flip moves the residual by about one step).
+
+The hardened runtime (``robust=``, ``faults=``) is held on star and ring,
+with a ×−25 scale attacker, a NaN device, a crash window and a poisoned
+window, on the robust arm (trim = 1) and on the naive arm: flags,
+decisions, non-finite payload counts and the robust quarantine equal
+after every round; scores at 1e-3; losses at 1e-5 up to the first merge.
+After it the port's largest loss deviation is held at the larger of 5e-4
+and twice the reference's own spread between its kernel path and its
+XLA path (XLA ingest, oracle merge) on the same ticks. 5e-4 is not the
+exact merge's 2e-4: the trimmed arm solves by Cholesky and ``eigh`` in
+both packages, so it does not see payloads that agree to the bit (the two
+packages' Cholesky inverses of P, U = P⁻¹, differ by 1.8e-5 relative on
+this fixture), and the trimmed mean and κ(U) = 287 carry that to 1.2e-4
+on β in one round, against 5.4e-6 from the reference's own payload
+(``test_robust_merge_spread_follows_the_payloads`` prints these); the
+port's loss deviation then reached 2.3e-4 on star
+(measured, against 8.5e-5 for the reference's twin, whose merges see
+identical arithmetic). On the ring the twin's own spread is larger (up
+to 9.5e-2: ±1-hop neighbourhoods of three trimmed to their median and
+PSD-repaired are ill conditioned) and sets the bound. The naive arm's
+merges are poisoned by the NaN device, as in the reference: its losses
+are NaN in the same places in both.
 """
 import dataclasses
 
@@ -38,6 +60,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.fleet import FaultInjector as RefFaultInjector
+from repro.fleet import FaultSpec as RefFaultSpec
+from repro.fleet import RobustConfig as RefRobustConfig
 from repro.fleet import ring as ref_ring, star as ref_star
 from repro.runtime import (
     FleetRuntime as RefRuntime,
@@ -46,7 +71,7 @@ from repro.runtime import (
 )
 from repro.scenarios import make_scenario
 from repro_torch.convert import oselm_state_from_numpy
-from repro_torch.fleet import ring, star
+from repro_torch.fleet import FaultInjector, FaultSpec, RobustConfig, ring, star
 from repro_torch.runtime import DetectorConfig, FleetRuntime, GovernorConfig, RuntimeConfig
 
 torch.set_num_threads(2)
@@ -62,11 +87,13 @@ SHORT_DETECTOR = dict(warmup=3, warmup_skip=1, rel_sigma=0.05, k_sigma=1.0, pati
 INT8_TICKS = 40
 
 
-def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=None):
+def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=None,
+          spec=None, hardened=None):
     """(scenario, reference runtime on Pallas kernels, port runtime) and,
     with ``twin``, a fourth: the reference runtime on its XLA ingest, and
-    for a lossy precision on its XLA merge too."""
-    over = dict(SPEC_ODD)
+    for a lossy precision or a hardened runtime on its XLA merge too.
+    ``hardened`` is (fault spec dicts, trim or None for the naive arm)."""
+    over = dict(SPEC_ODD if spec is None else spec)
     if ticks is not None:
         over["ticks"] = ticks
     if forget != 1.0:
@@ -78,13 +105,18 @@ def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=Non
     fleet = sc.init_fleet(jax.random.PRNGKey(0))
     port_topo, ref_topo = TOPOS[topo_name]
     d = sc.spec.n_devices
+    faults, trim = hardened if hardened is not None else ((), None)
+    hard = {}
+    if hardened is not None:
+        hard = dict(faults=RefFaultInjector(tuple(RefFaultSpec(**f) for f in faults), d),
+                    robust=None if trim is None else RefRobustConfig(trim=trim))
 
     def reference(ingest_backend, merge_kernel=True):
         return RefRuntime(fleet, RefRuntimeConfig(
             topology=ref_topo(d), ridge=sc.spec.ridge, detector=sc.spec.detector,
             governor=RefGovernorConfig(merge_every=4), use_ingest_kernel=True,
             ingest_backend=ingest_backend, use_merge_kernel=merge_kernel,
-            payload_precision=precision,
+            payload_precision=precision, **hard,
         ))
 
     ref = reference("pallas")
@@ -96,9 +128,12 @@ def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=Non
         topology=port_topo(d), ridge=sc.spec.ridge,
         detector=DetectorConfig(**dataclasses.asdict(sc.spec.detector)),
         governor=GovernorConfig(merge_every=4), payload_precision=precision,
+        **({} if hardened is None else dict(
+            faults=FaultInjector(tuple(FaultSpec(**f) for f in faults), d),
+            robust=None if trim is None else RobustConfig(trim=trim))),
     ), device="cpu")
     if twin:
-        if precision == "f32":
+        if precision == "f32" and hardened is None:
             return sc, ref, port, reference("xla")
         return sc, ref, port, reference("xla", merge_kernel=False)
     return sc, ref, port
@@ -203,6 +238,119 @@ def test_int8_tick_reports_match_reference(topo_name):
         f"path does; per tick, port {port_dev}, XLA path {twin_dev}; flipped codes "
         f"per round {flips}"
     )
+
+
+HARD_SPEC = dict(n_devices=6, ticks=24, batch=3, n_hidden=10)
+HARD_FAULTS = (
+    dict(kind="scale", devices=(1,), magnitude=-25.0, start_tick=4),
+    dict(kind="nan", devices=(4,), start_tick=7, period=8),       # rounds at 7, 15, 23
+    dict(kind="crash", devices=(2,), start_tick=6, end_tick=14),
+    dict(kind="poison", devices=(3,), start_tick=10, end_tick=12, magnitude=2.0, seed=5),
+)
+HARD_LOSS_RTOL = 5e-4
+
+
+def _finite_max_rel(got, want):
+    live = np.isfinite(want)
+    return _max_rel(got[live], want[live]) if live.any() else 0.0
+
+
+@pytest.mark.parametrize("arm", ["robust", "naive"])
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_hardened_tick_reports_match_reference(topo_name, arm):
+    trim = 1 if arm == "robust" else None
+    sc, ref, port, twin = _pair(topo_name, 1.0, "scenario", twin=True, spec=HARD_SPEC,
+                                hardened=(HARD_FAULTS, trim))
+    port.warmup(sc.spec.batch)
+    feed = sc.feed()
+    merges = nonfinite = 0
+    port_dev, twin_dev, score_dev = [], [], []
+    for t in range(feed.n_ticks):
+        batch = feed.tick_batch(t)
+        want, got = ref.tick(batch), port.tick(batch)
+        _assert_same_report(got, want, losses=False)
+        np.testing.assert_array_equal(np.isfinite(got.losses), np.isfinite(want.losses))
+        if not merges:
+            np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5, atol=1e-6)
+        port_dev.append(_finite_max_rel(got.losses, want.losses))
+        twin_dev.append(_finite_max_rel(twin.tick(batch).losses, want.losses))
+        assert got.nonfinite_payloads == want.nonfinite_payloads
+        np.testing.assert_array_equal(port.governor.robust_quarantined,
+                                      ref.governor.robust_quarantined)
+        if want.decision.merge:
+            merges += 1
+            nonfinite += want.nonfinite_payloads
+            np.testing.assert_allclose(got.robust_scores, want.robust_scores, rtol=1e-3,
+                                       atol=1e-3)
+            score_dev.append(_max_rel(got.robust_scores + 1.0, want.robust_scores + 1.0))
+        else:
+            assert got.robust_scores is None and want.robust_scores is None
+    assert merges >= 5 and nonfinite > 0, "the fault schedule went untested"
+    if trim is not None:
+        assert port.governor.robust_quarantined[1], "the attacker was never quarantined"
+        assert np.isfinite(port.states.beta.numpy()).all()
+    else:
+        assert not np.isfinite(want.losses).any(), "the naive arm was not poisoned"
+    print(f"hardened {topo_name} {arm}: losses port {max(port_dev):.3e}, XLA path "
+          f"{max(twin_dev):.3e}; scores {max(score_dev):.3e}")
+    assert max(port_dev) <= max(HARD_LOSS_RTOL, 2 * max(twin_dev)), (
+        f"per tick, port {port_dev}, XLA path {twin_dev}")
+
+
+def test_robust_merge_spread_follows_the_payloads():
+    """Where the hardened runtime's wider loss spread comes from: the
+    trimmed merge of the reference's states at the first round, fed the
+    reference's payload, agrees closely with the reference's merge; fed
+    the port's own payload (the port's Cholesky inverse of P), it strays
+    further, as the trimmed mean and κ(U) carry the payloads' last-bit
+    difference. Prints the numbers the module docstring quotes."""
+    import jax.numpy as jnp
+
+    from repro.fleet import fleet_to_uv as ref_fleet_to_uv
+    from repro.fleet.robust import robust_merge_from_w as ref_robust_merge_from_w
+    from repro_torch.fleet import robust_merge_from_w
+    from repro_torch.fleet.fleet import _packed_uv
+
+    sc, ref, _ = _pair("star", 1.0, "scenario", spec=HARD_SPEC,
+                       hardened=(HARD_FAULTS, 1))
+    feed = sc.feed()
+    for t in range(3):  # the first round is at tick 3
+        ref.tick(feed.tick_batch(t))
+    st, d, ridge = ref.states, sc.spec.n_devices, sc.spec.ridge
+    uv = ref_fleet_to_uv(st, ridge=ridge)
+    w_ref = np.array(jnp.concatenate([uv.u, uv.v], axis=2))
+    want, _ = ref_robust_merge_from_w(st, ref_star(d), jnp.ones(d), jnp.asarray(w_ref),
+                                      RefRobustConfig(trim=1), ridge, kernel=True)
+    port_st = oselm_state_from_numpy(st.params.alpha, st.params.bias, st.beta, st.p,
+                                     activation=st.activation, forget=st.forget, device="cpu")
+    w_own = _packed_uv(port_st, ridge)[1]
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    devs = {}
+    for name, w in (("own", w_own), ("reference's", torch.from_numpy(w_ref))):
+        got, _ = robust_merge_from_w(port_st, star(d), torch.ones(d), w, RobustConfig(trim=1),
+                                     ridge)
+        devs[name] = rel(got.beta.numpy(), np.asarray(want.beta))
+    payload = rel(w_own.numpy(), w_ref)
+    cond = float(np.linalg.cond(w_ref[0, :, : w_ref.shape[1]]))
+    print(f"payloads differ by {payload:.2e}; merged β from the port's own payload "
+          f"{devs['own']:.2e}, from the reference's {devs["reference's"]:.2e}; "
+          f"cond(U) {cond:.0f}")
+    assert devs["reference's"] < 2e-5 < devs["own"]
+
+
+def test_hardened_runtime_validation():
+    sc = make_scenario("har", **SPEC_ODD).build()
+    fleet = sc.init_fleet(jax.random.PRNGKey(0))
+    port_fleet = oselm_state_from_numpy(fleet.params.alpha, fleet.params.bias, fleet.beta,
+                                        fleet.p, activation=fleet.activation,
+                                        forget=fleet.forget, device="cpu")
+    with pytest.raises(ValueError, match="payload_precision='f32'"):
+        FleetRuntime(port_fleet, RuntimeConfig(topology=star(5), robust=RobustConfig(),
+                                               payload_precision="int8"), device="cpu")
+    with pytest.raises(ValueError, match="fault injector is for 4 devices"):
+        FleetRuntime(port_fleet, RuntimeConfig(
+            topology=star(5), faults=FaultInjector((FaultSpec(kind="nan", devices=(1,)),), 4),
+        ), device="cpu")
 
 
 def test_selection_policies_match_reference():

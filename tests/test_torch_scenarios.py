@@ -14,6 +14,12 @@
   quantization step, and the reference's own XLA and kernel paths
   already differ by up to 6.5e-3 per device on ``har``. So int8 AUCs are
   held at twice that own spread, measured in the same test.
+- The ``adversarial`` preset (``har`` with a ×−25 scale attack on 10 % of
+  the devices) runs ``run_scenario``'s robust default (trim = 1) in both:
+  merges, comm bytes, detections, fault devices and every round's
+  participants equal, outlier scores at 1e-3, AUCs at 1e-3 (measured: 0).
+  The reference trims with its sort-based oracle here, the port in its
+  kernel's order; the two agree at 1e-5 (``tests/test_torch_robust.py``).
 """
 import dataclasses
 import logging
@@ -34,7 +40,7 @@ from repro.scenarios import (
 )
 from repro_torch.convert import oselm_state_from_numpy
 from repro_torch.data import metrics, pipeline, synthetic
-from repro_torch.fleet import partition, star
+from repro_torch.fleet import FaultSpec, RobustConfig, partition, star
 from repro_torch.runtime import FleetRuntime, RuntimeConfig, TickFeed
 from repro_torch.scenarios import (
     Scenario,
@@ -152,10 +158,23 @@ def test_detection_stats_match_reference():
 
 
 def test_faults_and_the_adversarial_preset_wait_for_the_port_of_faults():
-    with pytest.raises(NotImplementedError, match="faults.py"):
-        make_scenario("adversarial")
-    with pytest.raises(NotImplementedError, match="faults.py"):
+    """Fault schedules and the ``adversarial`` preset are ported: the
+    preset and its victims are the reference's, and a spec's faults are
+    validated as the reference validates them."""
+    spec = make_scenario("adversarial")
+    ref_spec = ref_make_scenario("adversarial")
+    assert [dataclasses.astuple(f) for f in spec.faults] == [
+        dataclasses.astuple(f) for f in ref_spec.faults]
+    assert spec.fault_devices() == ref_spec.fault_devices() != ()
+    assert dataclasses.replace(spec, faults=(), name="har") == make_scenario("har")
+    assert not make_scenario("har").faults and make_scenario("har").fault_injector() is None
+    small = make_scenario("adversarial", n_devices=6, ticks=24)
+    assert small.fault_devices() == ref_make_scenario("adversarial", n_devices=6,
+                                                      ticks=24).fault_devices()
+    with pytest.raises(ValueError, match="FaultSpec instances"):
         make_scenario("har", faults=("scale",))
+    with pytest.raises(ValueError, match="out of range"):
+        make_scenario("har", faults=(FaultSpec(kind="nan", devices=(12,)),))
     with pytest.raises(ValueError, match="unknown scenario"):
         make_scenario("cifar")
     with pytest.raises(ValueError, match="held out"):
@@ -231,6 +250,29 @@ def test_run_scenario_int8_matches_reference(built, topology):
     # detector marks at risk still ship f32
     f32_bytes = ref_run_scenario(ref_sc.spec, topology, scenario=ref_sc).comm_bytes
     assert 3.5 < f32_bytes / got.comm_bytes < 4.0
+
+
+@pytest.mark.parametrize("topology", ["ring", "star"])
+def test_run_scenario_adversarial_matches_reference(topology):
+    sc, ref_sc = make_scenario("adversarial").build(), ref_make_scenario("adversarial").build()
+    want = ref_run_scenario(ref_sc.spec, topology, scenario=ref_sc)
+    got = run_scenario(sc.spec, topology, scenario=_seam(sc, ref_sc), device="cpu")
+    _hold(got, want, 1e-3)
+    assert got.robust == RobustConfig(trim=1) and want.robust is not None
+    assert got.spec.fault_devices() == want.spec.fault_devices()
+    assert set(got.clean_devices).isdisjoint(got.spec.fault_devices())
+    assert got.clean_devices == want.clean_devices
+    rounds = 0
+    for a, b in zip(got.reports, want.reports):
+        assert a.decision.participants == b.decision.participants
+        assert a.nonfinite_payloads == b.nonfinite_payloads
+        if b.decision.merge:
+            rounds += 1
+            np.testing.assert_allclose(a.robust_scores, b.robust_scores, rtol=1e-3, atol=1e-3)
+    assert rounds == got.merges
+    attackers = list(got.spec.fault_devices())
+    last = [r for r in got.reports if r.decision.merge][-1]
+    assert last.robust_scores[attackers].min() > 10 * np.median(last.robust_scores)
 
 
 def test_run_scenario_draws_its_fleet_from_the_key_seed(built):

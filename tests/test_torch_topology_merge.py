@@ -11,6 +11,12 @@
   reference's own Gauss-Jordan and Cholesky solves differ by up to
   1.8e-5 on β at this conditioning (ROADMAP queue 3).
 - Non-participants keep their state bit for bit.
+- ``dense_mix_plain`` (one fused multiply-add per device, in device
+  order, as the CUDA kernel) against the reference's ``dense_mix`` in
+  interpret mode, on shapes that straddle its 128 tiles: the reference
+  sums each 128-device tile with one dot product, so the two agree to
+  f32 rounding of the sum (1e-6 relative here), not bit for bit. A custom
+  dense topology merges through it.
 """
 import jax
 import jax.numpy as jnp
@@ -28,8 +34,10 @@ from repro.fleet import (
     ring as ref_ring,
     star as ref_star,
 )
+from repro.fleet.topology import Topology as RefTopology
 from repro.kernels.topology_merge import (
     banded_merge_solve as ref_banded_merge_solve,
+    dense_mix as ref_dense_mix,
     from_uv_solve as ref_from_uv_solve,
     masked_segment_sum_mix as ref_masked_segment_sum_mix,
 )
@@ -47,6 +55,8 @@ from repro_torch.fleet import (
 )
 from repro_torch.kernels import (
     banded_merge_solve_plain,
+    dense_mix,
+    dense_mix_plain,
     from_uv_solve_plain,
     masked_segment_sum_mix_plain,
 )
@@ -169,11 +179,61 @@ def test_all_ones_mask_is_the_unmasked_merge(trained_fleet, topo_name):
     np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta), rtol=1e-5, atol=5e-5)
 
 
+def _custom_mask(d, seed=9):
+    """A seeded symmetric 0/1 mask with its diagonal set."""
+    m = (np.random.default_rng(seed).random((d, d)) < 0.35).astype(np.float32)
+    return np.maximum(np.maximum(m, m.T), np.eye(d, dtype=np.float32))
+
+
+# (130, 3, 50): 130 devices and 150 columns straddle the reference's
+# 128-wide tiles; (13, 10, 37): odd everything
+@pytest.mark.parametrize("d,r,c", [(130, 3, 50), (13, 10, 37)])
+def test_dense_mix_plain_matches_interpret(d, r, c):
+    x = np.random.default_rng(10).standard_normal((d, r, c)).astype(np.float32)
+    m = _custom_mask(d)
+    want = np.asarray(ref_dense_mix(jnp.asarray(x), jnp.asarray(m), interpret=True))
+    got = dense_mix(torch.from_numpy(x), m)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    # a 0/1 mask: every product is exact, so each step rounds once; the
+    # sum in device order is what the plain version computes
+    order = np.zeros((d, r * c), np.float32)
+    for k in range(d):
+        order = order + m[:, k : k + 1] * x[k].reshape(1, -1)
+    np.testing.assert_array_equal(got.numpy().reshape(d, -1), order)
+    with pytest.raises(ValueError, match="matrix"):
+        dense_mix_plain(torch.from_numpy(x), m[:-1])
+
+
 def test_dense_partial_mask_needs_dense_mix(trained_fleet):
-    m = np.eye(D_ODD, dtype=np.float32)
+    """A dense topology that is not fully connected merges through
+    ``dense_mix`` and a solve per device, as the reference's."""
+    m = _custom_mask(D_ODD)
     topo = Topology(name="custom", n_devices=D_ODD, kind="dense", matrix=m)
-    with pytest.raises(NotImplementedError, match="dense_mix"):
-        fleet_merge_masked_kernel(_port(trained_fleet), topo, torch.ones(D_ODD), ridge=RIDGE)
+    ref_topo = RefTopology(name="custom", n_devices=D_ODD, kind="dense", matrix=m)
+    assert not topo.is_fully_connected
+    for mask in MASKS.values():
+        ref = ref_fleet_merge_masked(trained_fleet, ref_topo, jnp.asarray(mask), ridge=RIDGE)
+        before = _port(trained_fleet)
+        got = fleet_merge_masked_kernel(before, topo, torch.from_numpy(mask), ridge=RIDGE)
+        np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta), rtol=1e-5, atol=5e-5)
+        out = mask == 0
+        assert torch.equal(got.p[out], before.p[out])
+
+
+def test_ring_mask_as_a_dense_topology_is_the_banded_merge(trained_fleet):
+    """The ring's ±2 mask given as a dense matrix takes the dense route and
+    lands on the banded route's merge; the sums differ only in their order
+    (device order against the band's), so at f32 rounding."""
+    banded = ring(D_ODD, 2)
+    dense = Topology(name="ring2_dense", n_devices=D_ODD, kind="dense",
+                     matrix=banded.dense_matrix())
+    mask = torch.from_numpy(MASKS["random"])
+    fleet = _port(trained_fleet)
+    want = fleet_merge_masked_kernel(fleet, banded, mask, ridge=RIDGE)
+    got = fleet_merge_masked_kernel(fleet, dense, mask, ridge=RIDGE)
+    np.testing.assert_allclose(got.p.numpy(), want.p.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.beta.numpy(), want.beta.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_fleet_from_uv_nonfinite_guards(trained_fleet):
