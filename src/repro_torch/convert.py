@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.core.e2lm import UV
 from repro_torch.core.elm import SLFNParams
 from repro_torch.core.oselm import OSELMState
 from repro_torch.kernels.fleet_ingest import validate_shared_basis
@@ -38,6 +39,18 @@ def oselm_state_from_numpy(
         beta=_f32(beta, device), p=_f32(p, device),
         activation=activation, forget=float(forget),
     )
+
+
+def uv_from_numpy(u, v, *, device: str | torch.device | None = None) -> UV:
+    """An E²LM payload (U, V), one device's or stacked."""
+    device = resolve_device(device)
+    return UV(u=_f32(u, device), v=_f32(v, device))
+
+
+def bpnn_params_from_numpy(params, *, device: str | torch.device | None = None) -> list[dict]:
+    """BP-NN parameters: a list of {"w", "b"} layers of arrays."""
+    device = resolve_device(device)
+    return [{k: _f32(leaf, device) for k, leaf in layer.items()} for layer in params]
 
 
 def detector_state_from_numpy(

@@ -18,8 +18,8 @@
 // P/gain chain never reads β, and every column of β (and of the error)
 // evolves on its own from the same gain sequence. So the tick runs as
 // four launches on one stream:
-//   1. hidden_proj_kernel  — H for the whole window, a tiled f32 GEMM with
-//      the bias and activation in its epilogue;
+//   1. the hidden projection — H for the whole window, the f32 GEMM of
+//      gemm.cuh with the bias and activation in its epilogue;
 //   2. ingest_gain_kernel  — one block per device keeps P (Ñ×Ñ, 64 KB) in
 //      shared memory across the window and writes the T gain vectors;
 //   3. ingest_beta_kernel  — one block per (device, 32-column tile of β)
@@ -33,80 +33,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gemm.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBetaTile = 32;  // columns of β per block
-constexpr int PBM = 64, PBN = 64, PBK = 16;
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case 1: return 1.0f / (1.0f + expf(-x));                       // sigmoid
-    case 2: return tanhf(x);                                        // tanh
-    case 3: return fmaxf(x, 0.0f);                                  // relu
-    case 4: return 0.5f * x * (1.0f + tanhf(0.7978845608028654f *   // gelu
-                                            (x + 0.044715f * x * x * x)));
-    case 5: return x / (1.0f + expf(-x));                           // silu
-    default: return x;                                              // identity
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
-}
-
-// H[M, N] = G(X[M, K] · A[K, N] + b[N]); 64×64 output tile per block, each
-// thread a 4×4 register tile.
-__global__ void __launch_bounds__(kThreads)
-hidden_proj_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ b, float* __restrict__ h,
-                   int M, int K, int N, int act) {
-  __shared__ float xs[PBK][PBM + 4];
-  __shared__ float as[PBK][PBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * PBM, n0 = blockIdx.x * PBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += PBK) {
-    for (int i = tid; i < PBM * PBK; i += kThreads) {
-      const int r = i / PBK, c = i % PBK;
-      const int gm = m0 + r, gk = k0 + c;
-      xs[c][r] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.0f;
-    }
-    for (int i = tid; i < PBK * PBN; i += kThreads) {
-      const int r = i / PBN, c = i % PBN;
-      const int gk = k0 + r, gn = n0 + c;
-      as[r][c] = (gk < K && gn < N) ? a[(size_t)gk * N + gn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < PBK; ++kk) {
-      float xr[4], ar[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xr[i] = xs[kk][ty * 4 + i];
-        ar[i] = as[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xr[i], ar[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) h[(size_t)gm * N + gn] = activate(acc[i][j] + b[gn], act);
-    }
-  }
 }
 
 // One block per device: the P chain over the window, P resident in shared
@@ -277,10 +215,8 @@ int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
                        int m, int act, float forget, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  const int rows = D * T;
-  dim3 pgrid((N + PBN - 1) / PBN, (rows + PBM - 1) / PBM);
-  hidden_proj_kernel<<<pgrid, kThreads, 0, s>>>(x, alpha, bias, h_ws, rows, n, N, act);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = launch_gemm<float, false>(x, alpha, bias, h_ws, 1, D * T, n, N, act, s);
+  if (e != cudaSuccess) return e;
 
   const int gsmem = repro_ingest_gain_smem(N);
   e = cudaFuncSetAttribute(ingest_gain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);

@@ -5,6 +5,7 @@ from repro_torch.data.metrics import roc_auc
 from repro_torch.data.pipeline import (
     anomaly_eval_arrays,
     class_subset,
+    make_pattern_stream,
     normalize_minmax,
     train_test_split,
 )
@@ -19,7 +20,8 @@ from repro_torch.data.synthetic import (
 
 __all__ = [
     "roc_auc",
-    "anomaly_eval_arrays", "class_subset", "normalize_minmax", "train_test_split",
+    "anomaly_eval_arrays", "class_subset", "make_pattern_stream", "normalize_minmax",
+    "train_test_split",
     "DATASETS", "AnomalyDataset", "make_dataset", "make_driving_dataset",
     "make_har_dataset", "make_mnist_like_dataset",
 ]

@@ -1,7 +1,7 @@
-"""Dataset preparation for the scenarios; numpy copy of the parts of
-``repro.data.pipeline`` that the scenario layer uses (normalisation,
-class subsets, the stratified split and the §5.3.1 eval arrays). The
-same seed gives the same arrays, bit for bit.
+"""Dataset preparation; numpy copy of the parts of ``repro.data.pipeline``
+that the scenarios and the device path use (normalisation, class subsets,
+the stratified split, one device's pattern stream and the §5.3.1 eval
+arrays). The same seed gives the same arrays, bit for bit.
 """
 from __future__ import annotations
 
@@ -68,6 +68,17 @@ def train_test_split(
         AnomalyDataset(ds.name, ds.x[tr], ds.y[tr], ds.class_names),
         AnomalyDataset(ds.name, ds.x[te], ds.y[te], ds.class_names),
     )
+
+
+def make_pattern_stream(
+    ds: AnomalyDataset, pattern: int | str, *, seed: int = 0, limit: int | None = None
+) -> np.ndarray:
+    """The non-IID stream a single edge device observes: samples of one
+    normal pattern only, shuffled."""
+    x = ds.pattern(pattern).copy()
+    rng = np.random.default_rng(seed)
+    rng.shuffle(x)
+    return x[:limit] if limit is not None else x
 
 
 def anomaly_eval_arrays(

@@ -1,13 +1,23 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (port of the fleet-tick, quantized-merge and robust-merge kernels
-of ``repro.kernels``)."""
+version (port of the fleet-tick, quantized-merge, robust-merge and
+single-device core kernels of ``repro.kernels``)."""
 from repro_torch.kernels._lib import KERNELS, launch_counts, reset_launch_counts
 from repro_torch.kernels.fleet_ingest import (
     fleet_ingest,
     fleet_ingest_plain,
     validate_shared_basis,
 )
+from repro_torch.kernels.hidden_proj import hidden_proj, hidden_proj_plain
+from repro_torch.kernels.matmul_atb import matmul_atb, matmul_atb_plain, uv_accum
+from repro_torch.kernels.ops import (
+    oselm_step_k1_kernel,
+    oselm_step_k1_plain,
+    uv_from_batch_kernel,
+    uv_from_batch_plain,
+    uv_from_state_kernel,
+)
 from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
+from repro_torch.kernels.rank1_add import rank1_add, rank1_add_plain
 from repro_torch.kernels.robust_merge import (
     MAX_TRIM,
     robust_segment_combine,
@@ -32,6 +42,10 @@ __all__ = [
     "dense_mix", "dense_mix_plain",
     "from_uv_solve", "from_uv_solve_plain",
     "masked_segment_sum_mix", "masked_segment_sum_mix_plain",
+    "hidden_proj", "hidden_proj_plain", "matmul_atb", "matmul_atb_plain", "uv_accum",
+    "rank1_add", "rank1_add_plain",
+    "oselm_step_k1_kernel", "oselm_step_k1_plain", "uv_from_batch_kernel",
+    "uv_from_batch_plain", "uv_from_state_kernel",
     "quantize_pack", "quantize_pack_plain",
     "MAX_TRIM", "robust_segment_combine", "robust_segment_sum_mix",
     "robust_segment_sum_mix_plain",

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve",
-           "quantize_pack", "robust_segment_sum_mix", "dense_mix")
+           "quantize_pack", "robust_segment_sum_mix", "dense_mix",
+           "hidden_proj", "matmul_atb", "rank1_add")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -117,6 +118,9 @@ _SIGNATURES = {
     "repro_quantize_pack": [_P] * 6 + [_I] * 3 + [_P],
     "repro_robust_segment_sum": [_P] * 7 + [_I, _L, _I, _P],
     "repro_dense_mix": [_P, _P, _P, _I, _L, _P],
+    "repro_hidden_proj": [_P] * 4 + [_I] * 5 + [_P],
+    "repro_matmul_atb": [_P] * 3 + [_I] * 5 + [_P],
+    "repro_rank1_add": [_P] * 4 + [_F, _P, _I, _I, _I, _P],
     "repro_quantize_pack_smem": [_I],
     "repro_ingest_gain_smem": [_I],
     "repro_ingest_beta_smem": [_I],
@@ -168,3 +172,14 @@ def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> No
 
 def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
     require_cuda(kernel, torch.float32, **tensors)
+
+
+def require_cuda_f32_or_bf16(kernel: str, **tensors: torch.Tensor) -> int:
+    """Like ``require_cuda``, for kernels that read f32 or bf16 operands
+    (all of one type); returns 1 for bf16, 0 for f32, the flag their C
+    entries take."""
+    dtype = next(iter(tensors.values())).dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: operands must be float32 or bfloat16, got {dtype}")
+    require_cuda(kernel, dtype, **tensors)
+    return int(dtype == torch.bfloat16)

@@ -1,0 +1,57 @@
+"""Hidden-layer projection H = G(x·α + b); port of
+``repro.kernels.hidden_proj``.
+
+``hidden_proj`` takes ``hidden_proj_plain`` for CPU tensors and launches
+the kernel of ``csrc/hidden_proj.cu`` for CUDA tensors, or raises. The
+operands are f32 or bf16 (all three of one type) and the result is f32,
+summed in f32 with the bias and activation applied to the finished sum,
+as the reference's kernel does. The kernel sums each output in a fixed
+order of its own (see ``csrc/gemm.cuh``); the plain version is a
+PyTorch matrix product, so the two agree to f32 rounding, not bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.activations import ACTIVATION_CODES, get_activation
+from repro_torch.kernels import _lib
+
+__all__ = ["hidden_proj", "hidden_proj_plain"]
+
+
+def _check(x: torch.Tensor, alpha: torch.Tensor, bias: torch.Tensor) -> None:
+    if alpha.ndim != 2 or x.ndim < 1 or x.shape[-1] != alpha.shape[0]:
+        raise ValueError(f"hidden_proj: x {tuple(x.shape)} and alpha {tuple(alpha.shape)} "
+                         "do not chain as (..., K) · (K, N)")
+    if bias.shape != (alpha.shape[1],):
+        raise ValueError(f"hidden_proj: bias must be ({alpha.shape[1]},); got {tuple(bias.shape)}")
+
+
+def hidden_proj_plain(
+    x: torch.Tensor, alpha: torch.Tensor, bias: torch.Tensor, *, activation: str = "sigmoid"
+) -> torch.Tensor:
+    _check(x, alpha, bias)
+    return get_activation(activation)(x.float() @ alpha.float() + bias.float())
+
+
+def hidden_proj(
+    x: torch.Tensor, alpha: torch.Tensor, bias: torch.Tensor, *, activation: str = "sigmoid"
+) -> torch.Tensor:
+    """H = G(x·α + b) for x (..., K), α (K, N), b (N,) → (..., N) f32."""
+    if x.device.type == "cpu":
+        return hidden_proj_plain(x, alpha, bias, activation=activation)
+    _check(x, alpha, bias)
+    get_activation(activation)  # raises on an unknown name
+    bf16 = _lib.require_cuda_f32_or_bf16("hidden_proj", x=x, alpha=alpha, bias=bias)
+    k, n = alpha.shape
+    m = x.numel() // k
+    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    status = _lib.library().repro_hidden_proj(
+        x.data_ptr(), alpha.data_ptr(), bias.data_ptr(), out.data_ptr(), m, k, n,
+        ACTIVATION_CODES[activation], bf16, _lib.stream(),
+    )
+    _lib.check(status, "hidden_proj")
+    _lib.count_launch("hidden_proj")
+    return out

@@ -4,9 +4,12 @@
 ``FleetRuntime`` end to end."""
 from repro_torch.scenarios.evaluate import (
     ScenarioResult,
+    bpnn_auc,
     detection_stats,
     device_auc,
     fleet_aucs,
+    pair_merge_eval,
+    pattern_loss_rows,
     run_scenario,
     scenario_topology,
 )
@@ -14,6 +17,6 @@ from repro_torch.scenarios.spec import SCENARIOS, Scenario, ScenarioSpec, make_s
 
 __all__ = [
     "SCENARIOS", "Scenario", "ScenarioSpec", "make_scenario",
-    "ScenarioResult", "detection_stats", "device_auc", "fleet_aucs",
-    "run_scenario", "scenario_topology",
+    "ScenarioResult", "bpnn_auc", "detection_stats", "device_auc", "fleet_aucs",
+    "pair_merge_eval", "pattern_loss_rows", "run_scenario", "scenario_topology",
 ]

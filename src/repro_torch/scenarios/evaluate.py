@@ -1,9 +1,10 @@
-"""Scenario evaluation path; port of ``repro.scenarios.evaluate`` (the
-two-device and BP-NN evaluations wait for the port of ``baselines/``).
+"""Scenario evaluation path; port of ``repro.scenarios.evaluate``.
 
-- ``device_auc`` / ``fleet_aucs`` — the §5.3.1 protocol (trained patterns
-  normal, held-out pool anomalous) for one OS-ELM state and for a stacked
-  fleet;
+- ``device_auc`` / ``fleet_aucs`` / ``bpnn_auc`` — the §5.3.1 protocol
+  (trained patterns normal, held-out pool anomalous) for one OS-ELM state,
+  a stacked fleet and the BP-NN baselines;
+- ``pair_merge_eval`` / ``pattern_loss_rows`` — the two-device
+  cooperative-update evaluations behind the paper's Figs. 6–17;
 - ``detection_stats`` — drift detection delay / missed / false-positive
   accounting in the tick clock;
 - ``run_scenario`` — a whole ``ScenarioSpec`` end to end through
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core import ae_score
+from repro_torch.baselines.bpnn import BPNNConfig, bpnn_score
+from repro_torch.core import ae_score, cooperative_update, to_uv
 from repro_torch.data.metrics import roc_auc
 from repro_torch.data.pipeline import anomaly_eval_arrays
 from repro_torch.data.synthetic import AnomalyDataset
@@ -33,9 +35,12 @@ from repro_torch.scenarios.spec import ScenarioSpec
 
 __all__ = [
     "ScenarioResult",
+    "bpnn_auc",
     "detection_stats",
     "device_auc",
     "fleet_aucs",
+    "pair_merge_eval",
+    "pattern_loss_rows",
     "run_scenario",
     "scenario_topology",
 ]
@@ -76,6 +81,51 @@ def fleet_aucs(
         else:
             out.append(roc_auc(scores[d], y_eval))
     return np.asarray(out)
+
+
+def bpnn_auc(params, cfg: BPNNConfig, x_eval: np.ndarray, y_eval: np.ndarray) -> float:
+    """The BP-NN baselines scored under the same protocol, on the device
+    of their parameters."""
+    x = torch.as_tensor(np.asarray(x_eval, np.float32), device=params[0]["w"].device)
+    return roc_auc(bpnn_score(params, cfg, x).cpu().numpy(), y_eval)
+
+
+# -------------------------------------------- two-device paper evaluations
+
+
+def pair_merge_eval(
+    dev_a,
+    dev_b,
+    test: AnomalyDataset,
+    patterns: tuple[int, int],
+    *,
+    anomaly_ratio: float = 0.1,
+    seed: int = 0,
+) -> tuple[float, float]:
+    """The Figs. 8–17 cell: Device-A's AUC before and after the one-shot
+    cooperative update with Device-B, eval normals = both trained
+    patterns. Returns ``(auc_before, auc_after)``."""
+    before = device_auc(dev_a, test, patterns, anomaly_ratio=anomaly_ratio, seed=seed)
+    merged = cooperative_update(dev_a, to_uv(dev_b))
+    after = device_auc(merged, test, patterns, anomaly_ratio=anomaly_ratio, seed=seed)
+    return before, after
+
+
+def pattern_loss_rows(
+    dev_a, dev_b, test: AnomalyDataset, *, limit: int = 64
+) -> dict[str, dict[str, float]]:
+    """The Figs. 6/7 bars: per-pattern mean reconstruction loss of
+    Device-A before the merge, Device-B, and A after merging B."""
+    merged = cooperative_update(dev_a, to_uv(dev_b))
+    rows: dict[str, dict[str, float]] = {}
+    for pat in test.class_names:
+        x = torch.as_tensor(test.pattern(pat)[:limit], device=dev_a.device)
+        rows[pat] = {
+            "A_before": float(ae_score(dev_a, x).mean()),
+            "B": float(ae_score(dev_b, x).mean()),
+            "A_after": float(ae_score(merged, x).mean()),
+        }
+    return rows
 
 
 # ------------------------------------------------------ detection accounting

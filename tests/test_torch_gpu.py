@@ -11,7 +11,13 @@ same fused elimination in both), 1e-4 for the ingest (other summation
 orders in the GEMM and dot products, amplified along the RLS chain).
 ``quantize_pack``, ``robust_segment_sum_mix`` and ``dense_mix`` are held
 bit for bit: their plain versions repeat the kernels' operations in the
-kernels' order.
+kernels' order. So is ``rank1_add`` (one rounded product, one fused
+multiply-add in both). ``hidden_proj`` and ``matmul_atb`` are held at
+1e-6 of max |plain|, f32 or bf16 inputs (widened to f32 exactly in both):
+each kernel sums in a fixed order of its own, the plain version is a
+PyTorch product. For ``hidden_proj`` the scale is the larger of max
+|plain| and max |x·α + b|: a saturating activation shrinks the output but
+not the rounding of the product under it.
 """
 import numpy as np
 import pytest
@@ -27,14 +33,25 @@ from repro_torch.kernels import (
     fleet_ingest_plain,
     from_uv_solve,
     from_uv_solve_plain,
+    hidden_proj,
+    hidden_proj_plain,
     launch_counts,
     masked_segment_sum_mix,
     masked_segment_sum_mix_plain,
+    matmul_atb,
+    matmul_atb_plain,
+    oselm_step_k1_kernel,
+    oselm_step_k1_plain,
     quantize_pack,
     quantize_pack_plain,
+    rank1_add,
+    rank1_add_plain,
     robust_segment_sum_mix,
     robust_segment_sum_mix_plain,
+    uv_from_batch_kernel,
+    uv_from_batch_plain,
 )
+from repro_torch.core.activations import ACTIVATION_CODES
 
 pytestmark = pytest.mark.gpu
 
@@ -217,3 +234,113 @@ def test_dense_mix_kernel_matches_plain(cuda, d, r, c):
     torch.cuda.synchronize()
     assert launch_counts()["dense_mix"] == before + 1
     assert torch.equal(got, dense_mix_plain(x, m))
+
+
+def _proj_err(x, a, b, act):
+    """max |kernel − plain| of hidden_proj over the product's scale."""
+    got = hidden_proj(x, a, b, activation=act)
+    want = hidden_proj_plain(x, a, b, activation=act)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    pre = hidden_proj_plain(x, a, b, activation="identity")
+    return float((got - want).abs().max() / max(want.abs().max(), pre.abs().max()))
+
+
+def _randn(cuda, shape, dtype=torch.float32, seed=9):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device=cuda, dtype=dtype)
+
+
+# (33, 257, 129): ragged everywhere; (1, 561, 128) and (3, 37, 19): the
+# skinny kernel (the k=1 step at the har width); (512, 561, 128): the
+# E²LM batch statistics at the har width
+@pytest.mark.parametrize("m,k,n", [(33, 257, 129), (1, 561, 128), (3, 37, 19), (512, 561, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hidden_proj_kernel_matches_plain(cuda, m, k, n, dtype):
+    x, a = _randn(cuda, (m, k), dtype, 1), _randn(cuda, (k, n), dtype, 2)
+    b = _randn(cuda, (n,), dtype, 3)
+    before = launch_counts()["hidden_proj"]
+    hidden_proj(x, a, b, activation="sigmoid")
+    torch.cuda.synchronize()
+    assert launch_counts()["hidden_proj"] == before + 1
+    assert _proj_err(x, a, b, "sigmoid") <= 1e-6
+
+
+@pytest.mark.parametrize("act", sorted(ACTIVATION_CODES))
+@pytest.mark.parametrize("m", [1, 33])
+def test_hidden_proj_kernel_every_activation(cuda, act, m):
+    x, a = _randn(cuda, (m, 257), seed=4), _randn(cuda, (257, 129), seed=5)
+    b = _randn(cuda, (129,), seed=6)
+    assert _proj_err(x * 0.1, a, b, act) <= 1e-6
+
+
+# (257, 33, 129): ragged; (128, 1, 128): the k=1 step's P·h; (512, 128, 128)
+# and (512, 128, 561): U = HᵀH and V = HᵀX at the har width
+@pytest.mark.parametrize("k,n1,n2", [(257, 33, 129), (128, 1, 128), (512, 128, 128),
+                                     (512, 128, 561)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_atb_kernel_matches_plain(cuda, k, n1, n2, dtype):
+    a, b = _randn(cuda, (k, n1), dtype, 7), _randn(cuda, (k, n2), dtype, 8)
+    before = launch_counts()["matmul_atb"]
+    got = matmul_atb(a, b)
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul_atb"] == before + 1
+    assert _rel(got, matmul_atb_plain(a, b)) <= 1e-6
+
+
+def test_matmul_atb_kernel_batches_and_refuses(cuda):
+    a, b = _randn(cuda, (3, 50, 12), seed=10), _randn(cuda, (3, 50, 20), seed=11)
+    assert _rel(matmul_atb(a, b), matmul_atb_plain(a, b)) <= 1e-6
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        matmul_atb(a.double(), b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_atb(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+
+
+# (128, 128): P, the 16-byte path; (128, 561): β, the scalar path;
+# (33, 257): ragged
+@pytest.mark.parametrize("n1,n2", [(128, 128), (128, 561), (33, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rank1_add_kernel_is_bit_exact_with_plain(cuda, n1, n2, dtype):
+    x = _randn(cuda, (n1, n2), dtype, 12)
+    u, v = _randn(cuda, (n1,), dtype, 13), _randn(cuda, (n2,), dtype, 14)
+    scale = torch.tensor(-1.0, device=cuda) / torch.tensor(2.7, device=cuda)  # on the card
+    before = launch_counts()["rank1_add"]
+    got = rank1_add(x, u, v, scale)
+    torch.cuda.synchronize()
+    assert launch_counts()["rank1_add"] == before + 1
+    assert torch.equal(got, rank1_add_plain(x, u, v, scale))
+    assert torch.equal(rank1_add(x, u, v, 0.37), rank1_add_plain(x, u, v, 0.37))
+
+
+def test_rank1_add_kernel_on_a_misaligned_view(cuda):
+    """A contiguous view 4 bytes into its storage takes the scalar path."""
+    flat = _randn(cuda, (128 * 128 + 1,), seed=15)
+    x = flat[1:].view(128, 128)
+    u, v = _randn(cuda, (128,), seed=16), _randn(cuda, (128,), seed=17)
+    assert torch.equal(rank1_add(x, u, v, -0.5), rank1_add_plain(x, u, v, -0.5))
+
+
+@pytest.mark.parametrize("activation,forget", [("identity", 1.0), ("sigmoid", 0.97)])
+def test_k1_step_and_batch_statistics_on_the_kernels(cuda, activation, forget):
+    """One k=1 step at the har width launches hidden_proj, matmul_atb and
+    rank1_add twice and agrees with the plain composition; the batch
+    statistics launch hidden_proj once and matmul_atb twice."""
+    state = _fleet(cuda, activation, forget, d=1, n=561, nh=128)
+    state = state.replace(beta=state.beta[0], p=state.p[0])
+    x = torch.rand(561, generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = launch_counts()
+    got = oselm_step_k1_kernel(state, x, x)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert [after[k] - before[k] for k in ("hidden_proj", "matmul_atb", "rank1_add")] == [1, 1, 2]
+    want = oselm_step_k1_plain(state, x, x)
+    assert _rel(got.p, want.p) <= 1e-5 and _rel(got.beta, want.beta) <= 1e-5
+    xs = torch.rand((512, 561), generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = launch_counts()
+    alpha, bias = state.params
+    u, v = uv_from_batch_kernel(alpha, bias, xs, xs, activation=activation)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert [after[k] - before[k] for k in ("hidden_proj", "matmul_atb")] == [1, 2]
+    ru, rv = uv_from_batch_plain(alpha, bias, xs, xs, activation=activation)
+    assert _rel(u, ru) <= 1e-6 and _rel(v, rv) <= 1e-6

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package, and the entry points
-refuse to fall back to the CPU when no card is present."""
+"""The port stands alone: no module of ``repro_torch``, nothing in
+``chip_smoke.py`` and no port benchmark (``benchmarks/torch_*.py``)
+imports JAX or the JAX package, and the entry points refuse to fall back
+to the CPU when no card is present."""
 import ast
 import subprocess
 import sys
@@ -45,7 +46,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", *[
     str(f.relative_to(ROOT)) for f in sorted(PKG.rglob("*.py"))
-]])
+], *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "benchmarks").glob("torch_*.py"))]])
 def test_sources_import_no_jax_and_no_reference(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -77,6 +78,37 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         FleetRuntime(fleet, RuntimeConfig(topology=star(3), payload_precision="int8"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_scenario(make_scenario("har", n_devices=3, ticks=4, samples_per_class=8), "star")
+
+
+def test_device_path_entry_points_raise_without_a_card(monkeypatch):
+    """The single-device path and the baselines: a device, a network or a
+    FedAvg run is built on the card unless the caller asks for the CPU."""
+    import sys
+
+    from repro_torch.baselines import bpnn3_config, init_bpnn, run_fedavg
+    from repro_torch.configs import EDGE_CONFIGS
+    from repro_torch.core import init_autoencoder
+    from repro_torch.data import make_dataset
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_latency
+    from benchmarks.torch_common import train_edge_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x0 = np.zeros((8, 6), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_autoencoder(torch.Generator(), 6, 4, x0)
+    assert init_autoencoder(torch.Generator(), 6, 4, x0, ridge=1e-3, device="cpu").p.shape == (4, 4)
+    cfg = bpnn3_config(6, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_bpnn(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_fedavg(torch.Generator(), cfg, [x0])
+    ds = make_dataset("har", samples_per_class=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_edge_device(ds, "laying", key=0, ecfg=EDGE_CONFIGS["har"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_latency.main([])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
