@@ -40,7 +40,24 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
 6. ``torch.profiler`` over 7 ticks (2 merges) at the har width on star
    and ring: wall time, device time, the device's busy share and the
    kernels that took the most device time;
-7. the kernel list, one JSON object per kernel, then the result line.
+7. the paper's single-device path at the har width: ``hidden_proj``,
+   ``matmul_atb`` and ``rank1_add`` against their plain versions, a
+   256-step k=1 chain card against CPU, two devices and their cooperative
+   update, the pair evaluations, Fig. 18 and Table 4, a profiler pass
+   over 200 k=1 steps;
+8. repeated synchronisation and stale merges at the har width (D = 256):
+   (a) ``segment_sum_mix`` (star and C = 32), ``segment_broadcast``
+   (32 → 256) and ``banded_mix`` (hops 2) against their plain versions bit
+   for bit, with CUDA-event, profiler, plain and library times and the
+   bound; (b) ``fleet_train_rounds``, 4 rounds of 32 samples on star,
+   hierarchical (both head modes), all_to_all and ring; (c)
+   ``fleet_train_async`` with a random schedule of lags up to 3 on the
+   same topologies, lag 0 equal to (b), and a profile of 4 rounds of each
+   on star and ring; (d) ``FleetRuntime`` with that
+   schedule on ring and isolated hierarchical; every kernel's launches
+   equal to the rounds routed to it; (e) (b), (c) and (d) card against CPU
+   at D = 16;
+9. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -49,6 +66,7 @@ from ``SEED``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1199,6 +1217,347 @@ def phase_device_path():
     return rows, totals
 
 
+# ------------------------------- phase 8: repeated synchronisation, stale merges
+
+ROUNDS = 4   # fleet_train_rounds / fleet_train_async: 4 rounds of T samples
+# card against CPU after ROUNDS rounds at D_CPU, as max |card − CPU| / max |CPU|
+# of P and of β. tests/test_torch_fleet_rounds.py and
+# tests/test_torch_staleness.py hold the port's chains to the reference's at
+# twice the reference's own spread between the same chain with Gauss-Jordan
+# merges and with Cholesky merges: a merge that rounds U's last bits
+# otherwise moves the chain by about that much, as the next rounds amplify
+# the difference by κ(U). Card and CPU round otherwise in every step (the
+# ingest's sums, to_uv's Cholesky inverses, the merge), so each strays from
+# a common exact chain by about its own such spread, and the two by up to
+# the sum: here the card is held at twice the sum of the Gauss-Jordan-vs-
+# Cholesky spreads measured on the card and on the CPU on the same inputs,
+# and at least at twice the reference's spread on the tests' fixture
+# (largest over the topologies: synchronous 3.6e-4 on P and 5.6e-4 on β,
+# stale 1.3e-4 and 2.0e-4).
+ROUNDS_TOL = {"P": 7.2e-4, "beta": 1.12e-3}
+ASYNC_TOL = {"P": 2.7e-4, "beta": 3.9e-4}
+# the mix kernel each topology's stale round launches (besides from_uv_solve)
+STALE_ROUTES = {
+    "star": ("segment_sum_mix",),
+    "hierarchical": ("segment_sum_mix",),
+    "hierarchical_isolated": ("segment_sum_mix", "segment_broadcast"),
+    "all_to_all": ("dense_mix",),
+    "ring": ("banded_mix",),
+}
+MIX_KERNELS = ("segment_sum_mix", "segment_broadcast", "banded_mix")
+
+
+def async_schedule(d: int):
+    from repro_torch.fleet import StalenessSchedule
+
+    return StalenessSchedule.random(d, max_lag=3, seed=SEED, stragglers=0.1)
+
+
+def mix_kernel_rows(fleet, topo_hier):
+    """(a) the three mix kernels against their plain versions at the har
+    width on the fleet's payloads, bit for bit: the plain versions sum in
+    the kernels' order. The kernel list carries the hierarchy's shapes
+    (C = D/8) and the ring's hops = 2."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import fleet_to_uv
+    from repro_torch.kernels import (
+        banded_mix, banded_mix_plain, segment_broadcast, segment_broadcast_plain,
+        segment_sum_mix, segment_sum_mix_plain,
+    )
+
+    uv = fleet_to_uv(fleet, ridge=RIDGE)
+    w = torch.cat([uv.u, uv.v], dim=2).contiguous()
+    del uv
+    d, e = w.shape[0], w[0].numel()
+    rows = {}
+
+    def row(name, label, fn, plain, library, kernel_name, nbytes):
+        got, want = fn(), plain()
+        mism = mismatches(got, want)
+        lib_mism = mismatches(library(), want) if library is not None else None
+        r = dict(abs=float((got - want).abs().max()), rels={}, flops=0, nbytes=nbytes,
+                 ms=cuda_ms(fn, 50), plain_ms=cuda_ms(plain, 2),
+                 library_ms=cuda_ms(library, 50) if library is not None else None)
+        alone = device_ms(fn, 20, kernel_name)
+        b = r["bound_ms"], r["bound_by"] = bound(0, nbytes)
+        log(f"  {name} {label}: mismatches {mism}"
+            + (f" (library against plain: {lib_mism})" if lib_mism is not None else "")
+            + f"  ms={r['ms']:.4f} (kernel alone {alone:.4f}) plain_ms={r['plain_ms']:.4f}"
+            + " library_ms=" + (f"{r['library_ms']:.4f}" if library is not None else "None")
+            + f"  bound_ms={b[0]:.4f} ({b[1]}, {nbytes / 1e6:.1f} MB)")
+        assert mism == 0, f"{name} {label}: {mism} elements differ from the plain version"
+        return r
+
+    zeros = np.zeros(d, np.int32)
+    cids = topo_hier.cluster_ids
+    n_cl = topo_hier.n_clusters
+    cids_t = torch.as_tensor(cids, dtype=torch.long, device="cuda")
+    # reads the payloads and writes the sums once (and the C+1 offsets)
+    row("segment_sum_mix", "star (C=1)", lambda: segment_sum_mix(w, zeros, 1),
+        lambda: segment_sum_mix_plain(w, zeros, 1), lambda: w.sum(0, keepdim=True),
+        "segsum_kernel<false>", 4 * (d * e + e + 2))
+    rows["segment_sum_mix"] = row(
+        "segment_sum_mix", f"hierarchical (C={n_cl})", lambda: segment_sum_mix(w, cids, n_cl),
+        lambda: segment_sum_mix_plain(w, cids, n_cl),
+        lambda: torch.zeros((n_cl,) + tuple(w.shape[1:]), device="cuda").index_add_(0, cids_t, w),
+        "segsum_kernel<false>", 4 * (d * e + n_cl * e + n_cl + 1))
+    sums = segment_sum_mix(w, cids, n_cl)
+    rows["segment_broadcast"] = row(
+        "segment_broadcast", f"C={n_cl} -> {d}", lambda: segment_broadcast(sums, cids),
+        lambda: segment_broadcast_plain(sums, cids), lambda: sums.index_select(0, cids_t),
+        "segment_broadcast_kernel", 4 * (n_cl * e + d * e + d))
+    # each payload read once and each sum written once; with no reuse of a
+    # neighbour's payload between devices the reads are 2·hops+1 times as many
+    rows["banded_mix"] = r = row(
+        "banded_mix", f"hops={HOPS}", lambda: banded_mix(w, HOPS), lambda: banded_mix_plain(w, HOPS),
+        None, "banded_mix_kernel", 4 * 2 * d * e)
+    no_reuse = 4 * (2 * HOPS + 2) * d * e
+    log(f"    banded_mix with {2 * HOPS + 1} reads of every payload: bound"
+        f" {bound(0, no_reuse)[0]:.4f} ms ({no_reuse / 1e6:.1f} MB);"
+        f" measured {r['ms']:.4f} ms moves {no_reuse / (r['ms'] * 1e-3) / 1e12:.2f} TB/s at that count")
+    return rows
+
+
+def timed_run(fn, what, expected):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after; hold each kernel of ``expected`` to its count and return
+    (result, ms, counts)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    got = {k: counts[k] for k in expected}
+    assert got == expected, f"{what}: launches {got}, expected {expected}"
+    return out, ms, counts
+
+
+def round_streams(ticks, d):
+    """The first ROUNDS ticks of each device as one (d, ROUNDS·T, n) stream."""
+    x = ticks[:ROUNDS, :d]
+    return x.permute(1, 0, 2, 3).reshape(d, ROUNDS * T, N_FEAT).contiguous()
+
+
+def phase_rounds(fleet, ticks_dev, totals):
+    """(b) and (c): fleet_train_rounds and fleet_train_async at the har
+    width on every topology, launches equal to the rounds routed to each
+    kernel; lag 0 equal to the synchronous rounds bit for bit."""
+    import torch
+
+    from repro_torch.fleet import StalenessSchedule, fleet_train_async, fleet_train_rounds
+
+    streams = round_streams(ticks_dev, D)
+    sched = async_schedule(D)
+    log(f"  lags: {sched.lags.tolist()}")
+    sync = {}
+
+    def add(counts):
+        for k in MIX_KERNELS:
+            totals[k] += counts[k]
+
+    for name, topo in topologies(D).items():
+        merge = {"ring": {"banded_merge_solve": ROUNDS, "from_uv_solve": 0}}.get(
+            name, {"from_uv_solve": ROUNDS, "banded_merge_solve": 0})
+        seg = ROUNDS if topo.kind == "segment" else 0
+        sync[name], ms, counts = timed_run(
+            lambda: fleet_train_rounds(fleet, streams, topo, rounds=ROUNDS, ridge=RIDGE),
+            f"fleet_train_rounds {name}",
+            {"fleet_ingest": ROUNDS, "segment_sum_mix": seg, "segment_broadcast": 0,
+             "banded_mix": 0, **merge})
+        add(counts)
+        log(f"  (b) fleet_train_rounds {name:22s} {ms / ROUNDS:8.2f} ms per round;"
+            f" launches {({k: v for k, v in counts.items() if v})}")
+        routes = {k: ROUNDS if k in STALE_ROUTES[name] else 0
+                  for k in MIX_KERNELS + ("dense_mix",)}
+        stale, ms, counts = timed_run(
+            lambda: fleet_train_async(fleet, streams, topo, sched, rounds=ROUNDS, ridge=RIDGE),
+            f"fleet_train_async {name}",
+            {"fleet_ingest": ROUNDS, "from_uv_solve": ROUNDS, "banded_merge_solve": 0, **routes})
+        add(counts)
+        assert bool(torch.isfinite(stale.p).all() and torch.isfinite(stale.beta).all())
+        apart = rel_err((stale.beta,), (sync[name].beta,))[0]
+        log(f"  (c) fleet_train_async  {name:22s} {ms / ROUNDS:8.2f} ms per round;"
+            f" max |beta - synchronous beta| {apart:.3e}; launches"
+            f" {({k: v for k, v in counts.items() if v})}")
+        assert apart > 1e-6, f"{name}: the lags changed nothing"
+    for name in ("star", "hierarchical_isolated", "ring"):
+        zero = fleet_train_async(fleet, streams, topologies(D)[name], StalenessSchedule.uniform(D, 0),
+                                 rounds=ROUNDS, ridge=RIDGE)
+        same = torch.equal(zero.p, sync[name].p) and torch.equal(zero.beta, sync[name].beta)
+        log(f"  (c) lag 0 on {name}: equal to fleet_train_rounds bit for bit: {same}")
+        assert same, f"{name}: lag 0 is not the synchronous rounds"
+    profile_rounds(fleet, streams, sched)
+
+
+def profile_rounds(fleet, streams, sched):
+    """Where a round's time goes: torch.profiler over ROUNDS synchronous and
+    ROUNDS stale rounds on star and ring."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fleet import fleet_train_async, fleet_train_rounds
+
+    for name in ("star", "ring"):
+        topo = topologies(D)[name]
+        for label, fn in (
+            ("rounds", lambda: fleet_train_rounds(fleet, streams, topo, rounds=ROUNDS, ridge=RIDGE)),
+            ("stale rounds", lambda: fleet_train_async(fleet, streams, topo, sched, rounds=ROUNDS,
+                                                       ridge=RIDGE)),
+        ):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+            assert dev_ms > 0, "the profiler saw no device time"
+            log(f"  (c) profile, {ROUNDS} {label} on {name}: wall {wall_ms:.2f} ms, device"
+                f" {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}")
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_stale_runtime(fleet, ticks_dev, totals):
+    """(d) the stale FleetRuntime at the har width on ring and isolated
+    hierarchical: launches of each mix kernel equal to the admitted rounds."""
+    import numpy as np
+
+    sched = async_schedule(D)
+    for name in ("ring", "hierarchical_isolated"):
+        rt, reports, tick_ms, counts, _ = drive(
+            fleet, ticks_dev, runtime_config(topologies(D)[name], staleness=sched))
+        rounds = [r for r in reports if r.decision.merge]
+        merge_ms = [r.merge_seconds * 1e3 for r in rounds]
+        log(f"  (d) stale {name:22s} tick_ms p50={np.median(tick_ms):.2f} max={max(tick_ms):.2f}"
+            f"  merge_ms p50={np.median(merge_ms):.2f}  merges={len(rounds)}"
+            f" participants={[r.decision.participants for r in rounds]}"
+            f" launches={({k: v for k, v in counts.items() if v})}")
+        assert len(rounds) >= 2 and rt.merge_round == len(rounds)
+        expected = {k: len(rounds) if k in STALE_ROUTES[name] else 0 for k in MIX_KERNELS}
+        got = {k: counts[k] for k in MIX_KERNELS}
+        assert got == expected, f"stale {name}: launches {got}, expected {expected}"
+        assert counts["from_uv_solve"] == len(rounds) and counts["banded_merge_solve"] == 0
+        for k in MIX_KERNELS:
+            totals[k] += counts[k]
+
+
+def cholesky_uv_solve(u, v, *, ridge=0.0):
+    """P = (U+εI)⁻¹ and β = PV by Cholesky (``repro_torch.core``), as the
+    reference solves its merges: the yardstick of a Gauss-Jordan chain."""
+    from repro_torch.core.elm import invert_u, solve_beta
+
+    return invert_u(u, ridge=ridge), solve_beta(u, v, ridge=ridge)
+
+
+@contextlib.contextmanager
+def cholesky_merges():
+    """Within the block every merge of the fleet package solves by Cholesky:
+    the open ring's fused merge becomes the banded mix and a Cholesky solve."""
+    import repro_torch.fleet.fleet as ff
+    import repro_torch.fleet.staleness as st
+    from repro_torch.kernels import banded_mix
+
+    def banded(w, hops, *, ridge=0.0):
+        mixed = banded_mix(w, hops)
+        n = w.shape[1]
+        return cholesky_uv_solve(mixed[:, :, :n], mixed[:, :, n:], ridge=ridge)
+
+    saved = (ff.from_uv_solve, ff.banded_merge_solve, st.from_uv_solve)
+    ff.from_uv_solve, ff.banded_merge_solve, st.from_uv_solve = (
+        cholesky_uv_solve, banded, cholesky_uv_solve)
+    try:
+        yield
+    finally:
+        ff.from_uv_solve, ff.banded_merge_solve, st.from_uv_solve = saved
+
+
+def phase_rounds_card_vs_cpu(fleet, ticks_np):
+    """(e) (b), (c) and (d) at D_CPU devices on the card and on the CPU;
+    each chain beside its Cholesky twins on both, whose distances set the
+    bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import fleet_train_async, fleet_train_rounds
+    from repro_torch.runtime import FleetRuntime
+
+    small = fleet.replace(beta=fleet.beta[:D_CPU].contiguous(), p=fleet.p[:D_CPU].contiguous())
+    small_cpu = small.replace(
+        params=type(small.params)(*(x.cpu() for x in small.params)),
+        beta=small.beta.cpu(), p=small.p.cpu(),
+    )
+    streams = round_streams(torch.from_numpy(ticks_np), D_CPU)
+    sched = async_schedule(D_CPU)
+    for name, topo in topologies(D_CPU).items():
+        for label, fn, floor in (
+            ("fleet_train_rounds", lambda f, x: fleet_train_rounds(
+                f, x, topo, rounds=ROUNDS, ridge=RIDGE), ROUNDS_TOL),
+            ("fleet_train_async", lambda f, x: fleet_train_async(
+                f, x, topo, sched, rounds=ROUNDS, ridge=RIDGE), ASYNC_TOL),
+        ):
+            card, cpu = fn(small, streams.cuda()), fn(small_cpu, streams)
+            with cholesky_merges():
+                twin_card, twin_cpu = fn(small, streams.cuda()), fn(small_cpu, streams)
+            _, rels = rel_err((card.p.cpu(), card.beta.cpu()), (cpu.p, cpu.beta))
+            _, sp_card = rel_err((twin_card.p, twin_card.beta), (card.p, card.beta))
+            _, sp_cpu = rel_err((twin_cpu.p, twin_cpu.beta), (cpu.p, cpu.beta))
+            tol = [max(floor[k], 2 * (a + b)) for k, a, b in zip(("P", "beta"), sp_card, sp_cpu)]
+            log(f"  (e) {label} {name:22s} at D={D_CPU}: card - CPU P max_rel {rels[0]:.3e},"
+                f" beta {rels[1]:.3e}; Gauss-Jordan - Cholesky on the card P {sp_card[0]:.3e},"
+                f" beta {sp_card[1]:.3e}, on the CPU P {sp_cpu[0]:.3e}, beta {sp_cpu[1]:.3e};"
+                f" bounds {tol[0]:.3e}, {tol[1]:.3e}")
+            assert rels[0] <= tol[0] and rels[1] <= tol[1], f"{label} {name}: card != CPU"
+    # the stale runtime, held as tests/test_torch_staleness.py holds it
+    # against the reference: losses at 2e-4 on every tick
+    for name in ("ring", "hierarchical_isolated"):
+        cfg = runtime_config(topologies(D_CPU)[name], staleness=sched)
+        card = FleetRuntime(small, cfg, device="cuda")
+        cpu = FleetRuntime(small_cpu, cfg, device="cpu")
+        worst, merges = 0.0, 0
+        for t in range(TICKS):
+            batch = np.ascontiguousarray(ticks_np[t, :D_CPU])
+            a, b = card.tick(batch), cpu.tick(batch)
+            np.testing.assert_allclose(a.losses, b.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+            assert np.array_equal(a.drifted, b.drifted), f"stale {name} tick {t}: drifted"
+            assert np.array_equal(a.fresh_detections, b.fresh_detections)
+            da, db = a.decision, b.decision
+            assert (da.merge, da.participants, da.round_bytes) == (
+                db.merge, db.participants, db.round_bytes), f"stale {name} tick {t}"
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+            merges += da.merge
+        assert merges >= 2
+        log(f"  (e) stale FleetRuntime {name}: {TICKS} ticks at D={D_CPU}, losses max rel diff"
+            f" {worst:.3e} (rtol {LOSS_RTOL:.0e}), merges {merges}: flags and decisions equal")
+
+
+def phase_repeated_sync(fleet, ticks_dev, ticks_np):
+    """Phase 8; returns the three mix kernels' rows and their launches over
+    (b), (c) and (d)."""
+    from repro_torch.fleet import hierarchical
+
+    log("  (a) the three mix kernels against their plain versions")
+    rows = mix_kernel_rows(fleet, hierarchical(D, D // 8))
+    totals = dict.fromkeys(MIX_KERNELS, 0)
+    phase_rounds(fleet, ticks_dev, totals)
+    phase_stale_runtime(fleet, ticks_dev, totals)
+    log(f"  launches of the mix kernels over (b), (c) and (d): {totals}")
+    for k, v in totals.items():
+        assert v > 0, f"{k} was never launched on the path"
+    phase_rounds_card_vs_cpu(fleet, ticks_np)
+    return rows, totals
+
+
 def main() -> int:
     import torch
 
@@ -1261,7 +1620,15 @@ def main() -> int:
     launches.update(core_launches)
     log(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 8: kernels (phases 1-7 took {time.perf_counter() - start:.1f} s)")
+    log("phase 8: repeated synchronisation and stale merges (fleet_train_rounds,"
+        " fleet_train_async, the stale FleetRuntime)")
+    t0 = time.perf_counter()
+    mix_rows, mix_launches = phase_repeated_sync(fleet, ticks_dev, ticks_np)
+    rows.update(mix_rows)
+    launches.update(mix_launches)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 9: kernels (phases 1-8 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),
@@ -1283,6 +1650,12 @@ def main() -> int:
                        "src/repro/kernels/matmul_atb.py:58"),
         "rank1_add": ("src/repro_torch/csrc/rank1_add.cu",
                       "src/repro/kernels/rank1_add.py:53"),
+        "segment_sum_mix": ("src/repro_torch/csrc/topology_merge.cu",
+                            "src/repro/kernels/topology_merge.py:172"),
+        "segment_broadcast": ("src/repro_torch/csrc/topology_merge.cu",
+                              "src/repro/kernels/topology_merge.py:269"),
+        "banded_mix": ("src/repro_torch/csrc/topology_merge.cu",
+                       "src/repro/kernels/topology_merge.py:106"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
     kernels = []
@@ -1294,6 +1667,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    assert len(kernels) == len(sources) == 13, f"{len(kernels)} kernels in the list"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,38 @@
-// Masked Eq. 8 merge kernels for Hopper (sm_90a).
+// Eq. 8 merge kernels for Hopper (sm_90a).
 //
-// Replaces three TPU kernels of src/repro/kernels/topology_merge.py:
+// Replaces eight TPU kernels of src/repro/kernels/topology_merge.py:
 //
-// * masked_segment_sum_mix (pallas_call :242, _masked_segsum_kernel :181):
+// * masked_segment_sum_mix (pallas_call :242, _masked_segsum_kernel :181)
+//   and segment_sum_mix (pallas_call :172, _segsum_kernel :123):
 //     out[c] = Σ_{d: cid[d]=c} mask[d]·w[d] over the stacked payloads
-//     w = [U | V] of shape (D, Ñ, Ñ+m). Bound on an H100: bytes. At the har
-//     width it reads 90 MB (0.027 ms at 3.35 TB/s) and does one multiply-add
-//     per element read. One thread owns one element of the payload for one
-//     cluster and walks the cluster's members in ascending device order
+//     w = [U | V] of shape (D, Ñ, Ñ+m); the unmasked form reads no mask.
+//     Bound on an H100: bytes. At the har width it reads 90 MB (0.027 ms at
+//     3.35 TB/s) and does one add (and, masked, one multiply) per element
+//     read. One thread owns one element of the payload for one cluster and
+//     walks the cluster's members in ascending device order from zero
 //     (cluster offsets from the sorted ids, checked on the host), so the
-//     sum has a fixed order and needs no atomics. The multiply and the add
-//     are rounded separately, as the plain version rounds them.
+//     sum has a fixed order and needs no atomics: the order of the Pallas
+//     accumulator. The multiply and the add are rounded separately, as the
+//     plain version rounds them. One kernel source, the mask a template
+//     parameter.
+//
+// * segment_broadcast (pallas_call :269, _gather_kernel :251):
+//     out[d] = sums[cid[d]], (C, Ñ, Ñ+m) → (D, Ñ, Ñ+m). Bound: bytes, the
+//     C cluster sums read (from L2 after the first member) and D payloads
+//     written, 90 MB at the har width with C = 32 (0.030 ms). One thread
+//     per four elements with 16-byte loads and stores where the row length
+//     is a multiple of 4 and both arrays are 16-byte aligned, else one per
+//     element; a block reads its device's cluster id once.
+//
+// * banded_mix (pallas_call :106, _banded_kernel :83): the open ring's
+//     neighbour sum out[d] = Σ_{o=−hops..hops} x[(d+o) mod D], summed from
+//     zero in that order, the order of the Pallas accumulator. Bound: bytes;
+//     each payload read once and each sum written once is 181 MB at the har
+//     width and D = 256 (0.054 ms); with no reuse between neighbouring
+//     devices the 2·hops+1 reads make it 542 MB at hops = 2 (0.16 ms). One
+//     thread per element and device; blocks of neighbouring devices run
+//     together, so most of the repeated reads come from L2. The (d+o) mod D
+//     indexing is shared with banded_merge_solve (ring_src).
 //
 // * from_uv_solve (pallas_call :411, _solve_kernel :371, _gj_sweep :356):
 //     Gauss-Jordan without pivoting on [U+εI | I | V] per system, giving
@@ -48,23 +70,65 @@
 // right-hand side is updated in full.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSolveTile = 64;  // right-hand-side columns per block
 
+// kMasked: each member's payload is scaled by mask[d] first (the masked
+// merge); otherwise the mask is never read (mask may be null).
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-masked_segsum_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
-                     const float* __restrict__ mask, float* __restrict__ out,
-                     long long E) {
+segsum_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
+              const float* __restrict__ mask, float* __restrict__ out, long long E) {
   const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (e >= E) return;
   const int c = blockIdx.y;
   const int d0 = seg_start[c], d1 = seg_start[c + 1];
   float acc = 0.0f;
 #pragma unroll 8
-  for (int d = d0; d < d1; ++d) acc = __fadd_rn(acc, __fmul_rn(w[(size_t)d * E + e], mask[d]));
+  for (int d = d0; d < d1; ++d) {
+    const float x = w[(size_t)d * E + e];
+    acc = __fadd_rn(acc, kMasked ? __fmul_rn(x, mask[d]) : x);
+  }
   out[(size_t)c * E + e] = acc;
+}
+
+// One block row per device d (blockIdx.y): out[d, :] = sums[cid[d], :].
+__global__ void __launch_bounds__(kThreads)
+segment_broadcast_kernel(const float* __restrict__ sums, const int* __restrict__ cids,
+                         float* __restrict__ out, long long E) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E) return;
+  const int d = blockIdx.y;
+  out[(size_t)d * E + e] = sums[(size_t)cids[d] * E + e];
+}
+
+// The same with four elements a thread: E4 = E / 4 float4s per row.
+__global__ void __launch_bounds__(kThreads)
+segment_broadcast_kernel_vec4(const float4* __restrict__ sums, const int* __restrict__ cids,
+                              float4* __restrict__ out, long long E4) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E4) return;
+  const int d = blockIdx.y;
+  out[(size_t)d * E4 + e] = sums[(size_t)cids[d] * E4 + e];
+}
+
+// The device o places from d around a ring of D devices, for |o| < D.
+__device__ __forceinline__ int ring_src(int d, int o, int D) { return ((d + o) % D + D) % D; }
+
+// One block row per device d (blockIdx.y), one thread per element.
+__global__ void __launch_bounds__(kThreads)
+banded_mix_kernel(const float* __restrict__ x, float* __restrict__ out, int D, long long E,
+                  int hops) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E) return;
+  const int d = blockIdx.y;
+  float acc = 0.0f;
+  for (int o = -hops; o <= hops; ++o) acc = __fadd_rn(acc, x[(size_t)ring_src(d, o, D) * E + e]);
+  out[(size_t)d * E + e] = acc;
 }
 
 // Eliminate A (n×n, row stride n+1) against the tile R (n×tc, row stride
@@ -150,10 +214,7 @@ banded_solve_kernel(const float* __restrict__ w, float* __restrict__ p,
   for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
     const int i = idx / n, j = idx % n;
     float acc = 0.0f;
-    for (int o = -hops; o <= hops; ++o) {
-      const int src = ((d + o) % D + D) % D;
-      acc += w[src * per + (size_t)i * ldw + j];
-    }
+    for (int o = -hops; o <= hops; ++o) acc += w[ring_src(d, o, D) * per + (size_t)i * ldw + j];
     A[i * lda + j] = acc + (i == j ? ridge : 0.0f);
   }
   for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
@@ -162,10 +223,7 @@ banded_solve_kernel(const float* __restrict__ w, float* __restrict__ p,
     if (c < n) {
       val = (i == c) ? 1.0f : 0.0f;
     } else if (c < n + m) {
-      for (int o = -hops; o <= hops; ++o) {
-        const int src = ((d + o) % D + D) % D;
-        val += w[src * per + (size_t)i * ldw + c];
-      }
+      for (int o = -hops; o <= hops; ++o) val += w[ring_src(d, o, D) * per + (size_t)i * ldw + c];
     }
     R[i * ldr + j] = val;
   }
@@ -236,6 +294,8 @@ dense_mix_kernel(const float* __restrict__ M, const float* __restrict__ X,
   }
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
 int solve_smem(int n) { return (n * (n + 1) + n * (kSolveTile + 1) + 2 * n + kSolveTile) * 4; }
 
 }  // namespace
@@ -250,9 +310,46 @@ int repro_solve_tile() { return kSolveTile; }
 // w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E).
 int repro_masked_segment_sum(const float* w, const int* seg_start, const float* mask,
                              float* out, int C, long long E, void* stream) {
+  if (C == 0 || E == 0) return cudaSuccess;
   const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), C);
-  masked_segsum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  segsum_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       w, seg_start, mask, out, E);
+  return cudaGetLastError();
+}
+
+// w (D, E), seg_start (C+1) int32 → out (C, E): the unmasked cluster sums.
+int repro_segment_sum(const float* w, const int* seg_start, float* out, int C, long long E,
+                      void* stream) {
+  if (C == 0 || E == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), C);
+  segsum_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, seg_start, nullptr, out, E);
+  return cudaGetLastError();
+}
+
+// sums (C, E), cids (D) int32 in [0, C) → out (D, E) with out[d] = sums[cids[d]].
+int repro_segment_broadcast(const float* sums, const int* cids, float* out, int D, long long E,
+                            void* stream) {
+  if (D == 0 || E == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E % 4 == 0 && aligned16(sums) && aligned16(out)) {
+    const long long e4 = E / 4;
+    const dim3 grid((unsigned)((e4 + kThreads - 1) / kThreads), D);
+    segment_broadcast_kernel_vec4<<<grid, kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(sums), cids, reinterpret_cast<float4*>(out), e4);
+  } else {
+    const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), D);
+    segment_broadcast_kernel<<<grid, kThreads, 0, st>>>(sums, cids, out, E);
+  }
+  return cudaGetLastError();
+}
+
+// x (D, E) contiguous, 2·hops+1 <= D → out (D, E), the circular ±hops sums.
+int repro_banded_mix(const float* x, float* out, int D, long long E, int hops, void* stream) {
+  if (D == 0 || E == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), D);
+  banded_mix_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, out, D, E, hops);
   return cudaGetLastError();
 }
 

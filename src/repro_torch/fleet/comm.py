@@ -1,7 +1,8 @@
 """Per-round communication cost of a topology; port of
 ``repro.fleet.comm``. One payload is Ñ(Ñ+m) values: U (Ñ, Ñ) and
 V (Ñ, m); a lossy ``precision`` counts them at the wire codec's exact
-size (``repro_torch.fleet.quantize``)."""
+size (``repro_torch.fleet.quantize``). ``fedavg_total_cost`` is the
+FedAvg baseline, which ships whole models."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +19,11 @@ def payload_nbytes(
     if precision is not None:
         return payload_precision_nbytes(n_hidden, n_out, precision)
     return n_hidden * (n_hidden + n_out) * itemsize
+
+
+def model_nbytes(n_features: int, n_hidden: int, n_out: int, itemsize: int = 4) -> int:
+    """The whole SLFN (α, b, β): what FedAvg ships per device and round."""
+    return (n_features * n_hidden + n_hidden + n_hidden * n_out) * itemsize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,4 +53,23 @@ def topology_round_cost(
         payloads=topology.payloads_per_round,
         bytes_total=topology.payloads_per_round * nbytes,
         precision=precision,
+    )
+
+
+def fedavg_total_cost(
+    n_devices: int,
+    rounds: int,
+    n_features: int,
+    n_hidden: int,
+    n_out: int,
+    itemsize: int = 4,
+) -> RoundCost:
+    """R-round FedAvg: every round each device uploads its model and
+    downloads the average (2 transfers per device per round)."""
+    payloads = 2 * n_devices * rounds
+    return RoundCost(
+        topology=f"fedavg_r{rounds}",
+        n_devices=n_devices,
+        payloads=payloads,
+        bytes_total=payloads * model_nbytes(n_features, n_hidden, n_out, itemsize),
     )

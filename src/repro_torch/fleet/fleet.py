@@ -3,19 +3,25 @@
 
 The whole fleet is ONE ``OSELMState`` whose ``beta``/``p`` carry a
 leading device axis and whose SLFN basis (α, b) is shared. Training goes
-through the fused ingest (``repro_torch.kernels.fleet_ingest``). The one
-merge is ``fleet_merge_masked_kernel``, on the merge kernels: the masked
-segment sum (star, hierarchical), the fused banded merge+solve (open
+through the fused ingest (``repro_torch.kernels.fleet_ingest``). Every
+merge goes through one dispatcher on the merge kernels: the segment sum
+(star, hierarchical; masked or not), the fused banded merge+solve (open
 ring), the dense mix (any other mask) and the Gauss-Jordan solve. On CPU
 tensors the kernels run their plain versions.
-``fleet_merge_quantized`` is the stateful lossy round on
-the same merge: payloads published through the int8 ``quantize_pack``
-kernel (or f16) with error feedback.
 
-A participation mask keeps masked-out devices out of every neighbour's
-sum, and they keep their own (P, β) bit for bit.
+- ``fleet_merge_kernel`` (also ``fleet_merge``) — every device merges;
+- ``fleet_merge_masked_kernel`` — a participation mask keeps masked-out
+  devices out of every neighbour's sum, and they keep their own (P, β)
+  bit for bit;
+- ``fleet_merge_quantized`` — the stateful lossy round on the same merge:
+  payloads published through the int8 ``quantize_pack`` kernel (or f16)
+  with error feedback;
+- ``fleet_train_rounds`` — the paper's "repeatedly applied to
+  synchronize" mode: train a chunk of every stream, merge, repeat.
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -32,7 +38,10 @@ from repro_torch.kernels.topology_merge import (
     dense_mix,
     from_uv_solve,
     masked_segment_sum_mix,
+    segment_sum_mix,
 )
+
+log = logging.getLogger(__name__)
 
 
 def init_fleet(
@@ -120,28 +129,33 @@ def _keep_participants(states, mf, p, beta) -> OSELMState:
 def _masked_kernel_merge_from_w(
     states: OSELMState,
     topology: Topology,
-    mask: torch.Tensor,
+    mask: torch.Tensor | None,
     w: torch.Tensor,
     ridge: float,
     *,
     receive: torch.Tensor | None = None,
 ) -> OSELMState:
-    """The masked Eq. 8 merge of pre-packed (possibly codec'd) payloads
-    w (D, Ñ, Ñ+m) on the merge kernels.
+    """The Eq. 8 merge of pre-packed (possibly codec'd) payloads
+    w (D, Ñ, Ñ+m) on the merge kernels; ``mask`` None is the unmasked
+    merge, in which every device contributes and takes the merged model.
 
-    Segment topologies gate participation inside the masked segment sum;
-    the other kinds fold the mask into the payload first: the open ring
-    goes to the fused banded merge+solve, a fully connected merge is a
-    plain sum and one Gauss-Jordan solve, and any other dense mask goes
-    through ``dense_mix`` and a solve per device. ``receive`` widens the
-    set of devices that take the merged model beyond the contributors
-    (None: exactly the participants)."""
+    Segment topologies gate participation inside the masked segment sum
+    (or take the plain segment sum without a mask); the other kinds fold
+    the mask into the payload first: the open ring goes to the fused
+    banded merge+solve, a fully connected merge is a plain sum and one
+    Gauss-Jordan solve, and any other dense mask goes through
+    ``dense_mix`` and a solve per device. ``receive`` widens the set of
+    devices that take the merged model beyond the contributors (None:
+    exactly the participants)."""
     n = states.p.shape[-1]
-    mf = mask.to(device=w.device, dtype=w.dtype)
+    mf = None if mask is None else mask.to(device=w.device, dtype=w.dtype)
     n_dev = topology.n_devices
 
     if topology.kind == "segment":
-        sums = masked_segment_sum_mix(w, topology.cluster_ids, mf, topology.n_clusters)
+        if mf is None:
+            sums = segment_sum_mix(w, topology.cluster_ids, topology.n_clusters)
+        else:
+            sums = masked_segment_sum_mix(w, topology.cluster_ids, mf, topology.n_clusters)
         if topology.head_exchange:
             total = sums.sum(0, keepdim=True)
             p, beta = from_uv_solve(total[:, :, :n], total[:, :, n:], ridge=ridge)
@@ -151,7 +165,7 @@ def _masked_kernel_merge_from_w(
             cids = torch.as_tensor(topology.cluster_ids, dtype=torch.long, device=w.device)
             p, beta = pc[cids], betac[cids]
     else:
-        wm = w * mf[:, None, None]
+        wm = w if mf is None else w * mf[:, None, None]
         if topology.kind == "banded" and not topology.band_closed:
             p, beta = banded_merge_solve(wm, topology.hops, ridge=ridge)
         elif topology.is_fully_connected:
@@ -161,6 +175,8 @@ def _masked_kernel_merge_from_w(
         else:
             mixed = dense_mix(wm, topology.dense_matrix())
             p, beta = from_uv_solve(mixed[:, :, :n], mixed[:, :, n:], ridge=ridge)
+    if mf is None and receive is None:
+        return states.replace(beta=beta.contiguous(), p=p.contiguous())
     kf = mf if receive is None else receive.to(device=w.device, dtype=w.dtype)
     return _keep_participants(states, kf, p, beta)
 
@@ -168,6 +184,38 @@ def _masked_kernel_merge_from_w(
 def _packed_uv(states: OSELMState, ridge: float):
     uv = fleet_to_uv(states, ridge=ridge)
     return uv, torch.cat([uv.u, uv.v], dim=2)
+
+
+def _one_shot_payloads(states: OSELMState, ridge: float, payload_precision: str) -> torch.Tensor:
+    """The packed payloads through the one-shot wire codec (no residual):
+    int8 through the ``quantize_pack`` kernel, f16 as a half-precision
+    round trip, f32 as they are."""
+    validate_precision(payload_precision)
+    uv, w = _packed_uv(states, ridge)
+    if payload_precision == "int8":
+        codes, scales, _ = quantize_pack(uv.u, uv.v)
+        return dequantize_tiles(codes, scales)
+    return quantize_roundtrip(w, payload_precision)
+
+
+def fleet_merge_kernel(
+    states: OSELMState,
+    topology: Topology,
+    *,
+    ridge: float = 0.0,
+    payload_precision: str = "f32",
+) -> OSELMState:
+    """Topology-aware cooperative update: each device's merged (U, V) is
+    the Eq. 8 sum over its neighbour set (itself included), solved once
+    per class of identical merged models (one solve when fully connected,
+    one per isolated cluster, one per device on an open ring or a custom
+    mask). ``payload_precision`` applies the one-shot wire codec to the
+    payloads before the mix."""
+    w = _one_shot_payloads(states, ridge, payload_precision)
+    return _masked_kernel_merge_from_w(states, topology, None, w, ridge)
+
+
+fleet_merge = fleet_merge_kernel
 
 
 def fleet_merge_masked_kernel(
@@ -181,16 +229,9 @@ def fleet_merge_masked_kernel(
     """The masked Eq. 8 merge: devices with mask 0 neither contribute their
     (U, V) nor receive the merged model. Use ``ridge > 0`` so a cluster
     with every member masked still solves a well-posed (discarded)
-    system. ``payload_precision`` applies the one-shot wire codec (no
-    residual) to the payloads before the mix: int8 through the
-    ``quantize_pack`` kernel, f16 as a half-precision round trip."""
-    validate_precision(payload_precision)
-    uv, w = _packed_uv(states, ridge)
-    if payload_precision == "int8":
-        codes, scales, _ = quantize_pack(uv.u, uv.v)
-        w = dequantize_tiles(codes, scales)
-    else:
-        w = quantize_roundtrip(w, payload_precision)
+    system. ``payload_precision`` applies the one-shot wire codec, as in
+    ``fleet_merge_kernel``."""
+    w = _one_shot_payloads(states, ridge, payload_precision)
     return _masked_kernel_merge_from_w(states, topology, mask, w, ridge)
 
 
@@ -228,6 +269,53 @@ def fleet_merge_quantized(
         w, payload_precision, residual=residual, fp_mask=fp_mask,
         participate=mask, roundtrip=roundtrip,
     )
-    if mask is None:
-        mask = torch.ones(topology.n_devices, dtype=torch.float32, device=w.device)
     return _masked_kernel_merge_from_w(states, topology, mask, w_pub, ridge), new_resid
+
+
+def _streams_on(states: OSELMState, streams) -> torch.Tensor:
+    """(D, T, n) streams, a numpy array or a tensor, as f32 on the fleet's
+    device."""
+    if isinstance(streams, torch.Tensor):
+        return streams.to(device=states.p.device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(streams, np.float32), device=states.p.device)
+
+
+def fleet_train_rounds(
+    states: OSELMState,
+    streams,
+    topology: Topology,
+    *,
+    rounds: int,
+    ridge: float = 0.0,
+) -> OSELMState:
+    """The paper's "repeatedly applied to synchronize" mode at fleet
+    scale: cut each (D, T, n) stream into ``rounds`` chunks, train a chunk
+    through the fused ingest, merge over the topology
+    (``fleet_merge_kernel``), repeat. Synchronous; the lagged variant is
+    ``repro_torch.fleet.staleness.fleet_train_async``.
+
+    When ``T % rounds != 0`` the tail ``T % rounds`` samples of every
+    stream are dropped (each round trains on ``T // rounds`` samples),
+    with a warning."""
+    xs = _streams_on(states, streams)
+    n_dev, steps, _ = xs.shape
+    if not 1 <= rounds <= steps:
+        raise ValueError(f"need 1 <= rounds={rounds} <= steps={steps}")
+    per = steps // rounds
+    tail = steps - rounds * per
+    if tail:
+        log.warning(
+            "fleet_train_rounds: steps=%d not divisible by rounds=%d — "
+            "dropping the tail %d samples of every device stream",
+            steps, rounds, tail,
+        )
+    for r in range(rounds):
+        states = fleet_train(states, xs[:, r * per : (r + 1) * per].contiguous())
+        states = fleet_merge_kernel(states, topology, ridge=ridge)
+    return states
+
+
+def device_state(states: OSELMState, idx: int) -> OSELMState:
+    """One device's state sliced out of the stacked fleet (the basis is
+    shared, so it is the fleet's)."""
+    return states.replace(beta=states.beta[idx], p=states.p[idx])

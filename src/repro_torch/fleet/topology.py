@@ -14,7 +14,8 @@ summation pattern M over the device axis (Mᵢᵢ = 1):
 
 The merge kernels (``repro_torch.kernels.topology_merge``) read the
 sparse structure (``kind``, ``cluster_ids``, ``hops``) directly; M is
-formed only by ``dense_matrix``.
+formed only by ``dense_matrix`` (and read by ``Topology.mix`` on a dense
+topology).
 """
 from __future__ import annotations
 
@@ -53,6 +54,15 @@ class Topology:
         if self.head_exchange:
             return np.ones_like(same, dtype=np.float32)
         return same.astype(np.float32)
+
+    def mix(self, stacked):
+        """Neighbour-sum a stacked (D, R, C) tensor: out[i] = Σⱼ Mᵢⱼ x[j],
+        through ``repro_torch.kernels.topology_merge.topology_mix`` (the
+        kernels on a CUDA tensor, their plain versions on a CPU one); the
+        sparse kinds never form M."""
+        from repro_torch.kernels.topology_merge import topology_mix
+
+        return topology_mix(stacked, self)
 
     @property
     def band_closed(self) -> bool:

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (port of the fleet-tick, quantized-merge, robust-merge and
+version (port of the fleet-tick, merge, quantized-merge, robust-merge and
 single-device core kernels of ``repro.kernels``)."""
 from repro_torch.kernels._lib import KERNELS, launch_counts, reset_launch_counts
 from repro_torch.kernels.fleet_ingest import (
@@ -27,12 +27,19 @@ from repro_torch.kernels.robust_merge import (
 from repro_torch.kernels.topology_merge import (
     banded_merge_solve,
     banded_merge_solve_plain,
+    banded_mix,
+    banded_mix_plain,
     dense_mix,
     dense_mix_plain,
     from_uv_solve,
     from_uv_solve_plain,
     masked_segment_sum_mix,
     masked_segment_sum_mix_plain,
+    segment_broadcast,
+    segment_broadcast_plain,
+    segment_sum_mix,
+    segment_sum_mix_plain,
+    topology_mix,
 )
 
 __all__ = [
@@ -42,6 +49,8 @@ __all__ = [
     "dense_mix", "dense_mix_plain",
     "from_uv_solve", "from_uv_solve_plain",
     "masked_segment_sum_mix", "masked_segment_sum_mix_plain",
+    "segment_sum_mix", "segment_sum_mix_plain", "segment_broadcast", "segment_broadcast_plain",
+    "banded_mix", "banded_mix_plain", "topology_mix",
     "hidden_proj", "hidden_proj_plain", "matmul_atb", "matmul_atb_plain", "uv_accum",
     "rank1_add", "rank1_add_plain",
     "oselm_step_k1_kernel", "oselm_step_k1_plain", "uv_from_batch_kernel",

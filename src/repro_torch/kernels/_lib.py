@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve",
            "quantize_pack", "robust_segment_sum_mix", "dense_mix",
-           "hidden_proj", "matmul_atb", "rank1_add")
+           "hidden_proj", "matmul_atb", "rank1_add",
+           "segment_sum_mix", "segment_broadcast", "banded_mix")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -113,6 +114,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fleet_ingest": [_P] * 12 + [_I] * 6 + [_F, _P],
     "repro_masked_segment_sum": [_P, _P, _P, _P, _I, _L, _P],
+    "repro_segment_sum": [_P, _P, _P, _I, _L, _P],
+    "repro_segment_broadcast": [_P, _P, _P, _I, _L, _P],
+    "repro_banded_mix": [_P, _P, _I, _L, _I, _P],
     "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P],
     "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "repro_quantize_pack": [_P] * 6 + [_I] * 3 + [_P],

@@ -1,19 +1,27 @@
-"""Masked Eq. 8 merge kernels; port of the masked-merge half of
-``repro.kernels.topology_merge``.
+"""Eq. 8 merge kernels; port of ``repro.kernels.topology_merge``.
 
 - ``masked_segment_sum_mix`` — out[c] = Σ_{cid[d]=c} mask[d]·w[d] over the
-  stacked payloads w = [U | V] (star, hierarchical);
+  stacked payloads w = [U | V] (star, hierarchical), and
+  ``segment_sum_mix``, the same sums with no mask;
+- ``segment_broadcast`` — out[d] = sums[cid[d]], each device's cluster sum
+  gathered back;
+- ``banded_mix`` — the open ring's neighbour sum
+  out[d] = Σ_{o=−hops..hops} x[(d+o) mod D];
 - ``from_uv_solve`` — Gauss-Jordan without pivoting on [U+εI | I | V],
   giving P = (U+εI)⁻¹ and β = PV per system;
 - ``banded_merge_solve`` — the open ring: each device sums its 2·hops+1
   neighbour payloads and solves, in one kernel;
 - ``dense_mix`` — out = M @ flatten(x) for any (D, D) mask, the route of a
-  dense topology that is not fully connected.
+  dense topology that is not fully connected;
+- ``topology_mix`` — ``Topology.mix`` on these kernels, with the
+  reference's dispatch.
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 the CUDA kernel of ``csrc/topology_merge.cu`` for CUDA tensors, or raises.
 The plain versions keep the reference's arithmetic (the elimination step
-of ``_gj_sweep`` and the neighbour order of ``_banded_solve_kernel``);
+of ``_gj_sweep``, the neighbour order of ``_banded_solve_kernel`` and the
+accumulation order of ``_segsum_kernel`` and ``_banded_kernel``: from zero,
+members in ascending device order, neighbours from −hops to +hops);
 ``dense_mix_plain`` keeps the kernel's: one fused multiply-add per
 device k, in increasing k.
 """
@@ -27,16 +35,23 @@ from repro_torch.kernels import _lib
 __all__ = [
     "banded_merge_solve",
     "banded_merge_solve_plain",
+    "banded_mix",
+    "banded_mix_plain",
     "dense_mix",
     "dense_mix_plain",
     "from_uv_solve",
     "from_uv_solve_plain",
     "masked_segment_sum_mix",
     "masked_segment_sum_mix_plain",
+    "segment_broadcast",
+    "segment_broadcast_plain",
+    "segment_sum_mix",
+    "segment_sum_mix_plain",
+    "topology_mix",
 ]
 
 
-# ------------------------------------------------------ masked segment sum
+# ------------------------------------------------------------ segment sums
 
 
 def _segment_starts(
@@ -57,16 +72,48 @@ def _segment_starts(
     return np.searchsorted(cids, np.arange(n_clusters + 1), side="left").astype(np.int32)
 
 
+def _device_ints(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def _segment_sum_plain(w, cluster_ids, n_clusters, mask, kernel):
+    starts = _segment_starts(cluster_ids, w.shape[0], n_clusters, kernel)
+    out = torch.zeros((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
+    mf = None if mask is None else mask.to(w.dtype)
+    for c in range(n_clusters):
+        for d in range(int(starts[c]), int(starts[c + 1])):
+            out[c] += w[d] if mf is None else w[d] * mf[d]
+    return out
+
+
+def _segment_sum(w, cluster_ids, n_clusters, mask, kernel):
+    """Launch the segment-sum kernel, masked when ``mask`` is given."""
+    if mask is None:
+        _lib.require_cuda_f32(kernel, w=w)
+    else:
+        mask = mask.to(torch.float32).contiguous()
+        _lib.require_cuda_f32(kernel, w=w, mask=mask)
+        if mask.shape != (w.shape[0],):
+            raise ValueError(f"mask must be ({w.shape[0]},); got {tuple(mask.shape)}")
+    starts = _device_ints(_segment_starts(cluster_ids, w.shape[0], n_clusters, kernel), w.device)
+    out = torch.empty((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
+    elems = w[0].numel() if w.shape[0] else 0
+    lib = _lib.library()
+    if mask is None:
+        status = lib.repro_segment_sum(w.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                                       n_clusters, elems, _lib.stream())
+    else:
+        status = lib.repro_masked_segment_sum(w.data_ptr(), starts.data_ptr(), mask.data_ptr(),
+                                              out.data_ptr(), n_clusters, elems, _lib.stream())
+    _lib.check(status, kernel)
+    _lib.count_launch(kernel)
+    return out
+
+
 def masked_segment_sum_mix_plain(
     w: torch.Tensor, cluster_ids, mask: torch.Tensor, n_clusters: int
 ) -> torch.Tensor:
-    starts = _segment_starts(cluster_ids, w.shape[0], n_clusters)
-    out = torch.zeros((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
-    mf = mask.to(w.dtype)
-    for c in range(n_clusters):
-        for d in range(int(starts[c]), int(starts[c + 1])):
-            out[c] += w[d] * mf[d]
-    return out
+    return _segment_sum_plain(w, cluster_ids, n_clusters, mask, "masked_segment_sum_mix")
 
 
 def masked_segment_sum_mix(
@@ -76,20 +123,50 @@ def masked_segment_sum_mix(
     members are summed in ascending device order."""
     if w.device.type == "cpu":
         return masked_segment_sum_mix_plain(w, cluster_ids, mask, n_clusters)
-    mask = mask.to(torch.float32).contiguous()
-    _lib.require_cuda_f32("masked_segment_sum_mix", w=w, mask=mask)
-    if mask.shape != (w.shape[0],):
-        raise ValueError(f"mask must be ({w.shape[0]},); got {tuple(mask.shape)}")
-    starts = torch.from_numpy(_segment_starts(cluster_ids, w.shape[0], n_clusters))
-    starts = starts.to(w.device)
-    out = torch.empty((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
-    elems = w[0].numel() if w.shape[0] else 0
-    status = _lib.library().repro_masked_segment_sum(
-        w.data_ptr(), starts.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        n_clusters, elems, _lib.stream(),
+    return _segment_sum(w, cluster_ids, n_clusters, mask, "masked_segment_sum_mix")
+
+
+def segment_sum_mix_plain(w: torch.Tensor, cluster_ids, n_clusters: int) -> torch.Tensor:
+    return _segment_sum_plain(w, cluster_ids, n_clusters, None, "segment_sum_mix")
+
+
+def segment_sum_mix(w: torch.Tensor, cluster_ids, n_clusters: int) -> torch.Tensor:
+    """Cluster sums (C, R, Cc) of w (D, R, Cc) over sorted ``cluster_ids``;
+    each cluster's members are summed from zero in ascending device order."""
+    if w.device.type == "cpu":
+        return segment_sum_mix_plain(w, cluster_ids, n_clusters)
+    return _segment_sum(w, cluster_ids, n_clusters, None, "segment_sum_mix")
+
+
+def _broadcast_ids(cluster_ids, n_clusters: int) -> np.ndarray:
+    cids = np.asarray(cluster_ids)
+    if cids.ndim != 1:
+        raise ValueError(f"cluster_ids must be (D,); got {cids.shape}")
+    if cids.size and (cids.min() < 0 or cids.max() >= n_clusters):
+        raise ValueError(f"cluster ids must lie in [0, {n_clusters})")
+    return cids
+
+
+def segment_broadcast_plain(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
+    cids = _broadcast_ids(cluster_ids, sums.shape[0])
+    return sums[torch.as_tensor(cids, dtype=torch.long, device=sums.device)]
+
+
+def segment_broadcast(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
+    """Each device's cluster sum gathered back: out[d] = sums[cid[d]],
+    (C, R, Cc) → (D, R, Cc)."""
+    if sums.device.type == "cpu":
+        return segment_broadcast_plain(sums, cluster_ids)
+    _lib.require_cuda_f32("segment_broadcast", sums=sums)
+    cids = _device_ints(_broadcast_ids(cluster_ids, sums.shape[0]), sums.device)
+    d = cids.shape[0]
+    out = torch.empty((d,) + tuple(sums.shape[1:]), dtype=sums.dtype, device=sums.device)
+    elems = sums[0].numel() if sums.shape[0] else 0
+    status = _lib.library().repro_segment_broadcast(
+        sums.data_ptr(), cids.data_ptr(), out.data_ptr(), d, elems, _lib.stream(),
     )
-    _lib.check(status, "masked_segment_sum_mix")
-    _lib.count_launch("masked_segment_sum_mix")
+    _lib.check(status, "segment_broadcast")
+    _lib.count_launch("segment_broadcast")
     return out
 
 
@@ -167,6 +244,34 @@ def _check_band(d: int, hops: int) -> None:
         raise ValueError(f"band 2*{hops}+1 exceeds n_devices={d}; use a full-sum path")
 
 
+def banded_mix_plain(x: torch.Tensor, hops: int) -> torch.Tensor:
+    _check_band(x.shape[0], hops)
+    acc = torch.zeros_like(x)
+    for o in range(-hops, hops + 1):  # device d adds x[(d+o) mod D]
+        acc = acc + torch.roll(x, -o, dims=0)
+    return acc
+
+
+def banded_mix(x: torch.Tensor, hops: int) -> torch.Tensor:
+    """Circular banded neighbour sum out[d] = Σ_{o=−hops..hops} x[(d+o) mod D]
+    over a stacked (D, R, C) array, summed from zero for o = −hops..+hops.
+    Needs 2·hops+1 ≤ D: a wider band would count a device twice."""
+    if x.ndim != 3:
+        raise ValueError(f"need x (D, R, C); got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return banded_mix_plain(x, hops)
+    _lib.require_cuda_f32("banded_mix", x=x)
+    d = x.shape[0]
+    _check_band(d, hops)
+    out = torch.empty_like(x)
+    status = _lib.library().repro_banded_mix(
+        x.data_ptr(), out.data_ptr(), d, x[0].numel() if d else 0, hops, _lib.stream(),
+    )
+    _lib.check(status, "banded_mix")
+    _lib.count_launch("banded_mix")
+    return out
+
+
 def banded_merge_solve_plain(
     w: torch.Tensor, hops: int, *, ridge: float = 0.0
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -240,3 +345,25 @@ def dense_mix(x: torch.Tensor, matrix) -> torch.Tensor:
     _lib.check(status, "dense_mix")
     _lib.count_launch("dense_mix")
     return out
+
+
+# ------------------------------------------------------------- dispatch
+
+
+def topology_mix(x: torch.Tensor, topology) -> torch.Tensor:
+    """``Topology.mix`` on the kernels, with the reference's dispatch: a
+    segment topology sums its clusters (``segment_sum_mix``), then either
+    exchanges heads (one sum, broadcast) or gathers each cluster's sum back
+    (``segment_broadcast``); a closed band is one sum, broadcast; an open
+    band is ``banded_mix``; any other mask is ``dense_mix``. The broadcast
+    results are expanded views of one (1, R, C) sum."""
+    if topology.kind == "segment":
+        sums = segment_sum_mix(x, topology.cluster_ids, topology.n_clusters)
+        if topology.head_exchange:
+            return sums.sum(0, keepdim=True).expand(x.shape)
+        return segment_broadcast(sums, topology.cluster_ids)
+    if topology.kind == "banded":
+        if topology.band_closed:
+            return x.sum(0, keepdim=True).expand(x.shape)
+        return banded_mix(x, topology.hops)
+    return dense_mix(x, topology.dense_matrix())

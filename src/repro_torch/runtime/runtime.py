@@ -1,6 +1,6 @@
 """Resident streaming fleet runtime; port of ``repro.runtime.runtime``
-(exact-f32 and quantized payloads, robust merges and fault injection; no
-staleness, snapshots or telemetry yet).
+(exact-f32 and quantized payloads, robust merges and fault injection,
+stale merges; no snapshots or telemetry yet).
 
 One ``tick`` runs the paper's loop over the whole fleet:
 
@@ -23,7 +23,12 @@ One ``tick`` runs the paper's loop over the whole fleet:
    either the naive arm merges whatever came out, or the robust arm
    replaces each non-finite payload by that device's last finite one and
    runs the clipped, trimmed and scored merge (``robust_merge_from_w``),
-   whose scores feed the governor's robust quarantine.
+   whose scores feed the governor's robust quarantine. With a
+   ``staleness`` schedule it is the stale round: every device publishes
+   its fresh payload into a ring of published versions and merges its own
+   fresh (U, V) with each neighbour's payload as old as that neighbour's
+   lag (``repro_torch.fleet.staleness.stale_merge_round``, on the
+   topology's sparse mix kernels).
 
 The fleet state, the residual and the detector bank stay on the device;
 only the (D,) losses and flags (and on candidate rounds of a quantized
@@ -53,6 +58,7 @@ from repro_torch.fleet.fleet import (
 )
 from repro_torch.fleet.quantize import init_residual, validate_precision
 from repro_torch.fleet.robust import RobustConfig, finite_payload_mask, robust_merge_from_w
+from repro_torch.fleet.staleness import StalenessSchedule, init_ring, stale_merge_round
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels.fleet_ingest import fleet_ingest
 from repro_torch.runtime.detector import (
@@ -75,6 +81,8 @@ class RuntimeConfig:
     detector: DetectorConfig = dataclasses.field(default_factory=DetectorConfig)
     governor: GovernorConfig = dataclasses.field(default_factory=GovernorConfig)
     gate_merges: bool = True          # False: no quarantine, every device merges
+    staleness: StalenessSchedule | None = None  # per-device publication lags
+                                                # of the stale merge; None: fresh
     payload_precision: str = "f32"    # merge wire format: "f32" | "f16" | "int8"
     robust: RobustConfig | None = None   # clip/trim/score merge and robust
                                          # quarantine; None: the exact merge
@@ -138,7 +146,20 @@ class FleetRuntime:
             )
         if states.params.alpha.ndim != 2:
             raise ValueError("the fleet must carry one shared basis (α of shape (n, Ñ))")
+        if config.staleness is not None and len(config.staleness.lags) != n_devices:
+            raise ValueError("staleness schedule device count mismatch")
         validate_precision(config.payload_precision)
+        if config.payload_precision != "f32" and config.staleness is not None:
+            raise ValueError(
+                "quantized payloads are not supported with the stale "
+                "published-version ring yet (the ring stores exact payloads)"
+            )
+        if self._hardened(config) and config.staleness is not None:
+            raise ValueError(
+                "robust/fault-injected merges are not supported with the "
+                "stale published-version ring (the ring replays un-guarded "
+                "historical payloads)"
+            )
         if self._hardened(config) and config.payload_precision != "f32":
             raise ValueError(
                 "robust/fault-injected merges require payload_precision='f32' "
@@ -171,7 +192,14 @@ class FleetRuntime:
         self._last_good = (
             _packed_uv(self.states, config.ridge)[1] if self._hardened(config) else None
         )
+        # the ring of published versions (L, D, Ñ, Ñ+m) of a stale runtime,
+        # written in place, one slot per admitted round
+        self._hist = (
+            None if config.staleness is None
+            else init_ring(self.states, config.ridge, config.staleness.max_lag + 1)
+        )
         self.tick_no = 0
+        self.merge_round = 0
         self.detections_total = 0
         self._post_merge = False
         self._merge_mask = np.ones(n_devices, bool)
@@ -204,6 +232,12 @@ class FleetRuntime:
         mask_t = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
         if self._last_good is not None:
             return self._merge_hardened(mask, mask_t, drifted, t)
+        if self._hist is not None:
+            self.states = stale_merge_round(
+                self.states, self._hist, cfg.staleness.lags, self.merge_round, cfg.topology,
+                cfg.ridge, mask=mask_t,
+            )
+            return None, 0
         if self._residual is None:
             self.states = fleet_merge_masked_kernel(
                 self.states, cfg.topology, mask_t, ridge=cfg.ridge
@@ -331,6 +365,7 @@ class FleetRuntime:
             if scores is not None:
                 self.governor.observe_robust(scores)
             self._merge_mask = mask.copy()
+            self.merge_round += 1
         self._post_merge = decision.merge
         self.tick_no = t + 1
         return TickReport(
@@ -353,12 +388,17 @@ class FleetRuntime:
     def warmup(self, batch_size: int) -> None:
         """Build the kernels and launch each kernel the tick can reach once
         (``quantize_pack`` when the payloads are int8, ``robust_segment_sum_mix``
-        when a robust merge routes to it, ``dense_mix`` on a dense mask), on
+        when a robust merge routes to it, ``dense_mix`` on a dense mask, the
+        stale round's mix kernels when a staleness schedule is set), on
         all-zero operands and an all-zero mask, before live traffic arrives:
         the first real tick then does not pay for ``nvcc``. Every output is
-        discarded — no model, detector, residual, payload or governor state
-        changes."""
+        discarded — no model, detector, residual, payload, ring or governor
+        state changes."""
         saved = (self.states, self.det, self._residual, self._last_good)
+        slot = None
+        if self._hist is not None:
+            slot = self.merge_round % self._hist.shape[0]
+            saved_slot = self._hist[slot].clone()
         d, f = self.n_devices, self.states.params.alpha.shape[0]
         batch = torch.zeros((d, batch_size, f), dtype=torch.float32, device=self.device)
         self._ingest_detect(batch, np.zeros(d, bool))
@@ -366,3 +406,5 @@ class FleetRuntime:
         self._merge(none, none, none, self.tick_no)
         _synchronize(self.device)
         self.states, self.det, self._residual, self._last_good = saved
+        if slot is not None:
+            self._hist[slot] = saved_slot

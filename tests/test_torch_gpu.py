@@ -9,7 +9,8 @@ on its own, with the reasons of ``chip_smoke.py``: 1e-6 for the
 fixed-order masked segment sum, 1e-5 for the Gauss-Jordan solves (the
 same fused elimination in both), 1e-4 for the ingest (other summation
 orders in the GEMM and dot products, amplified along the RLS chain).
-``quantize_pack``, ``robust_segment_sum_mix`` and ``dense_mix`` are held
+``quantize_pack``, ``robust_segment_sum_mix``, ``dense_mix``,
+``segment_sum_mix``, ``segment_broadcast`` and ``banded_mix`` are held
 bit for bit: their plain versions repeat the kernels' operations in the
 kernels' order. So is ``rank1_add`` (one rounded product, one fused
 multiply-add in both). ``hidden_proj`` and ``matmul_atb`` are held at
@@ -24,9 +25,12 @@ import pytest
 import torch
 
 from repro_torch.core import SLFNParams, init_oselm
+from repro_torch.fleet import Topology, all_to_all, hierarchical, ring, star
 from repro_torch.kernels import (
     banded_merge_solve,
     banded_merge_solve_plain,
+    banded_mix,
+    banded_mix_plain,
     dense_mix,
     dense_mix_plain,
     fleet_ingest,
@@ -48,6 +52,11 @@ from repro_torch.kernels import (
     rank1_add_plain,
     robust_segment_sum_mix,
     robust_segment_sum_mix_plain,
+    segment_broadcast,
+    segment_broadcast_plain,
+    segment_sum_mix,
+    segment_sum_mix_plain,
+    topology_mix,
     uv_from_batch_kernel,
     uv_from_batch_plain,
 )
@@ -344,3 +353,111 @@ def test_k1_step_and_batch_statistics_on_the_kernels(cuda, activation, forget):
     assert [after[k] - before[k] for k in ("hidden_proj", "matmul_atb")] == [1, 2]
     ru, rv = uv_from_batch_plain(alpha, bias, xs, xs, activation=activation)
     assert _rel(u, ru) <= 1e-6 and _rel(v, rv) <= 1e-6
+
+
+def _launched(name, fn):
+    before = launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + 1, name
+    return out
+
+
+# (13, 10, 37, 4): ragged clusters, one of them empty; (256, 128, 689, 32)
+# and (256, 128, 689, 1): the har width as a hierarchical fleet and a star
+# merge
+@pytest.mark.parametrize("d,r,c,n_clusters", [(13, 10, 37, 4), (256, 128, 689, 32),
+                                              (256, 128, 689, 1)])
+def test_segment_sum_kernel_is_bit_exact_with_plain(cuda, d, r, c, n_clusters):
+    rng = np.random.default_rng(20)
+    w = torch.from_numpy(rng.standard_normal((d, r, c)).astype(np.float32)).to(cuda)
+    if n_clusters == 4:
+        cids = np.array([0] * 4 + [2] * 6 + [3] * 3, np.int32)
+    else:
+        cids = (np.arange(d) * n_clusters // d).astype(np.int32)
+    got = _launched("segment_sum_mix", lambda: segment_sum_mix(w, cids, n_clusters))
+    assert torch.equal(got, segment_sum_mix_plain(w, cids, n_clusters))
+    if n_clusters == 4:
+        assert not got[1].any()
+    if n_clusters > 1:
+        with pytest.raises(ValueError, match="sorted"):
+            segment_sum_mix(w, cids[::-1].copy(), n_clusters)
+
+
+# (13, 10, 37): 370 elements a row, the one-element path; (13, 8, 36) and
+# the har width (C = 32 → 256, 88 192 a row): the 16-byte path
+@pytest.mark.parametrize("d,r,c,n_clusters", [(13, 10, 37, 4), (13, 8, 36, 3),
+                                              (256, 128, 689, 32)])
+def test_segment_broadcast_kernel_is_bit_exact_with_plain(cuda, d, r, c, n_clusters):
+    rng = np.random.default_rng(21)
+    sums = torch.from_numpy(rng.standard_normal((n_clusters, r, c)).astype(np.float32)).to(cuda)
+    cids = np.sort(rng.integers(0, n_clusters, d)).astype(np.int32)
+    got = _launched("segment_broadcast", lambda: segment_broadcast(sums, cids))
+    assert got.shape == (d, r, c)
+    assert torch.equal(got, segment_broadcast_plain(sums, cids))
+
+
+def test_segment_broadcast_kernel_on_a_misaligned_view(cuda):
+    """Rows of 4k floats that start 4 bytes into their storage take the
+    one-element path."""
+    flat = _randn(cuda, (3 * 8 * 36 + 1,), seed=22)
+    sums = flat[1:].view(3, 8, 36)
+    cids = np.array([0, 0, 1, 2, 2, 2, 1], np.int32)
+    assert torch.equal(segment_broadcast(sums, cids), segment_broadcast_plain(sums, cids))
+
+
+# (13, 10, 37): hops 1, 2 and 6 (2·hops+1 = D); the har width at hops 2
+@pytest.mark.parametrize("d,r,c,hops", [(13, 10, 37, 1), (13, 10, 37, 2), (13, 10, 37, 6),
+                                        (256, 128, 689, 2)])
+def test_banded_mix_kernel_is_bit_exact_with_plain(cuda, d, r, c, hops):
+    x = torch.from_numpy(
+        np.random.default_rng(23).standard_normal((d, r, c)).astype(np.float32)).to(cuda)
+    got = _launched("banded_mix", lambda: banded_mix(x, hops))
+    assert torch.equal(got, banded_mix_plain(x, hops))
+
+
+def test_mix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((5, 4, 9), device=cuda)
+    with pytest.raises(ValueError, match="band"):
+        banded_mix(x, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        banded_mix(x.transpose(1, 2), 1)
+    with pytest.raises(TypeError, match="float32"):
+        segment_sum_mix(x.double(), np.zeros(5, np.int32), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_broadcast(x.transpose(1, 2), np.zeros(5, np.int32))
+    with pytest.raises(ValueError, match=r"\[0, 5\)"):
+        segment_broadcast(x, np.arange(6, dtype=np.int32))
+
+
+@pytest.mark.parametrize("name", ["star", "hierarchical", "hierarchical_isolated",
+                                  "all_to_all", "ring2", "ring_closed", "custom"])
+def test_topology_mix_on_the_card_is_the_cpu_mix(cuda, name):
+    """The card's mix launches its route's kernel and agrees with the CPU's
+    plain mix: bit for bit through the segment and band kernels, at f32
+    rounding where a head exchange or a closed band sums with PyTorch."""
+    d = 13
+    mask = (np.random.default_rng(24).random((d, d)) < 0.35).astype(np.float32)
+    topo = {
+        "star": star(d), "hierarchical": hierarchical(d, 3),
+        "hierarchical_isolated": hierarchical(d, 3, head_exchange=False),
+        "all_to_all": all_to_all(d), "ring2": ring(d, 2), "ring_closed": ring(d, 6),
+        "custom": Topology(name="custom", n_devices=d, kind="dense",
+                           matrix=np.maximum(np.maximum(mask, mask.T), np.eye(d, dtype=np.float32))),
+    }[name]
+    x = np.random.default_rng(25).standard_normal((d, 10, 37)).astype(np.float32)
+    before = launch_counts()
+    got = topology_mix(torch.from_numpy(x).to(cuda), topo)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    launched = {k for k in after if after[k] != before[k]}
+    want = topology_mix(torch.from_numpy(x), topo)
+    routes = {"star": {"segment_sum_mix"}, "hierarchical": {"segment_sum_mix"},
+              "hierarchical_isolated": {"segment_sum_mix", "segment_broadcast"},
+              "all_to_all": {"dense_mix"}, "ring2": {"banded_mix"}, "ring_closed": set(),
+              "custom": {"dense_mix"}}
+    assert launched == routes[name]
+    if name in ("hierarchical_isolated", "ring2", "all_to_all", "custom"):
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert _rel(got.cpu(), want) <= 1e-6

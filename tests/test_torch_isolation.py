@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch``, nothing in
-``chip_smoke.py`` and no port benchmark (``benchmarks/torch_*.py``)
-imports JAX or the JAX package, and the entry points refuse to fall back
-to the CPU when no card is present."""
+``chip_smoke.py`` and no port benchmark or example
+(``benchmarks/torch_*.py``, ``examples/torch_*.py``) imports JAX or the
+JAX package, and the entry points refuse to fall back to the CPU when no
+card is present."""
 import ast
 import subprocess
 import sys
@@ -46,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", *[
     str(f.relative_to(ROOT)) for f in sorted(PKG.rglob("*.py"))
-], *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "benchmarks").glob("torch_*.py"))]])
+], *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "benchmarks").glob("torch_*.py"))],
+   *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "examples").glob("torch_*.py"))]])
 def test_sources_import_no_jax_and_no_reference(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -109,6 +111,16 @@ def test_device_path_entry_points_raise_without_a_card(monkeypatch):
         train_edge_device(ds, "laying", key=0, ecfg=EDGE_CONFIGS["har"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_latency.main([])
+
+
+def test_fleet_example_raises_without_a_card(monkeypatch):
+    """The port's fleet example runs on the card unless asked for the CPU."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_fleet_topologies
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_fleet_topologies.main(["--devices", "4", "--steps", "8"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
