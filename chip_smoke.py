@@ -57,7 +57,20 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    schedule on ring and isolated hierarchical; every kernel's launches
    equal to the rounds routed to it; (e) (b), (c) and (d) card against CPU
    at D = 16;
-9. the kernel list, one JSON object per kernel, then the result line.
+9. serving ``hymba-1.5b`` at full width (32 layers, d_model 1600, bf16):
+   (a) ``flash_attention`` (B = 4, S = 512, 1024 and 2048, H = 25,
+   hd = 64, causal; S = 1000 full; hd = 256) and ``gla_forward`` (S = 512,
+   1000 and 2048, dk = 16, dv = 64) against their plain versions, bf16 and
+   f32, row by row, with CUDA-event, profiler, plain and
+   ``scaled_dot_product_attention`` times and the bound; (b)
+   ``repro_torch.launch.serve.serve`` on random weights from ``SEED``: 3
+   rounds of 4 prompts of 512 tokens and 16 greedy tokens, the drift at
+   round 2 (its score above the other rounds'), then one round at 2048
+   tokens (local attention in the 29 sliding-window layers), each
+   prefill's launches of the two kernels checked; (c) full width in f32 at
+   2 layers, card against CPU: prefill logits, features and caches and 8
+   decode steps; (d) a profile of one prefill and 16 decode steps;
+10. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -87,6 +100,7 @@ RANK, NOISE = 24, 0.1
 D_CPU = 16            # fleet size of the card-against-CPU phase
 
 H100_F32_FLOPS = 67e12   # non-tensor-core f32, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, same sheet
 H100_BYTES_PER_S = 3.35e12
 
 # Tolerances, as max |kernel − plain| / max |plain|, taken for each output
@@ -165,25 +179,27 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, kernel: str) -> float:
-    """Device time per call of the CUDA kernels whose name holds ``kernel``,
-    from torch.profiler over ``reps`` calls: the kernel alone, without the
-    wrapper's host work, which bounds a short kernel's CUDA-event time."""
+    """Device time per launch of the CUDA kernel whose name holds ``kernel``
+    (one launch a call), from torch.profiler over ``reps`` calls: the kernel
+    alone, without the wrapper's host work, which bounds a short kernel's
+    CUDA-event time. It divides by the launches the profiler recorded: a
+    session now and then drops some (seen on an H100: 3 of 4, 4 of 10) or
+    all of them (a 1 µs kernel), and is then asked again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a profiler session now and then records none of a short kernel's
-    # launches (seen on an H100 for a 1 µs kernel), so it is asked again
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
-        if us > 0:
-            return us / 1e3 / reps
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        launches = sum(e.count for e in events)
+        if launches > 0:
+            return sum(e.self_device_time_total for e in events) / 1e3 / launches
     raise AssertionError(f"the profiler saw no {kernel} in three sessions")
 
 
@@ -204,8 +220,8 @@ def solve_flops(s: int, nh: int, m: int) -> float:
     return s * (nh ** 3 + 2 * nh * nh * m)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, flops_per_s: float = H100_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / flops_per_s * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1558,6 +1574,266 @@ def phase_repeated_sync(fleet, ticks_dev, ticks_np):
     return rows, totals
 
 
+# ------------------------------------------------ phase 9: serving hymba-1.5b
+
+SERVE_ARCH = "hymba-1.5b"   # the reference's serving demo's default
+SERVE = dict(rounds=3, batch=4, prompt_len=512, new_tokens=16, drift_round=2)
+SERVE_LONG = 2048           # > the 1024-token window: local attention in 29 layers
+SERVE_CPU_B, SERVE_CPU_S, SERVE_CPU_STEPS = 2, 256, 8
+# kernel against plain on the card, as the largest over the rows (a query's
+# output, a token's y, a row of the state) of max |kernel − plain| / max
+# |plain| within the row, so that a late query row, whose values are a
+# fraction of row 0's, counts as much as row 0. flash: f32 dot products in
+# other orders (measured up to 4.3e-6 per row); bf16, a p or an output that
+# rounds to the other neighbour (up to 7.6e-3, about one bf16 step of the
+# row's largest entry). GLA's plain version repeats the kernel's order
+# (measured bit for bit): 1e-5 in f32, one bf16 step (2^-8) in bf16.
+ATTN_TOL = {("flash_attention", "float32"): 1e-5, ("flash_attention", "bfloat16"): 2e-2,
+            ("gla_forward", "float32"): 1e-5, ("gla_forward", "bfloat16"): 2 ** -8}
+# card against CPU at full width, f32: prefill logits, features and caches and
+# every decode step's logits, as tests/test_torch_models.py holds the port to
+# the reference
+SERVE_CPU_REL = 1e-4
+NEAR_TIE = 1e-4             # top-two logit gap, relative to max |logit|
+
+
+def row_rel_err(got, want) -> float:
+    """max over the rows of the last axis of max |got − want| / max |want|
+    within the row."""
+    import torch
+
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    assert bool(torch.isfinite(got).all()), "non-finite kernel output"
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+
+
+def flash_work(b, sq, sk, h, hd, causal, itemsize):
+    """(operations, bytes): q·k and p·v over the pairs the mask keeps, 4·hd
+    each; q, k, v read and out written once."""
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    return 4 * hd * pairs, itemsize * b * h * hd * (2 * sq + 2 * sk)
+
+
+def gla_work(b, s, h, dk, dv, itemsize, chunk=128):
+    """(operations, bytes) of the chunked form: per chunk of c tokens, the
+    c(c+1)/2 kept pairs of q·k and of the gated scores·v, and the c·dk·dv
+    products of the inter-chunk term and of the state update; q, k, v and
+    log a read once, y and the state written once."""
+    c = min(chunk, s)
+    sizes = [c] * (s // c) + ([s % c] if s % c else [])
+    flops = b * h * sum(n * (n + 1) * (dk + dv) + 4 * n * dk * dv for n in sizes)
+    nbytes = b * s * h * (itemsize * (2 * dk + 2 * dv) + 4) + 4 * b * h * dk * dv
+    return flops, nbytes
+
+
+def attention_kernel_rows():
+    """(a) flash_attention and gla_forward against their plain versions on
+    the card at the serving shapes, the 2048-token prompt's included;
+    returns the kernel list's rows, at the
+    serving loop's prompt (B = 4, S = 512, bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_plain, gla_forward, gla_forward_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+
+    def measure(name, label, dtype, fn, plain, library, kernel_name, work, main):
+        got, want = fn(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        rels = [row_rel_err(g, w) for g, w in zip(got, want)]
+        tol = ATTN_TOL[(name, str(dtype).split(".")[-1])]
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        b = bound(*work, rate)
+        r = dict(abs=abs_err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
+                 library_ms=cuda_ms(library, 20) if library is not None else None,
+                 bound_ms=b[0], bound_by=b[1])
+        alone = device_ms(fn, 10, kernel_name)
+        log(f"  {name} {label}: max rel in a row {', '.join(f'{x:.2e}' for x in rels)}"
+            f" (tol {tol:.1e})"
+            f"  ms={r['ms']:.4f} (kernel alone {alone:.4f}) plain_ms={r['plain_ms']:.4f}"
+            + " library_ms=" + (f"{r['library_ms']:.4f}" if library is not None else "None")
+            + f"  bound_ms={b[0]:.4f} ({b[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB)")
+        assert all(x <= tol for x in rels), f"{name} {label}: kernel != plain"
+        if main:
+            rows[name] = r
+
+    for b, s, h, hd, causal in ((4, 512, 25, 64, True), (4, 1024, 25, 64, True),
+                                (4, SERVE_LONG, 25, 64, True), (4, 1000, 25, 64, False),
+                                (1, 512, 25, 256, True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            measure("flash_attention",
+                    f"B={b} S={s} H={h} hd={hd} {'causal' if causal else 'full'} {dtype}", dtype,
+                    lambda: flash_attention(q, k, v, causal=causal),
+                    lambda: flash_attention_plain(q, k, v, causal=causal),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                    "flash_fwd_kernel", flash_work(b, s, s, h, hd, causal, q.element_size()),
+                    main=(s, dtype, causal, hd) == (512, torch.bfloat16, True, 64))
+    for b, s, h, dk, dv in ((4, 512, 25, 16, 64), (4, 1000, 25, 16, 64),
+                            (4, SERVE_LONG, 25, 16, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = (torch.randn((b, s, h, dk), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            v = torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dtype)
+            la = -F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+            measure("gla_forward", f"B={b} S={s} H={h} dk={dk} dv={dv} {dtype}", dtype,
+                    lambda: gla_forward(q, k, v, la), lambda: gla_forward_plain(q, k, v, la),
+                    None, "gla_fwd_kernel", gla_work(b, s, h, dk, dv, q.element_size()),
+                    main=(s, dtype) == (512, torch.bfloat16))
+    return rows
+
+
+def serve_counted(cfg, params, what, prefills, flash_layers, **kw):
+    """serve() with the launch counts set to 0 just before and read just
+    after; each prefill must launch flash_attention once per layer that
+    takes it and gla_forward once per layer."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = serve(cfg, seed=SEED, device="cuda", params=params, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {"flash_attention": prefills * flash_layers, "gla_forward": prefills * cfg.n_layers}
+    got = {k: counts[k] for k in want}
+    log(f"  {what}: launches {got} over {prefills} prefills (expected {want})")
+    assert got == want, f"{what}: launches {got}, expected {want}"
+    b, n = kw["batch"], kw["new_tokens"]
+    for i, r in enumerate(out):
+        log(f"    round {i}: prefill {r.prefill_seconds * 1e3:.2f} ms, decode"
+            f" {r.decode_seconds * 1e3 / n:.2f} ms a token ({b * n / r.decode_seconds:.1f} tok/s),"
+            f" {b * n / r.seconds:.1f} tok/s over the round, drift score {r.score:.6f},"
+            f" flagged {r.flagged}")
+    return out, got
+
+
+def serve_card_vs_cpu():
+    """(c) full width in f32, depth cut to 2 layers (global layer 0 and one
+    hymba_swa), card against CPU on the same weights and prompts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2, param_dtype="float32")
+    assert cfg.layer_pattern() == ("hymba", "hymba_swa")
+    cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
+
+    card = to_card(cpu)
+    b, s, n = SERVE_CPU_B, SERVE_CPU_S, SERVE_CPU_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, cfg.vocab, (b, s)))
+    lg_c, c_c, f_c = prefill(cpu, cfg, tokens, cache_len=s + n)
+    lg_g, c_g, f_g = prefill(card, cfg, tokens.cuda(), cache_len=s + n)
+    pairs = [("logits", lg_g, lg_c), ("features", f_g, f_c)] + [
+        (f"{kind}.{leaf}", c_g[kind][leaf], c_c[kind][leaf]) for kind in c_c for leaf in c_c[kind]]
+    rels = {name: rel_err((g.cpu().float(),), (c.float(),))[1][0] for name, g, c in pairs}
+    log("  (c) prefill card - CPU, max rel: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    assert all(v <= SERVE_CPU_REL for v in rels.values()), "prefill: card != CPU"
+    tok, worst, ties = lg_c.argmax(-1), 0.0, []
+    for i in range(n):
+        lg_g, c_g = decode_step(card, cfg, tok.cuda(), c_g, s + i, max_seq=s + n)
+        lg_c, c_c = decode_step(cpu, cfg, tok, c_c, s + i, max_seq=s + n)
+        worst = max(worst, rel_err((lg_g.cpu(),), (lg_c,))[1][0])
+        mine, want = lg_g.argmax(-1).cpu(), lg_c.argmax(-1)
+        for row in torch.nonzero(mine != want).flatten().tolist():
+            top = torch.topk(lg_c[row], 2).values
+            ties.append((i, row, float((top[0] - top[1]) / lg_c[row].abs().max())))
+        tok = want  # both continue the CPU's text
+    log(f"  (c) {n} decode steps card - CPU: logits max rel {worst:.2e}; greedy tokens that"
+        f" differ (step, row, top-two gap / max |logit|): {ties or 'none'}")
+    assert worst <= SERVE_CPU_REL, "decode: card != CPU"
+    assert all(gap <= NEAR_TIE for _, _, gap in ties), "a greedy token differs off a near-tie"
+
+
+def serve_profile(cfg, params):
+    """(d) torch.profiler over one full-width prefill (B = 4, S = 512) and 16
+    decode steps: device time, busy share, top kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+
+    b, s, n = SERVE["batch"], SERVE["prompt_len"], SERVE["new_tokens"]
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 4).integers(0, cfg.vocab, (b, s)),
+                             device="cuda")
+    for label, steps in (("prefill", 0), (f"prefill + {n} decode steps", n)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits, caches, _ = prefill(params, cfg, tokens, cache_len=s + n)
+            tok = logits.argmax(-1)
+            for i in range(steps):
+                logits, caches = decode_step(params, cfg, tok, caches, s + i, max_seq=s + n)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+        assert dev_ms > 0, "the profiler saw no device time"
+        log(f"  (d) {label}: wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms,"
+            f" busy share {dev_ms / wall_ms:.3f}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_serving():
+    """Phase 9; returns the two attention kernels' rows and their launches
+    over (b)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+
+    log("  (a) flash_attention and gla_forward against their plain versions")
+    rows = attention_kernel_rows()
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  (b) {SERVE_ARCH} at full width: {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.n_heads} heads (kv {cfg.n_kv_heads}, hd {cfg.head_dim}), d_ff {cfg.d_ff},"
+        f" vocab {cfg.vocab}, window {cfg.sliding_window}, global layers {cfg.global_layers},"
+        f" {cfg.param_dtype}: {param_count(params) / 1e9:.3f} B parameters, drawn in"
+        f" {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = serve_counted(cfg, params, f"serve {SERVE}", 5, cfg.n_layers, **SERVE)
+    scores = [r.score for r in out]
+    drift = SERVE["drift_round"]
+    assert all(np.isfinite(scores)) and all(r.tokens.shape == (SERVE["batch"],
+               SERVE["new_tokens"] + 1) for r in out)
+    assert scores[drift] > max(x for i, x in enumerate(scores) if i != drift), (
+        f"the drift round's score {scores[drift]} is not above the other rounds' {scores}")
+    log(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    long = dict(SERVE, rounds=1, prompt_len=SERVE_LONG, drift_round=1)
+    torch.cuda.reset_peak_memory_stats()
+    _, more = serve_counted(cfg, params, f"serve at S={SERVE_LONG} (local attention in the"
+                            f" {cfg.n_layers - len(cfg.global_layers)} hymba_swa layers)",
+                            3, len(cfg.global_layers), **long)
+    log(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {k: launches[k] + more[k] for k in launches}
+    serve_card_vs_cpu()
+    serve_profile(cfg, params)
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -1628,7 +1904,15 @@ def main() -> int:
     launches.update(mix_launches)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 9: kernels (phases 1-8 took {time.perf_counter() - start:.1f} s)")
+    log("phase 9: serving hymba-1.5b at full width (flash_attention, gla_forward, the"
+        " serving loop, card against CPU, a profile)")
+    t0 = time.perf_counter()
+    attn_rows, attn_launches = phase_serving()
+    rows.update(attn_rows)
+    launches.update(attn_launches)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 10: kernels (phases 1-9 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),
@@ -1656,6 +1940,10 @@ def main() -> int:
                               "src/repro/kernels/topology_merge.py:269"),
         "banded_mix": ("src/repro_torch/csrc/topology_merge.cu",
                        "src/repro/kernels/topology_merge.py:106"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                            "src/repro/kernels/flash_attn.py:105"),
+        "gla_forward": ("src/repro_torch/csrc/gla_scan.cu",
+                        "src/repro/kernels/gla_scan.py:106"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
     kernels = []
@@ -1667,7 +1955,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    assert len(kernels) == len(sources) == 13, f"{len(kernels)} kernels in the list"
+    assert len(kernels) == len(sources) == 15, f"{len(kernels)} kernels in the list"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

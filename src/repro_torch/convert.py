@@ -53,6 +53,26 @@ def bpnn_params_from_numpy(params, *, device: str | torch.device | None = None) 
     return [{k: _f32(leaf, device) for k, leaf in layer.items()} for layer in params]
 
 
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same type; bf16 (``ml_dtypes``'
+    bfloat16, as ``np.asarray`` gives a JAX bf16 array) goes over by its
+    bits."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(x.copy()).to(device)
+
+
+def model_params_from_numpy(tree, *, device: str | torch.device | None = None) -> dict:
+    """A model's parameters (``repro.models.init_params``'s pytree with each
+    leaf as ``np.asarray``) as the port's nested dict, leaf for leaf in the
+    same stacked per-kind layout and type."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: model_params_from_numpy(v, device=device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
 def detector_state_from_numpy(
     ewma, mean, var, count, drifted, recovery, *, device: str | torch.device | None = None
 ) -> DetectorState:

@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (port of the fleet-tick, merge, quantized-merge, robust-merge and
-single-device core kernels of ``repro.kernels``)."""
+version (port of the fleet-tick, merge, quantized-merge, robust-merge,
+single-device core and model-zoo attention kernels of ``repro.kernels``)."""
 from repro_torch.kernels._lib import KERNELS, launch_counts, reset_launch_counts
 from repro_torch.kernels.fleet_ingest import (
     fleet_ingest,
     fleet_ingest_plain,
     validate_shared_basis,
 )
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_plain
+from repro_torch.kernels.gla_scan import gla_forward, gla_forward_plain
 from repro_torch.kernels.hidden_proj import hidden_proj, hidden_proj_plain
 from repro_torch.kernels.matmul_atb import matmul_atb, matmul_atb_plain, uv_accum
 from repro_torch.kernels.ops import (
@@ -53,6 +55,7 @@ __all__ = [
     "banded_mix", "banded_mix_plain", "topology_mix",
     "hidden_proj", "hidden_proj_plain", "matmul_atb", "matmul_atb_plain", "uv_accum",
     "rank1_add", "rank1_add_plain",
+    "flash_attention", "flash_attention_plain", "gla_forward", "gla_forward_plain",
     "oselm_step_k1_kernel", "oselm_step_k1_plain", "uv_from_batch_kernel",
     "uv_from_batch_plain", "uv_from_state_kernel",
     "quantize_pack", "quantize_pack_plain",

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_merge_solve",
            "quantize_pack", "robust_segment_sum_mix", "dense_mix",
            "hidden_proj", "matmul_atb", "rank1_add",
-           "segment_sum_mix", "segment_broadcast", "banded_mix")
+           "segment_sum_mix", "segment_broadcast", "banded_mix",
+           "flash_attention", "gla_forward")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -125,6 +126,9 @@ _SIGNATURES = {
     "repro_hidden_proj": [_P] * 4 + [_I] * 5 + [_P],
     "repro_matmul_atb": [_P] * 3 + [_I] * 5 + [_P],
     "repro_rank1_add": [_P] * 4 + [_F, _P, _I, _I, _I, _P],
+    "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    "repro_gla_forward": [_P] * 6 + [_I] * 7 + [_P],
+    "repro_gla_smem": [_I] * 3,
     "repro_quantize_pack_smem": [_I],
     "repro_ingest_gain_smem": [_I],
     "repro_ingest_beta_smem": [_I],

@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -88,6 +89,7 @@ class RuntimeConfig:
                                          # quarantine; None: the exact merge
     faults: FaultInjector | None = None  # deterministic faults at the payload
                                          # boundary (repro_torch.fleet.faults)
+    detections_cap: int = 4096        # length of the detection-event ring
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +202,9 @@ class FleetRuntime:
         )
         self.tick_no = 0
         self.merge_round = 0
+        # the newest (tick, device) detection events, for delay accounting;
+        # detections_total keeps the lifetime count
+        self.detections: deque[tuple[int, int]] = deque(maxlen=config.detections_cap)
         self.detections_total = 0
         self._post_merge = False
         self._merge_mask = np.ones(n_devices, bool)
@@ -313,16 +318,14 @@ class FleetRuntime:
         t = self.tick_no
         d = self.n_devices
         injector = self.config.faults
-        if injector is not None and any(k == "poison" for k, _ in injector.active_faults(t)):
-            # data poisoning attacks through training itself, upstream of
-            # the payload boundary
-            batch = injector.poison_batch(torch.as_tensor(batch).cpu().numpy(), t)
-        x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
-        if x.ndim != 3 or x.shape[0] != d:
+        if not isinstance(batch, torch.Tensor):
+            batch = np.asarray(batch)
+        shape = tuple(batch.shape)
+        if len(shape) != 3 or shape[0] != d:
             raise ValueError(
-                f"tick batch must be (n_devices={d}, B, features); got shape {tuple(x.shape)}"
+                f"tick batch must be (n_devices={d}, B, features); got shape {shape}"
             )
-        if x.shape[1] < 1:
+        if shape[1] < 1:
             raise ValueError("tick batch has zero samples per device (B=0)")
         if served is None:
             served_np = np.ones(d, bool)
@@ -330,6 +333,11 @@ class FleetRuntime:
             served_np = np.asarray(served).astype(bool)
             if served_np.shape != (d,):
                 raise ValueError(f"served mask must be ({d},); got {served_np.shape}")
+        if injector is not None and any(k == "poison" for k, _ in injector.active_faults(t)):
+            # data poisoning attacks through training itself, upstream of
+            # the payload boundary
+            batch = injector.poison_batch(torch.as_tensor(batch).cpu().numpy(), t)
+        x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
 
         t0 = time.perf_counter()
         losses, drifted, fresh = self._ingest_detect(x.contiguous(), served_np)
@@ -340,6 +348,8 @@ class FleetRuntime:
         drifted_np = drifted.cpu().numpy()
         fresh_np = fresh.cpu().numpy()
         self.detections_total += int(fresh_np.sum())
+        for dev in np.flatnonzero(fresh_np):
+            self.detections.append((t, int(dev)))
 
         # detector-gated precision: on candidate rounds of a quantized
         # runtime, devices at quarantine risk are priced and shipped at f32

@@ -283,9 +283,6 @@ def run_scenario(
     )
     feed = sc.feed()
     reports = rt.run(feed)
-    detections = [
-        (r.tick, int(dev)) for r in reports for dev in np.flatnonzero(r.fresh_detections)
-    ]
     return ScenarioResult(
         spec=spec,
         topology=topo.name,
@@ -295,7 +292,7 @@ def run_scenario(
         merges=rt.governor.state.merges,
         comm_bytes=rt.governor.state.bytes_spent,
         detection=detection_stats(
-            detections, feed.drift_ticks(), truncated_devices=feed.truncated_drift_devices
+            rt.detections, feed.drift_ticks(), truncated_devices=feed.truncated_drift_devices
         ),
         reports=reports,
         payload_precision=payload_precision,

@@ -18,7 +18,15 @@ multiply-add in both). ``hidden_proj`` and ``matmul_atb`` are held at
 each kernel sums in a fixed order of its own, the plain version is a
 PyTorch product. For ``hidden_proj`` the scale is the larger of max
 |plain| and max |x·α + b|: a saturating activation shrinks the output but
-not the rounding of the product under it.
+not the rounding of the product under it. ``flash_attention`` and
+``gla_forward`` are held row by row (a query's output, a token's y, a
+row of the state), each row at its own max |plain|, so that late query
+rows, whose values are a fraction of row 0's, count as much: flash at
+1e-5 in f32 (the plain version's dot products are PyTorch's, in other
+orders) and 2e-2 in bf16 (a p or an output that rounds to the other bf16
+neighbour), GLA at 1e-5 and 2^-8 (its plain version repeats the kernel's
+order). The model's prefill and decode on the card
+are held to the CPU's at 1e-4 (reduced hymba-1.5b, f32).
 """
 import numpy as np
 import pytest
@@ -33,10 +41,14 @@ from repro_torch.kernels import (
     banded_mix_plain,
     dense_mix,
     dense_mix_plain,
+    flash_attention,
+    flash_attention_plain,
     fleet_ingest,
     fleet_ingest_plain,
     from_uv_solve,
     from_uv_solve_plain,
+    gla_forward,
+    gla_forward_plain,
     hidden_proj,
     hidden_proj_plain,
     launch_counts,
@@ -80,6 +92,14 @@ def _rel(got, want):
     got, want = torch.as_tensor(got), torch.as_tensor(want)
     assert torch.isfinite(got).all()
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _row_rel(got, want):
+    """max over the rows of the last axis of max |got − want| / max |want|
+    within the row."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    assert torch.isfinite(got).all()
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
 
 
 def _fleet(cuda, activation, forget, *, d=D_ODD, n=F_ODD, nh=NH_ODD, seed=0):
@@ -461,3 +481,92 @@ def test_topology_mix_on_the_card_is_the_cpu_mix(cuda, name):
         assert torch.equal(got.cpu(), want)
     else:
         assert _rel(got.cpu(), want) <= 1e-6
+
+
+def _draw(cuda, shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+
+# odd lengths and tails, non-causal, every head width the kernel takes,
+# fewer queries than keys (cross attention) and the hymba serving shape
+@pytest.mark.parametrize("b,sq,sk,h,hd,causal", [
+    (2, 33, 33, 3, 64, True), (2, 200, 200, 3, 64, False), (1, 96, 96, 2, 128, True),
+    (1, 130, 130, 2, 256, True), (1, 77, 77, 2, 256, False), (2, 100, 100, 2, 128, False),
+    (2, 24, 150, 3, 64, False), (4, 512, 512, 25, 64, True), (4, 2048, 2048, 25, 64, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, hd, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = _draw(cuda, (b, sq, h, hd), dtype, gen)
+    k, v = (_draw(cuda, (b, sk, h, hd), dtype, gen) for _ in range(2))
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, causal=causal))
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _row_rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv", [(2, 33, 3, 16, 8), (2, 200, 3, 16, 64),
+                                         (4, 1000, 25, 16, 64), (4, 2048, 25, 16, 64),
+                                         (1, 300, 2, 64, 65),
+                                         (1, 1, 2, 16, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_kernel_matches_plain(cuda, b, s, h, dk, dv, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + dv)
+    q, k = (_draw(cuda, (b, s, h, dk), dtype, gen) for _ in range(2))
+    v = _draw(cuda, (b, s, h, dv), dtype, gen)
+    log_a = -torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=cuda))
+    y, state = _launched("gla_forward", lambda: gla_forward(q, k, v, log_a))
+    want_y, want_state = gla_forward_plain(q, k, v, log_a)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    assert _row_rel(y, want_y) <= (1e-5 if dtype == torch.float32 else 2 ** -8)
+    assert _row_rel(state, want_state) <= 1e-5
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="must be"):
+        flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        gla_forward(q[..., :16], q[..., :16], q, torch.zeros(1, 8, 2, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 128, 1, 256, device=cuda)
+        gla_forward(big, big, big, torch.zeros(1, 128, 1, device=cuda))
+
+
+def test_model_on_the_card_is_the_cpu_model(cuda):
+    """Reduced hymba-1.5b (f32): prefill logits, features and caches, and 3
+    decode steps, card against CPU on the same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config("hymba-1.5b").reduced()
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda)
+
+    card = to_card(cpu)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 100)))
+    before = launch_counts()
+    lg_g, c_g, f_g = prefill(card, cfg, tokens.to(cuda), cache_len=104)
+    after = launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1  # the global layer
+    assert after["gla_forward"] - before["gla_forward"] == 2          # both layers
+    lg_c, c_c, f_c = prefill(cpu, cfg, tokens, cache_len=104)
+    assert _rel(lg_g.cpu(), lg_c) <= 1e-4 and _rel(f_g.cpu(), f_c) <= 1e-4
+    for kind in c_c:
+        for name in c_c[kind]:
+            assert _rel(c_g[kind][name].cpu(), c_c[kind][name]) <= 1e-4, (kind, name)
+    tok = lg_c.argmax(-1)
+    for i in range(3):
+        lg_g, c_g = decode_step(card, cfg, tok.to(cuda), c_g, 100 + i, max_seq=104)
+        lg_c, c_c = decode_step(cpu, cfg, tok, c_c, 100 + i, max_seq=104)
+        assert _rel(lg_g.cpu(), lg_c) <= 1e-4, i
+        tok = lg_c.argmax(-1)

@@ -113,6 +113,34 @@ def test_device_path_entry_points_raise_without_a_card(monkeypatch):
         torch_latency.main([])
 
 
+def test_serving_entry_points_raise_without_a_card(monkeypatch):
+    """The model and the serving loop are built on the card unless the
+    caller asks for the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main, serve
+    from repro_torch.models import init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("hymba-1.5b").reduced(d_model=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(cfg, rounds=1, batch=1, prompt_len=8, new_tokens=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "hymba-1.5b", "--rounds", "1"])
+    out = serve(cfg, rounds=1, batch=1, prompt_len=8, new_tokens=1, device="cpu")
+    assert len(out) == 1 and out[0].tokens.shape == (1, 2)
+
+
+def test_serving_example_raises_without_a_card(monkeypatch):
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_serve_with_monitor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_serve_with_monitor.main(["--prompt-len", "8", "--new-tokens", "1"])
+
+
 def test_fleet_example_raises_without_a_card(monkeypatch):
     """The port's fleet example runs on the card unless asked for the CPU."""
     sys.path.insert(0, str(ROOT / "examples"))

@@ -85,10 +85,13 @@ SHORT_DETECTOR = dict(warmup=3, warmup_skip=1, rel_sigma=0.05, k_sigma=1.0, pati
 # of either run rests on a handful of flipped codes, and by tick 40 the
 # scenario detector has flagged a device and priced one at f32
 INT8_TICKS = 40
+# the detection ring's run: enough ticks for the short detector to raise
+# more fresh detections (8) than the ring's cap (5)
+RING_TICKS = 40
 
 
 def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=None,
-          spec=None, hardened=None):
+          spec=None, hardened=None, detections_cap=4096):
     """(scenario, reference runtime on Pallas kernels, port runtime) and,
     with ``twin``, a fourth: the reference runtime on its XLA ingest, and
     for a lossy precision or a hardened runtime on its XLA merge too.
@@ -116,7 +119,7 @@ def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=Non
             topology=ref_topo(d), ridge=sc.spec.ridge, detector=sc.spec.detector,
             governor=RefGovernorConfig(merge_every=4), use_ingest_kernel=True,
             ingest_backend=ingest_backend, use_merge_kernel=merge_kernel,
-            payload_precision=precision, **hard,
+            payload_precision=precision, detections_cap=detections_cap, **hard,
         ))
 
     ref = reference("pallas")
@@ -128,6 +131,7 @@ def _pair(topo_name, forget, detector, *, twin=False, precision="f32", ticks=Non
         topology=port_topo(d), ridge=sc.spec.ridge,
         detector=DetectorConfig(**dataclasses.asdict(sc.spec.detector)),
         governor=GovernorConfig(merge_every=4), payload_precision=precision,
+        detections_cap=detections_cap,
         **({} if hardened is None else dict(
             faults=FaultInjector(tuple(FaultSpec(**f) for f in faults), d),
             robust=None if trim is None else RobustConfig(trim=trim))),
@@ -351,6 +355,40 @@ def test_hardened_runtime_validation():
         FleetRuntime(port_fleet, RuntimeConfig(
             topology=star(5), faults=FaultInjector((FaultSpec(kind="nan", devices=(1,)),), 4),
         ), device="cpu")
+
+
+def test_tick_checks_the_batch_before_poisoning_it():
+    """A batch of the wrong shape is refused before a poison fault touches
+    it: D = 6 with device 5 poisoned, and a (4, 8, n) batch. Both runtimes
+    raise the shape error (poisoning first would index device 5 of 4)."""
+    poison = dict(kind="poison", devices=(5,), start_tick=0, magnitude=2.0, seed=0)
+    sc, ref, port = _pair("star", 1.0, "scenario", spec=dict(SPEC_ODD, n_devices=6),
+                          hardened=([poison], None))
+    batch = np.zeros((4, 8, sc.n_features), np.float32)
+    for rt in (ref, port):
+        with pytest.raises(ValueError, match=r"tick batch must be \(n_devices=6"):
+            rt.tick(batch)
+
+
+def test_detection_ring_keeps_the_newest_events_as_in_reference():
+    """``detections`` is a ring of ``detections_cap`` (tick, device) events:
+    with more fresh detections than the cap, both runtimes keep the same
+    newest ones, and ``detection_stats`` scores the same ring."""
+    from repro.scenarios.evaluate import detection_stats as ref_detection_stats
+    from repro_torch.scenarios.evaluate import detection_stats
+
+    cap = 5
+    sc, ref, port = _pair("star", 1.0, "short", ticks=RING_TICKS, detections_cap=cap)
+    feed = sc.feed()
+    for t in range(feed.n_ticks):
+        _assert_same_report(port.tick(feed.tick_batch(t)), ref.tick(feed.tick_batch(t)),
+                            losses=False)
+    assert port.detections_total == ref.detections_total > cap
+    assert list(port.detections) == list(ref.detections)
+    assert len(port.detections) == cap
+    kw = dict(truncated_devices=feed.truncated_drift_devices)
+    assert (detection_stats(port.detections, feed.drift_ticks(), **kw)
+            == ref_detection_stats(ref.detections, feed.drift_ticks(), **kw))
 
 
 def test_selection_policies_match_reference():
