@@ -41,7 +41,8 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    and ring: wall time, device time, the device's busy share and the
    kernels that took the most device time;
 7. the paper's single-device path at the har width: ``hidden_proj``,
-   ``matmul_atb`` and ``rank1_add`` against their plain versions, a
+   ``matmul_atb`` (two calls bit-identical) and ``rank1_add`` against
+   their plain versions, with the device time of each call's kernels, a
    256-step k=1 chain card against CPU, two devices and their cooperative
    update, the pair evaluations, Fig. 18 and Table 4, a profiler pass
    over 200 k=1 steps;
@@ -178,29 +179,66 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Device time per launch of the CUDA kernel whose name holds ``kernel``
-    (one launch a call), from torch.profiler over ``reps`` calls: the kernel
-    alone, without the wrapper's host work, which bounds a short kernel's
-    CUDA-event time. It divides by the launches the profiler recorded: a
-    session now and then drops some (seen on an H100: 3 of 4, 4 of 10) or
-    all of them (a 1 µs kernel), and is then asked again."""
+def device_ms(fn, reps: int, kernels: tuple[str, ...]) -> float | None:
+    """Device time of one wrapper call, from torch.profiler over ``reps``
+    calls: the kernels alone, without the wrapper's host work, which bounds
+    a short kernel's CUDA-event time. A call launches each kernel whose name
+    holds one of ``kernels`` once (``matmul_atb``'s split product launches
+    two), so the time is the sum over ``kernels`` of the mean time of a
+    launch. Means, not totals over ``reps``: a session now and then drops
+    some of the launches (seen on an H100: 3 of 4, 4 of 10) or all of them
+    (a 2 µs kernel, in three sessions running), and is then asked again.
+    None, printed as not measured, when five sessions missed a kernel: the
+    time is a log line's, and no check reads it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-        launches = sum(e.count for e in events)
-        if launches > 0:
-            return sum(e.self_device_time_total for e in events) / 1e3 / launches
-    raise AssertionError(f"the profiler saw no {kernel} in three sessions")
+        means = []
+        for kernel in kernels:
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+            launches = sum(e.count for e in events)
+            if launches > 0:
+                means.append(sum(e.self_device_time_total for e in events) / 1e3 / launches)
+        if len(means) == len(kernels):
+            return sum(means)
+    return None
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def library_device(fn, reps: int) -> str:
+    """Device time of one PyTorch library call and the name of its longest
+    kernel, from torch.profiler over ``reps`` calls: the yardstick beside a
+    kernel's own time alone. Each kernel's mean launch time counts once for
+    each launch a call makes, so a dropped launch does not shorten it."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
+    if not events:
+        return "library alone not measured"
+    ms = sum(e.self_device_time_total / e.count * math.ceil(e.count / reps) for e in events)
+    top = max(events, key=lambda e: e.self_device_time_total)
+    return f"library alone {ms / 1e3:.4f}: {top.key[:72]}"
 
 
 def rel_err(got, want) -> tuple[float, list[float]]:
@@ -428,10 +466,11 @@ def phase_robust_segment_sum(w, mask, topo_hier):
             ms=cuda_ms(lambda: robust_segment_sum_mix(*args), 50),
             plain_ms=cuda_ms(lambda: robust_segment_sum_mix_plain(*args), 2),
         )
-        kernel_ms = device_ms(lambda: robust_segment_sum_mix(*args), 20, "robust_segsum_kernel")
+        kernel_ms = device_ms(lambda: robust_segment_sum_mix(*args), 20,
+                              ("robust_segsum_kernel",))
         b = bound(flops, nbytes)
         log(f"  robust_segment_sum_mix ({topo}, C={n_cl}, trim={trim}): mismatches {mism}"
-            f"  ms={r['ms']:.4f} (kernel alone {kernel_ms:.4f})"
+            f"  ms={r['ms']:.4f} (kernel alone {ms_text(kernel_ms)})"
             f" plain_ms={r['plain_ms']:.4f} library_ms=None"
             f"  bound_ms={b[0]:.4f} ({b[1]}, {nbytes / 1e6:.1f} MB)")
         for out, k in mism.items():
@@ -470,10 +509,10 @@ def phase_dense_mix(w):
              ms=cuda_ms(lambda: dense_mix(w, m), 20),
              plain_ms=cuda_ms(lambda: dense_mix_plain(w, m), 1),
              library_ms=cuda_ms(lambda: torch.mm(mt, wf), 20))
-    kernel_ms = device_ms(lambda: dense_mix(w, m), 10, "dense_mix_kernel")
+    kernel_ms = device_ms(lambda: dense_mix(w, m), 10, ("dense_mix_kernel",))
     b = bound(flops, nbytes)
     log(f"  dense_mix (D={d}, {int(m.sum())} ones): mismatches {mism}  ms={r['ms']:.4f}"
-        f" (kernel alone {kernel_ms:.4f})"
+        f" (kernel alone {ms_text(kernel_ms)})"
         f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
         f" (torch.mm against the plain version: max_rel={lib_rel:.3e})"
         f"  bound_ms={b[0]:.4f} ({b[1]}, {flops / 1e9:.2f} GFLOP)")
@@ -943,15 +982,18 @@ def core_kernel_rows():
         hidden_proj, hidden_proj_plain, matmul_atb, matmul_atb_plain, rank1_add,
         rank1_add_plain,
     )
+    from repro_torch.kernels.matmul_atb import split_plan
 
     rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.uniform(0, 1, (512, N_FEAT)).astype(np.float32)).cuda()
     rows, errs = {}, {"hidden_proj": 0.0, "matmul_atb": 0.0, "rank1_add": 0.0}
 
-    def row(name, label, fn, plain, flops, nbytes, library=None, kernel_name=None, keep=False,
+    def row(name, label, fn, plain, flops, nbytes, library=None, kernels=None, keep=False,
             scale=None):
         got, want = fn(), plain()
         abs_e = float((got - want).abs().max())
+        if name == "matmul_atb":
+            assert torch.equal(fn(), got), f"matmul_atb {label}: two calls differ"
         if name == "rank1_add":
             mism = mismatches(got, want)
             assert mism == 0, f"rank1_add {label}: {mism} elements differ from the plain version"
@@ -961,17 +1003,19 @@ def core_kernel_rows():
             rel = abs_e / scale
             assert rel <= GEMM_TOL, f"{name} {label}: max err / max |A|ᵀ|B| {rel:.3e}"
             check = (f"max err / max |A|ᵀ|B| {rel:.3e} (tol {GEMM_TOL:.0e}),"
-                     f" / max |plain| {abs_e / float(want.abs().max()):.3e}")
+                     f" / max |plain| {abs_e / float(want.abs().max()):.3e}"
+                     + (", two calls bit-identical" if name == "matmul_atb" else ""))
         errs[name] = max(errs[name], abs_e)
         r = dict(abs=abs_e, rels={}, flops=flops, nbytes=nbytes, ms=cuda_ms(fn, 200),
                  plain_ms=cuda_ms(plain, 20),
                  library_ms=cuda_ms(library, 200) if library is not None else None)
-        alone = device_ms(fn, 50, kernel_name) if kernel_name else None
+        alone = device_ms(fn, 50, kernels) if kernels else None
         b = r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
         log(f"  {name} {label}: {check}  ms={r['ms']:.4f}"
-            + (f" (kernel alone {alone:.4f})" if alone is not None else "")
+            + (f" (kernel alone {ms_text(alone)})" if kernels else "")
             + f" plain_ms={r['plain_ms']:.4f} library_ms="
-            + (f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "None")
+            + (f"{r['library_ms']:.4f} ({library_device(library, 50)})"
+               if r["library_ms"] is not None else "None")
             + f"  bound_ms={b[0]:.6f} ({b[1]})")
         if keep:
             rows[name] = r
@@ -991,13 +1035,15 @@ def core_kernel_rows():
                     lambda: hidden_proj_plain(xm, a, b, activation=act),
                     2 * m * N_FEAT * nh, 4 * (m * N_FEAT + N_FEAT * nh + nh + m * nh),
                     library=(lambda: torch.addmm(b, xm, a)) if act == "identity" else None,
-                    kernel_name="gemm_", keep=main and m == 1, scale=mag)
+                    kernels=("gemm_skinny_kernel",) if m == 1 else ("gemm_tile_kernel",),
+                    keep=main and m == 1, scale=mag)
             h1 = hidden_proj(x[:1], a, b, activation=act)[0]
             hcol = h1[:, None].contiguous()
             row("matmul_atb", f"{tag} h^T P ({nh}x1, {nh}x{nh})",
                 lambda: matmul_atb(hcol, st.p), lambda: matmul_atb_plain(hcol, st.p),
                 2 * nh * nh, 4 * (nh + nh * nh + nh),
-                library=lambda: torch.mm(hcol.T, st.p), kernel_name="gemm_", keep=main,
+                library=lambda: torch.mm(hcol.T, st.p), kernels=("gemm_skinny_kernel",),
+                keep=main,
                 scale=float((hcol.abs().T @ st.p.abs()).max()))
             hb = hidden_proj(x, a, b, activation=act)
             for label, rhs in ((f"U = H^T H (512x{nh})", hb),
@@ -1006,7 +1052,9 @@ def core_kernel_rows():
                 row("matmul_atb", f"{tag} {label}",
                     lambda rhs=rhs: matmul_atb(hb, rhs), lambda rhs=rhs: matmul_atb_plain(hb, rhs),
                     2 * 512 * nh * mcols, 4 * (512 * nh + 512 * mcols + nh * mcols),
-                    library=lambda rhs=rhs: torch.mm(hb.T, rhs), kernel_name="gemm_",
+                    library=lambda rhs=rhs: torch.mm(hb.T, rhs),
+                    kernels=("atb_split_kernel",) + (
+                        ("atb_reduce_kernel",) if split_plan(1, 512, nh, mcols)[1] > 1 else ()),
                     scale=float((hb.abs().T @ rhs.abs()).max()))
             ph = matmul_atb(hcol, st.p)[0]
             denom = 1.0 + h1 @ ph
@@ -1020,7 +1068,7 @@ def core_kernel_rows():
                     lambda xx=xx, v=v, sc=sc: rank1_add_plain(xx, ph, v, sc),
                     2 * n1 * n2 + n1, 4 * (2 * n1 * n2 + n1 + n2 + 1),
                     library=lambda xx=xx, v=v, s_host=s_host: torch.addr(xx, ph, v, alpha=s_host),
-                    kernel_name="rank1_kernel", keep=main and label == "beta")
+                    kernels=("rank1_kernel",), keep=main and label == "beta")
     for name in rows:
         rows[name]["abs"] = errs[name]
     return rows
@@ -1289,18 +1337,18 @@ def mix_kernel_rows(fleet, topo_hier):
     d, e = w.shape[0], w[0].numel()
     rows = {}
 
-    def row(name, label, fn, plain, library, kernel_name, nbytes):
+    def row(name, label, fn, plain, library, kernel, nbytes):
         got, want = fn(), plain()
         mism = mismatches(got, want)
         lib_mism = mismatches(library(), want) if library is not None else None
         r = dict(abs=float((got - want).abs().max()), rels={}, flops=0, nbytes=nbytes,
                  ms=cuda_ms(fn, 50), plain_ms=cuda_ms(plain, 2),
                  library_ms=cuda_ms(library, 50) if library is not None else None)
-        alone = device_ms(fn, 20, kernel_name)
+        alone = device_ms(fn, 20, (kernel,))
         b = r["bound_ms"], r["bound_by"] = bound(0, nbytes)
         log(f"  {name} {label}: mismatches {mism}"
             + (f" (library against plain: {lib_mism})" if lib_mism is not None else "")
-            + f"  ms={r['ms']:.4f} (kernel alone {alone:.4f}) plain_ms={r['plain_ms']:.4f}"
+            + f"  ms={r['ms']:.4f} (kernel alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
             + " library_ms=" + (f"{r['library_ms']:.4f}" if library is not None else "None")
             + f"  bound_ms={b[0]:.4f} ({b[1]}, {nbytes / 1e6:.1f} MB)")
         assert mism == 0, f"{name} {label}: {mism} elements differ from the plain version"
@@ -1585,8 +1633,8 @@ SERVE_CPU_B, SERVE_CPU_S, SERVE_CPU_STEPS = 2, 256, 8
 # |plain| within the row, so that a late query row, whose values are a
 # fraction of row 0's, counts as much as row 0. flash: f32 dot products in
 # other orders (measured up to 4.3e-6 per row); bf16, a p or an output that
-# rounds to the other neighbour (up to 7.6e-3, about one bf16 step of the
-# row's largest entry). GLA's plain version repeats the kernel's order
+# rounds to the other neighbour (up to 7.8e-3 on the tensor cores, about one
+# bf16 step of the row's largest entry). GLA's plain version repeats the kernel's order
 # (measured bit for bit): 1e-5 in f32, one bf16 step (2^-8) in bf16.
 ATTN_TOL = {("flash_attention", "float32"): 1e-5, ("flash_attention", "bfloat16"): 2e-2,
             ("gla_forward", "float32"): 1e-5, ("gla_forward", "bfloat16"): 2 ** -8}
@@ -1641,7 +1689,7 @@ def attention_kernel_rows():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
 
-    def measure(name, label, dtype, fn, plain, library, kernel_name, work, main):
+    def measure(name, label, dtype, fn, plain, library, kernel, work, main):
         got, want = fn(), plain()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
@@ -1652,11 +1700,12 @@ def attention_kernel_rows():
         r = dict(abs=abs_err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
                  library_ms=cuda_ms(library, 20) if library is not None else None,
                  bound_ms=b[0], bound_by=b[1])
-        alone = device_ms(fn, 10, kernel_name)
+        alone = device_ms(fn, 10, (kernel,))
         log(f"  {name} {label}: max rel in a row {', '.join(f'{x:.2e}' for x in rels)}"
             f" (tol {tol:.1e})"
-            f"  ms={r['ms']:.4f} (kernel alone {alone:.4f}) plain_ms={r['plain_ms']:.4f}"
-            + " library_ms=" + (f"{r['library_ms']:.4f}" if library is not None else "None")
+            f"  ms={r['ms']:.4f} (kernel alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
+            + " library_ms=" + (f"{r['library_ms']:.4f} ({library_device(library, 10)})"
+                                if library is not None else "None")
             + f"  bound_ms={b[0]:.4f} ({b[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB)")
         assert all(x <= tol for x in rels), f"{name} {label}: kernel != plain"
         if main:

@@ -8,12 +8,14 @@
 // sample-major (K, M) array (kSamples = true: AᵀB with the sample axis
 // contracted, so Aᵀ is never materialised). Inputs are f32 or bf16 and are
 // widened to f32 on load; sums are f32. Every output element is summed in
-// a fixed order, with no split of k across blocks and no atomics:
+// a fixed order, with no split of k across blocks and no atomics. AᵀB of
+// more than kSkinnyRows rows is matmul_atb.cu's own kernel, which splits
+// the sample axis across blocks; here AᵀB takes only the skinny kernel.
 //
-// * gemm_tile_kernel (M > kSkinnyRows): a 64 × 64 output tile per block of
-//   256 threads, 4 × 4 outputs a thread in registers, k in 16-wide slices
-//   through shared memory; each output sums a slice in order, one fused
-//   multiply-add per k, and adds the slice sums in order. The two levels
+// * gemm_tile_kernel (M > kSkinnyRows, row-major a only): a 64 × 64 output
+//   tile per block of 256 threads, 4 × 4 outputs a thread in registers, k in
+//   16-wide slices through shared memory; each output sums a slice in order,
+//   one fused multiply-add per k, and adds the slice sums in order. The two levels
 //   keep the rounding error to that of about 16 + K/16 additions, not K:
 //   with one running sum the error at K = 561 reached 1.03e-6 of the
 //   largest output (NVIDIA H100, against a PyTorch product).
@@ -63,7 +65,7 @@ __device__ __forceinline__ float epilogue(float s, const T* bias, int n, int act
   return activate(bias != nullptr ? s + to_f32(bias[n]) : s, act);
 }
 
-template <typename T, bool kSamples>
+template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_tile_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ bias,
                  float* __restrict__ out, int M, int K, int N, int act) {
@@ -79,10 +81,9 @@ gemm_tile_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __re
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += PBK) {
     for (int i = tid; i < PBM * PBK; i += kGemmThreads) {
-      // consecutive threads on consecutive addresses in either layout
-      const int r = kSamples ? i % PBM : i / PBK, c = kSamples ? i / PBM : i % PBK;
+      const int r = i / PBK, c = i % PBK;  // consecutive threads on consecutive addresses
       const int gm = m0 + r, gk = k0 + c;
-      at[c][r] = (gm < M && gk < K) ? left<T, kSamples>(a, gm, gk, M, K) : 0.0f;
+      at[c][r] = (gm < M && gk < K) ? left<T, false>(a, gm, gk, M, K) : 0.0f;
     }
     for (int i = tid; i < PBK * PBN; i += kGemmThreads) {
       const int r = i / PBN, c = i % PBN;
@@ -158,16 +159,19 @@ gemm_skinny_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __
 }
 
 // `batch` independent products of the same shape, contiguous one after
-// the other; bias (N,) shared, or null. Returns the launch's error.
+// the other; bias (N,) shared, or null. Returns the launch's error; a
+// sample-major a of more than kSkinnyRows rows is refused (matmul_atb.cu).
 template <typename T, bool kSamples>
 cudaError_t launch_gemm(const T* a, const T* b, const T* bias, float* out, int batch,
                         int M, int K, int N, int act, cudaStream_t s) {
   if (M <= kSkinnyRows) {
     gemm_skinny_kernel<T, kSamples><<<dim3((N + 31) / 32, batch), kSkinnyWarps * 32, 0, s>>>(
         a, b, bias, out, M, K, N, act);
+  } else if constexpr (kSamples) {
+    return cudaErrorInvalidValue;
   } else {
     dim3 grid((N + PBN - 1) / PBN, (M + PBM - 1) / PBM, batch);
-    gemm_tile_kernel<T, kSamples><<<grid, kGemmThreads, 0, s>>>(a, b, bias, out, M, K, N, act);
+    gemm_tile_kernel<T><<<grid, kGemmThreads, 0, s>>>(a, b, bias, out, M, K, N, act);
   }
   return cudaGetLastError();
 }

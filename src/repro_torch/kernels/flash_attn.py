@@ -2,10 +2,10 @@
 ``repro.kernels.flash_attn``.
 
 ``flash_attention`` takes ``flash_attention_plain`` for CPU tensors and
-launches the kernel of ``csrc/flash_attn.cu`` for CUDA tensors, or
-raises. q, k and v are (B, S, H, hd) of one type, f32 or bf16, with the
-kv heads already repeated to H; the result has q's shape and type. The
-plain version walks the KV axis in the kernel's tiles of 64 keys with the
+launches a kernel of ``csrc/flash_attn.cu`` for CUDA tensors, or raises:
+bf16 on the tensor cores, f32 on the CUDA cores. q, k and v are (B, S, H,
+hd) of one type, f32 or bf16, with the kv heads already repeated to H; the
+result has q's shape and type. The plain version walks the KV axis in the kernel's tiles of 64 keys with the
 kernel's arithmetic (scale after the dot product, −1e30 for masked
 scores, p rounded to v's type before p·v, out = acc / max(l, 1e-30)); its
 dot products are PyTorch's, so the two agree to f32 rounding, not bit for
@@ -77,6 +77,9 @@ def flash_attention(
         raise ValueError(f"flash_attention: the kernel takes head widths {HEAD_DIMS}, got {hd}")
     if b * h > 65_535:
         raise ValueError(f"flash_attention: B·H = {b * h} exceeds the grid's 65 535")
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must start on a 16-byte boundary "
+                         "(the kernel copies 16 bytes at a time)")
     out = torch.empty_like(q)
     status = _lib.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, k.shape[1], hd,

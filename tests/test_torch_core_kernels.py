@@ -1,7 +1,8 @@
 """The plain versions of the port's three core kernels (``hidden_proj``,
 ``matmul_atb``, ``rank1_add``) against the reference's Pallas kernels in
 interpret mode and against their ``kernels/ref.py`` oracles, on the CPU,
-over the shape sweep of ``tests/test_kernels.py``.
+over the shape sweep of ``tests/test_kernels.py``; and ``split_plan``, the
+cut of the sample axis that the CUDA ``matmul_atb`` sums side by side.
 
 Bounds: f32 at rtol 1e-5 with an absolute floor of 1e-5 × max |want|
 (the products sum in another order than the reference's 128-wide tiles,
@@ -31,6 +32,7 @@ from repro_torch.kernels import (
     rank1_add_plain,
     uv_accum,
 )
+from repro_torch.kernels.matmul_atb import split_plan
 
 torch.set_num_threads(2)
 
@@ -111,6 +113,45 @@ def test_matmul_atb_batches_leading_axes():
         _close(got[d], atb_ref(aj[d], bj[d]), "float32")
     with pytest.raises(ValueError, match="leading axes"):
         matmul_atb(at, bt[:2])
+
+
+# (samples a slice, slices) of the split kernel for U = HᵀH (n2 = 128) and
+# V = HᵀX (n2 = 561) at Ñ = 128, one device or eight: slices of at least 64
+# samples until the grid (32 × 64 tiles × slices × batch) nears 264 blocks
+SPLITS = {
+    (1, 1): ((16, 1), (16, 1)), (1, 8): ((16, 1), (16, 1)),
+    (17, 1): ((32, 1), (32, 1)), (17, 8): ((32, 1), (32, 1)),
+    (512, 1): ((64, 8), (64, 8)), (512, 8): ((512, 1), (112, 5)),
+    (513, 1): ((80, 7), (64, 9)), (513, 8): ((528, 1), (112, 5)),
+    (4097, 1): ((528, 8), (128, 33)), (4097, 8): ((4112, 1), (832, 5)),
+}
+
+
+@pytest.mark.parametrize("k,batch", sorted(SPLITS))
+@pytest.mark.parametrize("n2", [561, 128])
+def test_split_plan_puts_every_sample_in_one_slice(k, batch, n2):
+    length, slices, ws = split_plan(batch, k, 128, n2)
+    assert (length, slices) == SPLITS[k, batch][n2 == 128]
+    assert length % 16 == 0
+    covered = [i for s in range(slices) for i in range(s * length, min((s + 1) * length, k))]
+    assert covered == list(range(k))                    # each sample once, in slice order
+    assert all(s * length < k for s in range(slices))   # no empty slice
+    # one f32 partial product per slice and device, none when one slice
+    # writes the output itself
+    assert ws == (batch * slices * 128 * n2 if slices > 1 else 0)
+
+
+def test_split_plan_at_the_har_width():
+    """E²LM statistics of 512 samples: 8 slices of 64 samples."""
+    assert split_plan(1, 512, 128, 128) == (64, 8, 8 * 128 * 128)  # 4 × 2 tiles: 64 blocks
+    assert split_plan(1, 512, 128, 561) == (64, 8, 8 * 128 * 561)  # 4 × 9 tiles: 288 blocks
+
+
+@pytest.mark.parametrize("n1", [1, 2, 4])
+def test_split_plan_leaves_four_rows_or_fewer_to_the_skinny_kernel(n1):
+    for batch, k in ((1, 128), (8, 4097)):
+        assert split_plan(batch, k, n1, 561) == (k, 1, 0)
+    assert split_plan(1, 128, 5, 128) == (64, 2, 2 * 5 * 128)
 
 
 @pytest.mark.parametrize("k,n", [(50, 40), (128, 128), (300, 64), (64, 300)])

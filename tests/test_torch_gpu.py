@@ -16,9 +16,12 @@ kernels' order. So is ``rank1_add`` (one rounded product, one fused
 multiply-add in both). ``hidden_proj`` and ``matmul_atb`` are held at
 1e-6 of max |plain|, f32 or bf16 inputs (widened to f32 exactly in both):
 each kernel sums in a fixed order of its own, the plain version is a
-PyTorch product. For ``hidden_proj`` the scale is the larger of max
-|plain| and max |x·α + b|: a saturating activation shrinks the output but
-not the rounding of the product under it. ``flash_attention`` and
+PyTorch product (a batch of eight, at 1e-6 of an f64 product's largest
+entry), and ``matmul_atb`` gives the same bits on a second call (its
+slices of samples are added in a fixed order). For ``hidden_proj`` the
+scale is the larger of max |plain| and max |x·α + b|: a saturating
+activation shrinks the output but not the rounding of the product under
+it. ``flash_attention`` and
 ``gla_forward`` are held row by row (a query's output, a token's y, a
 row of the state), each row at its own max |plain|, so that late query
 rows, whose values are a fraction of row 0's, count as much: flash at
@@ -303,9 +306,14 @@ def test_hidden_proj_kernel_every_activation(cuda, act, m):
 
 
 # (257, 33, 129): ragged; (128, 1, 128): the k=1 step's P·h; (512, 128, 128)
-# and (512, 128, 561): U = HᵀH and V = HᵀX at the har width
+# and (512, 128, 561): U = HᵀH and V = HᵀX at the har width; then the split
+# kernel's edges: K of one sample, of a partial 16-sample stage, of less than
+# one slice, of one sample past a slice and of many slices; N1 = 5, the
+# first shape past the skinny kernel's
 @pytest.mark.parametrize("k,n1,n2", [(257, 33, 129), (128, 1, 128), (512, 128, 128),
-                                     (512, 128, 561)])
+                                     (512, 128, 561), (1, 128, 128), (17, 128, 561),
+                                     (63, 128, 561), (513, 128, 561), (4097, 128, 561),
+                                     (300, 5, 129)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_matmul_atb_kernel_matches_plain(cuda, k, n1, n2, dtype):
     a, b = _randn(cuda, (k, n1), dtype, 7), _randn(cuda, (k, n2), dtype, 8)
@@ -314,6 +322,21 @@ def test_matmul_atb_kernel_matches_plain(cuda, k, n1, n2, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["matmul_atb"] == before + 1
     assert _rel(got, matmul_atb_plain(a, b)) <= 1e-6
+    assert torch.equal(matmul_atb(a, b), got)  # the slices are added in a fixed order
+
+
+@pytest.mark.parametrize("k", [512, 4097])
+def test_matmul_atb_kernel_on_a_batch_of_eight(cuda, k):
+    """Eight devices' statistics side by side, as a fleet's Eq. 13 boot
+    takes them: one launch, each product within 1e-6 of an f64 product's
+    largest entry, and the same bits from a second call."""
+    h, x = _randn(cuda, (8, k, 128), seed=18), _randn(cuda, (8, k, 561), seed=19)
+    before = launch_counts()["matmul_atb"]
+    got = matmul_atb(h, x)
+    torch.cuda.synchronize()
+    assert launch_counts()["matmul_atb"] == before + 1
+    assert _rel(got, (h.double().transpose(1, 2) @ x.double()).float()) <= 1e-6
+    assert torch.equal(matmul_atb(h, x), got)
 
 
 def test_matmul_atb_kernel_batches_and_refuses(cuda):
@@ -488,11 +511,16 @@ def _draw(cuda, shape, dtype, gen):
 
 
 # odd lengths and tails, non-causal, every head width the kernel takes,
-# fewer queries than keys (cross attention) and the hymba serving shape
+# fewer queries than keys (cross attention) and the hymba serving shape; then
+# the tensor-core kernel's edges: one query, a 64-row block one short and one
+# over, a long odd prompt, B·H = 100 at hd = 128, fewer queries than keys at
+# hd = 128
 @pytest.mark.parametrize("b,sq,sk,h,hd,causal", [
     (2, 33, 33, 3, 64, True), (2, 200, 200, 3, 64, False), (1, 96, 96, 2, 128, True),
     (1, 130, 130, 2, 256, True), (1, 77, 77, 2, 256, False), (2, 100, 100, 2, 128, False),
     (2, 24, 150, 3, 64, False), (4, 512, 512, 25, 64, True), (4, 2048, 2048, 25, 64, True),
+    (1, 1, 1, 2, 64, True), (1, 63, 63, 2, 64, True), (1, 65, 65, 2, 64, True),
+    (2, 1000, 1000, 3, 64, True), (4, 300, 300, 25, 128, True), (2, 70, 300, 2, 128, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, hd, causal, dtype):
@@ -531,6 +559,10 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError, match="must be"):
         flash_attention(q, q.bfloat16(), q.bfloat16())
+    shifted = torch.zeros(1 * 8 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        qb = shifted.view(1, 8, 2, 64)  # contiguous, 2 bytes into its storage
+        flash_attention(qb, qb, qb)
     with pytest.raises(ValueError, match="contiguous"):
         gla_forward(q[..., :16], q[..., :16], q, torch.zeros(1, 8, 2, device=cuda))
     with pytest.raises(ValueError, match="shared memory"):
