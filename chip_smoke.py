@@ -13,7 +13,9 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    and library-call times from CUDA events and the bound from the shapes;
    ``quantize_pack`` with and without a residual, ``robust_segment_sum_mix``
    (star and hierarchical, trim 1 and 2, devices masked, clip scales below
-   1) and ``dense_mix`` (a seeded symmetric 0/1 mask), bit for bit;
+   1) and ``dense_mix`` (a seeded symmetric 0/1 mask, and the edges of its
+   tile), bit for bit; ``from_uv_solve`` at S = 1 and 32 and
+   ``torch.linalg.solve`` each alone (``torch.profiler``);
 3. end to end: the port's ``FleetRuntime`` at the har width on star,
    hierarchical, hierarchical isolated, all_to_all and ring, with a shift
    injected into a few devices' streams so the participation mask is not
@@ -40,8 +42,10 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
 6. ``torch.profiler`` over 7 ticks (2 merges) at the har width on star
    and ring: wall time, device time, the device's busy share and the
    kernels that took the most device time;
-7. the paper's single-device path at the har width: ``hidden_proj``,
-   ``matmul_atb`` (two calls bit-identical) and ``rank1_add`` against
+7. the paper's single-device path at the har width: ``hidden_proj`` and
+   ``matmul_atb`` (two calls bit-identical; ``hidden_proj`` also at the
+   edges of its split and k=1 kernels, f32 and bf16, and each activation
+   applied once to the finished sum) and ``rank1_add`` against
    their plain versions, with the device time of each call's kernels, a
    256-step k=1 chain card against CPU, two devices and their cooperative
    update, the pair evaluations, Fig. 18 and Table 4, a profiler pass
@@ -81,6 +85,7 @@ from ``SEED``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -216,11 +221,11 @@ def ms_text(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def library_device(fn, reps: int) -> str:
-    """Device time of one PyTorch library call and the name of its longest
-    kernel, from torch.profiler over ``reps`` calls: the yardstick beside a
-    kernel's own time alone. Each kernel's mean launch time counts once for
-    each launch a call makes, so a dropped launch does not shorten it."""
+def call_device(fn, reps: int, what: str = "library alone") -> str:
+    """Device time of one call of ``fn`` (every kernel it launches) and the
+    name of its longest kernel, from torch.profiler over ``reps`` calls.
+    Each kernel's mean launch time counts once for each launch a call
+    makes, so a dropped launch does not shorten it."""
     import math
 
     import torch
@@ -235,10 +240,16 @@ def library_device(fn, reps: int) -> str:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
     if not events:
-        return "library alone not measured"
+        return f"{what} not measured"
     ms = sum(e.self_device_time_total / e.count * math.ceil(e.count / reps) for e in events)
     top = max(events, key=lambda e: e.self_device_time_total)
-    return f"library alone {ms / 1e3:.4f}: {top.key[:72]}"
+    return f"{what} {ms / 1e3:.4f}: {top.key[:72]}"
+
+
+def library_device(fn, reps: int) -> str:
+    """One PyTorch library call's device time: the yardstick beside a
+    kernel's own time alone."""
+    return call_device(fn, reps)
 
 
 def rel_err(got, want) -> tuple[float, list[float]]:
@@ -339,6 +350,11 @@ def phase_kernels(fleet, window, topo_hier):
             plain_ms=cuda_ms(lambda: tm.from_uv_solve_plain(u1, v1, ridge=RIDGE), 3),
             library_ms=cuda_ms(lambda: torch.linalg.solve(a1, rhs), 50),
         )
+        # the kernel alone and the library call alone, for ranking the two
+        alone = device_ms(lambda: tm.from_uv_solve(u1, v1, ridge=RIDGE), 20, ("uv_solve_kernel",))
+        log(f"  from_uv_solve {shape}: ms={solve_rows[shape]['ms']:.4f} (kernel alone"
+            f" {ms_text(alone)}) library_ms={solve_rows[shape]['library_ms']:.4f}"
+            f" (torch.linalg.solve, {library_device(lambda: torch.linalg.solve(a1, rhs), 20)})")
     # the kernel list carries the star shape; the cluster shape is logged
     # and its errors fold into the row's
     rows["from_uv_solve"] = one = solve_rows["S=1"]
@@ -489,9 +505,11 @@ def dense_mask(d: int):
 
 
 def phase_dense_mix(w):
-    """dense_mix against its plain version at the har width, bit for bit
-    (one fused multiply-add per device in device order, in both), and
-    against torch.mm (TF32 off) as the library's time."""
+    """dense_mix against its plain version at the har width and at the
+    edges of its 128 × 128 tile, bit for bit (one fused multiply-add per
+    device in device order, in both), and against torch.mm (TF32 off) as
+    the library's time."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import dense_mix, dense_mix_plain
@@ -509,14 +527,29 @@ def phase_dense_mix(w):
              ms=cuda_ms(lambda: dense_mix(w, m), 20),
              plain_ms=cuda_ms(lambda: dense_mix_plain(w, m), 1),
              library_ms=cuda_ms(lambda: torch.mm(mt, wf), 20))
-    kernel_ms = device_ms(lambda: dense_mix(w, m), 10, ("dense_mix_kernel",))
+    kernel_ms = device_ms(lambda: dense_mix(w, m), 10, ("transpose_kernel", "dense_mix_kernel"))
     b = bound(flops, nbytes)
     log(f"  dense_mix (D={d}, {int(m.sum())} ones): mismatches {mism}  ms={r['ms']:.4f}"
         f" (kernel alone {ms_text(kernel_ms)})"
         f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
-        f" (torch.mm against the plain version: max_rel={lib_rel:.3e})"
+        f" ({library_device(lambda: torch.mm(mt, wf), 10)};"
+        f" torch.mm against the plain version: max_rel={lib_rel:.3e})"
         f"  bound_ms={b[0]:.4f} ({b[1]}, {flops / 1e9:.2f} GFLOP)")
     assert mism == 0, f"dense_mix: {mism} elements differ from the plain version"
+    # the 128 × 128 tile's edges, bit for bit: D off the tile with F % 4 ≠ 0
+    # (the 4-byte path), D short of two tiles with F % 4 = 0, and x a view 4
+    # bytes into its storage (the 4-byte path at F % 4 = 0)
+    rng = np.random.default_rng(SEED + 3)
+    for (dd, rr, cc), offset in (((13, 10, 37), 0), ((130, 7, 9), 0), ((200, 16, 23), 0),
+                                 ((40, 8, 16), 1)):
+        flat = torch.from_numpy(
+            rng.standard_normal(dd * rr * cc + offset).astype(np.float32)).cuda()
+        xe = flat[offset:].view(dd, rr, cc)
+        me = (rng.random((dd, dd)) < 0.3).astype(np.float32)
+        mism_e = mismatches(dense_mix(xe, me), dense_mix_plain(xe, me))
+        log(f"  dense_mix D={dd} F={rr * cc}{' (4-byte offset)' if offset else ''}:"
+            f" mismatches {mism_e}")
+        assert mism_e == 0, f"dense_mix D={dd}: {mism_e} elements differ from the plain version"
     return r
 
 
@@ -988,12 +1021,20 @@ def core_kernel_rows():
     x = torch.from_numpy(rng.uniform(0, 1, (512, N_FEAT)).astype(np.float32)).cuda()
     rows, errs = {}, {"hidden_proj": 0.0, "matmul_atb": 0.0, "rank1_add": 0.0}
 
+    def proj_kernels(m, n_out, k=N_FEAT):
+        """The kernels one hidden_proj call launches: the k=1 kernel up to
+        four rows, else the split kernel and, past one slice, its reduce."""
+        if m <= 4:
+            return ("proj_k1_kernel",)
+        return ("proj_split_kernel",) + (
+            ("proj_reduce_kernel",) if split_plan(1, k, m, n_out)[1] > 1 else ())
+
     def row(name, label, fn, plain, flops, nbytes, library=None, kernels=None, keep=False,
             scale=None):
         got, want = fn(), plain()
         abs_e = float((got - want).abs().max())
-        if name == "matmul_atb":
-            assert torch.equal(fn(), got), f"matmul_atb {label}: two calls differ"
+        if name in ("matmul_atb", "hidden_proj"):
+            assert torch.equal(fn(), got), f"{name} {label}: two calls differ"
         if name == "rank1_add":
             mism = mismatches(got, want)
             assert mism == 0, f"rank1_add {label}: {mism} elements differ from the plain version"
@@ -1004,7 +1045,7 @@ def core_kernel_rows():
             assert rel <= GEMM_TOL, f"{name} {label}: max err / max |A|ᵀ|B| {rel:.3e}"
             check = (f"max err / max |A|ᵀ|B| {rel:.3e} (tol {GEMM_TOL:.0e}),"
                      f" / max |plain| {abs_e / float(want.abs().max()):.3e}"
-                     + (", two calls bit-identical" if name == "matmul_atb" else ""))
+                     + ", two calls bit-identical")
         errs[name] = max(errs[name], abs_e)
         r = dict(abs=abs_e, rels={}, flops=flops, nbytes=nbytes, ms=cuda_ms(fn, 200),
                  plain_ms=cuda_ms(plain, 20),
@@ -1035,7 +1076,7 @@ def core_kernel_rows():
                     lambda: hidden_proj_plain(xm, a, b, activation=act),
                     2 * m * N_FEAT * nh, 4 * (m * N_FEAT + N_FEAT * nh + nh + m * nh),
                     library=(lambda: torch.addmm(b, xm, a)) if act == "identity" else None,
-                    kernels=("gemm_skinny_kernel",) if m == 1 else ("gemm_tile_kernel",),
+                    kernels=proj_kernels(m, nh),
                     keep=main and m == 1, scale=mag)
             h1 = hidden_proj(x[:1], a, b, activation=act)[0]
             hcol = h1[:, None].contiguous()
@@ -1069,6 +1110,47 @@ def core_kernel_rows():
                     2 * n1 * n2 + n1, 4 * (2 * n1 * n2 + n1 + n2 + 1),
                     library=lambda xx=xx, v=v, s_host=s_host: torch.addr(xx, ph, v, alpha=s_host),
                     kernels=("rank1_kernel",), keep=main and label == "beta")
+    # hidden_proj at the edges of its split and k=1 kernels: K shorter than
+    # a slice, K ending in a partial stage, 5 rows, 513 rows and 129
+    # columns, K shorter than the cluster's 8 blocks, 4 rows; f32 and bf16
+    for (m, k, n), dtype in itertools.product(
+            ((64, 40, 128), (64, 100, 128), (5, 561, 128), (513, 561, 129), (1, 5, 128),
+             (4, 561, 200)), (torch.float32, torch.bfloat16)):
+        g = np.random.default_rng(SEED + 4)
+        xe, ae, be = (torch.from_numpy(g.standard_normal(shape).astype(np.float32)).cuda()
+                      .to(dtype) for shape in ((m, k), (k, n), (n,)))
+        got = hidden_proj(xe, ae, be, activation="tanh")
+        want = hidden_proj_plain(xe, ae, be, activation="tanh")
+        mag = float((xe.float().abs() @ ae.float().abs() + be.float().abs()).max())
+        rel = float((got - want).abs().max()) / mag
+        same = torch.equal(hidden_proj(xe, ae, be, activation="tanh"), got)
+        log(f"  hidden_proj edge {m}x{k}x{n} {str(dtype)[6:]} tanh"
+            f" ({'+'.join(proj_kernels(m, n, k))}):"
+            f" max err / max |x||α|+|b| {rel:.3e} (tol {GEMM_TOL:.0e}), two calls"
+            f" {'bit-identical' if same else 'DIFFER'}")
+        assert rel <= GEMM_TOL and same, f"hidden_proj {m}x{k}x{n} {dtype}"
+    # each activation applied once, to the finished sum: G of the kernel's
+    # own identity output, whose slice sums are the same bits
+    from repro_torch.core.activations import ACTIVATION_CODES, get_activation
+
+    st = init_autoencoder(torch.Generator().manual_seed(SEED), N_FEAT, N_HID, x[:4 * N_HID],
+                          activation="identity", ridge=RIDGE, device="cuda")
+    for m in (1, 512):
+        pre = hidden_proj(x[:m], st.params.alpha, st.params.bias, activation="identity")
+        worst = max(float((hidden_proj(x[:m], st.params.alpha, st.params.bias, activation=act)
+                           - get_activation(act)(pre)).abs().max()) for act in ACTIVATION_CODES)
+        scale = max(1.0, float(pre.abs().max()))
+        log(f"  hidden_proj {m}x{N_FEAT}: every activation against G(identity output):"
+            f" max err {worst:.3e} (tol {GEMM_TOL * scale:.1e})")
+        assert worst <= GEMM_TOL * scale, f"hidden_proj {m} rows: G not applied once"
+    # the Eq. 13 boot's statistics at 512 samples: one hidden_proj, two matmul_atb
+    from repro_torch.kernels import uv_from_batch_kernel
+
+    def boot():
+        return uv_from_batch_kernel(st.params.alpha, st.params.bias, x, x, activation="identity")
+
+    log(f"  Eq. 13 boot statistics (512x{N_FEAT}, Ñ={N_HID}): ms={cuda_ms(boot, 100):.4f}"
+        f" ({call_device(boot, 50, 'device')})")
     for name in rows:
         rows[name]["abs"] = errs[name]
     return rows

@@ -8,29 +8,36 @@
 // sample-major (K, M) array (kSamples = true: AᵀB with the sample axis
 // contracted, so Aᵀ is never materialised). Inputs are f32 or bf16 and are
 // widened to f32 on load; sums are f32. Every output element is summed in
-// a fixed order, with no split of k across blocks and no atomics. AᵀB of
-// more than kSkinnyRows rows is matmul_atb.cu's own kernel, which splits
-// the sample axis across blocks; here AᵀB takes only the skinny kernel.
+// a fixed order, with no atomics, so two calls give the same bits.
 //
-// * gemm_tile_kernel (M > kSkinnyRows, row-major a only): a 64 × 64 output
-//   tile per block of 256 threads, 4 × 4 outputs a thread in registers, k in
+// * gemm_tile_kernel (M > kSkinnyRows, row-major a only; the fleet ingest's
+//   projection, whose 8 192 rows fill the card): a 64 × 64 output tile per
+//   block of 256 threads, 4 × 4 outputs a thread in registers, k in
 //   16-wide slices through shared memory; each output sums a slice in order,
 //   one fused multiply-add per k, and adds the slice sums in order. The two levels
 //   keep the rounding error to that of about 16 + K/16 additions, not K:
 //   with one running sum the error at K = 561 reached 1.03e-6 of the
 //   largest output (NVIDIA H100, against a PyTorch product).
-// * gemm_skinny_kernel (M ≤ kSkinnyRows, the k=1 step's 1 × K products):
-//   a tile kernel would run two blocks through K/16 barrier-separated
-//   slices. Here a block of 32 warps takes 32 output columns; warp w sums
-//   k = w, w+32, ... with lanes on consecutive columns (each load of b a
-//   coalesced 128-byte row segment), and the 32 partials of an output are
-//   then summed in warp order.
+// * gemm_skinny_kernel (M ≤ kSkinnyRows; matmul_atb's hᵀP): a block of 32
+//   warps takes 32 output columns; warp w sums k = w, w+32, ... with lanes
+//   on consecutive columns (each load of b a coalesced 128-byte row
+//   segment), and the 32 partials of an output are then summed in warp
+//   order.
+// * split_tile and reduce_slices, the bodies of matmul_atb.cu's and
+//   hidden_proj.cu's split products (M > kSkinnyRows): the contraction axis
+//   is cut into slices across blocks (the wrappers' split_plan), each block
+//   sums one 32 × 64 output tile over one slice through two shared-memory
+//   stages, and a second kernel adds the slices in slice order. Either
+//   layout of a; the bias and G, when given, are applied once, to the
+//   finished sum.
 //
 // The bias and the activation G are applied once, to the finished sum
 // (a fused epilogue: the pre-activation never goes to device memory).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -174,6 +181,130 @@ cudaError_t launch_gemm(const T* a, const T* b, const T* bias, float* out, int b
     gemm_tile_kernel<T><<<grid, kGemmThreads, 0, s>>>(a, b, bias, out, M, K, N, act);
   }
   return cudaGetLastError();
+}
+
+constexpr int kSplitThreads = 128;
+constexpr int SBM = 32, SBN = 64, SBK = 16;  // tile rows (of M), columns (of N), k a stage
+
+// Column swizzle of the left operand's stage. A row-major a is read with
+// consecutive threads on consecutive k, so without it the 16 k of one row
+// would land in one bank; the xor moves whole float4s, so a thread's four
+// rows stay one aligned 16-byte load. A sample-major a needs none.
+template <bool kSamples>
+__device__ __forceinline__ int swz(int k) { return kSamples ? 0 : (k & 7) << 2; }
+
+// Stage k = k0..k0+15 (those below k1) of a's rows m0.. and b's columns
+// n0.. into at[k][m] and bt[k][n]; what lies past k1, M or N is zero. f32
+// by 4-byte cp.async; bf16 through registers, widened to f32, since a row
+// of an odd number of bf16 values is not 4-byte aligned and cp.async
+// copies no fewer than 4 bytes.
+template <typename T, bool kSamples>
+__device__ __forceinline__ void split_stage(float (*at)[SBM], float (*bt)[SBN], const T* a,
+                                            const T* b, int k0, int k1, int m0, int n0, int M,
+                                            int K, int N) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int i = tid; i < SBK * SBM; i += kSplitThreads) {
+    // consecutive threads on consecutive addresses of a
+    const int r = kSamples ? i / SBM : i % SBK, c = kSamples ? i % SBM : i / SBK;
+    const int gk = k0 + r, gm = m0 + c;
+    const bool in = gk < k1 && gm < M;
+    const T* src = a + (in ? (kSamples ? (size_t)gk * M + gm : (size_t)gm * K + gk) : 0);
+    float* dst = &at[r][c ^ swz<kSamples>(r)];
+    if constexpr (sizeof(T) == 4) cp_async<4>(dst, src, in ? 4 : 0);
+    else *dst = in ? to_f32(*src) : 0.0f;
+  }
+#pragma unroll
+  for (int i = tid; i < SBK * SBN; i += kSplitThreads) {
+    const int r = i / SBN, c = i % SBN, gk = k0 + r, gn = n0 + c;
+    const bool in = gk < k1 && gn < N;
+    const T* src = b + (in ? (size_t)gk * N + gn : 0);
+    if constexpr (sizeof(T) == 4) cp_async<4>(&bt[r][c], src, in ? 4 : 0);
+    else bt[r][c] = in ? to_f32(*src) : 0.0f;
+  }
+}
+
+// The body of a split kernel: a (batch, M, K) row-major or (batch, K, M)
+// sample-major, b (batch, K, N); grid (N tiles, M tiles, batch · slices),
+// blockIdx.z = z · slices + slice. Slice s covers k in [s·L, min((s+1)·L, K)).
+// part (batch, slices, M, N): each slice's sum; with one slice part is the
+// output and takes the epilogue (bias may be null, act 0 is the identity).
+// A block walks its slice 16 k at a time through two shared-memory stages,
+// the next in flight while this one is summed; 128 threads hold 4 × 4
+// outputs each. The sum has three levels: 16 k with one fused multiply-add
+// each, the 16-k sums of a slice in order, then (reduce_slices) the slices
+// in order.
+template <typename T, bool kSamples>
+__device__ __forceinline__ void split_tile(const T* __restrict__ a, const T* __restrict__ b,
+                                           const T* __restrict__ bias, int act,
+                                           float* __restrict__ part, int M, int K, int N, int L,
+                                           int slices) {
+  __shared__ __align__(16) float at[2][SBK][SBM];
+  __shared__ __align__(16) float bt[2][SBK][SBN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
+  const size_t z = blockIdx.z / slices;
+  const int sl = blockIdx.z % slices;
+  a += z * K * M;
+  b += z * K * N;
+  part += (z * slices + sl) * M * N;
+  const int k0 = sl * L, k1 = min(k0 + L, K);
+  const int steps = (k1 - k0 + SBK - 1) / SBK;
+
+  float acc[4][4] = {};
+  split_stage<T, kSamples>(at[0], bt[0], a, b, k0, k1, m0, n0, M, K, N);
+  cp_async_commit();
+  for (int u = 0; u < steps; ++u) {
+    if (u + 1 < steps) split_stage<T, kSamples>(at[(u + 1) % 2], bt[(u + 1) % 2], a, b,
+                                                k0 + (u + 1) * SBK, k1, m0, n0, M, K, N);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the stage just issued have landed
+    __syncthreads();
+    float p[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < SBK; ++kk) {
+      const float4 ar =
+          *reinterpret_cast<const float4*>(&at[u % 2][kk][(ty * 4) ^ swz<kSamples>(kk)]);
+      const float4 br = *reinterpret_cast<const float4*>(&bt[u % 2][kk][tx * 4]);
+      const float av[4] = {ar.x, ar.y, ar.z, ar.w}, bv[4] = {br.x, br.y, br.z, br.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] = fmaf(av[i], bv[j], p[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += p[i][j];
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn < N) part[(size_t)gm * N + gn] = slices == 1 ? epilogue(acc[i][j], bias, gn, act)
+                                                          : acc[i][j];
+    }
+  }
+}
+
+// The body of a reduce kernel: out[z][i] = G(Σ_s part[z][s][i] + bias[i % N]),
+// s in order, one thread an output.
+template <typename T>
+__device__ __forceinline__ void reduce_slices(const float* __restrict__ part,
+                                              float* __restrict__ out, long long MN, int slices,
+                                              long long total, const T* __restrict__ bias, int N,
+                                              int act) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long z = idx / MN, i = idx % MN;
+  const float* p = part + z * slices * MN + i;
+  float s = p[0];
+  for (int k = 1; k < slices; ++k) s += p[k * MN];
+  out[idx] = epilogue(s, bias, (int)(i % N), act);
 }
 
 }  // namespace

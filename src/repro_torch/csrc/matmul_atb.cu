@@ -11,11 +11,12 @@
 // not change from run to run.
 //
 // * N1 ≤ kSkinnyRows (the k=1 step's A = h of shape (Ñ, 1)): gemm.cuh's
-//   skinny kernel, shared with hidden_proj.cu.
+//   skinny kernel.
 // * Otherwise the sample axis is split across blocks, which gemm.cuh's
 //   tile kernel (one block walking all of K for a 64 × 64 tile) does not
 //   do: at the har width its grids were 4 blocks (HᵀH) and 18 (HᵀX) on 132
-//   SMs, and the serial loop over K set the time. atb_split_kernel gives a
+//   SMs, and the serial loop over K set the time. atb_split_kernel (on
+//   gemm.cuh's split_tile, shared with hidden_proj.cu) gives a
 //   block one 32 × 64 output tile and one slice of samples (the wrapper's
 //   split_plan: slices of at least 64 samples, and as many as bring the
 //   grid to about two blocks an SM: at K = 512, 8 slices, 64 blocks for
@@ -39,104 +40,21 @@
 #include <cuda_runtime.h>
 
 #include "gemm.cuh"
-#include "ptx.cuh"
 
 namespace {
 
-constexpr int kAtbThreads = 128;
-constexpr int ABM = 32, ABN = 64, ABK = 16;  // tile rows (of N1), columns (of N2), samples a stage
-
-// Stage samples k0..k0+15 (those below k1) of A's columns m0.. and B's
-// columns n0.. into at and bt; what lies past k1, M or N is zero.
+// gemm.cuh's split product with a read in place, sample-major
 template <typename T>
-__device__ __forceinline__ void stage(float (*at)[ABM], float (*bt)[ABN], const T* a, const T* b,
-                                      int k0, int k1, int m0, int n0, int M, int N) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = tid; i < ABK * ABM; i += kAtbThreads) {
-    const int r = i / ABM, c = i % ABM, gk = k0 + r, gm = m0 + c;
-    const bool in = gk < k1 && gm < M;
-    const T* src = a + (in ? (size_t)gk * M + gm : 0);
-    if constexpr (sizeof(T) == 4) cp_async<4>(&at[r][c], src, in ? 4 : 0);
-    else at[r][c] = in ? to_f32(*src) : 0.0f;
-  }
-#pragma unroll
-  for (int i = tid; i < ABK * ABN; i += kAtbThreads) {
-    const int r = i / ABN, c = i % ABN, gk = k0 + r, gn = n0 + c;
-    const bool in = gk < k1 && gn < N;
-    const T* src = b + (in ? (size_t)gk * N + gn : 0);
-    if constexpr (sizeof(T) == 4) cp_async<4>(&bt[r][c], src, in ? 4 : 0);
-    else bt[r][c] = in ? to_f32(*src) : 0.0f;
-  }
-}
-
-// a (batch, K, M), b (batch, K, N); grid (N tiles, M tiles, batch · slices),
-// blockIdx.z = z · slices + slice. Slice s covers samples [s·L, min((s+1)·L, K)).
-// part (batch, slices, M, N): each slice's sum (out itself when slices is 1).
-template <typename T>
-__global__ void __launch_bounds__(kAtbThreads)
+__global__ void __launch_bounds__(kSplitThreads)
 atb_split_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ part,
                  int M, int K, int N, int L, int slices) {
-  __shared__ __align__(16) float at[2][ABK][ABM];
-  __shared__ __align__(16) float bt[2][ABK][ABN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * ABM, n0 = blockIdx.x * ABN;
-  const size_t z = blockIdx.z / slices;
-  const int sl = blockIdx.z % slices;
-  a += z * K * M;
-  b += z * K * N;
-  part += (z * slices + sl) * M * N;
-  const int k0 = sl * L, k1 = min(k0 + L, K);
-  const int steps = (k1 - k0 + ABK - 1) / ABK;
-
-  float acc[4][4] = {};
-  stage(at[0], bt[0], a, b, k0, k1, m0, n0, M, N);
-  cp_async_commit();
-  for (int u = 0; u < steps; ++u) {
-    if (u + 1 < steps) stage(at[(u + 1) % 2], bt[(u + 1) % 2], a, b, k0 + (u + 1) * ABK, k1,
-                             m0, n0, M, N);
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the stage just issued have landed
-    __syncthreads();
-    float p[4][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < ABK; ++kk) {
-      const float4 ar = *reinterpret_cast<const float4*>(&at[u % 2][kk][ty * 4]);
-      const float4 br = *reinterpret_cast<const float4*>(&bt[u % 2][kk][tx * 4]);
-      const float av[4] = {ar.x, ar.y, ar.z, ar.w}, bv[4] = {br.x, br.y, br.z, br.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) p[i][j] = fmaf(av[i], bv[j], p[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += p[i][j];
-    __syncthreads();  // this stage is consumed before the next iteration refills it
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) part[(size_t)gm * N + gn] = acc[i][j];
-    }
-  }
+  split_tile<T, true>(a, b, nullptr, 0, part, M, K, N, L, slices);
 }
 
 // out[z][i] = Σ_s part[z][s][i], s in order
 __global__ void atb_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
                                   long long MN, int slices, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long z = idx / MN, i = idx % MN;
-  const float* p = part + z * slices * MN + i;
-  float s = p[0];
-  for (int k = 1; k < slices; ++k) s += p[k * MN];
-  out[idx] = s;
+  reduce_slices<float>(part, out, MN, slices, total, nullptr, 1, 0);
 }
 
 template <typename T>
@@ -145,9 +63,9 @@ cudaError_t launch_atb(const T* a, const T* b, float* out, float* ws, int batch,
   if (M <= kSkinnyRows) return launch_gemm<T, true>(a, b, nullptr, out, batch, M, K, N, 0, s);
   if (L <= 0 || (long long)L * slices < K || (slices > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
-  const dim3 grid((N + ABN - 1) / ABN, (M + ABM - 1) / ABM, batch * slices);
-  atb_split_kernel<T><<<grid, kAtbThreads, 0, s>>>(a, b, slices > 1 ? ws : out, M, K, N, L,
-                                                   slices);
+  const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM, batch * slices);
+  atb_split_kernel<T><<<grid, kSplitThreads, 0, s>>>(a, b, slices > 1 ? ws : out, M, K, N, L,
+                                                     slices);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || slices == 1) return e;
   const long long total = (long long)batch * M * N;

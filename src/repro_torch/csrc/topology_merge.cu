@@ -57,9 +57,16 @@
 //     for any (D, D) mask M and x (D, Ñ, Ñ+m), the route of a dense topology
 //     that is not fully connected. Bound on an H100: operations, 2·D²·Ñ(Ñ+m)
 //     = 11.6 GFLOP at D = 256 and the har width (0.173 ms at 67 TFLOP/s f32;
-//     181 MB of traffic, 0.054 ms). A shared-memory tiled product: each
-//     block holds a 64 × 16 tile of M and a 16 × 128 tile of x, and each
-//     thread keeps 4 × 8 outputs in registers. Every output accumulates
+//     181 MB of traffic, 0.054 ms). A register-blocked SIMT product (no
+//     tensor cores: TF32 would change the bits): transpose_kernel writes
+//     Mᵀ (D × D, 256 KB at D = 256) to a scratch array once, then each
+//     block of dense_mix_kernel holds a 16 × 128 tile of Mᵀ and one of x,
+//     both copied as they lie by cp.async in two stages, and each thread
+//     keeps 8 × 8 outputs in registers, four 16-byte shared loads for 64
+//     fused multiply-adds. (Copying M's tile transposed into shared
+//     memory, 4 bytes a copy, set the time of the first design; reading
+//     M's rows four k at a time instead spilled at the 128 registers that
+//     two blocks an SM allow.) Every output accumulates
 //     k = 0..D−1 in order, one fused multiply-add per step, exactly as the
 //     plain version does, so the two agree bit for bit (no TF32, no split
 //     over k: RLS parity degrades as κ(P)² with a looser product).
@@ -71,6 +78,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -232,64 +241,130 @@ banded_solve_kernel(const float* __restrict__ w, float* __restrict__ p,
   store_tile(R, p + (size_t)d * n * n, beta + (size_t)d * n * m, n, m, c0, tc);
 }
 
-constexpr int kDenseBM = 64;   // rows of M (and of the output) per block
+constexpr int kDenseBM = 128;  // rows of M (and of the output) per block
 constexpr int kDenseBN = 128;  // payload columns per block
-constexpr int kDenseBK = 16;   // devices k per shared-memory step
+constexpr int kDenseBK = 16;   // devices k per shared-memory stage
+constexpr int kDensePad = 4;   // Mᵀ tile row padding, as in the layout timed on the H100
+constexpr int kTile = 32;      // transpose tile
 
-// One block per (128-column tile, 64-row tile). Thread (tx, ty) of a 16 × 16
-// layout owns rows 4·ty .. 4·ty+3 and columns tx + 16·j (j < 8), so the
-// reads of the x tile and the output stores are coalesced and conflict-free.
-__global__ void __launch_bounds__(kThreads)
-dense_mix_kernel(const float* __restrict__ M, const float* __restrict__ X,
-                 float* __restrict__ out, int D, long long F) {
-  __shared__ __align__(16) float Ms[kDenseBK][kDenseBM];  // Ms[k][i] = M[i0 + i, k0 + k]
-  __shared__ float Xs[kDenseBK][kDenseBN];                // Xs[k][j] = x[k0 + k, j0 + j]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.y * kDenseBM;
-  const long long j0 = (long long)blockIdx.x * kDenseBN;
-  float acc[4][8];
+// mt[k][i] = M[i][k], D × D, through a padded 32 × 32 shared tile so that
+// both the reads and the writes are coalesced; block (32, 8).
+__global__ void transpose_kernel(const float* __restrict__ M, float* __restrict__ mt, int D) {
+  __shared__ float t[kTile][kTile + 1];
+  const int i0 = blockIdx.y * kTile, k0 = blockIdx.x * kTile;
+  const int c = threadIdx.x;
+  for (int r = threadIdx.y; r < kTile; r += blockDim.y)
+    if (i0 + r < D && k0 + c < D) t[r][c] = M[(size_t)(i0 + r) * D + k0 + c];
+  __syncthreads();
+  for (int r = threadIdx.y; r < kTile; r += blockDim.y)
+    if (k0 + r < D && i0 + c < D) mt[(size_t)(k0 + r) * D + i0 + c] = t[c][r];
+}
+
+// Stage devices k0..k0+15 of Mᵀ's columns i0.. (ms[k][i] = M[i0 + i, k0 + k])
+// and of x's columns j0.. (xs[k][j] = x[k0 + k, j0 + j]) by cp.async, with
+// consecutive threads on consecutive addresses of both; what lies past D
+// or F is zero. kVec: 16 bytes a copy (D and F multiples of 4, the arrays
+// 16-byte aligned), else 4.
+template <bool kVec>
+__device__ __forceinline__ void dense_stage(float (*ms)[kDenseBM + kDensePad],
+                                            float (*xs)[kDenseBN], const float* mt,
+                                            const float* X, int k0, int i0, long long j0, int D,
+                                            long long F) {
+  constexpr int kW = kVec ? 4 : 1;  // floats a copy
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < D; k0 += kDenseBK) {
-    for (int idx = tid; idx < kDenseBM * kDenseBK; idx += kThreads) {
-      const int i = idx % kDenseBM, k = idx / kDenseBM;
-      const int gi = i0 + i, gk = k0 + k;
-      Ms[k][i] = (gi < D && gk < D) ? M[(size_t)gi * D + gk] : 0.0f;
-    }
-    for (int idx = tid; idx < kDenseBK * kDenseBN; idx += kThreads) {
-      const int k = idx / kDenseBN, j = idx % kDenseBN;
-      const int gk = k0 + k;
-      const long long gj = j0 + j;
-      Xs[k][j] = (gk < D && gj < F) ? X[(size_t)gk * F + gj] : 0.0f;
-    }
-    __syncthreads();
-    const int kmax = min(kDenseBK, D - k0);
-#pragma unroll
-    for (int k = 0; k < kDenseBK; ++k) {
-      if (k < kmax) {
-        const float4 a = *reinterpret_cast<const float4*>(&Ms[k][ty * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        float b[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = Xs[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
+  for (int idx = tid; idx < kDenseBK * kDenseBM / kW; idx += kThreads) {
+    const int k = idx / (kDenseBM / kW), i = idx % (kDenseBM / kW) * kW;
+    const int gk = k0 + k, gi = i0 + i;
+    const bool in = gk < D && gi < D;  // with kVec, D % 4 == 0: all four or none
+    cp_async<4 * kW>(&ms[k][i], mt + (in ? (size_t)gk * D + gi : 0), in ? 4 * kW : 0);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = i0 + ty * 4 + i;
-    if (gi >= D) continue;
+  for (int idx = tid; idx < kDenseBK * kDenseBN / kW; idx += kThreads) {
+    const int k = idx / (kDenseBN / kW), j = idx % (kDenseBN / kW) * kW, gk = k0 + k;
+    const long long gj = j0 + j;
+    const bool in = gk < D && gj < F;  // with kVec, F % 4 == 0: all four or none
+    cp_async<4 * kW>(&xs[k][j], X + (in ? (size_t)gk * F + gj : 0), in ? 4 * kW : 0);
+  }
+}
+
+// out[i][j] += M[i][k]·x[k][j] for the 8 × 8 outputs of thread (tx, ty), one device k
+__device__ __forceinline__ void dense_step(float (&acc)[8][8], const float* mk, const float* xk,
+                                           int tx, int ty) {
+  const float4 a0 = *reinterpret_cast<const float4*>(mk + ty * 4);
+  const float4 a1 = *reinterpret_cast<const float4*>(mk + 64 + ty * 4);
+  const float4 b0 = *reinterpret_cast<const float4*>(xk + tx * 4);
+  const float4 b1 = *reinterpret_cast<const float4*>(xk + 64 + tx * 4);
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long gj = j0 + tx + 16 * j;
-      if (gj < F) out[(size_t)gi * F + gj] = acc[i][j];
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
+}
+
+// One block per (128-row, 128-column) output tile, 1-D grid with the row
+// tiles of a column tile adjacent, so that they run together and read
+// their x tile once from device memory. M comes in as mt = Mᵀ
+// (transpose_kernel), so both tiles are copied as they lie. Thread (tx, ty)
+// owns rows 4·ty + {0..3, 64..67} and columns 4·tx + {0..3, 64..67}, a warp
+// 4 × 8 threads: each device k costs four 16-byte shared loads for 64
+// fused multiply-adds. Two stages: the next 16 devices are in flight while
+// these are summed. Every output accumulates k = 0..D−1 in order from
+// zero, one fmaf a step.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+dense_mix_kernel(const float* __restrict__ mt, const float* __restrict__ X,
+                 float* __restrict__ out, int D, long long F, int row_tiles) {
+  __shared__ __align__(16) float Ms[2][kDenseBK][kDenseBM + kDensePad];
+  __shared__ __align__(16) float Xs[2][kDenseBK][kDenseBN];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int tx = lane % 8 + 8 * (warp % 2), ty = lane / 8 + 4 * (warp / 2);
+  const int i0 = (int)(blockIdx.x % row_tiles) * kDenseBM;
+  const long long j0 = (long long)(blockIdx.x / row_tiles) * kDenseBN;
+  const int steps = (D + kDenseBK - 1) / kDenseBK;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  dense_stage<kVec>(Ms[0], Xs[0], mt, X, 0, i0, j0, D, F);
+  cp_async_commit();
+  for (int u = 0; u < steps; ++u) {
+    if (u + 1 < steps)
+      dense_stage<kVec>(Ms[(u + 1) % 2], Xs[(u + 1) % 2], mt, X, (u + 1) * kDenseBK, i0, j0, D,
+                        F);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the stage just issued have landed
+    __syncthreads();
+    const int kmax = min(kDenseBK, D - u * kDenseBK);
+    if (kmax == kDenseBK) {  // no per-k test on a full stage
+#pragma unroll
+      for (int k = 0; k < kDenseBK; ++k) dense_step(acc, Ms[u % 2][k], Xs[u % 2][k], tx, ty);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kDenseBK; ++k)
+        if (k < kmax) dense_step(acc, Ms[u % 2][k], Xs[u % 2][k], tx, ty);
+    }
+    __syncthreads();  // this stage is consumed before the next iteration refills it
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gi = i0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (gi >= D) continue;
+    float* row = out + (size_t)gi * F;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long gj = j0 + h * 64 + tx * 4;
+      if constexpr (kVec) {
+        if (gj < F)
+          *reinterpret_cast<float4*>(row + gj) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (gj + c < F) row[gj + c] = acc[i][4 * h + c];
+      }
     }
   }
 }
@@ -381,12 +456,23 @@ int repro_banded_merge_solve(const float* w, float* p, float* beta, int D, int n
   return cudaGetLastError();
 }
 
-// M (D, D) and x (D, F) contiguous f32 → out (D, F) = M @ x.
-int repro_dense_mix(const float* M, const float* X, float* out, int D, long long F,
+// M (D, D) and x (D, F) contiguous f32, mt (D, D) f32 scratch → out (D, F) = M @ x.
+int repro_dense_mix(const float* M, float* mt, const float* X, float* out, int D, long long F,
                     void* stream) {
   if (D == 0 || F == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((F + kDenseBN - 1) / kDenseBN), (D + kDenseBM - 1) / kDenseBM);
-  dense_mix_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(M, X, out, D, F);
+  const int row_tiles = (D + kDenseBM - 1) / kDenseBM;
+  const long long blocks = (F + kDenseBN - 1) / kDenseBN * row_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int t = (D + kTile - 1) / kTile;
+  transpose_kernel<<<dim3(t, t), dim3(kTile, 8), 0, st>>>(M, mt, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (D % 4 == 0 && F % 4 == 0 && aligned16(mt) && aligned16(X) && aligned16(out)) {
+    dense_mix_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(mt, X, out, D, F, row_tiles);
+  } else {
+    dense_mix_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(mt, X, out, D, F, row_tiles);
+  }
   return cudaGetLastError();
 }
 

@@ -5,8 +5,12 @@
 the kernel of ``csrc/hidden_proj.cu`` for CUDA tensors, or raises. The
 operands are f32 or bf16 (all three of one type) and the result is f32,
 summed in f32 with the bias and activation applied to the finished sum,
-as the reference's kernel does. The kernel sums each output in a fixed
-order of its own (see ``csrc/gemm.cuh``); the plain version is a
+as the reference's kernel does. Past four rows the kernel cuts the
+feature axis K into the slices of ``matmul_atb.split_plan`` (one block per
+output tile and slice, then the slices added in order); up to four rows,
+the k=1 step's shape, one cluster of blocks per 32 columns does (see
+``csrc/hidden_proj.cu``). Either way each output is summed in a fixed
+order of its own, so two calls give the same bits; the plain version is a
 PyTorch matrix product, so the two agree to f32 rounding, not bit for bit.
 """
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.core.activations import ACTIVATION_CODES, get_activation
 from repro_torch.kernels import _lib
+from repro_torch.kernels.matmul_atb import split_plan
 
 __all__ = ["hidden_proj", "hidden_proj_plain"]
 
@@ -48,8 +53,12 @@ def hidden_proj(
     out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    # x (m, k) is the left operand with k contracted: AᵀB's plan with n1 = m
+    length, slices, ws_numel = split_plan(1, k, m, n)
+    ws = torch.empty(ws_numel, dtype=torch.float32, device=x.device) if ws_numel else None
     status = _lib.library().repro_hidden_proj(
-        x.data_ptr(), alpha.data_ptr(), bias.data_ptr(), out.data_ptr(), m, k, n,
+        x.data_ptr(), alpha.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), m, k, n, max(length, 1), slices,
         ACTIVATION_CODES[activation], bf16, _lib.stream(),
     )
     _lib.check(status, "hidden_proj")

@@ -21,8 +21,8 @@ from repro_torch.kernels import _lib
 __all__ = ["matmul_atb", "matmul_atb_plain", "split_plan", "uv_accum"]
 
 SKINNY_ROWS = 4         # N1 up to this takes gemm.cuh's skinny kernel (kSkinnyRows)
-TILE = (32, 64)         # the split kernel's output tile (ABM, ABN)
-STEP = 16               # samples a stage of the split kernel (ABK)
+TILE = (32, 64)         # the split kernel's output tile (SBM, SBN)
+STEP = 16               # samples a stage of the split kernel (SBK)
 MIN_SLICE = 64          # samples in the shortest slice
 TARGET_BLOCKS = 2 * 132  # about two blocks on each of an H100's SMs
 
@@ -42,7 +42,10 @@ def split_plan(batch: int, k: int, n1: int, n2: int) -> tuple[int, int, int]:
     ``batch`` products of (k, n1)ᵀ·(k, n2). Slices hold a multiple of 16
     samples, at least 64, and are as many as bring the grid to about
     TARGET_BLOCKS blocks; slice s covers samples [s·L, min((s+1)·L, k)). One
-    slice needs no workspace; the skinny path (n1 ≤ 4) never splits."""
+    slice needs no workspace; the skinny path (n1 ≤ 4) never splits.
+    ``hidden_proj`` plans x (n1, k)·α (k, n2) with the same function: the
+    two share the split kernel's body and its tile, and its n1 ≤ 4 rows
+    take its own k=1 kernel."""
     if n1 <= SKINNY_ROWS or k <= 0:
         return max(k, 0), 1, 0
     tiles = batch * _cdiv(n1, TILE[0]) * _cdiv(n2, TILE[1])

@@ -339,8 +339,9 @@ def dense_mix(x: torch.Tensor, matrix) -> torch.Tensor:
     _lib.require_cuda_f32("dense_mix", x=x, matrix=m)
     d, f = xf.shape
     out = torch.empty_like(x)
+    mt = torch.empty_like(m)  # the kernel's scratch copy of Mᵀ
     status = _lib.library().repro_dense_mix(
-        m.data_ptr(), x.data_ptr(), out.data_ptr(), d, f, _lib.stream(),
+        m.data_ptr(), mt.data_ptr(), x.data_ptr(), out.data_ptr(), d, f, _lib.stream(),
     )
     _lib.check(status, "dense_mix")
     _lib.count_launch("dense_mix")

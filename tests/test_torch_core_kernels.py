@@ -2,7 +2,8 @@
 ``matmul_atb``, ``rank1_add``) against the reference's Pallas kernels in
 interpret mode and against their ``kernels/ref.py`` oracles, on the CPU,
 over the shape sweep of ``tests/test_kernels.py``; and ``split_plan``, the
-cut of the sample axis that the CUDA ``matmul_atb`` sums side by side.
+cut of the contracted axis that the CUDA ``matmul_atb`` (samples) and
+``hidden_proj`` (features) sum side by side.
 
 Bounds: f32 at rtol 1e-5 with an absolute floor of 1e-5 × max |want|
 (the products sum in another order than the reference's 128-wide tiles,
@@ -152,6 +153,38 @@ def test_split_plan_leaves_four_rows_or_fewer_to_the_skinny_kernel(n1):
     for batch, k in ((1, 128), (8, 4097)):
         assert split_plan(batch, k, n1, 561) == (k, 1, 0)
     assert split_plan(1, 128, 5, 128) == (64, 2, 2 * 5 * 128)
+    # hidden_proj's k=1 shape (x n1 × 561 · α 561 × 128) goes to its k=1
+    # kernel, which cuts K across a cluster of blocks itself
+    assert split_plan(1, 561, n1, 128) == (561, 1, 0)
+
+
+# (columns of x a slice, slices) of hidden_proj's split kernel for
+# x (m, k)·α (k, 128): slices of at least 64 columns until the grid nears
+# 264 blocks; a K shorter than one slice, or rows enough to fill the card
+# alone (the fleet ingest's 8 192), is one slice with the epilogue in place
+PROJ_SPLITS = {
+    (5, 40): (48, 1), (5, 100): (64, 2), (5, 561): (64, 9),
+    (33, 40): (48, 1), (33, 257): (64, 5), (33, 561): (64, 9),
+    (512, 100): (64, 2), (512, 561): (64, 9), (513, 561): (80, 8),
+    (8192, 561): (576, 1),
+}
+
+
+@pytest.mark.parametrize("m,k", sorted(PROJ_SPLITS))
+def test_split_plan_for_hidden_proj_puts_every_column_in_one_slice(m, k):
+    length, slices, ws = split_plan(1, k, m, 128)
+    assert (length, slices) == PROJ_SPLITS[m, k]
+    assert length % 16 == 0
+    covered = [i for s in range(slices) for i in range(s * length, min((s + 1) * length, k))]
+    assert covered == list(range(k))                    # each column of x once, in slice order
+    assert all(s * length < k for s in range(slices))   # no empty slice
+    assert ws == (slices * m * 128 if slices > 1 else 0)
+
+
+def test_split_plan_for_hidden_proj_at_the_har_width():
+    """E²LM statistics of 512 samples, x 512 × 561 · α 561 × 128: 16 × 2
+    tiles of 32 × 64 and 9 slices of 64 features, 288 blocks."""
+    assert split_plan(1, 561, 512, 128) == (64, 9, 9 * 512 * 128)
 
 
 @pytest.mark.parametrize("k,n", [(50, 40), (128, 128), (300, 64), (64, 300)])

@@ -17,8 +17,8 @@ multiply-add in both). ``hidden_proj`` and ``matmul_atb`` are held at
 1e-6 of max |plain|, f32 or bf16 inputs (widened to f32 exactly in both):
 each kernel sums in a fixed order of its own, the plain version is a
 PyTorch product (a batch of eight, at 1e-6 of an f64 product's largest
-entry), and ``matmul_atb`` gives the same bits on a second call (its
-slices of samples are added in a fixed order). For ``hidden_proj`` the
+entry), and both give the same bits on a second call (their slices of
+the contracted axis are added in a fixed order). For ``hidden_proj`` the
 scale is the larger of max |plain| and max |x·α + b|: a saturating
 activation shrinks the output but not the rounding of the product under
 it. ``flash_attention`` and
@@ -75,7 +75,7 @@ from repro_torch.kernels import (
     uv_from_batch_kernel,
     uv_from_batch_plain,
 )
-from repro_torch.core.activations import ACTIVATION_CODES
+from repro_torch.core.activations import ACTIVATION_CODES, get_activation
 
 pytestmark = pytest.mark.gpu
 
@@ -254,8 +254,11 @@ def test_robust_segment_sum_kernel_matches_plain(cuda, d, r, c, n_clusters, trim
         robust_segment_sum_mix(x, cids, mask, scale, n_clusters, 5)
 
 
-# (13, 10, 37): everything odd; (256, 128, 689): the har width
-@pytest.mark.parametrize("d,r,c", [(13, 10, 37), (256, 128, 689)])
+# (13, 10, 37): everything odd; (256, 128, 689): the har width; then the
+# 128 × 128 tile's edges: D past one row tile with F % 4 ≠ 0 (the scalar
+# path), D short of two row tiles with F % 4 = 0, and one device
+@pytest.mark.parametrize("d,r,c", [(13, 10, 37), (256, 128, 689), (130, 7, 9), (200, 16, 23),
+                                   (1, 3, 5)])
 def test_dense_mix_kernel_matches_plain(cuda, d, r, c):
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.standard_normal((d, r, c)).astype(np.float32)).to(cuda)
@@ -266,6 +269,16 @@ def test_dense_mix_kernel_matches_plain(cuda, d, r, c):
     torch.cuda.synchronize()
     assert launch_counts()["dense_mix"] == before + 1
     assert torch.equal(got, dense_mix_plain(x, m))
+
+
+def test_dense_mix_kernel_on_a_misaligned_view(cuda):
+    """x a contiguous view 4 bytes into its storage, F % 4 = 0: the 4-byte
+    path, still bit for bit."""
+    d, r, c = 40, 8, 16
+    flat = _randn(cuda, (d * r * c + 1,), seed=23)
+    x = flat[1:].view(d, r, c)
+    m = (np.random.default_rng(24).random((d, d)) < 0.3).astype(np.float32)
+    assert torch.equal(dense_mix(x, m), dense_mix_plain(x, m))
 
 
 def _proj_err(x, a, b, act):
@@ -283,18 +296,40 @@ def _randn(cuda, shape, dtype=torch.float32, seed=9):
 
 
 # (33, 257, 129): ragged everywhere; (1, 561, 128) and (3, 37, 19): the
-# skinny kernel (the k=1 step at the har width); (512, 561, 128): the
-# E²LM batch statistics at the har width
-@pytest.mark.parametrize("m,k,n", [(33, 257, 129), (1, 561, 128), (3, 37, 19), (512, 561, 128)])
+# k=1 kernel (the k=1 step at the har width); (512, 561, 128): the E²LM
+# batch statistics at the har width; then the split kernel's edges (slices
+# of K from matmul_atb.split_plan): K shorter than one slice (one slice, the
+# epilogue in the split kernel), K of two slices ending in a partial
+# 16-column stage, 5 rows (one past the k=1 kernel's), 513 rows (one past a
+# 32-row tile); and the k=1 kernel at K shorter than its 8 blocks and at 4 rows
+@pytest.mark.parametrize("m,k,n", [(33, 257, 129), (1, 561, 128), (3, 37, 19), (512, 561, 128),
+                                   (64, 40, 128), (64, 100, 128), (5, 561, 128), (513, 561, 129),
+                                   (1, 5, 128), (4, 561, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_hidden_proj_kernel_matches_plain(cuda, m, k, n, dtype):
     x, a = _randn(cuda, (m, k), dtype, 1), _randn(cuda, (k, n), dtype, 2)
     b = _randn(cuda, (n,), dtype, 3)
     before = launch_counts()["hidden_proj"]
-    hidden_proj(x, a, b, activation="sigmoid")
+    got = hidden_proj(x, a, b, activation="sigmoid")
     torch.cuda.synchronize()
     assert launch_counts()["hidden_proj"] == before + 1
     assert _proj_err(x, a, b, "sigmoid") <= 1e-6
+    assert torch.equal(hidden_proj(x, a, b, activation="sigmoid"), got)  # a fixed order
+
+
+@pytest.mark.parametrize("act", sorted(ACTIVATION_CODES))
+@pytest.mark.parametrize("m", [1, 512])
+def test_hidden_proj_kernel_applies_g_once_to_the_finished_sum(cuda, act, m):
+    """G of the kernel's own identity output: the slices' sums are the same
+    bits whatever the activation, so G applied per slice (or the bias added
+    per slice) would show as a difference far above G's last bits."""
+    x, a = _randn(cuda, (m, 561), seed=28), _randn(cuda, (561, 128), seed=29)
+    b = _randn(cuda, (128,), seed=30)
+    x = x * 0.05
+    pre = hidden_proj(x, a, b, activation="identity")
+    got = hidden_proj(x, a, b, activation=act)
+    assert float((got - get_activation(act)(pre)).abs().max()) <= 1e-6 * max(
+        1.0, float(pre.abs().max()))
 
 
 @pytest.mark.parametrize("act", sorted(ACTIVATION_CODES))
