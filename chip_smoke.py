@@ -14,8 +14,11 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    ``quantize_pack`` with and without a residual, ``robust_segment_sum_mix``
    (star and hierarchical, trim 1 and 2, devices masked, clip scales below
    1) and ``dense_mix`` (a seeded symmetric 0/1 mask, and the edges of its
-   tile), bit for bit; ``from_uv_solve`` at S = 1 and 32 and
-   ``torch.linalg.solve`` each alone (``torch.profiler``);
+   tile), bit for bit; ``from_uv_solve`` at S = 1, 32 and 256 (the stale
+   round's per-device solves) and ``torch.linalg.solve`` each alone
+   (``torch.profiler``), with the count of elements that differ from the
+   plain version and a second call bit-identical; ``fleet_ingest`` alone,
+   the sum of its four kernels;
 3. end to end: the port's ``FleetRuntime`` at the har width on star,
    hierarchical, hierarchical isolated, all_to_all and ring, with a shift
    injected into a few devices' streams so the participation mask is not
@@ -114,8 +117,9 @@ H100_BYTES_PER_S = 3.35e12
 TOL = {
     # fixed-order sums in both, multiply and add rounded separately in both
     "masked_segment_sum_mix": 1e-6,
-    # the same elimination with one fused multiply-add per update in both;
-    # only the divisions' and the f64-emulated fma's last bits may differ
+    # the same elimination, IEEE divisions and one fused multiply-add per
+    # update rounded once in both: equal bits (the differing elements are
+    # counted and logged); the bound is the one the solves have always had
     "from_uv_solve": 1e-5,
     "banded_merge_solve": 1e-5,
     # the GEMM and dot products sum in other orders than cuBLAS, and the
@@ -274,13 +278,19 @@ def bound(flops: float, nbytes: float, flops_per_s: float = H100_F32_FLOPS) -> t
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# the kernels one fleet_ingest call launches, as the profiler names them
+INGEST_KERNELS = ("gemm_tile_kernel", "ingest_gain_kernel", "ingest_beta_kernel",
+                  "ingest_loss_kernel")
+
+
 def phase_kernels(fleet, window, topo_hier):
     """Each kernel against its plain version at the har width."""
     import torch
 
     from repro_torch.fleet import fleet_to_uv
     from repro_torch.kernels import fleet_ingest, topology_merge as tm
-    from repro_torch.kernels.fleet_ingest import fleet_ingest_cuda, fleet_ingest_plain
+    from repro_torch.kernels.fleet_ingest import (fleet_ingest_cuda, fleet_ingest_plain,
+                                                  ingest_chunks)
 
     rows = {}
     d, t, n = window.shape
@@ -290,7 +300,12 @@ def phase_kernels(fleet, window, topo_hier):
     got_s, got_l = fleet_ingest_cuda(fleet, window)
     ref_s, ref_l = fleet_ingest_plain(fleet, window)
     abs_e, rels = rel_err((got_s.p, got_s.beta, got_l), (ref_s.p, ref_s.beta, ref_l))
-    flops = 2 * d * t * n * nh + 2 * d * t * nh * m + d * t * (6 * nh * nh + 4 * nh * m)
+    # the work the kernel's order needs: the projection, E₀ and the ordered
+    # β update (2·Ñ·m a sample each), the P chain (6·Ñ² a sample), and, for
+    # each pair s < t of a chunk, L[t, s] (2·Ñ) and its substitution (2·m)
+    pairs = sum((c1 - c0) * (c1 - c0 - 1) // 2 for c0, c1 in ingest_chunks(t))
+    flops = (2 * d * t * n * nh + 4 * d * t * nh * m + 6 * d * t * nh * nh
+             + 2 * d * pairs * (nh + m))
     nbytes = 4 * (d * t * n + n * nh + nh + 2 * d * nh * nh + 2 * d * nh * m + d)
     rows["fleet_ingest"] = dict(
         abs=abs_e, rels=dict(zip(("P", "beta", "loss"), rels)), flops=flops, nbytes=nbytes,
@@ -298,6 +313,14 @@ def phase_kernels(fleet, window, topo_hier):
         plain_ms=cuda_ms(lambda: fleet_ingest_plain(fleet, window), 3),
         library_ms=None,
     )
+    again_s, again_l = fleet_ingest_cuda(fleet, window)
+    assert torch.equal(again_s.beta, got_s.beta) and torch.equal(again_l, got_l), (
+        "fleet_ingest: a second call gave other bits")
+    # the kernels alone: the projection, the P chain, the β tiles, the loss
+    alone = {k: device_ms(lambda: fleet_ingest(fleet, window), 20, (k,)) for k in INGEST_KERNELS}
+    total = None if None in alone.values() else sum(alone.values())
+    log(f"  fleet_ingest: ms={rows['fleet_ingest']['ms']:.4f} (kernels alone {ms_text(total)}: "
+        + ", ".join(f"{k} {ms_text(v)}" for k, v in alone.items()) + ")")
 
     # payloads of the ingested fleet, as the merge sees them
     trained = got_s
@@ -325,46 +348,50 @@ def phase_kernels(fleet, window, topo_hier):
         library_ms=cuda_ms(lambda: torch.mm(sel, wf), 50),
     )
 
-    # ---- Gauss-Jordan solves: one system (star, all_to_all) and the C
-    # cluster sums of an isolated hierarchy, as the merge slices them
-    # out of the packed [U | V]
+    # ---- Gauss-Jordan solves: one system (star, all_to_all), the C
+    # cluster sums of an isolated hierarchy and the D per-device solves of a
+    # stale round, each as the merge slices it out of a packed [U | V]
     total = (w * mask[:, None, None]).sum(0, keepdim=True)
     eye = torch.eye(nh, device="cuda")
     solve_rows = {}
-    for shape, packed in (("S=1", total), (f"S={n_clusters}", sums)):
+    for shape, packed in (("S=1", total), (f"S={n_clusters}", sums), (f"S={d}", w)):
         s = packed.shape[0]
         u1, v1 = packed[:, :, :nh], packed[:, :, nh:]
         got = tm.from_uv_solve(u1, v1, ridge=RIDGE)
         ref = tm.from_uv_solve_plain(u1, v1, ridge=RIDGE)
         abs_e, rels = rel_err(got, ref)
+        again = tm.from_uv_solve(u1, v1, ridge=RIDGE)
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), (
+            f"from_uv_solve {shape}: a second call gave other bits")
+        differ = sum(mismatches(g, r) for g, r in zip(got, ref))
         a1 = u1 + RIDGE * eye
         rhs = torch.cat([eye.expand(s, nh, nh), v1], dim=2)
         lib = torch.linalg.solve(a1, rhs)
         lib_rels = rel_err((lib[:, :, :nh], lib[:, :, nh:]), ref)[1]
-        log(f"  from_uv_solve {shape}: library solve against the plain version: "
+        log(f"  from_uv_solve {shape}: {differ} of {s * nh * (nh + m)} elements differ from the"
+            f" plain version; library solve against the plain version: "
             f"P max_rel={lib_rels[0]:.3e}, beta max_rel={lib_rels[1]:.3e}")
-        solve_rows[shape] = dict(
+        solve_rows[shape] = r = dict(
             abs=abs_e, rels=dict(zip(("P", "beta"), rels)), flops=solve_flops(s, nh, m),
             nbytes=4 * s * (nh * nh + nh * m + nh * nh + nh * m),
-            ms=cuda_ms(lambda: tm.from_uv_solve(u1, v1, ridge=RIDGE), 50),
+            ms=cuda_ms(lambda: tm.from_uv_solve(u1, v1, ridge=RIDGE), 50 if s < d else 10),
             plain_ms=cuda_ms(lambda: tm.from_uv_solve_plain(u1, v1, ridge=RIDGE), 3),
-            library_ms=cuda_ms(lambda: torch.linalg.solve(a1, rhs), 50),
+            library_ms=cuda_ms(lambda: torch.linalg.solve(a1, rhs), 50 if s < d else 10),
         )
+        r["bound_ms"], r["bound_by"] = bound(r["flops"], r["nbytes"])
         # the kernel alone and the library call alone, for ranking the two
-        alone = device_ms(lambda: tm.from_uv_solve(u1, v1, ridge=RIDGE), 20, ("uv_solve_kernel",))
-        log(f"  from_uv_solve {shape}: ms={solve_rows[shape]['ms']:.4f} (kernel alone"
-            f" {ms_text(alone)}) library_ms={solve_rows[shape]['library_ms']:.4f}"
-            f" (torch.linalg.solve, {library_device(lambda: torch.linalg.solve(a1, rhs), 20)})")
-    # the kernel list carries the star shape; the cluster shape is logged
-    # and its errors fold into the row's
-    rows["from_uv_solve"] = one = solve_rows["S=1"]
-    clusters = solve_rows[f"S={n_clusters}"]
-    one["abs"] = max(one["abs"], clusters["abs"])
-    one["rels"].update({f"{k} (S={n_clusters})": v for k, v in clusters["rels"].items()})
-    clusters["bound_ms"], clusters["bound_by"] = bound(clusters["flops"], clusters["nbytes"])
-    log(f"  from_uv_solve S={n_clusters}: ms={clusters['ms']:.4f} plain_ms={clusters['plain_ms']:.4f}"
-        f" library_ms={clusters['library_ms']:.4f} bound_ms={clusters['bound_ms']:.4f}"
-        f" ({clusters['bound_by']})")
+        alone = device_ms(lambda: tm.from_uv_solve(u1, v1, ridge=RIDGE), 20,
+                          ("uv_solve_cluster_kernel",))
+        log(f"  from_uv_solve {shape}: ms={r['ms']:.4f} (kernel alone {ms_text(alone)})"
+            f" plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}"
+            f" (torch.linalg.solve, {library_device(lambda: torch.linalg.solve(a1, rhs), 20)})"
+            f" bound_ms={r['bound_ms']:.6f} ({r['bound_by']})")
+    # the kernel list carries the star shape; the other shapes are logged
+    # and their errors fold into the row's
+    rows["from_uv_solve"] = one = solve_rows.pop("S=1")
+    for shape, other in solve_rows.items():
+        one["abs"] = max(one["abs"], other["abs"])
+        one["rels"].update({f"{k} ({shape})": v for k, v in other["rels"].items()})
 
     # ---- fused banded merge + solve (ring, hops = 2)
     wm = (w * mask[:, None, None]).contiguous()

@@ -13,33 +13,60 @@
 // the work is about 5.5 GFLOP of f32 against 199 MB of traffic, so it is
 // f32-compute bound (0.08 ms at 67 TFLOP/s). The TPU kernel keeps one
 // device's P and β resident across the window; here one device's β
-// (Ñ·m·4 = 287 KB) does not fit in the 227 KB of shared memory a block
-// may use. The design follows from two facts of the recursion: the
-// P/gain chain never reads β, and every column of β (and of the error)
-// evolves on its own from the same gain sequence. So the tick runs as
-// four launches on one stream:
+// (Ñ·m·4 = 287 KB) does not fit in one SM. Two facts of the recursion
+// shape the design: the P/gain chain never reads β, and every column of β
+// evolves on its own from the same gains. With err_t = t_t − h_t·β_{t−1}
+// unrolled, the window's errors are E = (I + L)⁻¹·E₀, where
+// E₀ = targets − H·β₀ are the pre-train errors and L[t, s] = h_t·gain_s for
+// s < t (zero elsewhere); then β_T = β₀ + Σ_s gain_s·e_sᵀ. So the sequential
+// rank-1 updates become products, and the tick runs as four launches on one
+// stream:
 //   1. the hidden projection — H for the whole window, the f32 GEMM of
 //      gemm.cuh with the bias and activation in its epilogue;
-//   2. ingest_gain_kernel  — one block per device keeps P (Ñ×Ñ, 64 KB) in
-//      shared memory across the window and writes the T gain vectors;
-//   3. ingest_beta_kernel  — one block per (device, 32-column tile of β)
-//      keeps its β tile in shared memory, computes the tile's pre-train
-//      squared errors, then applies the T rank-1 updates;
-//   4. ingest_loss_kernel  — sums each device's per-tile partials in a
-//      fixed order (no atomics), so the drift score is reproducible.
-// The order of operations inside a step is the reference's, so the plain
-// PyTorch version (repro_torch.kernels.fleet_ingest) mirrors it term by
-// term. No padding: every loop masks its ragged edge.
+//   2. ingest_gain_kernel  — one block per device runs the P chain with P
+//      in registers (a 16 × 4 micro-tile a thread at Ñ = 128: rows w + 8i,
+//      columns lane + 32j), each element divided by λ once a step; the
+//      matvecs reduce across lanes by a halving shuffle (16 shuffles for 16
+//      rows), and ph and the warps' h·ph partials meet in shared memory
+//      behind one block barrier a sample (double-buffered). It writes the
+//      gains (Ñ > 128: P in shared memory, same code);
+//   3. ingest_beta_kernel  — one block per (device, run of 64-column tiles
+//      of β), as many runs as fill the card (one a device at D = 256, 9
+//      tiles): the chunk's Hᵀ and gains arrive in shared memory by cp.async
+//      and L = H·Gᵀ of the chunk is computed once for the run; each tile is
+//      read once and written once, the next one arriving while this one is
+//      worked on. E₀ on the tile is an outer-product SIMT product (4 rows ×
+//      4 columns a thread, k split between the block's halves and the two
+//      sums added), and its squares are the loss's partials, summed in a
+//      fixed order; E = (I + L)⁻¹E₀ is substituted in registers, eight
+//      threads a pair of columns, with no block barrier; then β += Σ_s
+//      gain_s e_sᵀ, one fused multiply-add per sample in sample order, and
+//      each thread stores its rows from registers. A window longer
+//      than kMaxChunk samples is taken in chunks: the β of one chunk is β₀
+//      of the next, and the loss stays the pre-train error under the
+//      tick-start β;
+//   4. ingest_loss_kernel  — sums each device's partials, one a run of
+//      tiles, in a fixed order (no atomics), so the drift score is
+//      reproducible.
+// The P chain's arithmetic is the reference's; the β update follows the
+// order above, which the plain PyTorch version
+// (repro_torch.kernels.fleet_ingest) repeats: E₀, L, the substitution,
+// then the ordered fused multiply-adds. No padding of the inputs: every
+// loop masks its ragged edge.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device.cuh"
 #include "gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBetaTile = 32;  // columns of β per block
+constexpr int kBetaTile = 64;   // columns of β per block, two a lane
+constexpr int kMaxChunk = 64;   // samples of a chunk: H, the gains and L stay in shared memory
+constexpr int kUpdateRows = 16; // rows of the β tile a thread updates at a time
+constexpr int kMaxSmem = 232448; // the shared memory a block may use on Hopper
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -47,192 +74,578 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// One block per device: the P chain over the window, P resident in shared
-// memory (row stride N+1), writing gain_t = P_t·h_t for every step.
-__global__ void __launch_bounds__(kThreads)
+// Sum each of H row partials over the warp's 32 lanes: at each xor offset a
+// lane keeps one half of its values and adds its partner's copy of that
+// half; after log2(R) halvings the offsets left sum whole values. Lane l
+// ends with the full sum of row (l·R) >> 5 (every holder of a row has the
+// same bits), in a fixed order.
+template <int H, int OFF, int R>
+__device__ __forceinline__ void halve_rows(float (&v)[R], int lane) {
+  if constexpr (OFF >= 1) {
+    if constexpr (H > 1) {
+      constexpr int half = H / 2;
+      const bool upper = lane & OFF;
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const float send = upper ? v[i] : v[i + half];
+        const float keep = upper ? v[i + half] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      halve_rows<half, OFF / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+      halve_rows<1, OFF / 2>(v, lane);
+    }
+  }
+}
+
+// A thread's RI × CJ micro-tile of P (rows warp + 8i, columns lane + 32j):
+// in registers, or, for Ñ > 128, in shared memory at row stride Ñ + 1.
+template <int RI, int CJ, bool kSmem>
+struct PTile {
+  float v[RI][CJ];
+  __device__ void init(float*, int, int, int, int) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) v[i][j] = 0.0f;
+  }
+  __device__ float get(int i, int j) const { return v[i][j]; }
+  __device__ void set(int i, int j, float x) { v[i][j] = x; }
+};
+
+template <int RI, int CJ>
+struct PTile<RI, CJ, true> {
+  float* base;
+  int ld, nr, nc;  // valid i < nr, j < nc: entries past Ñ read as 0 and are not kept
+  __device__ void init(float* p, int stride, int n, int warp, int lane) {
+    ld = stride;
+    base = p + warp * stride + lane;
+    nr = n > warp ? (n - warp + 7) / 8 : 0;
+    nc = n > lane ? (n - lane + 31) / 32 : 0;
+  }
+  __device__ float get(int i, int j) const {
+    return i < nr && j < nc ? base[8 * i * ld + 32 * j] : 0.0f;
+  }
+  __device__ void set(int i, int j, float x) {
+    if (i < nr && j < nc) base[8 * i * ld + 32 * j] = x;
+  }
+};
+
+// One block per device: the P chain over the window, writing gain_t =
+// P_t·h_t for every step.
+template <int RI, int CJ, bool kSmem>
+__global__ void __launch_bounds__(kThreads, 2)
 ingest_gain_kernel(const float* __restrict__ h_all, const float* __restrict__ p_in,
-                   float* __restrict__ p_out, float* __restrict__ gains,
-                   int T, int N, float forget) {
-  extern __shared__ float smem[];
-  const int ld = N + 1;
-  float* P = smem;
-  float* hv = P + N * ld;
-  float* ph = hv + N;
-  float* red = ph + N;
+                   float* __restrict__ p_out, float* __restrict__ gains, int T, int N,
+                   float forget) {
+  extern __shared__ __align__(16) float smem[];
+  float* hbuf = smem;             // [2][N]: h_t, and h_{t+1} loaded a step ahead
+  float* phbuf = hbuf + 2 * N;    // [2][N]: ph of the step
+  float* red = phbuf + 2 * N;     // [2][kWarps]: the warps' h·ph partials
+  float* pshared = red + 2 * kWarps;  // P at row stride N + 1, when kSmem
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int d = blockIdx.x;
   const float* pin = p_in + (size_t)d * N * N;
-  for (int i = tid; i < N * N; i += kThreads) P[(i / N) * ld + i % N] = pin[i];
+  PTile<RI, CJ, kSmem> P;
+  P.init(pshared, N + 1, N, warp, lane);
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int r = warp + 8 * i, c = lane + 32 * j;
+      if (r < N && c < N) P.set(i, j, pin[(size_t)r * N + c]);
+    }
+  for (int k = tid; k < N; k += kThreads) hbuf[k] = h_all[(size_t)d * T * N + k];
+  __syncthreads();
 
+  const int ri = (lane * RI) >> 5;  // the row whose sums this lane holds after halve_rows
+  const int rrow = warp + 8 * ri;
+  const bool writer = (lane & (32 / RI - 1)) == 0 && rrow < N;
+  const bool scale = forget != 1.0f;  // x / 1 is x: skip the division when λ = 1
   for (int t = 0; t < T; ++t) {
-    const float* hrow = h_all + ((size_t)d * T + t) * N;
-    for (int i = tid; i < N; i += kThreads) hv[i] = hrow[i];
-    __syncthreads();
-    // ph = (P/λ)·h, one warp per row
-    for (int r = warp; r < N; r += kWarps) {
+    const int b = t & 1;
+    const float* hv = hbuf + b * N;
+    float hc[CJ];
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) hc[j] = lane + 32 * j < N ? hv[lane + 32 * j] : 0.0f;
+    // Pf = P/λ, kept; ph = Pf·h
+    float acc[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
       float s = 0.0f;
-      for (int k = lane; k < N; k += 32) s += (P[r * ld + k] / forget) * hv[k];
-      s = warp_sum(s);
-      if (lane == 0) ph[r] = s;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        float pf = P.get(i, j);
+        if (scale) {
+          pf = pf / forget;
+          P.set(i, j, pf);
+        }
+        s = __fmaf_rn(pf, hc[j], s);
+      }
+      acc[i] = s;
     }
+    halve_rows<RI, 16>(acc, lane);
+    if (writer) phbuf[b * N + rrow] = acc[0];
+    const float dot = warp_sum(writer ? __fmul_rn(hv[rrow], acc[0]) : 0.0f);
+    if (lane == 0) red[b * kWarps + warp] = dot;
+    if (t + 1 < T)
+      for (int k = tid; k < N; k += kThreads)
+        hbuf[(b ^ 1) * N + k] = h_all[((size_t)d * T + t + 1) * N + k];
     __syncthreads();
-    if (warp == 0) {
+    float hph = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) hph += red[b * kWarps + w];
+    const float denom = 1.0f + hph;
+    float phc[CJ];
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) phc[j] = lane + 32 * j < N ? phbuf[b * N + lane + 32 * j] : 0.0f;
+    // P = Pf − ph·phᵀ/denom, and gain = P·h from the new P
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = warp + 8 * i;
+      const float phr = r < N ? phbuf[b * N + r] : 0.0f;
       float s = 0.0f;
-      for (int k = lane; k < N; k += 32) s += hv[k] * ph[k];
-      s = warp_sum(s);
-      if (lane == 0) red[0] = 1.0f + s;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float pn = __fsub_rn(P.get(i, j), __fmul_rn(phr, phc[j]) / denom);
+        P.set(i, j, pn);
+        s = __fmaf_rn(pn, hc[j], s);
+      }
+      acc[i] = s;
     }
-    __syncthreads();
-    const float denom = red[0];
-    for (int i = tid; i < N * N; i += kThreads) {
-      const int r = i / N, c = i % N;
-      P[r * ld + c] = P[r * ld + c] / forget - (ph[r] * ph[c]) / denom;
-    }
-    __syncthreads();
-    // gain = P_new·h as a matvec, as the reference computes it
-    float* grow = gains + ((size_t)d * T + t) * N;
-    for (int r = warp; r < N; r += kWarps) {
-      float s = 0.0f;
-      for (int k = lane; k < N; k += 32) s += P[r * ld + k] * hv[k];
-      s = warp_sum(s);
-      if (lane == 0) grow[r] = s;
-    }
-    __syncthreads();
+    halve_rows<RI, 16>(acc, lane);
+    if (writer) gains[((size_t)d * T + t) * N + rrow] = acc[0];
   }
   float* pout = p_out + (size_t)d * N * N;
-  for (int i = tid; i < N * N; i += kThreads) pout[i] = P[(i / N) * ld + i % N];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int r = warp + 8 * i, c = lane + 32 * j;
+      if (r < N && c < N) pout[(size_t)r * N + c] = P.get(i, j);
+    }
+
 }
 
-// One block per (32-column tile of β, device). The tile lives transposed
-// in shared memory, Bt[j][k] with row stride N+1, so the per-column dot
-// products (lanes over k) and the rank-1 updates (threads over k) both
-// walk consecutive banks.
-__global__ void __launch_bounds__(kThreads)
-ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ gains,
-                   const float* __restrict__ targets, const float* __restrict__ beta_in,
-                   float* __restrict__ beta_out, float* __restrict__ loss_part,
-                   int T, int N, int M) {
-  extern __shared__ float smem[];
-  const int ld = N + 1;
-  float* Bt = smem;
-  float* hv = Bt + kBetaTile * ld;
-  float* gv = hv + N;
-  float* err = gv + N;
-  float* red = err + kBetaTile;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int tile = blockIdx.x, d = blockIdx.y;
-  const int j0 = tile * kBetaTile;
-  const int ncol = min(kBetaTile, M - j0);
-  const float* bin = beta_in + (size_t)d * N * M;
-  for (int i = tid; i < kBetaTile * N; i += kThreads) {
-    const int k = i / kBetaTile, j = i % kBetaTile;
-    Bt[j * ld + k] = j < ncol ? bin[(size_t)k * M + j0 + j] : 0.0f;
-  }
-  const float* tgt = targets + (size_t)d * T * M + j0;
-
-  // pre-train squared errors of this tile under the tick-start β
-  float sq = 0.0f;
-  for (int t = 0; t < T; ++t) {
-    __syncthreads();
-    const float* hrow = h_all + ((size_t)d * T + t) * N;
-    for (int i = tid; i < N; i += kThreads) hv[i] = hrow[i];
-    __syncthreads();
-    for (int j = warp; j < ncol; j += kWarps) {
-      float s = 0.0f;
-      for (int k = lane; k < N; k += 32) s += hv[k] * Bt[j * ld + k];
-      s = warp_sum(s);
-      const float e = tgt[(size_t)t * M + j] - s;
-      sq += e * e;  // every lane holds the same value; lane 0's is kept
+// Start copying rows [0, tcn) of a (·, N) array into dst (tcn rows of
+// stride ld ≥ n16, zero from N to n16) by cp.async: 16 bytes a copy when
+// N % 4 == 0, else 4.
+__device__ __forceinline__ void load_rows_async(float* dst, const float* src, int tcn, int N,
+                                                int n16, int ld) {
+  const int lane = threadIdx.x % 32;
+  for (int t = threadIdx.x / 32; t < tcn; t += kWarps) {
+    const float* row = src + (size_t)t * N;
+    if (N % 4 == 0) {
+      for (int k = 4 * lane; k < n16; k += 128)
+        cp_async<16>(dst + t * ld + k, row + (k < N ? k : 0), k < N ? 16 : 0);
+    } else {
+      for (int k = lane; k < n16; k += 32)
+        cp_async<4>(dst + t * ld + k, row + (k < N ? k : 0), k < N ? 4 : 0);
     }
   }
+}
+
+// Start copying rows [0, tcn) of a (·, N) array transposed into dst
+// (n16 rows of stride ld, dst[k][t]; zero from N to n16 and from tcn to
+// TC) by 4-byte cp.async.
+__device__ __forceinline__ void load_rows_t_async(float* dst, const float* src, int tcn, int TC,
+                                                  int N, int n16, int ld) {
+  for (int t = threadIdx.x / 32; t < TC; t += kWarps)
+    for (int k = threadIdx.x % 32; k < n16; k += 32) {
+      const bool in = t < tcn && k < N;
+      cp_async<4>(dst + k * ld + t, src + (in ? (size_t)t * N + k : 0), in ? 4 : 0);
+    }
+}
+
+// The chunk's E₀ = targets − H·B on the tile, into es (row stride lde),
+// with the squares of its entries added to sq. Each half of the block sums
+// half of k (warps 0–3 k < n16/2, warps 4–7 the rest), in k order, one fused
+// multiply-add each, for rows RW·rg + i (rg = lane % 8) and columns 4·cg..
+// 4·cg + 3 (cg = 4·(warp % 4) + lane / 8): each k is an outer product of RW
+// values of Hᵀ[k] and four of B[k], so a warp reads 128 distinct bytes of
+// each a step. The upper half's sums go through es; the lower half adds
+// them (lower + upper), subtracts the sum from the target and writes E₀.
+template <int RW>
+__device__ __forceinline__ void chunk_errors(float* es, int lde, float& sq, const float* ht,
+                                             int ldh, const float* bs, const float* tgt,
+                                             int tcn, int n16, int M, int ncol) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rg = lane % 8, cg = 4 * (warp % 4) + lane / 8, half = warp / 4;
+  const int k0 = half * (n16 / 2), k1 = k0 + n16 / 2;
+  float acc[RW][4], y[RW][4];
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int t = RW * rg + i;
+      acc[i][c] = 0.0f;
+      // in flight during the product
+      y[i][c] = half == 0 && t < tcn && 4 * cg + c < ncol ? tgt[(size_t)t * M + 4 * cg + c] : 0.0f;
+    }
+  const float* hl = ht + RW * rg;
+  const float* bl = bs + 4 * cg;
+#pragma unroll 2
+  for (int k = k0; k < k1; ++k) {
+    const float4 b4 = *reinterpret_cast<const float4*>(bl + k * kBetaTile);
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+    float h[RW];
+    if constexpr (RW % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < RW; i += 4) {
+        const float4 h4 = *reinterpret_cast<const float4*>(hl + k * ldh + i);
+        h[i] = h4.x, h[i + 1] = h4.y, h[i + 2] = h4.z, h[i + 3] = h4.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RW; ++i) h[i] = hl[k * ldh + i];
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = __fmaf_rn(h[i], b[c], acc[i][c]);
+  }
+  if (half == 1)
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) es[(RW * rg + i) * lde + 4 * cg + c] = acc[i][c];
+  __syncthreads();
+  if (half == 0)
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int t = RW * rg + i;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float* out = es + t * lde + 4 * cg + c;
+        const bool in = t < tcn && 4 * cg + c < ncol;
+        const float e = in ? __fsub_rn(y[i][c], __fadd_rn(acc[i][c], *out)) : 0.0f;
+        sq = __fmaf_rn(e, e, sq);
+        *out = e;
+      }
+    }
+}
+
+// Start copying the 64-column tile j0.. of β (N × M) into bs (n16 × 64),
+// zero past N and past M, by cp.async; lane l copies columns 2l and 2l + 1.
+__device__ __forceinline__ void load_tile_async(float* bs, const float* beta, int j0, int N,
+                                                int n16, int M) {
+  const int lane = threadIdx.x % 32;
+  for (int k = threadIdx.x / 32; k < n16; k += kWarps)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + 2 * lane + c;
+      const bool in = k < N && j < M;
+      cp_async<4>(bs + k * kBetaTile + 2 * lane + c, beta + (in ? (size_t)k * M + j : 0),
+                  in ? 4 : 0);
+    }
+}
+
+// One block per (run of `per` 64-column tiles of β, device): a device's H,
+// gains and L of a chunk are loaded and computed once for its run, and the
+// next tile arrives by cp.async while this one is worked on (nbuf = 2, when
+// two tiles fit in shared memory). Lane l holds columns 2l and 2l + 1.
+// RW = rows of a chunk a warp takes, so a chunk holds at most TC = 8·RW
+// samples. Shared memory: the tiles (n16 × 64), Hᵀ (n16 × TC), the gains
+// (n16 × tc), L (TC × TC) and E (TC × 64), each row padded so that the
+// lanes of a warp meet no bank conflict: the gains' by 4 floats (lanes on
+// consecutive samples read 16 bytes), L's by 1 (eight threads of a column
+// pair read eight rows), E's by 2 and Hᵀ's by 4 (written a column at a
+// time).
+template <int RW>
+__global__ void __launch_bounds__(kThreads, 2)
+ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ gains,
+                   const float* __restrict__ targets, const float* beta_in, float* beta_out,
+                   float* __restrict__ loss_part, int T, int N, int M, int per, int nbuf) {
+  constexpr int TC = 8 * RW, SJ = (TC + 31) / 32, R8 = TC / 8;
+  constexpr int LDH = TC + 4, LDL = TC + 1, LDE = kBetaTile + 2;  // padded against bank conflicts
+  extern __shared__ __align__(16) float smem[];
+  const int n16 = (N + 15) / 16 * 16, ldg = n16 + 4;
+  const int tc = min(T, kMaxChunk);
+  float* tiles = smem;                       // [nbuf][n16][64]
+  float* ht = tiles + nbuf * n16 * kBetaTile;  // [n16][LDH]: Hᵀ of the chunk
+  float* gs = ht + n16 * LDH;                // [tc][ldg]: the chunk's gains
+  float* ls = gs + tc * ldg;                 // [TC][LDL]: the chunk's L
+  float* es = ls + (TC * LDL + 3) / 4 * 4;   // [TC][LDE]: E₀, then E
+  float* red = es + TC * LDE;                // [kWarps]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int d = blockIdx.y;
+  const int n_tiles = (M + kBetaTile - 1) / kBetaTile;
+  const int x0 = blockIdx.x * per, x1 = min(x0 + per, n_tiles);
+  const float* hd = h_all + (size_t)d * T * N;
+  const float* gd = gains + (size_t)d * T * N;
+  const float* bin = beta_in + (size_t)d * N * M;
+  float* bout = beta_out + (size_t)d * N * M;
+  const int chunks = (T + kMaxChunk - 1) / kMaxChunk;
+  float sq = 0.0f;
+
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * kMaxChunk, tcn = min(kMaxChunk, T - c0);
+    const float* tgt = targets + ((size_t)d * T + c0) * M;
+    __syncthreads();  // the last chunk is done with H, the gains and L
+    load_rows_t_async(ht, hd + (size_t)c0 * N, tcn, TC, N, n16, LDH);
+    load_rows_async(gs, gd + (size_t)c0 * N, tcn, N, n16, ldg);
+    cp_async_commit();
+    if (c == 0 && x0 < x1) load_tile_async(tiles, bin, x0 * kBetaTile, N, n16, M);
+    cp_async_commit();
+    cp_async_wait<1>();  // H and the gains; the first tile may still be in flight
+    __syncthreads();
+    // L[t][s] = h_t·gain_s (rows t = warp + 8i, samples s = lane + 32j), in
+    // k order, one fused multiply-add each; only s < t is read
+    {
+      float acc[RW][SJ];
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int j = 0; j < SJ; ++j) acc[i][j] = 0.0f;
+      for (int k = 0; k < n16; k += 4) {
+        float4 g4[SJ];
+#pragma unroll
+        for (int j = 0; j < SJ; ++j) {
+          const int sj = min(lane + 32 * j, tcn - 1);
+          g4[j] = *reinterpret_cast<const float4*>(gs + sj * ldg + k);
+        }
+#pragma unroll
+        for (int i = 0; i < RW; ++i) {
+          const int t = warp + 8 * i;
+          if (t >= tcn) continue;
+          const float h0 = ht[k * LDH + t], h1 = ht[(k + 1) * LDH + t];
+          const float h2 = ht[(k + 2) * LDH + t], h3 = ht[(k + 3) * LDH + t];
+#pragma unroll
+          for (int j = 0; j < SJ; ++j) {
+            acc[i][j] = __fmaf_rn(h0, g4[j].x, acc[i][j]);
+            acc[i][j] = __fmaf_rn(h1, g4[j].y, acc[i][j]);
+            acc[i][j] = __fmaf_rn(h2, g4[j].z, acc[i][j]);
+            acc[i][j] = __fmaf_rn(h3, g4[j].w, acc[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int j = 0; j < SJ; ++j)
+          if (lane + 32 * j < TC) ls[(warp + 8 * i) * LDL + lane + 32 * j] = acc[i][j];
+    }
+
+    for (int x = x0; x < x1; ++x) {
+      const int j0 = x * kBetaTile;
+      const int ncol = min(kBetaTile, M - j0);
+      const bool jv[2] = {2 * lane < ncol, 2 * lane + 1 < ncol};  // the update's columns
+      float* bs = tiles;
+      if (c == 0) {
+        bs += ((x - x0) % nbuf) * n16 * kBetaTile;
+        __syncthreads();  // the tile before is consumed: the other buffer is free
+        if (nbuf == 2 && x + 1 < x1) {
+          load_tile_async(tiles + ((x + 1 - x0) % 2) * n16 * kBetaTile, bin, j0 + kBetaTile, N,
+                          n16, M);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          if (nbuf == 1 && x > x0) {  // one buffer: this tile goes in after the last went out
+            load_tile_async(tiles, bin, j0, N, n16, M);
+            cp_async_commit();
+          }
+          cp_async_wait<0>();
+        }
+      } else {
+        // a later chunk: the loss is the error under the tick-start β, and the
+        // update starts from the β the chunks before left in beta_out
+        __syncthreads();
+        load_tile_async(tiles, bin, j0, N, n16, M);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        chunk_errors<RW>(es, LDE, sq, ht, LDH, tiles, tgt + j0, tcn, n16, M, ncol);
+        __syncthreads();
+        load_tile_async(tiles, bout, j0, N, n16, M);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      // E₀ of the chunk under the current β; its squares are the loss's
+      // partials when the current β is the tick-start one
+      {
+        float none = 0.0f;
+        chunk_errors<RW>(es, LDE, c == 0 ? sq : none, ht, LDH, bs, tgt + j0, tcn, n16, M, ncol);
+      }
+      __syncthreads();
+      // E = (I + L)⁻¹E₀ in registers: eight threads (lanes 8q..8q+7, part p)
+      // take columns 2·cp and 2·cp + 1, rows t ≡ p mod 8. Once e_s is final,
+      // its owner hands it to the other seven and every later error takes
+      // its term s, so each error sums s in order
+      {
+        const int cp = tid / 8, p = tid % 8;
+        float2 e[R8];
+#pragma unroll
+        for (int r = 0; r < R8; ++r) {
+          const int t = p + 8 * r;
+          e[r] = t < tcn ? *reinterpret_cast<const float2*>(es + t * LDE + 2 * cp)
+                         : make_float2(0.0f, 0.0f);
+        }
+#pragma unroll
+        for (int s = 0; s + 1 < TC; ++s) {
+          if (s + 1 >= tcn) break;
+          const int src = (lane & ~7) | (s % 8);
+          const float ex = __shfl_sync(0xffffffffu, e[s / 8].x, src);
+          const float ey = __shfl_sync(0xffffffffu, e[s / 8].y, src);
+#pragma unroll
+          for (int r = s / 8; r < R8; ++r) {
+            const int t = p + 8 * r;
+            if (t > s && t < tcn) {
+              const float l = -ls[t * LDL + s];
+              e[r].x = __fmaf_rn(l, ex, e[r].x);
+              e[r].y = __fmaf_rn(l, ey, e[r].y);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R8; ++r) {
+          const int t = p + 8 * r;
+          if (t < tcn) *reinterpret_cast<float2*>(es + t * LDE + 2 * cp) = e[r];
+        }
+      }
+      __syncthreads();
+      // β[k][c] += Σ_s gain_s[k]·e_s[c], s in order, rows 16·warp + i
+      for (int kb = kUpdateRows * warp; kb < N; kb += kUpdateRows * kWarps) {
+        float2 acc[kUpdateRows];
+#pragma unroll
+        for (int i = 0; i < kUpdateRows; ++i)
+          acc[i] = *reinterpret_cast<const float2*>(bs + (kb + i) * kBetaTile + 2 * lane);
+        for (int s = 0; s < tcn; ++s) {
+          const float2 e = *reinterpret_cast<const float2*>(es + s * LDE + 2 * lane);
+          const float* g = gs + s * ldg + kb;
+#pragma unroll
+          for (int i = 0; i < kUpdateRows; i += 4) {
+            const float4 g4 = *reinterpret_cast<const float4*>(g + i);
+            const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[i + q].x = __fmaf_rn(gv[q], e.x, acc[i + q].x);
+              acc[i + q].y = __fmaf_rn(gv[q], e.y, acc[i + q].y);
+            }
+          }
+        }
+        // the updated rows go straight out, each warp's a coalesced 256 bytes
+#pragma unroll
+        for (int i = 0; i < kUpdateRows; ++i) {
+          if (kb + i >= N) break;
+          float* row = bout + (size_t)(kb + i) * M + j0 + 2 * lane;
+          if (jv[0]) row[0] = acc[i].x;
+          if (jv[1]) row[1] = acc[i].y;
+        }
+      }
+    }
+  }
+  sq = warp_sum(sq);
+  __syncthreads();
   if (lane == 0) red[warp] = sq;
   __syncthreads();
   if (tid == 0) {
     float s = 0.0f;
     for (int w = 0; w < kWarps; ++w) s += red[w];
-    loss_part[(size_t)d * gridDim.x + tile] = s;
-  }
-
-  // the T sequential rank-1 updates of this tile
-  for (int t = 0; t < T; ++t) {
-    __syncthreads();
-    const float* hrow = h_all + ((size_t)d * T + t) * N;
-    const float* grow = gains + ((size_t)d * T + t) * N;
-    for (int i = tid; i < N; i += kThreads) {
-      hv[i] = hrow[i];
-      gv[i] = grow[i];
-    }
-    __syncthreads();
-    for (int j = warp; j < kBetaTile; j += kWarps) {
-      float s = 0.0f;
-      for (int k = lane; k < N; k += 32) s += hv[k] * Bt[j * ld + k];
-      s = warp_sum(s);
-      if (lane == 0) err[j] = j < ncol ? tgt[(size_t)t * M + j] - s : 0.0f;
-    }
-    __syncthreads();
-    for (int i = tid; i < kBetaTile * N; i += kThreads) {
-      const int j = i / N, k = i % N;
-      Bt[j * ld + k] += gv[k] * err[j];
-    }
-  }
-  __syncthreads();
-  float* bout = beta_out + (size_t)d * N * M;
-  for (int i = tid; i < kBetaTile * N; i += kThreads) {
-    const int k = i / kBetaTile, j = i % kBetaTile;
-    if (j < ncol) bout[(size_t)k * M + j0 + j] = Bt[j * ld + k];
+    loss_part[(size_t)d * gridDim.x + blockIdx.x] = s;
   }
 }
 
-// loss[d] = Σ_tiles part[d, tile] / (T·M), summed in tile order.
+// loss[d] = Σ_runs part[d, run] / (T·M), summed in run order.
 __global__ void ingest_loss_kernel(const float* __restrict__ part, float* __restrict__ loss,
-                                   int D, int n_tiles, float count) {
+                                   int D, int runs, float count) {
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
   if (d >= D) return;
   float s = 0.0f;
-  for (int i = 0; i < n_tiles; ++i) s += part[(size_t)d * n_tiles + i];
+  for (int i = 0; i < runs; ++i) s += part[(size_t)d * runs + i];
   loss[d] = s / count;
+}
+
+template <int RI, int CJ, bool kSmem>
+cudaError_t launch_gain(const float* h, const float* p_in, float* p_out, float* gains, int D,
+                        int T, int N, float forget, int smem, cudaStream_t s) {
+  auto kernel = ingest_gain_kernel<RI, CJ, kSmem>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<D, kThreads, smem, s>>>(h, p_in, p_out, gains, T, N, forget);
+  return cudaGetLastError();
+}
+
+template <int RW>
+cudaError_t launch_beta(const float* h, const float* gains, const float* targets,
+                        const float* beta_in, float* beta_out, float* part, int D, int T, int N,
+                        int M, int groups, int per, int nbuf, int smem,
+                        cudaStream_t s) {
+  auto kernel = ingest_beta_kernel<RW>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(groups, D), kThreads, smem, s>>>(h, gains, targets, beta_in, beta_out, part, T,
+                                                  N, M, per, nbuf);
+  return cudaGetLastError();
+}
+
+// The chunk a β block holds: TC = 8·RW ≥ tc samples (32 or 64).
+int beta_chunk_rows(int tc) { return tc <= 32 ? 32 : 64; }
+
+// The β kernel's shared memory with nbuf tiles, in bytes.
+int beta_smem(int N, int tc, int nbuf) {
+  const int n16 = (N + 15) / 16 * 16, big = beta_chunk_rows(tc);
+  return (nbuf * n16 * kBetaTile + n16 * (big + 4) + tc * (n16 + 4) +
+          (big * (big + 1) + 3) / 4 * 4 + big * (kBetaTile + 2) + kWarps) * 4;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the two resident-state kernels ask for, in bytes.
-int repro_ingest_gain_smem(int N) { return (N * (N + 1) + 2 * N + 32) * 4; }
-int repro_ingest_beta_smem(int N) {
-  return (kBetaTile * (N + 1) + 2 * N + kBetaTile + kWarps) * 4;
+// Shared memory the two kernels ask for, in bytes, for a window of T
+// samples (the β kernel with one tile, the least it launches with).
+int repro_ingest_gain_smem(int N) {
+  return (4 * N + 2 * kWarps + (N > 128 ? N * (N + 1) : 0)) * 4;
 }
+int repro_ingest_beta_smem(int N, int T) { return beta_smem(N, T < kMaxChunk ? T : kMaxChunk, 1); }
 int repro_ingest_beta_tile() { return kBetaTile; }
+// The samples of a chunk of the window (the plain version chunks alike).
+int repro_ingest_chunk() { return kMaxChunk; }
 
 // All pointers are device pointers to contiguous f32 arrays:
 // x (D,T,n), targets (D,T,m), alpha (n,N), bias (N), p_in/p_out (D,N,N),
 // beta_in/beta_out (D,N,m), loss (D); workspaces h_ws and gain_ws (D,T,N),
-// part_ws (D, ceil(m/32)). Returns the first CUDA error, or 0.
+// part_ws (D, ceil(m/64)), of which each run of β tiles fills one column.
+// The window is taken in chunks of kMaxChunk samples; N ≤ 256. Returns
+// the first CUDA error, or 0.
 int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
                        const float* bias, const float* p_in, const float* beta_in,
                        float* p_out, float* beta_out, float* loss, float* h_ws,
-                       float* gain_ws, float* part_ws, int D, int T, int n, int N,
-                       int m, int act, float forget, void* stream) {
+                       float* gain_ws, float* part_ws, int D, int T, int n, int N, int m,
+                       int act, float forget, void* stream) {
+  if (N > 256) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   e = launch_gemm<float, false>(x, alpha, bias, h_ws, 1, D * T, n, N, act, s);
   if (e != cudaSuccess) return e;
 
   const int gsmem = repro_ingest_gain_smem(N);
-  e = cudaFuncSetAttribute(ingest_gain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gsmem);
+  if (N <= 32)
+    e = launch_gain<4, 1, false>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, gsmem, s);
+  else if (N <= 128)
+    e = launch_gain<16, 4, false>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, gsmem, s);
+  else
+    e = launch_gain<32, 8, true>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, gsmem, s);
   if (e != cudaSuccess) return e;
-  ingest_gain_kernel<<<D, kThreads, gsmem, s>>>(h_ws, p_in, p_out, gain_ws, T, N, forget);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
+  // runs of tiles: as many blocks as fill the card at two an SM, each
+  // loading its device's chunk once for its run
   const int n_tiles = (m + kBetaTile - 1) / kBetaTile;
-  const int bsmem = repro_ingest_beta_smem(N);
-  e = cudaFuncSetAttribute(ingest_beta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bsmem);
+  int want = D > 0 ? 2 * sm_count() / D : 1;
+  if (want < 1) want = 1;
+  const int per = n_tiles > 0 ? (n_tiles + want - 1) / want : 1;
+  const int groups = (n_tiles + per - 1) / per;
+  const int tc = T < kMaxChunk ? T : kMaxChunk;
+  const int nbuf = per > 1 && beta_smem(N, tc, 2) <= kMaxSmem ? 2 : 1;
+  const int bsmem = beta_smem(N, tc, nbuf);
+  auto beta = beta_chunk_rows(tc) == 32 ? launch_beta<4> : launch_beta<8>;
+  e = beta(h_ws, gain_ws, targets, beta_in, beta_out, part_ws, D, T, N, m, groups, per, nbuf,
+           bsmem, s);
   if (e != cudaSuccess) return e;
-  ingest_beta_kernel<<<dim3(n_tiles, D), kThreads, bsmem, s>>>(
-      h_ws, gain_ws, targets, beta_in, beta_out, part_ws, T, N, m);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  ingest_loss_kernel<<<(D + 127) / 128, 128, 0, s>>>(part_ws, loss, D, n_tiles,
+  ingest_loss_kernel<<<(D + 127) / 128, 128, 0, s>>>(part_ws, loss, D, groups,
                                                      (float)T * (float)m);
   return cudaGetLastError();
 }

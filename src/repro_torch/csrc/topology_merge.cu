@@ -37,14 +37,39 @@
 // * from_uv_solve (pallas_call :411, _solve_kernel :371, _gj_sweep :356):
 //     Gauss-Jordan without pivoting on [U+εI | I | V] per system, giving
 //     P = (U+εI)⁻¹ and β = PV (U+εI is SPD, so no pivoting, as in the
-//     reference). The augmented system at the har width is 128 × 817 × 4 B
-//     = 418 KB, more than the 227 KB of shared memory a block may use. So
-//     the right-hand side [I | V] is cut into 64-column tiles across
-//     blocks; each block holds A = U+εI (64 KB) and its own tile in shared
-//     memory and repeats the elimination of A. Bound: at one system
-//     (star, all_to_all) the 27 MFLOP run on a handful of SMs and the time
-//     is set by the n sequential elimination steps (latency), far above the
-//     FLOP bound.
+//     reference). Bound: the n elimination steps are sequential, so at one
+//     system (star, all_to_all: 27 MFLOP at the har width, 0.4 µs at 67
+//     TFLOP/s) latency sets the time; at S = 256 (the stale runtime's
+//     per-device solves, ~7 GFLOP) f32 operations do. The augmented system
+//     at the har width is 128 × 817 × 4 B = 418 KB, more than one SM holds,
+//     so uv_solve_cluster_kernel keeps one system in a cluster of blocks
+//     and eliminates A once:
+//       - in place: column k of A is spent after step k, and I's column k
+//         is still e_k until then, so one slot holds A's column k up to step
+//         k and I's column k after it (the owner puts e_k there when it
+//         publishes A's column k). The system is n + m slots, 689 at the
+//         har width, every slot live at every step;
+//       - each block of the cluster owns a contiguous run of slots (loaded
+//         and stored through shared memory as row segments), dealt to its
+//         warps cyclically (slot j to warp j % 8), so the publishing moves
+//         from warp to warp; lane l of a warp keeps rows l, l+32, ... of
+//         each of its slots in registers for the whole elimination (Q rows
+//         × at most 64/Q slots a thread);
+//       - step k: the owner of slot k published that column (raw, with
+//         its pivot at row k) into every block's shared memory through
+//         distributed shared memory, double-buffered, so one cluster
+//         barrier a step suffices. Each warp takes row k of its slots from
+//         the lane that holds it, divides it by the pivot once a slot (IEEE
+//         division, one lane a slot) and updates its registers,
+//         w = __fmaf_rn(−(col − δ), row, w); the owner of slot k+1 updates
+//         that slot first and publishes it before the rest of its work.
+//     Per element the operations are the reference's and the plain
+//     version's (row_k = w[k,:]/pivot, col = w[:,k] − δ, one fused
+//     multiply-add, which the plain version also rounds once), so the two
+//     agree bit for bit. The C entry sizes the cluster from S, n and m: 8 blocks while
+//     the systems fit one wave (two blocks an SM), else the fewest that
+//     hold a system; a system wider than 8 blocks' registers splits its V
+//     columns across clusters, each eliminating A itself.
 //
 // * banded_merge_solve (pallas_call :491, _banded_solve_kernel :425):
 //     the open ring. Each block sums its device's 2·hops+1 neighbour
@@ -71,15 +96,19 @@
 //     plain version does, so the two agree bit for bit (no TF32, no split
 //     over k: RLS parity degrades as κ(P)² with a looser product).
 //
-// The elimination step is the reference's: row_k = w[k,:]/w[k,k],
-// w ← w − (w[:,k] − e_k)·row_k. Columns j < k of A are already e_j and
-// row_k is 0 there, so only the columns j > k of A are updated; the
-// right-hand side is updated in full.
+// The banded solve's elimination step is the reference's: row_k =
+// w[k,:]/w[k,k], w ← w − (w[:,k] − e_k)·row_k. Columns j < k of A are
+// already e_j and row_k is 0 there, so only the columns j > k of A are
+// updated; the right-hand side is updated in full.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "device.cuh"
 #include "ptx.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -176,37 +205,6 @@ __device__ void store_tile(const float* R, float* p, float* beta, int n, int m, 
   }
 }
 
-// One block per (tile, system s). u and v have unit column stride; their
-// system and row strides are given, so slices of a packed [U | V] work.
-__global__ void __launch_bounds__(kThreads)
-uv_solve_kernel(const float* __restrict__ u, long long u_ss, long long u_rs,
-                const float* __restrict__ v, long long v_ss, long long v_rs,
-                float* __restrict__ p, float* __restrict__ beta, int n, int m, float ridge) {
-  extern __shared__ float smem[];
-  const int tc = kSolveTile, lda = n + 1, ldr = tc + 1;
-  float* A = smem;
-  float* R = A + n * lda;
-  float* rowbuf = R + n * ldr;
-  float* colbuf = rowbuf + n + tc;
-  const int s = blockIdx.y, c0 = blockIdx.x * tc;
-  const float* us = u + s * u_ss;
-  const float* vs = v + s * v_ss;
-  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx % n;
-    A[i * lda + j] = us[i * u_rs + j] + (i == j ? ridge : 0.0f);
-  }
-  for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
-    const int i = idx / tc, j = idx % tc, c = c0 + j;
-    float val = 0.0f;
-    if (c < n) val = (i == c) ? 1.0f : 0.0f;
-    else if (c < n + m) val = vs[i * v_rs + (c - n)];
-    R[i * ldr + j] = val;
-  }
-  __syncthreads();
-  gj_sweep(A, R, rowbuf, colbuf, n, tc);
-  store_tile(R, p + (size_t)s * n * n, beta + (size_t)s * n * m, n, m, c0, tc);
-}
-
 // One block per (tile, device d): sum the payloads of devices
 // (d − hops .. d + hops) mod D in that order, then solve.
 __global__ void __launch_bounds__(kThreads)
@@ -239,6 +237,209 @@ banded_solve_kernel(const float* __restrict__ w, float* __restrict__ p,
   __syncthreads();
   gj_sweep(A, R, rowbuf, colbuf, n, tc);
   store_tile(R, p + (size_t)d * n * n, beta + (size_t)d * n * m, n, m, c0, tc);
+}
+
+constexpr int kSolveWarps = 8;
+constexpr int kSolveThreads = kSolveWarps * 32;
+constexpr int kSolveTileRegs = 64;  // floats of the system a thread keeps in registers
+constexpr int kSolveMaxQ = 7;       // row registers a slot: Ñ ≤ 224
+constexpr int kSolveMaxCluster = 8; // the portable cluster size
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Write one slot's raw column (rows lane + 32q < n) into buf of every
+// block of the cluster.
+template <int Q>
+__device__ __forceinline__ void publish_column(const float (&col)[Q], float* buf, int n,
+                                               cg::cluster_group& cluster, int lane) {
+  const int cs = (int)cluster.num_blocks();
+  for (int r = 0; r < cs; ++r) {
+    float* dst = cluster.map_shared_rank(buf, r);
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (lane + 32 * q < n) dst[lane + 32 * q] = col[q];
+  }
+}
+
+// One system a cluster (grid (cluster size · groups, S)); group g of a
+// system takes the A|I slots 0..n−1 and V columns [g·mg, (g+1)·mg), and
+// block `rank` of the cluster the slots [rank·cb, (rank+1)·cb). Q = ⌈n/32⌉
+// row registers a slot, at most CW slots a thread. u and v have unit
+// column stride; their system and row strides are given, so slices of a
+// packed [U | V] work.
+template <int Q, int CW>
+__global__ void __launch_bounds__(kSolveThreads, 2)
+uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u_rs,
+                        const float* __restrict__ v, long long v_ss, long long v_rs,
+                        float* __restrict__ p, float* __restrict__ beta, int n, int m, int mg,
+                        int cb, float ridge) {
+  static_assert(Q <= kSolveMaxQ && Q * CW <= kSolveTileRegs, "the tile must fit the registers");
+  constexpr int kXW = (CW + 3) / 4 * 4;
+  extern __shared__ __align__(16) float smem[];
+  float* colbuf = smem;                   // [2][32·Q]: a published column, by row
+  float* xs = colbuf + 2 * 32 * Q;        // [warps][kXW]: a warp's row k, then row k / pivot
+  float* stage = xs + kSolveWarps * kXW;  // [n][ld]: this block's slots, loaded and stored
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = blockIdx.x / cs, sys = blockIdx.y;
+  const int v0 = g * mg;
+  const int nslot = n + min(mg, m - v0);
+  const int j0 = rank * cb;
+  const int cnt = max(0, min(cb, nslot - j0));              // this block's slots
+  const int cntw = cnt > warp ? (cnt - warp + 7) / 8 : 0;  // this warp's: local slots warp + 8c
+  const int ld = cb | 1;
+  const float* us = u + sys * u_ss;
+  const float* vs = v + sys * v_ss;
+  for (int i = warp; i < n; i += kSolveWarps)
+    for (int j = lane; j < cnt; j += 32) {
+      const int sl = j0 + j;
+      stage[i * ld + j] = sl < n ? us[i * u_rs + sl] + (i == sl ? ridge : 0.0f)
+                                 : vs[i * v_rs + v0 + (sl - n)];
+    }
+  __syncthreads();
+  float w[Q][CW];
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int row = lane + 32 * q;
+      w[q][c] = row < n && c < cntw ? stage[row * ld + warp + 8 * c] : 0.0f;
+    }
+  float* xw = xs + warp * kXW;
+
+  cluster_arrive();  // every block of the cluster runs before any writes to its shared memory
+  cluster_wait();
+  if (rank == 0 && warp == 0 && cntw > 0) {  // slot 0: publish A's column 0, keep e_0
+    float col[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      col[q] = w[q][0];
+      w[q][0] = lane + 32 * q == 0 ? 1.0f : 0.0f;
+    }
+    publish_column<Q>(col, colbuf, n, cluster, lane);
+  }
+  int nrank = 0, nj = 0;  // the owner of slot k+1: block and local slot, kept without division
+  if (++nj == cb) nj = 0, ++nrank;
+  cluster_arrive();
+#pragma unroll
+  for (int q0 = 0; q0 < Q; ++q0) {
+    const int kend = min(32, n - 32 * q0);
+    for (int kl = 0; kl < kend; ++kl) {
+      const int k = 32 * q0 + kl;
+      const float* cur = colbuf + (k & 1) * 32 * Q;
+      cluster_wait();  // column k is in cur; every block is done with the other buffer
+      const float pivot = cur[k];
+      float ncol[Q];  // −(w[:, k] − δ_k) at this lane's rows
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int row = lane + 32 * q;
+        ncol[q] = row < n ? -__fsub_rn(cur[row], row == k ? 1.0f : 0.0f) : 0.0f;
+      }
+      if (lane == kl) {  // row k of this warp's slots lives in register q0 of lane kl
+#pragma unroll
+        for (int c = 0; c < kXW; c += 4)
+          *reinterpret_cast<float4*>(xw + c) =
+              make_float4(w[q0][min(c, CW - 1)], w[q0][min(c + 1, CW - 1)],
+                          w[q0][min(c + 2, CW - 1)], w[q0][min(c + 3, CW - 1)]);
+      }
+      __syncwarp();
+      for (int c = lane; c < cntw; c += 32) xw[c] = xw[c] / pivot;
+      __syncwarp();
+      const bool next_here = k + 1 < n && nrank == rank && (nj & 7) == warp;
+      const int cn = nj >> 3;
+      if (next_here) {  // slot k+1 first: update, publish, keep e_{k+1}
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+          if (c != cn) continue;
+          const float r = xw[c];
+          float col[Q];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            col[q] = __fmaf_rn(ncol[q], r, w[q][c]);
+            w[q][c] = lane + 32 * q == k + 1 ? 1.0f : 0.0f;
+          }
+          publish_column<Q>(col, colbuf + ((k + 1) & 1) * 32 * Q, n, cluster, lane);
+        }
+      }
+#pragma unroll
+      for (int c4 = 0; c4 < kXW; c4 += 4) {
+        if (c4 >= cntw) break;
+        const float4 r4 = *reinterpret_cast<const float4*>(xw + c4);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c4 + e;
+          if (c >= CW || c >= cntw || (next_here && c == cn)) continue;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) w[q][c] = __fmaf_rn(ncol[q], rr[e], w[q][c]);
+        }
+      }
+      if (++nj == cb) nj = 0, ++nrank;
+      cluster_arrive();
+    }
+  }
+  cluster_wait();
+
+  // registers → shared memory → row segments of P (group 0) and β
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const int row = lane + 32 * q;
+      if (row < n && c < cntw) stage[row * ld + warp + 8 * c] = w[q][c];
+    }
+  __syncthreads();
+  float* ps = p + (size_t)sys * n * n;
+  float* bs = beta + (size_t)sys * n * m;
+  for (int i = warp; i < n; i += kSolveWarps)
+    for (int j = lane; j < cnt; j += 32) {
+      const int sl = j0 + j;
+      const float x = stage[i * ld + j];
+      if (sl >= n) bs[(size_t)i * m + v0 + (sl - n)] = x;
+      else if (g == 0) ps[(size_t)i * n + sl] = x;
+    }
+}
+
+template <int Q, int CW>
+cudaError_t launch_uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
+                            long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
+                            int m, float ridge, cudaStream_t st) {
+  const int cap = kSolveMaxCluster * kSolveWarps * CW;  // slots a cluster holds
+  const int groups = n + m <= cap ? 1 : (m + (cap - n) - 1) / (cap - n);
+  const int mg = (m + groups - 1) / groups;
+  const int nslot = n + mg;
+  int cs = 1;  // the fewest blocks that hold a system
+  while (cs * kSolveWarps * CW < nslot) cs *= 2;
+  if ((long long)S * groups * kSolveMaxCluster <= 2LL * sm_count()) cs = kSolveMaxCluster;
+  const int cb = (nslot + cs - 1) / cs;
+  const size_t smem = (2 * 32 * Q + kSolveWarps * ((CW + 3) / 4 * 4) + (size_t)n * (cb | 1)) * 4;
+  auto kernel = uv_solve_cluster_kernel<Q, CW>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs * groups, S);
+  cfg.blockDim = dim3(kSolveThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, mg, cb,
+                         ridge);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 constexpr int kDenseBM = 128;  // rows of M (and of the output) per block
@@ -380,7 +581,7 @@ extern "C" {
 const char* repro_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 int repro_solve_smem(int n) { return solve_smem(n); }
-int repro_solve_tile() { return kSolveTile; }
+int repro_uv_solve_max_n() { return 32 * kSolveMaxQ; }
 
 // w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E).
 int repro_masked_segment_sum(const float* w, const int* seg_start, const float* mask,
@@ -429,18 +630,26 @@ int repro_banded_mix(const float* x, float* out, int D, long long E, int hops, v
 }
 
 // S systems: u (S,n,n) and v (S,n,m) with the given strides → p (S,n,n),
-// beta (S,n,m), both contiguous.
+// beta (S,n,m), both contiguous; n ≤ repro_uv_solve_max_n().
 int repro_uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
                    long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
                    int m, float ridge, void* stream) {
-  const int smem = solve_smem(n);
-  cudaError_t e = cudaFuncSetAttribute(uv_solve_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n + m + kSolveTile - 1) / kSolveTile, S);
-  uv_solve_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, ridge);
-  return cudaGetLastError();
+  if (S == 0 || n == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // row registers a slot, rounded up to one of four tiles (rows past n are
+  // zeros and are never stored)
+  const int q = (n + 31) / 32;
+  switch (q <= 2 ? q : q <= 4 ? 4 : 7) {
+    case 1:
+      return launch_uv_solve<1, 64>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
+    case 2:
+      return launch_uv_solve<2, 32>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
+    case 4:
+      return launch_uv_solve<4, 16>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
+    case 7:
+      return launch_uv_solve<7, 9>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // w (D, n, n+m) contiguous → p (D,n,n), beta (D,n,m).

@@ -131,10 +131,11 @@ _SIGNATURES = {
     "repro_gla_smem": [_I] * 3,
     "repro_quantize_pack_smem": [_I],
     "repro_ingest_gain_smem": [_I],
-    "repro_ingest_beta_smem": [_I],
+    "repro_ingest_beta_smem": [_I, _I],
     "repro_ingest_beta_tile": [],
+    "repro_ingest_chunk": [],
     "repro_solve_smem": [_I],
-    "repro_solve_tile": [],
+    "repro_uv_solve_max_n": [],
 }
 
 

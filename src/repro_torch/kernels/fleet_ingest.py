@@ -5,10 +5,15 @@ k=1 RLS updates, in one pass; port of
 ``fleet_ingest`` dispatches by the device of the fleet: on the CPU it
 runs ``fleet_ingest_plain``, on a CUDA device it launches the hand-written
 kernel of ``csrc/fleet_ingest.cu`` (four launches on one stream, see the
-source) or raises. The plain version follows the reference's order of
-operations term by term: divide P by λ, ``ph``, ``denom``, the rank-1
-update, then gain = P_new·h as a matvec; the β update is one fused
-multiply-add, as the reference's compiler and the kernel both round it.
+source) or raises. The plain version follows the kernel's order of
+operations. The P chain is the reference's, term by term: divide P by λ,
+``ph``, ``denom``, the rank-1 update, then gain = P_new·h as a matvec. The
+β update is taken as products, chunk by chunk (``ingest_chunks``): the
+pre-train errors E₀ = targets − H·β, L = strictly-lower(H·Gᵀ) of the
+chunk's hidden rows and gains, the forward substitution E = (I + L)⁻¹E₀
+(each error updated in sample order, one fused multiply-add a term), then
+β += Σ_s gain_s·e_sᵀ in sample order, one fused multiply-add a sample, as
+the sequential updates round it.
 """
 from __future__ import annotations
 
@@ -20,7 +25,25 @@ from repro_torch.core.oselm import OSELMState
 from repro_torch.kernels import _lib
 from repro_torch.kernels.topology_merge import _fma
 
-__all__ = ["fleet_ingest", "fleet_ingest_cuda", "fleet_ingest_plain", "validate_shared_basis"]
+__all__ = [
+    "INGEST_CHUNK",
+    "fleet_ingest",
+    "fleet_ingest_cuda",
+    "fleet_ingest_plain",
+    "ingest_chunks",
+    "validate_shared_basis",
+]
+
+# Samples of a chunk of the window, for the plain version: the kernel's
+# kMaxChunk (``repro_ingest_chunk``), which keeps a chunk's hidden rows,
+# gains and L in shared memory.
+INGEST_CHUNK = 64
+
+
+def ingest_chunks(t: int) -> list[tuple[int, int]]:
+    """The window's chunks as (start, stop): consecutive runs of at most
+    ``INGEST_CHUNK`` samples, in order, covering 0..t−1 once."""
+    return [(c0, min(c0 + INGEST_CHUNK, t)) for c0 in range(0, t, INGEST_CHUNK)]
 
 
 def validate_shared_basis(alpha) -> None:
@@ -67,16 +90,23 @@ def fleet_ingest_plain(
     h_all = g(window @ states.params.alpha + states.params.bias)        # (D, T, Ñ)
     e0 = tb - torch.bmm(h_all, states.beta)
     loss = torch.mean(e0 * e0, dim=(1, 2))
-    p, be = states.p, states.beta
+    p, gains = states.p, []
     for t in range(window.shape[1]):
         h = h_all[:, t]                                                # (D, Ñ)
         pf = p / states.forget
         ph = torch.bmm(pf, h[:, :, None])[:, :, 0]
         denom = 1.0 + torch.sum(h * ph, dim=1, keepdim=True)
         p = pf - ph[:, :, None] * ph[:, None, :] / denom[:, :, None]
-        err = tb[:, t] - torch.bmm(h[:, None, :], be)[:, 0]
-        gain = torch.bmm(p, h[:, :, None])[:, :, 0]
-        be = _fma(gain[:, :, None], err[:, None, :], be)
+        gains.append(torch.bmm(p, h[:, :, None])[:, :, 0])
+    be = states.beta
+    for c0, c1 in ingest_chunks(window.shape[1]):
+        h, gain = h_all[:, c0:c1], torch.stack(gains[c0:c1], dim=1)   # (D, Tc, Ñ)
+        e = (e0 if c0 == 0 else tb[:, c0:c1] - torch.bmm(h, be))[:, : c1 - c0].clone()
+        lmat = torch.bmm(h, gain.transpose(1, 2))                      # L[t, s] = h_t·gain_s
+        for s in range(c1 - c0 - 1):  # every later error takes term s, in order of s
+            e[:, s + 1 :] = _fma(-lmat[:, s + 1 :, s : s + 1], e[:, s : s + 1], e[:, s + 1 :])
+        for s in range(c1 - c0):
+            be = _fma(gain[:, s, :, None], e[:, s, None, :], be)
     return states.replace(p=p, beta=be), loss
 
 
@@ -95,7 +125,7 @@ def fleet_ingest_cuda(
     d, t, n = window.shape
     nh, m = states.beta.shape[1], states.beta.shape[2]
     lib = _lib.library()
-    for smem in (lib.repro_ingest_gain_smem(nh), lib.repro_ingest_beta_smem(nh)):
+    for smem in (lib.repro_ingest_gain_smem(nh), lib.repro_ingest_beta_smem(nh, t)):
         if smem > _lib.MAX_SMEM:
             raise ValueError(f"fleet_ingest: Ñ={nh} needs {smem} B of shared memory per block")
     n_tiles = -(-m // lib.repro_ingest_beta_tile())

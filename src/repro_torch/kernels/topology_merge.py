@@ -27,6 +27,8 @@ device k, in increasing k.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -176,9 +178,8 @@ def segment_broadcast(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
 def _gj_solve_plain(a: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[A | I | V] → [I | A⁻¹ | A⁻¹V] by the reference's elimination
     (``_gj_sweep``): row_k = w[k]/w[k,k]; w ← w − (w[:,k] − e_k)·row_k.
-    The update is one fused multiply-add, rounded once, as XLA and nvcc
-    both contract it; the f64 product of two f32 values is exact, so
-    rounding the f64 result to f32 gives that fused result."""
+    The update is one fused multiply-add, rounded once (``_fma``), as XLA
+    and nvcc both contract it."""
     s, n, _ = a.shape
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     w = torch.cat([a, eye.expand(s, n, n), v], dim=2)
@@ -189,9 +190,34 @@ def _gj_solve_plain(a: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, tor
     return w[:, :, n : 2 * n], w[:, :, 2 * n :]
 
 
+# the 29 bits an f32 significand drops from an f64 one, and their midpoint
+_F32_DROPPED, _F32_HALF = (1 << 29) - 1, 1 << 28
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a·b + c in f32 with a single rounding (a fused multiply-add)."""
-    return (a.double() * b.double() + c.double()).to(c.dtype)
+    """a·b + c in f32 with a single rounding (a fused multiply-add). The
+    product of two f32 values is exact in f64, so their f64 sum converts to
+    the f32 the exact sum rounds to, except where that sum is inexact and
+    lands on a midpoint between two f32 values (or in the f32 subnormal
+    range, where fewer bits are kept). Only there is the sum rounded to
+    odd: where its error (TwoSum) is not 0 and its last bit is even, it
+    moves to its neighbour on the error's side. A value rounded to odd at
+    53 bits rounds to 24 bits as the exact sum does (Boldo and
+    Melquiond), so the conversion to f32 rounds once."""
+    s = torch.addcmul(c.double(), a.double(), b.double())
+    risky = (s.view(torch.int64) & _F32_DROPPED) == _F32_HALF
+    mag = s.abs()
+    risky |= (mag < 2.0**-126) & (mag != 0)
+    if bool(risky.any()):
+        at = risky.nonzero(as_tuple=True)  # found once for the four gathers
+        ar, br, cr = (x.expand(s.shape)[at].double() for x in (a, b, c))
+        prod, t = ar * br, s[at]
+        bv = t - prod
+        err = (prod - (t - bv)) + (cr - bv)
+        even = (t.view(torch.int64) & 1) == 0
+        toward = torch.copysign(torch.full_like(t, math.inf), err)
+        s.index_put_(at, torch.where((err != 0) & even, torch.nextafter(t, toward), t))
+    return s.to(c.dtype)
 
 
 def from_uv_solve_plain(
@@ -207,12 +233,23 @@ def _check_solve_n(kernel: str, n: int) -> None:
         raise ValueError(f"{kernel}: Ñ={n} does not fit the solve's shared-memory tile")
 
 
+def _check_cluster_solve_n(n: int) -> None:
+    limit = _lib.library().repro_uv_solve_max_n()
+    if n > limit:
+        raise ValueError(
+            f"from_uv_solve: Ñ={n} exceeds the cluster solve's limit of {limit} rows "
+            "(7 registers a slot for each lane)"
+        )
+
+
 def from_uv_solve(
     u: torch.Tensor, v: torch.Tensor, *, ridge: float = 0.0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched §4.2 step 5: u (S, Ñ, Ñ), v (S, Ñ, m) → P = (U+εI)⁻¹,
     β = PV. On CUDA, u and v may be column slices of one packed [U | V]
-    (unit column stride); the outputs are contiguous."""
+    (unit column stride); the outputs are contiguous. The kernel holds
+    each system in one thread-block cluster and eliminates it once; it
+    takes Ñ up to 224 and any m."""
     if u.ndim != 3 or v.ndim != 3 or u.shape[:2] != v.shape[:2] or u.shape[1] != u.shape[2]:
         raise ValueError(f"need u (S, Ñ, Ñ) and v (S, Ñ, m); got {tuple(u.shape)}, {tuple(v.shape)}")
     if u.device.type == "cpu":
@@ -224,7 +261,7 @@ def from_uv_solve(
                 f"column stride; got {t.dtype} on {t.device}, strides {t.stride()}"
             )
     s, n, m = v.shape
-    _check_solve_n("from_uv_solve", n)
+    _check_cluster_solve_n(n)
     p = torch.empty((s, n, n), dtype=torch.float32, device=u.device)
     beta = torch.empty((s, n, m), dtype=torch.float32, device=u.device)
     status = _lib.library().repro_uv_solve(

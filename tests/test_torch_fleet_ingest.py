@@ -3,7 +3,8 @@
 ``repro_torch.kernels.fleet_ingest_plain`` (what the wrapper runs for a
 CPU tensor) is held to the reference Pallas kernel in interpret mode and
 to the reference's sequential ``_fleet_train`` chain, on odd D/T/Ñ/n and
-with λ < 1. Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
+with λ < 1, and at the edges of the kernel's chunking of the window (one
+sample, and a window longer than ``INGEST_CHUNK``). Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
 losses at rtol 1e-5 / atol 1e-7, state at 1e-5. With sigmoid the fixture
 carries the reference's ridge 5e-2: RLS parity in f32 degrades as κ(P)².
 """
@@ -19,6 +20,7 @@ from repro.fleet.fleet import _fleet_train
 from repro.kernels.fleet_ingest import fleet_ingest_kernel
 from repro_torch.convert import oselm_state_from_numpy
 from repro_torch.kernels import fleet_ingest, fleet_ingest_plain, validate_shared_basis
+from repro_torch.kernels.fleet_ingest import INGEST_CHUNK, ingest_chunks
 
 torch.set_num_threads(2)
 
@@ -33,8 +35,8 @@ def _fleet(activation, forget, ridge, seed=0):
                       activation=activation, ridge=ridge, forget=forget)
 
 
-def _window(seed=1):
-    return np.random.default_rng(seed).uniform(0, 1, (D_ODD, T_ODD, F_ODD)).astype(np.float32)
+def _window(seed=1, t=T_ODD):
+    return np.random.default_rng(seed).uniform(0, 1, (D_ODD, t, F_ODD)).astype(np.float32)
 
 
 def _port(fleet):
@@ -72,6 +74,36 @@ def test_plain_ingest_matches_sequential_reference(activation, forget):
     got, loss = fleet_ingest(_port(fleet), torch.from_numpy(win))
     _assert_state_close(got, ref)
     np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
+
+
+# one sample (a chunk of one), and a window of two chunks, the second
+# ragged: the β of the first chunk is β₀ of the second
+@pytest.mark.parametrize("t,activation,forget", [
+    (1, "identity", 0.95), (1, "sigmoid", 1.0),
+    (INGEST_CHUNK + 6, "identity", 0.95), (INGEST_CHUNK + 6, "sigmoid", 1.0),
+])
+def test_plain_ingest_at_chunk_edges_matches_reference(t, activation, forget):
+    ridge = 5e-2 if activation == "sigmoid" else RIDGE
+    fleet = _fleet(activation, forget, ridge, seed=6)
+    win = _window(7, t)
+    got, loss = fleet_ingest_plain(_port(fleet), torch.from_numpy(win))
+    ref, ref_loss = fleet_ingest_kernel(fleet, jnp.asarray(win), block_d=4, interpret=True)
+    _assert_state_close(got, ref)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
+    seq = _fleet_train(fleet, jnp.asarray(win))
+    seq_loss = jax.vmap(lambda s, xb: jnp.mean(ae_score(s, xb)))(fleet, jnp.asarray(win))
+    _assert_state_close(got, seq)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(seq_loss), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("t", [0, 1, INGEST_CHUNK - 1, INGEST_CHUNK, INGEST_CHUNK + 1,
+                               3 * INGEST_CHUNK + 5])
+def test_ingest_chunks_cover_every_sample_once_in_order(t):
+    chunks = ingest_chunks(t)
+    covered = [s for c0, c1 in chunks for s in range(c0, c1)]
+    assert covered == list(range(t))
+    assert all(0 < c1 - c0 <= INGEST_CHUNK for c0, c1 in chunks)
+    assert all(c1 - c0 == INGEST_CHUNK for c0, c1 in chunks[:-1])
 
 
 def test_plain_ingest_supervised_targets():

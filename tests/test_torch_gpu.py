@@ -76,6 +76,8 @@ from repro_torch.kernels import (
     uv_from_batch_plain,
 )
 from repro_torch.core.activations import ACTIVATION_CODES, get_activation
+from repro_torch.kernels import _lib
+from repro_torch.kernels.fleet_ingest import INGEST_CHUNK
 
 pytestmark = pytest.mark.gpu
 
@@ -134,6 +136,52 @@ def test_ingest_kernel_matches_plain(cuda, activation, forget):
     assert _rel(loss, ref_loss) < 1e-4
 
 
+# the edges of the kernel's chunks and of its P tiles: one sample; a window
+# of two chunks (the second ragged) and of three; Ñ = 16, 32 and 64 (the
+# smaller register tiles) and 160 (P in shared memory); supervised targets
+# (m ≠ n) at m = 23, 70 and 300, none a multiple of the 64-column β tile;
+# λ < 1; Ñ = 5 in a P tile of 32 rows; and fleets large enough that a block
+# takes a run of tiles, with the next tile in a second buffer (D = 100) or,
+# at Ñ = 200, in the one buffer
+@pytest.mark.parametrize("d,t,n,nh,m,activation,forget", [
+    (5, 1, 37, 10, None, "identity", 0.95),
+    (5, 17, 20, 5, None, "identity", 0.95),
+    (5, 70, 37, 10, None, "identity", 0.95),
+    (5, 150, 37, 10, None, "sigmoid", 1.0),
+    (5, 17, 37, 16, None, "tanh", 0.97),
+    (5, 17, 61, 32, None, "identity", 1.0),
+    (5, 33, 90, 64, 23, "identity", 0.95),
+    (5, 9, 200, 160, None, "identity", 1.0),
+    (5, 70, 37, 10, 70, "sigmoid", 0.95),
+    (100, 150, 300, 10, None, "identity", 0.95),
+    (70, 70, 240, 200, 300, "identity", 1.0),
+])
+def test_ingest_kernel_at_its_edges(cuda, d, t, n, nh, m, activation, forget):
+    rng = np.random.default_rng(8)
+    params = SLFNParams(
+        torch.from_numpy(rng.uniform(-1, 1, (n, nh)).astype(np.float32)).to(cuda),
+        torch.from_numpy(rng.uniform(-1, 1, nh).astype(np.float32)).to(cuda),
+    )
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (d, 4 * nh, n)).astype(np.float32)).to(cuda)
+    t0 = x0 if m is None else torch.from_numpy(
+        rng.uniform(-1, 1, (d, 4 * nh, m)).astype(np.float32)).to(cuda)
+    ridge = 5e-2 if activation == "sigmoid" else 1e-3
+    fleet = init_oselm(params, x0, t0, activation=activation, ridge=ridge, forget=forget)
+    win = torch.from_numpy(rng.uniform(-1, 1, (d, t, n)).astype(np.float32)).to(cuda)
+    tgt = None if m is None else torch.from_numpy(
+        rng.uniform(-1, 1, (d, t, m)).astype(np.float32)).to(cuda)
+    before = launch_counts()["fleet_ingest"]
+    got, loss = fleet_ingest(fleet, win, tgt)
+    torch.cuda.synchronize()
+    assert launch_counts()["fleet_ingest"] == before + 1
+    ref, ref_loss = fleet_ingest_plain(fleet, win, tgt)
+    assert _rel(got.p, ref.p) < 1e-4
+    assert _rel(got.beta, ref.beta) < 1e-4
+    assert _rel(loss, ref_loss) < 1e-4
+    again, loss2 = fleet_ingest(fleet, win, tgt)
+    assert torch.equal(again.beta, got.beta) and torch.equal(loss2, loss)
+
+
 def test_ingest_kernel_at_har_width(cuda):
     fleet = _fleet(cuda, "identity", 1.0, d=8, n=561, nh=128)
     win = torch.from_numpy(
@@ -144,6 +192,11 @@ def test_ingest_kernel_at_har_width(cuda):
     assert _rel(got.p, ref.p) < 1e-4
     assert _rel(got.beta, ref.beta) < 1e-4
     assert _rel(loss, ref_loss) < 1e-4
+
+
+def test_ingest_chunk_is_the_kernels(cuda):
+    """The plain version chunks the window as the kernel does."""
+    assert _lib.library().repro_ingest_chunk() == INGEST_CHUNK
 
 
 def test_masked_segment_sum_kernel_matches_plain(cuda):
@@ -164,17 +217,73 @@ def _spd(rng, s, n, cuda):
     return torch.from_numpy(a @ a.transpose(0, 2, 1) / (3 * n)).to(cuda)
 
 
-# (32, 128, 561): the cluster solves of an isolated hierarchy at har width
-@pytest.mark.parametrize("s,n,m", [(1, 10, 23), (3, 10, 23), (2, 128, 561), (32, 128, 561)])
+# (32, 128, 561): the cluster solves of an isolated hierarchy at har width;
+# (256, 128, 561): the stale runtime's per-device solves; (1, 16, 16) and
+# (32, 32, 64): the scenarios' widths; Ñ = 37, 80 and 129: rows that fill
+# neither a warp nor the last row register (80 in a tile of 128 rows);
+# Ñ = 224, the largest the cluster solve takes, with its V columns split
+# over two clusters
+@pytest.mark.parametrize("s,n,m", [
+    (1, 10, 23), (3, 10, 23), (2, 128, 561), (32, 128, 561), (256, 128, 561),
+    (1, 16, 16), (32, 32, 64), (3, 37, 50), (2, 80, 100), (2, 129, 200), (2, 224, 561),
+    (1, 224, 0),
+])
 def test_from_uv_solve_kernel_matches_plain(cuda, s, n, m):
     rng = np.random.default_rng(4)
     u = _spd(rng, s, n, cuda)
     v = torch.from_numpy(rng.standard_normal((s, n, m)).astype(np.float32)).to(cuda)
     w = torch.cat([u, v], dim=2)  # the solve reads column slices of a packed [U | V]
+    before = launch_counts()["from_uv_solve"]
     p, b = from_uv_solve(w[:, :, :n], w[:, :, n:], ridge=1e-3)
+    torch.cuda.synchronize()
+    assert launch_counts()["from_uv_solve"] == before + 1
     rp, rb = from_uv_solve_plain(u, v, ridge=1e-3)
     assert _rel(p, rp) < 1e-5
-    assert _rel(b, rb) < 1e-5
+    if m:
+        assert _rel(b, rb) < 1e-5
+    p2, b2 = from_uv_solve(w[:, :, :n], w[:, :, n:], ridge=1e-3)
+    assert torch.equal(p, p2) and torch.equal(b, b2)
+
+
+def _double_rounding_uv(rng, s, n, m):
+    """SPD systems on which a fused multiply-add emulated by rounding the
+    f64 sum to f32 rounds twice: with A[0, 0] = 1 (after the ridge), the
+    first step's update of rows 0 and 1 of V is (1 + 2^-23) − A[1, 0]·V[0, j]
+    = 1 + 2^-23 + 2^-24·(1 − 2^-46), whose f64 sum is the midpoint between
+    two f32 values and whose exact value is not."""
+    a = rng.standard_normal((s, n, 3 * n)).astype(np.float32)
+    u = a @ a.transpose(0, 2, 1) / (3 * n)
+    u[:, 0, 0] = np.float32(1) - np.float32(1e-3)
+    u[:, 0, 1] = u[:, 1, 0] = np.float32(-(2.0**-12) * (1 + 2**-23))
+    v = rng.standard_normal((s, n, m)).astype(np.float32)
+    v[:, 0] = np.float32(2.0**-12 * (1 - 2**-23))
+    v[:, 1] = np.float32(1 + 2**-23)
+    return torch.from_numpy(u), torch.from_numpy(v)
+
+
+# the kernel's fused multiply-add rounds once, and so does the plain
+# version's: no element differs, where an update rounded twice moves most of β
+@pytest.mark.parametrize("s,n,m", [(32, 128, 561), (1, 16, 16)])
+def test_from_uv_solve_is_exact_where_a_double_rounding_would_show(cuda, s, n, m):
+    u, v = _double_rounding_uv(np.random.default_rng(4), s, n, m)
+    w = torch.cat([u, v], dim=2).to(cuda)
+    p, b = from_uv_solve(w[:, :, :n], w[:, :, n:], ridge=1e-3)
+    rp, rb = from_uv_solve_plain(u.to(cuda), v.to(cuda), ridge=1e-3)
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
+    a = u.to(cuda) + 1e-3 * torch.eye(n, device=cuda)
+    eye = torch.eye(n, device=cuda)
+    x = torch.cat([a, eye.expand(s, n, n), v.to(cuda)], dim=2)
+    for k in range(n):  # the same elimination, each update rounded twice
+        row = x[:, k : k + 1] / x[:, k : k + 1, k : k + 1]
+        col = x[:, :, k : k + 1] - eye[:, k : k + 1]
+        x = (x.double() - col.double() * row.double()).float()
+    assert int((x[:, :, 2 * n :] != rb).sum()) > rb.numel() // 2
+
+
+def test_from_uv_solve_names_its_limit(cuda):
+    u = torch.eye(225, device=cuda)[None]
+    with pytest.raises(ValueError, match="limit of 224"):
+        from_uv_solve(u, torch.zeros((1, 225, 3), device=cuda))
 
 
 @pytest.mark.parametrize("hops", [1, 2])

@@ -17,7 +17,12 @@
   sums each 128-device tile with one dot product, so the two agree to
   f32 rounding of the sum (1e-6 relative here), not bit for bit. A custom
   dense topology merges through it.
+- ``_fma``, the plain versions' fused multiply-add, rounds once: on sums
+  that lie just off an f32 midpoint, where rounding an f64 sum to f32
+  would round twice, it gives the exact sum rounded to nearest.
 """
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -274,3 +279,74 @@ def test_fleet_score_matches_reference(trained_fleet):
     want = ref_fleet_score(trained_fleet, jnp.asarray(x))
     got = fleet_score(_port(trained_fleet), torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
+
+
+def _round_to_f32(x: Fraction) -> np.float32:
+    """x rounded to the nearest f32, ties to even, from exact arithmetic."""
+    f = np.float32(float(x))
+    near = [f, np.nextafter(f, np.float32(np.inf)), np.nextafter(f, np.float32(-np.inf))]
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x), int(np.array(y).view(np.int32)) & 1))
+
+
+# c + a·b = c + ½ulp(c) ∓ 2^-70·2^e: the f64 sum is exactly the midpoint
+# between two f32 values, the exact sum is not; c's last bit odd or even
+@pytest.mark.parametrize("c0", [1 + 2**-23, 1 + 2**-22, 1.5 + 2**-23, 1.75])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_plain_fma_rounds_once(c0, sign):
+    from repro_torch.kernels.topology_merge import _fma
+
+    scale = 2.0 ** np.arange(-20, 21, 4)
+    a = (sign * scale * 2.0**-12 * (1 + 2**-23)).astype(np.float32)
+    b = np.float32(2.0**-12 * (1 - 2**-23))
+    c = (sign * c0 * scale).astype(np.float32)
+    got = _fma(torch.from_numpy(a), torch.tensor(b), torch.from_numpy(c)).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b)) + Fraction(float(c[i]))
+        assert got[i] == _round_to_f32(exact), (a[i], b, c[i])
+
+
+# c + a·b in the f32 subnormal range: c = k·2^-149, a·b = 2^-150·(1 ∓ 2^-46),
+# so the f64 sum is a midpoint between two subnormals and the exact sum is
+# not; k odd or even, both signs, both sides of the midpoint
+@pytest.mark.parametrize("k", [1, 2, 7, 1000, 2**22 - 1, 2**22 + 1])
+def test_plain_fma_rounds_once_below_the_normals(k):
+    from repro_torch.kernels.topology_merge import _fma
+
+    a = np.array([s * 2.0**-75 * (1 + 2**-23) for s in (1, 1, -1, -1)], np.float32)
+    b = np.array([2.0**-75 * (1 - 2**-23), 2.0**-75 * (1 + 2**-23)] * 2, np.float32)
+    c = (np.sign(a) * k * 2.0**-149).astype(np.float32)
+    got = _fma(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        assert got[i] == _round_to_f32(exact), (a[i], b[i], c[i])
+
+
+def test_plain_solve_matches_an_elimination_rounded_once():
+    """A 3 × 3 system whose first update of V's row 1 is (1 + 2^-23) +
+    2^-24·(1 − 2^-46): its f64 sum lies on an f32 midpoint. The plain solve
+    equals the elimination done in exact arithmetic, each division and each
+    update rounded once to f32."""
+    from repro_torch.kernels.topology_merge import from_uv_solve_plain
+
+    r = np.float32(1e-3)
+    u = np.array([[1 - r, -(2.0**-12) * (1 + 2**-23), 0.25],
+                  [-(2.0**-12) * (1 + 2**-23), 1.5, -0.125],
+                  [0.25, -0.125, 0.75]], np.float32)
+    v = np.array([[2.0**-12 * (1 - 2**-23), 0.5], [1 + 2**-23, -1.25], [0.375, 3.0]], np.float32)
+    p, b = from_uv_solve_plain(torch.from_numpy(u)[None], torch.from_numpy(v)[None], ridge=1e-3)
+
+    def rn(x):
+        return Fraction(float(_round_to_f32(x)))
+
+    n = 3
+    a = [[rn(Fraction(float(u[i, j])) + (Fraction(float(r)) if i == j else 0)) for j in range(n)]
+         for i in range(n)]
+    w = [a[i] + [Fraction(int(i == j)) for j in range(n)] + [Fraction(float(x)) for x in v[i]]
+         for i in range(n)]
+    for k in range(n):
+        row = [rn(x / w[k][k]) for x in w[k]]
+        col = [rn(w[i][k] - (i == k)) for i in range(n)]
+        w = [[rn(w[i][j] - col[i] * row[j]) for j in range(len(row))] for i in range(n)]
+    want = np.array([[float(x) for x in wi] for wi in w], np.float32)
+    assert np.array_equal(p[0].numpy(), want[:, n : 2 * n])
+    assert np.array_equal(b[0].numpy(), want[:, 2 * n :])
