@@ -17,8 +17,10 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    tile), bit for bit; ``from_uv_solve`` at S = 1, 32 and 256 (the stale
    round's per-device solves) and ``torch.linalg.solve`` each alone
    (``torch.profiler``), with the count of elements that differ from the
-   plain version and a second call bit-identical; ``fleet_ingest`` alone,
-   the sum of its four kernels;
+   plain version and a second call bit-identical; ``banded_merge_solve``
+   (ring, hops = 2) with no element differing from its plain version and
+   its kernel alone; ``masked_segment_sum_mix`` and its library product
+   alone; ``fleet_ingest`` alone, the sum of its four kernels;
 3. end to end: the port's ``FleetRuntime`` at the har width on star,
    hierarchical, hierarchical isolated, all_to_all and ring, with a shift
    injected into a few devices' streams so the participation mask is not
@@ -347,6 +349,10 @@ def phase_kernels(fleet, window, topo_hier):
         plain_ms=cuda_ms(lambda: tm.masked_segment_sum_mix_plain(w, cids, mask, n_clusters), 3),
         library_ms=cuda_ms(lambda: torch.mm(sel, wf), 50),
     )
+    alone = device_ms(lambda: tm.masked_segment_sum_mix(w, cids, mask, n_clusters), 20,
+                      ("segsum_kernel<true>",))
+    log(f"  masked_segment_sum_mix C={n_clusters}: kernel alone {ms_text(alone)},"
+        f" {library_device(lambda: torch.mm(sel, wf), 20)}")
 
     # ---- Gauss-Jordan solves: one system (star, all_to_all), the C
     # cluster sums of an isolated hierarchy and the D per-device solves of a
@@ -393,12 +399,20 @@ def phase_kernels(fleet, window, topo_hier):
         one["abs"] = max(one["abs"], other["abs"])
         one["rels"].update({f"{k} ({shape})": v for k, v in other["rels"].items()})
 
-    # ---- fused banded merge + solve (ring, hops = 2)
+    # ---- fused banded merge + solve (ring, hops = 2): from_uv_solve's
+    # kernel, its loader summing each device's band in the plain version's
+    # order, so no element may differ. The work: the 2·hops adds of each
+    # element of a band and the solve's least work (as csrc/topology_merge.cu
+    # counts it); the bytes: the payloads read once, P and β written once
     wm = (w * mask[:, None, None]).contiguous()
     got = tm.banded_merge_solve(wm, HOPS, ridge=RIDGE)
     ref = tm.banded_merge_solve_plain(wm, HOPS, ridge=RIDGE)
     abs_e, rels = rel_err(got, ref)
-    rows["banded_merge_solve"] = dict(
+    differ = sum(mismatches(g, r) for g, r in zip(got, ref))
+    again = tm.banded_merge_solve(wm, HOPS, ridge=RIDGE)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), (
+        "banded_merge_solve: a second call gave other bits")
+    rows["banded_merge_solve"] = r = dict(
         abs=abs_e, rels=dict(zip(("P", "beta"), rels)),
         flops=d * 2 * HOPS * e + solve_flops(d, nh, m),
         nbytes=4 * (d * e + d * nh * nh + d * nh * m),
@@ -406,6 +420,11 @@ def phase_kernels(fleet, window, topo_hier):
         plain_ms=cuda_ms(lambda: tm.banded_merge_solve_plain(wm, HOPS, ridge=RIDGE), 2),
         library_ms=None,
     )
+    alone = device_ms(lambda: tm.banded_merge_solve(wm, HOPS, ridge=RIDGE), 10,
+                      ("uv_solve_cluster_kernel",))
+    log(f"  banded_merge_solve D={d} hops={HOPS}: {differ} of {d * e} elements differ from the"
+        f" plain version; ms={r['ms']:.4f} (kernel alone {ms_text(alone)})")
+    assert differ == 0, f"banded_merge_solve: {differ} elements differ from the plain version"
 
     rows["quantize_pack"] = phase_quantize_pack(uv)
     rows["robust_segment_sum_mix"] = phase_robust_segment_sum(w, mask, topo_hier)
@@ -1206,7 +1225,8 @@ def exact_score_distance(state, train, pattern, key, ecfg, seed, x_eval):
     from repro_torch.data import make_pattern_stream
 
     xs = make_pattern_stream(train, pattern, seed=seed).astype(np.float64)
-    params = init_slfn(torch.Generator().manual_seed(key), xs.shape[1], ecfg.n_hidden)
+    params = init_slfn(torch.Generator().manual_seed(key), xs.shape[1], ecfg.n_hidden,
+                       device="cpu")
     alpha, bias = params.alpha.double().numpy(), params.bias.double().numpy()
     n_init = min(max(2 * ecfg.n_hidden, 8), max(len(xs) - 8, len(xs) // 2))
     ridge = max(ecfg.ridge, 1e-2 if n_init < 2 * ecfg.n_hidden else ecfg.ridge)
@@ -1458,7 +1478,8 @@ def mix_kernel_rows(fleet, topo_hier):
         log(f"  {name} {label}: mismatches {mism}"
             + (f" (library against plain: {lib_mism})" if lib_mism is not None else "")
             + f"  ms={r['ms']:.4f} (kernel alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
-            + " library_ms=" + (f"{r['library_ms']:.4f}" if library is not None else "None")
+            + " library_ms=" + (f"{r['library_ms']:.4f} ({library_device(library, 20)})"
+                                if library is not None else "None")
             + f"  bound_ms={b[0]:.4f} ({b[1]}, {nbytes / 1e6:.1f} MB)")
         assert mism == 0, f"{name} {label}: {mism} elements differ from the plain version"
         return r
@@ -1743,8 +1764,10 @@ SERVE_CPU_B, SERVE_CPU_S, SERVE_CPU_STEPS = 2, 256, 8
 # fraction of row 0's, counts as much as row 0. flash: f32 dot products in
 # other orders (measured up to 4.3e-6 per row); bf16, a p or an output that
 # rounds to the other neighbour (up to 7.8e-3 on the tensor cores, about one
-# bf16 step of the row's largest entry). GLA's plain version repeats the kernel's order
-# (measured bit for bit): 1e-5 in f32, one bf16 step (2^-8) in bf16.
+# bf16 step of the row's largest entry). GLA's plain version repeats the
+# kernels' arithmetic, its products summed in PyTorch's order (measured up to
+# 1.5e-7 per row in f32; the bf16 rows equal): 1e-5 in f32, one bf16 step
+# (2^-8) in bf16.
 ATTN_TOL = {("flash_attention", "float32"): 1e-5, ("flash_attention", "bfloat16"): 2e-2,
             ("gla_forward", "float32"): 1e-5, ("gla_forward", "bfloat16"): 2 ** -8}
 # card against CPU at full width, f32: prefill logits, features and caches and
@@ -1752,6 +1775,10 @@ ATTN_TOL = {("flash_attention", "float32"): 1e-5, ("flash_attention", "bfloat16"
 # the reference
 SERVE_CPU_REL = 1e-4
 NEAR_TIE = 1e-4             # top-two logit gap, relative to max |logit|
+
+
+# the kernels one gla_forward call launches, as the profiler names them
+GLA_KERNELS = ("gla_chunk_state_kernel", "gla_carry_kernel", "gla_chunk_out_kernel")
 
 
 def row_rel_err(got, want) -> float:
@@ -1798,7 +1825,7 @@ def attention_kernel_rows():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
 
-    def measure(name, label, dtype, fn, plain, library, kernel, work, main):
+    def measure(name, label, dtype, fn, plain, library, kernels, work, main):
         got, want = fn(), plain()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
@@ -1809,7 +1836,7 @@ def attention_kernel_rows():
         r = dict(abs=abs_err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
                  library_ms=cuda_ms(library, 20) if library is not None else None,
                  bound_ms=b[0], bound_by=b[1])
-        alone = device_ms(fn, 10, (kernel,))
+        alone = device_ms(fn, 10, kernels)
         log(f"  {name} {label}: max rel in a row {', '.join(f'{x:.2e}' for x in rels)}"
             f" (tol {tol:.1e})"
             f"  ms={r['ms']:.4f} (kernel alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
@@ -1832,7 +1859,7 @@ def attention_kernel_rows():
                     lambda: flash_attention(q, k, v, causal=causal),
                     lambda: flash_attention_plain(q, k, v, causal=causal),
                     lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
-                    "flash_fwd_kernel", flash_work(b, s, s, h, hd, causal, q.element_size()),
+                    ("flash_fwd_kernel",), flash_work(b, s, s, h, hd, causal, q.element_size()),
                     main=(s, dtype, causal, hd) == (512, torch.bfloat16, True, 64))
     for b, s, h, dk, dv in ((4, 512, 25, 16, 64), (4, 1000, 25, 16, 64),
                             (4, SERVE_LONG, 25, 16, 64)):
@@ -1843,7 +1870,7 @@ def attention_kernel_rows():
             la = -F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
             measure("gla_forward", f"B={b} S={s} H={h} dk={dk} dv={dv} {dtype}", dtype,
                     lambda: gla_forward(q, k, v, la), lambda: gla_forward_plain(q, k, v, la),
-                    None, "gla_fwd_kernel", gla_work(b, s, h, dk, dv, q.element_size()),
+                    None, GLA_KERNELS, gla_work(b, s, h, dk, dv, q.element_size()),
                     main=(s, dtype) == (512, torch.bfloat16))
     return rows
 

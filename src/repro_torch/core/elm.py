@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.activations import get_activation
 
 
@@ -35,12 +36,14 @@ def init_slfn(
     n_hidden: int,
     *,
     dist: str = "uniform",
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
 ) -> SLFNParams:
     """Random frozen projection; ``dist`` matches the paper's p(x)=Uniform.
     The draw comes from ``generator`` (a CPU generator, so one seed gives
-    one basis whatever the device) and is then moved to ``device``."""
+    one basis whatever the device) and is then moved to ``device`` (the
+    card unless ``device="cpu"``)."""
+    device = resolve_device(device)
     if dist == "uniform":
         alpha = torch.rand((n_in, n_hidden), generator=generator, dtype=dtype) * 2 - 1
         bias = torch.rand((n_hidden,), generator=generator, dtype=dtype) * 2 - 1

@@ -1,5 +1,5 @@
 // Asynchronous copies and bf16 tensor-core products in inline PTX for
-// Hopper (sm_90a), shared by flash_attn.cu and matmul_atb.cu.
+// Hopper (sm_90a), shared by flash_attn.cu, matmul_atb.cu and gla_scan.cu.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -72,11 +72,22 @@
 //     columns across clusters, each eliminating A itself.
 //
 // * banded_merge_solve (pallas_call :491, _banded_solve_kernel :425):
-//     the open ring. Each block sums its device's 2·hops+1 neighbour
-//     payloads at (d+o) mod D — the U part into A, the V columns of its own
-//     tile — and runs the same elimination, so the merged (U, V) never goes
-//     to device memory. Bound: f32 operations, about 6.9 GFLOP at D = 256
-//     (0.10 ms); the repeated elimination of A per tile adds to that.
+//     the open ring: device d solves the sum of the payloads of devices
+//     (d − hops .. d + hops) mod D. As the Pallas kernel sums the
+//     neighbour blocks in VMEM so that the merged (U, V) never touches
+//     HBM, uv_solve_cluster_kernel's loader sums them into the cluster's
+//     slots as it reads them (ring_src, in that order, onto the first; the
+//     plain version's order), adds the ridge on A's diagonal and runs the
+//     same elimination: A eliminated once a device, one cluster a device
+//     (the port's first design eliminated A again in each of a device's 11
+//     tiles of 64 right-hand-side columns, ~7.1 ms at D = 256). Bound: f32
+//     operations, the 2·hops adds of every element of a band plus the
+//     solve's least work (solve_flops in chip_smoke.py),
+//     D·(2·hops·Ñ(Ñ+m) + Ñ³ + 2·Ñ²·m) = 5.33 GFLOP at D = 256, hops = 2 and
+//     the har width, 0.0796 ms at 67 TFLOP/s; 90 MB of payloads read once
+//     and 90 MB of (P, β) written (0.054 ms at 3.35 TB/s). The 2·hops
+//     repeated reads of a neighbour come mostly from L2: neighbouring
+//     devices' clusters run in the same wave.
 //
 // * dense_mix (pallas_call :314, _dense_kernel :281): out = M @ flatten(x)
 //     for any (D, D) mask M and x (D, Ñ, Ñ+m), the route of a dense topology
@@ -95,11 +106,6 @@
 //     k = 0..D−1 in order, one fused multiply-add per step, exactly as the
 //     plain version does, so the two agree bit for bit (no TF32, no split
 //     over k: RLS parity degrades as κ(P)² with a looser product).
-//
-// The banded solve's elimination step is the reference's: row_k =
-// w[k,:]/w[k,k], w ← w − (w[:,k] − e_k)·row_k. Columns j < k of A are
-// already e_j and row_k is 0 there, so only the columns j > k of A are
-// updated; the right-hand side is updated in full.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -113,7 +119,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSolveTile = 64;  // right-hand-side columns per block
 
 // kMasked: each member's payload is scaled by mask[d] first (the masked
 // merge); otherwise the mask is never read (mask may be null).
@@ -169,76 +174,6 @@ banded_mix_kernel(const float* __restrict__ x, float* __restrict__ out, int D, l
   out[(size_t)d * E + e] = acc;
 }
 
-// Eliminate A (n×n, row stride n+1) against the tile R (n×tc, row stride
-// tc+1), both in shared memory. rowbuf holds n+tc floats, colbuf n.
-__device__ void gj_sweep(float* A, float* R, float* rowbuf, float* colbuf, int n, int tc) {
-  const int lda = n + 1, ldr = tc + 1;
-  const int tid = threadIdx.x;
-  for (int k = 0; k < n; ++k) {
-    const float pivot = A[k * lda + k];
-    for (int i = tid; i < n + tc; i += kThreads)
-      rowbuf[i] = (i < n ? A[k * lda + i] : R[k * ldr + (i - n)]) / pivot;
-    for (int i = tid; i < n; i += kThreads)
-      colbuf[i] = A[i * lda + k] - (i == k ? 1.0f : 0.0f);
-    __syncthreads();
-    const int wa = n - k - 1;
-    for (int idx = tid; idx < n * wa; idx += kThreads) {
-      const int i = idx / wa, j = k + 1 + idx % wa;
-      A[i * lda + j] -= colbuf[i] * rowbuf[j];
-    }
-    for (int idx = tid; idx < n * tc; idx += kThreads) {
-      const int i = idx / tc, j = idx % tc;
-      R[i * ldr + j] -= colbuf[i] * rowbuf[n + j];
-    }
-    __syncthreads();
-  }
-}
-
-// Write the solved tile: column c < n of [P | β] goes to P, the rest to β.
-__device__ void store_tile(const float* R, float* p, float* beta, int n, int m, int c0,
-                           int tc) {
-  const int ldr = tc + 1;
-  for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
-    const int i = idx / tc, j = idx % tc, c = c0 + j;
-    if (c < n) p[(size_t)i * n + c] = R[i * ldr + j];
-    else if (c < n + m) beta[(size_t)i * m + (c - n)] = R[i * ldr + j];
-  }
-}
-
-// One block per (tile, device d): sum the payloads of devices
-// (d − hops .. d + hops) mod D in that order, then solve.
-__global__ void __launch_bounds__(kThreads)
-banded_solve_kernel(const float* __restrict__ w, float* __restrict__ p,
-                    float* __restrict__ beta, int D, int n, int m, int hops, float ridge) {
-  extern __shared__ float smem[];
-  const int tc = kSolveTile, lda = n + 1, ldr = tc + 1, ldw = n + m;
-  float* A = smem;
-  float* R = A + n * lda;
-  float* rowbuf = R + n * ldr;
-  float* colbuf = rowbuf + n + tc;
-  const int d = blockIdx.y, c0 = blockIdx.x * tc;
-  const size_t per = (size_t)n * ldw;
-  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
-    const int i = idx / n, j = idx % n;
-    float acc = 0.0f;
-    for (int o = -hops; o <= hops; ++o) acc += w[ring_src(d, o, D) * per + (size_t)i * ldw + j];
-    A[i * lda + j] = acc + (i == j ? ridge : 0.0f);
-  }
-  for (int idx = threadIdx.x; idx < n * tc; idx += kThreads) {
-    const int i = idx / tc, j = idx % tc, c = c0 + j;
-    float val = 0.0f;
-    if (c < n) {
-      val = (i == c) ? 1.0f : 0.0f;
-    } else if (c < n + m) {
-      for (int o = -hops; o <= hops; ++o) val += w[ring_src(d, o, D) * per + (size_t)i * ldw + c];
-    }
-    R[i * ldr + j] = val;
-  }
-  __syncthreads();
-  gj_sweep(A, R, rowbuf, colbuf, n, tc);
-  store_tile(R, p + (size_t)d * n * n, beta + (size_t)d * n * m, n, m, c0, tc);
-}
-
 constexpr int kSolveWarps = 8;
 constexpr int kSolveThreads = kSolveWarps * 32;
 constexpr int kSolveTileRegs = 64;  // floats of the system a thread keeps in registers
@@ -272,13 +207,16 @@ __device__ __forceinline__ void publish_column(const float (&col)[Q], float* buf
 // block `rank` of the cluster the slots [rank·cb, (rank+1)·cb). Q = ⌈n/32⌉
 // row registers a slot, at most CW slots a thread. u and v have unit
 // column stride; their system and row strides are given, so slices of a
-// packed [U | V] work.
+// packed [U | V] work. System s is the sum of the inputs of systems
+// (s − hops .. s + hops) mod S, added in that order to the first of them
+// (hops = 0: system s's own input, read as it is), then ridge on A's
+// diagonal.
 template <int Q, int CW>
 __global__ void __launch_bounds__(kSolveThreads, 2)
 uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u_rs,
                         const float* __restrict__ v, long long v_ss, long long v_rs,
                         float* __restrict__ p, float* __restrict__ beta, int n, int m, int mg,
-                        int cb, float ridge) {
+                        int cb, float ridge, int hops) {
   static_assert(Q <= kSolveMaxQ && Q * CW <= kSolveTileRegs, "the tile must fit the registers");
   constexpr int kXW = (CW + 3) / 4 * 4;
   extern __shared__ __align__(16) float smem[];
@@ -288,20 +226,23 @@ uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = blockIdx.x / cs, sys = blockIdx.y;
+  const int g = blockIdx.x / cs, sys = blockIdx.y, n_sys = gridDim.y;
   const int v0 = g * mg;
   const int nslot = n + min(mg, m - v0);
   const int j0 = rank * cb;
   const int cnt = max(0, min(cb, nslot - j0));              // this block's slots
   const int cntw = cnt > warp ? (cnt - warp + 7) / 8 : 0;  // this warp's: local slots warp + 8c
   const int ld = cb | 1;
-  const float* us = u + sys * u_ss;
-  const float* vs = v + sys * v_ss;
   for (int i = warp; i < n; i += kSolveWarps)
     for (int j = lane; j < cnt; j += 32) {
       const int sl = j0 + j;
-      stage[i * ld + j] = sl < n ? us[i * u_rs + sl] + (i == sl ? ridge : 0.0f)
-                                 : vs[i * v_rs + v0 + (sl - n)];
+      const bool in_u = sl < n;
+      const float* src = in_u ? u : v;
+      const long long ss = in_u ? u_ss : v_ss;
+      const long long at = in_u ? i * u_rs + sl : i * v_rs + v0 + (sl - n);
+      float x = src[ring_src(sys, -hops, n_sys) * ss + at];
+      for (int o = -hops + 1; o <= hops; ++o) x = __fadd_rn(x, src[ring_src(sys, o, n_sys) * ss + at]);
+      stage[i * ld + j] = in_u ? x + (i == sl ? ridge : 0.0f) : x;
     }
   __syncthreads();
   float w[Q][CW];
@@ -410,7 +351,7 @@ uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u
 template <int Q, int CW>
 cudaError_t launch_uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
                             long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
-                            int m, float ridge, cudaStream_t st) {
+                            int m, float ridge, int hops, cudaStream_t st) {
   const int cap = kSolveMaxCluster * kSolveWarps * CW;  // slots a cluster holds
   const int groups = n + m <= cap ? 1 : (m + (cap - n) - 1) / (cap - n);
   const int mg = (m + groups - 1) / groups;
@@ -437,7 +378,7 @@ cudaError_t launch_uv_solve(const float* u, long long u_ss, long long u_rs, cons
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, mg, cb,
-                         ridge);
+                         ridge, hops);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -572,7 +513,29 @@ dense_mix_kernel(const float* __restrict__ mt, const float* __restrict__ X,
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
-int solve_smem(int n) { return (n * (n + 1) + n * (kSolveTile + 1) + 2 * n + kSolveTile) * 4; }
+// Row registers a slot, rounded up to one of four tiles (rows past n are
+// zeros and are never stored).
+cudaError_t uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
+                     long long v_ss, long long v_rs, float* p, float* beta, int S, int n, int m,
+                     float ridge, int hops, cudaStream_t st) {
+  if (S == 0 || n == 0) return cudaSuccess;
+  const int q = (n + 31) / 32;
+  switch (q <= 2 ? q : q <= 4 ? 4 : 7) {
+    case 1:
+      return launch_uv_solve<1, 64>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
+                                    st);
+    case 2:
+      return launch_uv_solve<2, 32>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
+                                    st);
+    case 4:
+      return launch_uv_solve<4, 16>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
+                                    st);
+    case 7:
+      return launch_uv_solve<7, 9>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
+                                   st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -580,7 +543,6 @@ extern "C" {
 
 const char* repro_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
-int repro_solve_smem(int n) { return solve_smem(n); }
 int repro_uv_solve_max_n() { return 32 * kSolveMaxQ; }
 
 // w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E).
@@ -634,35 +596,17 @@ int repro_banded_mix(const float* x, float* out, int D, long long E, int hops, v
 int repro_uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
                    long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
                    int m, float ridge, void* stream) {
-  if (S == 0 || n == 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // row registers a slot, rounded up to one of four tiles (rows past n are
-  // zeros and are never stored)
-  const int q = (n + 31) / 32;
-  switch (q <= 2 ? q : q <= 4 ? 4 : 7) {
-    case 1:
-      return launch_uv_solve<1, 64>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
-    case 2:
-      return launch_uv_solve<2, 32>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
-    case 4:
-      return launch_uv_solve<4, 16>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
-    case 7:
-      return launch_uv_solve<7, 9>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return uv_solve(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, 0,
+                  static_cast<cudaStream_t>(stream));
 }
 
-// w (D, n, n+m) contiguous → p (D,n,n), beta (D,n,m).
+// w (D, n, n+m) contiguous, 2·hops+1 ≤ D, n ≤ repro_uv_solve_max_n() →
+// p (D,n,n), beta (D,n,m): the solve of each device's ±hops band sum.
 int repro_banded_merge_solve(const float* w, float* p, float* beta, int D, int n, int m,
                              int hops, float ridge, void* stream) {
-  const int smem = solve_smem(n);
-  cudaError_t e = cudaFuncSetAttribute(banded_solve_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n + m + kSolveTile - 1) / kSolveTile, D);
-  banded_solve_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, p, beta, D, n, m, hops, ridge);
-  return cudaGetLastError();
+  const long long per = (long long)n * (n + m);
+  return uv_solve(w, per, n + m, w + n, per, n + m, p, beta, D, n, m, ridge, hops,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // M (D, D) and x (D, F) contiguous f32, mt (D, D) f32 scratch → out (D, F) = M @ x.

@@ -127,14 +127,13 @@ _SIGNATURES = {
     "repro_matmul_atb": [_P] * 4 + [_I] * 7 + [_P],
     "repro_rank1_add": [_P] * 4 + [_F, _P, _I, _I, _I, _P],
     "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
-    "repro_gla_forward": [_P] * 6 + [_I] * 7 + [_P],
-    "repro_gla_smem": [_I] * 3,
+    "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
+    "repro_gla_smem": [_I] * 2,
     "repro_quantize_pack_smem": [_I],
     "repro_ingest_gain_smem": [_I],
     "repro_ingest_beta_smem": [_I, _I],
     "repro_ingest_beta_tile": [],
     "repro_ingest_chunk": [],
-    "repro_solve_smem": [_I],
     "repro_uv_solve_max_n": [],
 }
 

@@ -1,15 +1,18 @@
 """Chunked gated-linear-attention forward; port of ``repro.kernels.gla_scan``.
 
 ``gla_forward`` takes ``gla_forward_plain`` for CPU tensors and launches
-the kernel of ``csrc/gla_scan.cu`` for CUDA tensors, or raises. q and k
+the kernels of ``csrc/gla_scan.cu`` for CUDA tensors, or raises. q and k
 are (B, S, H, dk), v (B, S, H, dv), all of one type (f32 or bf16), and
 log a (B, S, H) the per-token log decay; it returns y (B, S, H, dv) in
 q's type and the final state (B, H, dk, dv) in f32, which the reference's
-kernel drops. Chunks are min(128, S) tokens. The plain version repeats
-the kernel's arithmetic chunk by chunk: f32 inside, the cumsum of log a
-sequential in token order, the gate by select, padding with log a = 0 and
-zeroed q, k, v; its products are PyTorch's, so the two agree to f32
-rounding, not bit for bit.
+kernel drops. Chunks are min(128, S) tokens. On the card one call runs
+the chunks in parallel: each chunk's state increment, the carry of the
+state through the chunks in order, then each chunk's output (three
+launches, one count). The plain version repeats the kernels' arithmetic
+chunk by chunk: f32 inside, the cumsum of log a sequential in token
+order, the gate by select, the carry S·e^{tot} + ΔS, padding with
+log a = 0 and zeroed q, k, v; its products are PyTorch's, so the two
+agree to f32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ def _check(q, k, v, log_a) -> None:
 
 def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 cumsum over the last axis, one token after the other as
-    the kernel's single thread adds them (``torch.cumsum`` on the CPU sums
+    the kernels' scanning thread adds them (``torch.cumsum`` on the CPU sums
     in f64, on the card in a parallel scan)."""
     out = x.clone()
     for t in range(1, x.shape[-1]):
@@ -92,14 +95,19 @@ def gla_forward(
     if s == 0:
         return y, state.zero_()
     c = min(CHUNK, s)
+    n = -(-s // c)
     lib = _lib.library()
-    smem = lib.repro_gla_smem(c, dk, dv)
+    smem = lib.repro_gla_smem(dk, dv)
     if smem > _lib.MAX_SMEM:
         raise ValueError(f"gla_forward: dk = {dk}, dv = {dv} need {smem} bytes of shared "
                          f"memory, more than a block's {_lib.MAX_SMEM}")
+    # the kernels' scratch: each chunk's state increment, then the state
+    # entering it, and each chunk's decay e^{tot}
+    dstate = torch.empty((b, h, n, dk, dv), dtype=torch.float32, device=q.device)
+    decay = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     status = lib.repro_gla_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), y.data_ptr(), state.data_ptr(),
-        b, s, h, dk, dv, c, bf16, _lib.stream(),
+        dstate.data_ptr(), decay.data_ptr(), b, s, h, dk, dv, c, bf16, _lib.stream(),
     )
     _lib.check(status, "gla_forward")
     _lib.count_launch("gla_forward")

@@ -10,7 +10,8 @@
 - ``from_uv_solve`` — Gauss-Jordan without pivoting on [U+εI | I | V],
   giving P = (U+εI)⁻¹ and β = PV per system;
 - ``banded_merge_solve`` — the open ring: each device sums its 2·hops+1
-  neighbour payloads and solves, in one kernel;
+  neighbour payloads and solves, in one kernel (``from_uv_solve``'s, the
+  band summed as it is loaded);
 - ``dense_mix`` — out = M @ flatten(x) for any (D, D) mask, the route of a
   dense topology that is not fully connected;
 - ``topology_mix`` — ``Topology.mix`` on these kernels, with the
@@ -228,16 +229,11 @@ def from_uv_solve_plain(
     return _gj_solve_plain(a, v)
 
 
-def _check_solve_n(kernel: str, n: int) -> None:
-    if _lib.library().repro_solve_smem(n) > _lib.MAX_SMEM:
-        raise ValueError(f"{kernel}: Ñ={n} does not fit the solve's shared-memory tile")
-
-
-def _check_cluster_solve_n(n: int) -> None:
+def _check_cluster_solve_n(kernel: str, n: int) -> None:
     limit = _lib.library().repro_uv_solve_max_n()
     if n > limit:
         raise ValueError(
-            f"from_uv_solve: Ñ={n} exceeds the cluster solve's limit of {limit} rows "
+            f"{kernel}: Ñ={n} exceeds the cluster solve's limit of {limit} rows "
             "(7 registers a slot for each lane)"
         )
 
@@ -261,7 +257,7 @@ def from_uv_solve(
                 f"column stride; got {t.dtype} on {t.device}, strides {t.stride()}"
             )
     s, n, m = v.shape
-    _check_cluster_solve_n(n)
+    _check_cluster_solve_n("from_uv_solve", n)
     p = torch.empty((s, n, n), dtype=torch.float32, device=u.device)
     beta = torch.empty((s, n, m), dtype=torch.float32, device=u.device)
     status = _lib.library().repro_uv_solve(
@@ -324,7 +320,9 @@ def banded_merge_solve(
     w: torch.Tensor, hops: int, *, ridge: float = 0.0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused open-ring merge: w (D, Ñ, Ñ+m) stacked [U | V] payloads →
-    per-device P (D, Ñ, Ñ), β (D, Ñ, m) of the ±hops neighbour sum."""
+    per-device P (D, Ñ, Ñ), β (D, Ñ, m) of the ±hops neighbour sum. The
+    kernel is ``from_uv_solve``'s, its loader summing each device's band
+    as it reads it; it takes Ñ up to 224."""
     if w.ndim != 3 or w.shape[2] <= w.shape[1]:
         raise ValueError(f"need w (D, Ñ, Ñ+m); got {tuple(w.shape)}")
     if w.device.type == "cpu":
@@ -332,7 +330,7 @@ def banded_merge_solve(
     _lib.require_cuda_f32("banded_merge_solve", w=w)
     d, n, nm = w.shape
     _check_band(d, hops)
-    _check_solve_n("banded_merge_solve", n)
+    _check_cluster_solve_n("banded_merge_solve", n)
     m = nm - n
     p = torch.empty((d, n, n), dtype=torch.float32, device=w.device)
     beta = torch.empty((d, n, m), dtype=torch.float32, device=w.device)

@@ -112,10 +112,20 @@ def test_init_slfn_draws_uniform_basis_from_generator():
     """The port's own generator is checked by distribution: U(-1, 1)
     entries, and one seed gives one basis."""
     g = torch.Generator().manual_seed(7)
-    p1 = tcore.init_slfn(g, 200, 50)
-    p2 = tcore.init_slfn(torch.Generator().manual_seed(7), 200, 50)
+    p1 = tcore.init_slfn(g, 200, 50, device="cpu")
+    p2 = tcore.init_slfn(torch.Generator().manual_seed(7), 200, 50, device="cpu")
     assert torch.equal(p1.alpha, p2.alpha) and torch.equal(p1.bias, p2.bias)
     a = p1.alpha.numpy()
     assert a.min() >= -1 and a.max() <= 1
     assert abs(a.mean()) < 0.02 and abs(a.var() - 1 / 3) < 0.02
+
+
+def test_init_slfn_raises_without_a_card(monkeypatch):
+    """Like every entry point, the basis is drawn for the card unless the
+    caller asks for the CPU: with no card, no ``device`` raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcore.init_slfn(torch.Generator().manual_seed(7), 20, 5)
+    params = tcore.init_slfn(torch.Generator().manual_seed(7), 20, 5, device="cpu")
+    assert params.alpha.device.type == "cpu" and params.alpha.shape == (20, 5)
 

@@ -152,7 +152,7 @@ def test_init_autoencoder_draws_its_basis_and_boots():
     x0 = np.random.default_rng(5).uniform(-1, 1, (N_INIT, N_IN)).astype(np.float32)
     got = tcore.init_autoencoder(torch.Generator().manual_seed(3), N_IN, N_HID, x0,
                                  activation="sigmoid", ridge=5e-2, device="cpu")
-    params = tcore.init_slfn(torch.Generator().manual_seed(3), N_IN, N_HID)
+    params = tcore.init_slfn(torch.Generator().manual_seed(3), N_IN, N_HID, device="cpu")
     basis = SLFNParams(jnp.asarray(params.alpha.numpy()), jnp.asarray(params.bias.numpy()))
     want = init_oselm(basis, jnp.asarray(x0), jnp.asarray(x0), activation="sigmoid", ridge=5e-2)
     _close(got.p, want.p)

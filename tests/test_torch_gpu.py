@@ -27,9 +27,12 @@ row of the state), each row at its own max |plain|, so that late query
 rows, whose values are a fraction of row 0's, count as much: flash at
 1e-5 in f32 (the plain version's dot products are PyTorch's, in other
 orders) and 2e-2 in bf16 (a p or an output that rounds to the other bf16
-neighbour), GLA at 1e-5 and 2^-8 (its plain version repeats the kernel's
-order). The model's prefill and decode on the card
-are held to the CPU's at 1e-4 (reduced hymba-1.5b, f32).
+neighbour), GLA at 1e-5 and 2^-8 (its plain version repeats the kernels'
+arithmetic, its products summed in PyTorch's order). ``banded_merge_solve``
+is held bit for bit at the har width: its loader sums each band in the
+plain version's order and its elimination is ``from_uv_solve``'s. The
+model's prefill and decode on the card are held to the CPU's at 1e-4
+(reduced hymba-1.5b, f32).
 """
 import numpy as np
 import pytest
@@ -298,6 +301,28 @@ def test_banded_merge_solve_kernel_matches_plain(cuda, hops):
     assert _rel(b, rb) < 1e-5
     with pytest.raises(ValueError, match="band"):
         banded_merge_solve(w[:4].contiguous(), 2, ridge=1e-3)
+
+
+# the har width (Ñ = 128, m = 561) on a ring of 16, hops 1 and 2; and
+# m = 1000, where n + m passes the 1 024 slots one cluster holds, so the V
+# columns split over two clusters. The loader sums the band in the plain
+# version's order and the elimination is from_uv_solve's: no element differs
+@pytest.mark.parametrize("d,n,m,hops", [(16, 128, 561, 1), (16, 128, 561, 2), (5, 128, 1000, 2)])
+def test_banded_merge_solve_is_bit_exact_with_plain(cuda, d, n, m, hops):
+    rng = np.random.default_rng(9 + hops)
+    u = _spd(rng, d, n, cuda)
+    v = torch.from_numpy(rng.standard_normal((d, n, m)).astype(np.float32)).to(cuda)
+    w = torch.cat([u, v], dim=2).contiguous()
+    p, b = _launched("banded_merge_solve", lambda: banded_merge_solve(w, hops, ridge=1e-3))
+    rp, rb = banded_merge_solve_plain(w, hops, ridge=1e-3)
+    assert torch.isfinite(p).all() and torch.isfinite(b).all()
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
+
+
+def test_banded_merge_solve_names_its_limit(cuda):
+    w = torch.zeros((3, 225, 228), device=cuda)
+    with pytest.raises(ValueError, match="banded_merge_solve: Ñ=225 .*limit of 224"):
+        banded_merge_solve(w, 1)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -677,10 +702,16 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, sk, h, hd, causal, dt
     assert _row_rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
 
 
+# each chunk is a block of its own and one pass carries the state through
+# the chunks in order: 32 chunks (S = 4096), 24 with a partial last one of
+# 57 tokens (S = 3001), one short chunk (S = 77), and a second chunk of one
+# token under four 64-column passes (dv = 200)
 @pytest.mark.parametrize("b,s,h,dk,dv", [(2, 33, 3, 16, 8), (2, 200, 3, 16, 64),
                                          (4, 1000, 25, 16, 64), (4, 2048, 25, 16, 64),
                                          (1, 300, 2, 64, 65),
-                                         (1, 1, 2, 16, 64)])
+                                         (1, 1, 2, 16, 64), (1, 4096, 2, 16, 64),
+                                         (1, 3001, 2, 16, 64), (2, 77, 3, 16, 64),
+                                         (1, 129, 2, 16, 200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gla_kernel_matches_plain(cuda, b, s, h, dk, dv, dtype):
     gen = torch.Generator(device=cuda).manual_seed(s + dv)
@@ -690,6 +721,25 @@ def test_gla_kernel_matches_plain(cuda, b, s, h, dk, dv, dtype):
     y, state = _launched("gla_forward", lambda: gla_forward(q, k, v, log_a))
     want_y, want_state = gla_forward_plain(q, k, v, log_a)
     assert y.dtype == dtype and state.dtype == torch.float32
+    assert _row_rel(y, want_y) <= (1e-5 if dtype == torch.float32 else 2 ** -8)
+    assert _row_rel(state, want_state) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_kernel_on_a_misaligned_view(cuda, dtype):
+    """Widths that take 16-byte loads, on views one element into their
+    storage: the kernels read element by element instead."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, s, h, dk, dv = 1, 300, 2, 16, 64
+
+    def view(shape):
+        flat = _draw(cuda, (int(np.prod(shape)) + 1,), dtype, gen)
+        return flat[1:].view(shape)
+
+    q, k, v = view((b, s, h, dk)), view((b, s, h, dk)), view((b, s, h, dv))
+    log_a = -torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=cuda))
+    y, state = _launched("gla_forward", lambda: gla_forward(q, k, v, log_a))
+    want_y, want_state = gla_forward_plain(q, k, v, log_a)
     assert _row_rel(y, want_y) <= (1e-5 if dtype == torch.float32 else 2 ** -8)
     assert _row_rel(state, want_state) <= 1e-5
 

@@ -123,7 +123,7 @@ def test_train_edge_device_matches_reference_steps():
     (measured 3.9e-3 against 6.7e-3, printed)."""
     train, test = _split()
     got = train_edge_device(train, "laying", key=3, ecfg=ECFG, seed=0, device="cpu")
-    params = init_slfn(torch.Generator().manual_seed(3), 561, N_HID)
+    params = init_slfn(torch.Generator().manual_seed(3), 561, N_HID, device="cpu")
     xs = make_pattern_stream(train, "laying", seed=0)
     n_init = min(max(2 * N_HID, 8), max(len(xs) - 8, len(xs) // 2))
     ridge = 1e-2 if n_init < 2 * N_HID else ECFG.ridge

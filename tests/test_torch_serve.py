@@ -94,7 +94,8 @@ def _reference_loop(rcfg, rparams, *, rounds, batch, prompt_len, new_tokens, dri
 def _reference_monitor(feats, seed, d_model, n_hidden, *, kernels=False):
     """The reference loop's monitor on ``feats`` (warm-up rows, then each
     round's), with the port's basis: (scores, flags)."""
-    basis = init_slfn(torch.Generator().manual_seed(seed + MONITOR_SEED_OFFSET), d_model, n_hidden)
+    basis = init_slfn(torch.Generator().manual_seed(seed + MONITOR_SEED_OFFSET), d_model, n_hidden,
+                      device="cpu")
     warm = jnp.asarray(feats[0])
     x0 = jnp.tile(warm, (2 * n_hidden // warm.shape[0] + 1, 1))
     detector = ref_init_oselm(RefSLFNParams(jnp.asarray(basis.alpha.numpy()),
@@ -131,7 +132,8 @@ def _exact_scores(feats, seed, d_model, n_hidden):
     """The monitor's chain in f64 (identity activation, as ``serve`` runs
     it): the Eq. 13 init on the tiled warm-up rows, k=1 steps over them,
     then per round the score and a batch step."""
-    basis = init_slfn(torch.Generator().manual_seed(seed + MONITOR_SEED_OFFSET), d_model, n_hidden)
+    basis = init_slfn(torch.Generator().manual_seed(seed + MONITOR_SEED_OFFSET), d_model, n_hidden,
+                      device="cpu")
     alpha, bias = basis.alpha.double().numpy(), basis.bias.double().numpy()
     warm = feats[0].astype(np.float64)
     x0 = np.tile(warm, (2 * n_hidden // warm.shape[0] + 1, 1))
