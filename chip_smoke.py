@@ -11,7 +11,8 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    width (D = 256 devices, T = 32 samples per tick, n = m = 561 features,
    Ñ = 128 hidden, ring hops = 2, hierarchical C = D/8), with kernel, plain
    and library-call times from CUDA events and the bound from the shapes;
-   ``quantize_pack`` with and without a residual, ``robust_segment_sum_mix``
+   ``quantize_pack`` with and without a residual (each also alone, by
+   ``torch.profiler``), ``robust_segment_sum_mix``
    (star and hierarchical, trim 1 and 2, devices masked, clip scales below
    1) and ``dense_mix`` (a seeded symmetric 0/1 mask, and the edges of its
    tile), bit for bit; ``from_uv_solve`` at S = 1, 32 and 256 (the stale
@@ -80,7 +81,17 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    prefill's launches of the two kernels checked; (c) full width in f32 at
    2 layers, card against CPU: prefill logits, features and caches and 8
    decode steps; (d) a profile of one prefill and 16 decode steps;
-10. the kernel list, one JSON object per kernel, then the result line.
+10. a wide hidden layer: (a) the port's ``FleetRuntime`` at D = 16,
+    Ñ = 256, the har width otherwise, on f32 star, f32 ring, int8 star and
+    the stale ring (lags up to 3), six ticks, the shifted device flagged
+    at the last, merges every 3 ticks (the second without it), card
+    against CPU (flags and decisions equal, losses within
+    phase 4's bounds) and each route's kernels launched; (b) at Ñ = 320,
+    ``from_uv_solve`` (S = 1 and 16) and ``banded_merge_solve`` (hops 2)
+    with no element differing from their plain versions, ``quantize_pack``
+    bit for bit, ``fleet_ingest`` (T = 32 and 64) within 1e-4, each with
+    its time alone and by events and its bound;
+11. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -285,14 +296,27 @@ INGEST_KERNELS = ("gemm_tile_kernel", "ingest_gain_kernel", "ingest_beta_kernel"
                   "ingest_loss_kernel")
 
 
+def ingest_work(d: int, t: int, n: int, nh: int, m: int) -> tuple[float, float]:
+    """(flops, bytes) of one fleet_ingest call in the kernel's order: the
+    projection, E₀ and the ordered β update (2·Ñ·m a sample each), the P
+    chain (6·Ñ² a sample), and, for each pair s < t of a chunk, L[t, s]
+    (2·Ñ) and its substitution (2·m); inputs read and outputs written once."""
+    from repro_torch.kernels.fleet_ingest import ingest_chunk, ingest_chunks
+
+    pairs = sum((c1 - c0) * (c1 - c0 - 1) // 2 for c0, c1 in ingest_chunks(t, ingest_chunk(nh)))
+    flops = (2 * d * t * n * nh + 4 * d * t * nh * m + 6 * d * t * nh * nh
+             + 2 * d * pairs * (nh + m))
+    nbytes = 4 * (d * t * n + n * nh + nh + 2 * d * nh * nh + 2 * d * nh * m + d)
+    return flops, nbytes
+
+
 def phase_kernels(fleet, window, topo_hier):
     """Each kernel against its plain version at the har width."""
     import torch
 
     from repro_torch.fleet import fleet_to_uv
     from repro_torch.kernels import fleet_ingest, topology_merge as tm
-    from repro_torch.kernels.fleet_ingest import (fleet_ingest_cuda, fleet_ingest_plain,
-                                                  ingest_chunks)
+    from repro_torch.kernels.fleet_ingest import fleet_ingest_cuda, fleet_ingest_plain
 
     rows = {}
     d, t, n = window.shape
@@ -302,13 +326,7 @@ def phase_kernels(fleet, window, topo_hier):
     got_s, got_l = fleet_ingest_cuda(fleet, window)
     ref_s, ref_l = fleet_ingest_plain(fleet, window)
     abs_e, rels = rel_err((got_s.p, got_s.beta, got_l), (ref_s.p, ref_s.beta, ref_l))
-    # the work the kernel's order needs: the projection, E₀ and the ordered
-    # β update (2·Ñ·m a sample each), the P chain (6·Ñ² a sample), and, for
-    # each pair s < t of a chunk, L[t, s] (2·Ñ) and its substitution (2·m)
-    pairs = sum((c1 - c0) * (c1 - c0 - 1) // 2 for c0, c1 in ingest_chunks(t))
-    flops = (2 * d * t * n * nh + 4 * d * t * nh * m + 6 * d * t * nh * nh
-             + 2 * d * pairs * (nh + m))
-    nbytes = 4 * (d * t * n + n * nh + nh + 2 * d * nh * nh + 2 * d * nh * m + d)
+    flops, nbytes = ingest_work(d, t, n, nh, m)
     rows["fleet_ingest"] = dict(
         abs=abs_e, rels=dict(zip(("P", "beta", "loss"), rels)), flops=flops, nbytes=nbytes,
         ms=cuda_ms(lambda: fleet_ingest(fleet, window), 20),
@@ -477,9 +495,12 @@ def phase_quantize_pack(uv):
                     float((got[2] - want[2]).nan_to_num().abs().max())),
             ms=cuda_ms(lambda: quantize_pack(uv.u, uv.v, r), 50),
             plain_ms=cuda_ms(lambda: quantize_pack_plain(uv.u, uv.v, r), 3),
+            device_ms=device_ms(lambda: quantize_pack(uv.u, uv.v, r), 20,
+                                ("quantize_pack_kernel",)),
         )
         t_bytes = bound(5 * e, nbytes)
         log(f"  quantize_pack ({label}): mismatches {mism}  ms={runs[label]['ms']:.4f}"
+            f" (kernel alone {ms_text(runs[label]['device_ms'])})"
             f" plain_ms={runs[label]['plain_ms']:.4f} library_ms=None"
             f"  bound_ms={t_bytes[0]:.4f} ({t_bytes[1]}, {nbytes / 1e6:.1f} MB)")
         for out, k in mism.items():
@@ -623,14 +644,16 @@ def topologies(d: int):
 INT8_TOPOLOGIES = ("star", "hierarchical", "ring")
 
 
-def runtime_config(topology, precision="f32", **hardened):
-    """The phase's runtime; ``hardened`` takes ``robust=`` and ``faults=``."""
+def runtime_config(topology, precision="f32", merge_every=4, **hardened):
+    """The phase's runtime; ``hardened`` takes ``robust=`` and ``faults=``
+    (and ``staleness=``)."""
     from repro_torch.runtime import DetectorConfig, GovernorConfig, RuntimeConfig
 
     return RuntimeConfig(
         topology=topology, ridge=RIDGE,
         detector=DetectorConfig(warmup=5, warmup_skip=1, rel_sigma=0.05),
-        governor=GovernorConfig(merge_every=4), payload_precision=precision, **hardened,
+        governor=GovernorConfig(merge_every=merge_every), payload_precision=precision,
+        **hardened,
     )
 
 
@@ -2019,6 +2042,158 @@ def phase_serving():
     return rows, launches
 
 
+# ------------------------------------------------ phase 10: a wide hidden layer
+
+D_WIDE = 16                # devices of the wide phase
+N_WIDE, N_WIDEST = 256, 320  # Ñ end to end; the widest the card's kernels are held at
+WIDE_TICKS = range(3, 9)   # six ticks of make_streams', the shift (flagged) at the last
+# the kernels each route launches at Ñ = 256 (each one at least once)
+WIDE_ROUTES = {
+    ("f32", "star"): ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve"),
+    ("f32", "ring"): ("fleet_ingest", "banded_merge_solve"),
+    ("int8", "star"): ("fleet_ingest", "quantize_pack", "from_uv_solve"),
+    ("stale", "ring"): ("fleet_ingest", "banded_mix", "from_uv_solve"),
+}
+
+
+def wide_runtimes():
+    """FleetRuntime at Ñ = 256 on f32 star, f32 ring, int8 star and the
+    stale ring (lags up to 3), merges every 3 ticks, card against CPU:
+    flags and decisions equal, losses within phase 4's bounds, and each
+    route's kernels launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import init_fleet
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import FleetRuntime
+
+    x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 1), D_WIDE, 2 * N_WIDE)
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), D_WIDE, N_FEAT, N_WIDE, x_init,
+                       activation="identity", ridge=RIDGE, device="cuda")
+    fleet_cpu = fleet.replace(params=type(fleet.params)(*(x.cpu() for x in fleet.params)),
+                              beta=fleet.beta.cpu(), p=fleet.p.cpu())
+    sched = async_schedule(D_WIDE)
+    for (kind, name), kernels in WIDE_ROUTES.items():
+        extra = dict(staleness=sched) if kind == "stale" else {}
+        cfg = runtime_config(topologies(D_WIDE)[name], "int8" if kind == "int8" else "f32",
+                             merge_every=3, **extra)
+        card = FleetRuntime(fleet, cfg, device="cuda")
+        cpu = FleetRuntime(fleet_cpu, cfg, device="cpu")
+        reset_launch_counts()
+        worst, merges, flags, t0, card_s = 0.0, 0, 0, time.perf_counter(), 0.0
+        for t in WIDE_TICKS:
+            batch = np.ascontiguousarray(ticks_np[t])
+            c0 = time.perf_counter()
+            a = card.tick(batch)
+            card_s += time.perf_counter() - c0
+            b = cpu.tick(batch)
+            rtol = INT8_LOSS_RTOL if kind == "int8" and merges else LOSS_RTOL
+            np.testing.assert_allclose(a.losses, b.losses, rtol=rtol, atol=LOSS_ATOL)
+            assert np.array_equal(a.drifted, b.drifted), f"wide {kind} {name} tick {t}: drifted"
+            assert np.array_equal(a.fresh_detections, b.fresh_detections)
+            da, db = a.decision, b.decision
+            assert (da.merge, da.participants, da.round_bytes, da.fp_participants) == (
+                db.merge, db.participants, db.round_bytes, db.fp_participants), (
+                f"wide {kind} {name} tick {t}: decisions differ")
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+            merges += da.merge
+            flags += int(a.fresh_detections.sum())
+        counts = launch_counts()
+        log(f"  {kind} {name}: {len(WIDE_TICKS)} ticks at D={D_WIDE}, Ñ={N_WIDE}, losses max rel"
+            f" diff {worst:.3e}, flags {flags}, merges {merges}: equal; card"
+            f" {card_s * 1e3 / len(WIDE_TICKS):.1f} ms a tick, both"
+            f" {time.perf_counter() - t0:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
+        assert merges >= 2 and flags > 0, f"wide {kind} {name}: {merges} merges, {flags} flags"
+        assert bool(torch.isfinite(card.states.p).all() and torch.isfinite(card.states.beta).all())
+        for k in kernels:
+            assert counts[k] > 0, f"wide {kind} {name}: {k} was never launched"
+
+
+def wide_kernel_rows():
+    """At Ñ = 320 (D = 16, m = 561): from_uv_solve (S = 1 and 16) and
+    banded_merge_solve (hops 2) with no element differing from their plain
+    versions, fleet_ingest (T = 32 and 64) within its 1e-4 bound,
+    quantize_pack bit for bit; each with its time, alone and by events,
+    and its bound, and from_uv_solve beside torch.linalg.solve."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import init_fleet
+    from repro_torch.kernels import (banded_merge_solve, banded_merge_solve_plain, fleet_ingest,
+                                     fleet_ingest_plain, from_uv_solve, from_uv_solve_plain,
+                                     quantize_pack, quantize_pack_plain)
+
+    n, m = N_WIDEST, N_FEAT
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def payloads(s):
+        a = torch.randn((s, n, 3 * n), generator=gen, device="cuda")
+        u = a @ a.transpose(1, 2) / (3 * n)
+        return u, torch.randn((s, n, m), generator=gen, device="cuda")
+
+    def timed(label, fn, kernels, flops, nbytes, reps, extra=""):
+        ms, alone = cuda_ms(fn, reps), device_ms(fn, reps, kernels)
+        b = bound(flops, nbytes)
+        log(f"    {label}: ms={ms:.4f} (alone {ms_text(alone)}) bound_ms={b[0]:.4f} ({b[1]}){extra}")
+
+    eye = torch.eye(n, device="cuda")
+    for s in (1, D_WIDE):
+        u, v = payloads(s)
+        got, ref = from_uv_solve(u, v, ridge=RIDGE), from_uv_solve_plain(u, v, ridge=RIDGE)
+        differ = sum(mismatches(g, r) for g, r in zip(got, ref))
+        a1, rhs = u + RIDGE * eye, torch.cat([eye.expand(s, n, n), v], dim=2)
+        lib = f", torch.linalg.solve ms={cuda_ms(lambda: torch.linalg.solve(a1, rhs), 10):.4f}" \
+              f" ({library_device(lambda: torch.linalg.solve(a1, rhs), 10)})"
+        log(f"  from_uv_solve S={s} Ñ={n} m={m}: {differ} of {s * n * (n + m)} elements differ")
+        timed(f"from_uv_solve S={s}", lambda: from_uv_solve(u, v, ridge=RIDGE),
+              ("uv_solve_cluster_kernel",), solve_flops(s, n, m), 4 * s * 2 * (n * n + n * m),
+              10, lib)
+        assert differ == 0, f"from_uv_solve S={s} Ñ={n}: {differ} elements differ"
+    u, v = payloads(D_WIDE)
+    w = torch.cat([u, v], dim=2).contiguous()
+    got, ref = banded_merge_solve(w, HOPS, ridge=RIDGE), banded_merge_solve_plain(w, HOPS, ridge=RIDGE)
+    differ = sum(mismatches(g, r) for g, r in zip(got, ref))
+    log(f"  banded_merge_solve D={D_WIDE} hops={HOPS} Ñ={n}: {differ} of {D_WIDE * n * (n + m)}"
+        " elements differ")
+    timed("banded_merge_solve", lambda: banded_merge_solve(w, HOPS, ridge=RIDGE),
+          ("uv_solve_cluster_kernel",), D_WIDE * 2 * HOPS * n * (n + m) + solve_flops(D_WIDE, n, m),
+          4 * D_WIDE * (n * (n + m) + n * n + n * m), 10)
+    assert differ == 0, f"banded_merge_solve Ñ={n}: {differ} elements differ"
+
+    res = torch.randn((D_WIDE, n, n + m), generator=gen, device="cuda") * 0.01
+    got, want = quantize_pack(u, v, res), quantize_pack_plain(u, v, res)
+    mism = {k: mismatches(g, r) for k, g, r in zip(("codes", "scales", "residual"), got, want)}
+    e = D_WIDE * n * (n + m)
+    log(f"  quantize_pack D={D_WIDE} Ñ={n} (residual): mismatches {mism}")
+    timed("quantize_pack", lambda: quantize_pack(u, v, res), ("quantize_pack_kernel",), 5 * e,
+          4 * e * 2 + e + 4 * e + 4 * got[1].numel(), 50)
+    assert not any(mism.values()), f"quantize_pack Ñ={n}: {mism}"
+    del u, v, w, res, got, want, ref
+
+    x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 2), D_WIDE, 2 * n)
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), D_WIDE, N_FEAT, n, x_init,
+                       activation="identity", ridge=RIDGE, device="cuda")
+    for t in (T, 2 * T):
+        window = torch.from_numpy(np.concatenate(list(ticks_np[: t // T]), axis=1)).cuda()
+        got_s, got_l = fleet_ingest(fleet, window)
+        ref_s, ref_l = fleet_ingest_plain(fleet, window)
+        _, rels = rel_err((got_s.p, got_s.beta, got_l), (ref_s.p, ref_s.beta, ref_l))
+        log(f"  fleet_ingest D={D_WIDE} T={t} Ñ={n}: max_rel P={rels[0]:.3e} beta={rels[1]:.3e}"
+            f" loss={rels[2]:.3e} (tol {TOL['fleet_ingest']:.0e})")
+        timed(f"fleet_ingest T={t}", lambda: fleet_ingest(fleet, window), INGEST_KERNELS,
+              *ingest_work(D_WIDE, t, N_FEAT, n, N_FEAT), 10)
+        assert max(rels) <= TOL["fleet_ingest"], f"fleet_ingest T={t} Ñ={n}: {rels}"
+
+
+def phase_wide():
+    """Phase 10."""
+    log(f"  (a) FleetRuntime at Ñ={N_WIDE} on four routes, card against CPU")
+    wide_runtimes()
+    log(f"  (b) the kernels at Ñ={N_WIDEST} against their plain versions")
+    wide_kernel_rows()
+
+
 def main() -> int:
     import torch
 
@@ -2097,7 +2272,12 @@ def main() -> int:
     launches.update(attn_launches)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 10: kernels (phases 1-9 took {time.perf_counter() - start:.1f} s)")
+    log("phase 10: a wide hidden layer (Ñ = 256 end to end, the kernels at Ñ = 320)")
+    t0 = time.perf_counter()
+    phase_wide()
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 11: kernels (phases 1-10 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

@@ -29,7 +29,12 @@
 //      matvecs reduce across lanes by a halving shuffle (16 shuffles for 16
 //      rows), and ph and the warps' h·ph partials meet in shared memory
 //      behind one block barrier a sample (double-buffered). It writes the
-//      gains (Ñ > 128: P in shared memory, same code);
+//      gains. For 128 < Ñ ≤ 320 one block cannot hold P (410 KB at Ñ = 320):
+//      a cluster of 8 blocks a device splits P's rows (at most 40 a block,
+//      a 5 × 10 micro-tile a thread, still in registers), each block writes
+//      its rows' ph and its warps' partials into every block's shared
+//      memory (distributed shared memory), and one cluster barrier a sample
+//      takes the block barrier's place;
 //   3. ingest_beta_kernel  — one block per (device, run of 64-column tiles
 //      of β), as many runs as fill the card (one a device at D = 256, 9
 //      tiles): the chunk's Hᵀ and gains arrive in shared memory by cp.async
@@ -42,9 +47,10 @@
 //      threads a pair of columns, with no block barrier; then β += Σ_s
 //      gain_s e_sᵀ, one fused multiply-add per sample in sample order, and
 //      each thread stores its rows from registers. A window longer
-//      than kMaxChunk samples is taken in chunks: the β of one chunk is β₀
-//      of the next, and the loss stays the pre-train error under the
-//      tick-start β;
+//      than a chunk (64 samples, 32 where Ñ > 240 and 64 samples' H, gains
+//      and L no longer fit in shared memory: ingest_chunk) is taken in
+//      chunks: the β of one chunk is β₀ of the next, and the loss stays the
+//      pre-train error under the tick-start β;
 //   4. ingest_loss_kernel  — sums each device's partials, one a run of
 //      tiles, in a fixed order (no atomics), so the drift score is
 //      reproducible.
@@ -53,11 +59,14 @@
 // (repro_torch.kernels.fleet_ingest) repeats: E₀, L, the substitution,
 // then the ordered fused multiply-adds. No padding of the inputs: every
 // loop masks its ragged edge.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "device.cuh"
 #include "gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -65,8 +74,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBetaTile = 64;   // columns of β per block, two a lane
 constexpr int kMaxChunk = 64;   // samples of a chunk: H, the gains and L stay in shared memory
+constexpr int kWideChunk = 32;  // the chunk where 64 samples' H, gains and L do not fit
+constexpr int kGainCluster = 8; // blocks a device's P chain takes past Ñ = 128
+constexpr int kMaxN = 320;      // 8 blocks of 40 rows
 constexpr int kUpdateRows = 16; // rows of the β tile a thread updates at a time
-constexpr int kMaxSmem = 232448; // the shared memory a block may use on Hopper
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -99,69 +110,51 @@ __device__ __forceinline__ void halve_rows(float (&v)[R], int lane) {
   }
 }
 
-// A thread's RI × CJ micro-tile of P (rows warp + 8i, columns lane + 32j):
-// in registers, or, for Ñ > 128, in shared memory at row stride Ñ + 1.
-template <int RI, int CJ, bool kSmem>
-struct PTile {
-  float v[RI][CJ];
-  __device__ void init(float*, int, int, int, int) {
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) v[i][j] = 0.0f;
-  }
-  __device__ float get(int i, int j) const { return v[i][j]; }
-  __device__ void set(int i, int j, float x) { v[i][j] = x; }
-};
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
 
-template <int RI, int CJ>
-struct PTile<RI, CJ, true> {
-  float* base;
-  int ld, nr, nc;  // valid i < nr, j < nc: entries past Ñ read as 0 and are not kept
-  __device__ void init(float* p, int stride, int n, int warp, int lane) {
-    ld = stride;
-    base = p + warp * stride + lane;
-    nr = n > warp ? (n - warp + 7) / 8 : 0;
-    nc = n > lane ? (n - lane + 31) / 32 : 0;
-  }
-  __device__ float get(int i, int j) const {
-    return i < nr && j < nc ? base[8 * i * ld + 32 * j] : 0.0f;
-  }
-  __device__ void set(int i, int j, float x) {
-    if (i < nr && j < nc) base[8 * i * ld + 32 * j] = x;
-  }
-};
-
-// One block per device: the P chain over the window, writing gain_t =
-// P_t·h_t for every step.
-template <int RI, int CJ, bool kSmem>
+// One block per device (CS = 1), or a cluster of CS blocks per device, block
+// `rank` holding rows [rank·rb, min((rank+1)·rb, Ñ)) of P: the P chain over
+// the window, writing gain_t = P_t·h_t for every step. A thread keeps an
+// RI × CJ micro-tile of its block's rows in registers (rows warp + 8i,
+// columns lane + 32j); entries past Ñ stay 0.
+template <int RI, int CJ, int CS>
 __global__ void __launch_bounds__(kThreads, 2)
 ingest_gain_kernel(const float* __restrict__ h_all, const float* __restrict__ p_in,
                    float* __restrict__ p_out, float* __restrict__ gains, int T, int N,
                    float forget) {
+  constexpr int RP = pow2_at_least(RI);  // the halving shuffle's rows, RI padded with zeros
+  constexpr int RED = CS * kWarps;       // h·ph partials a step: every warp of the cluster
   extern __shared__ __align__(16) float smem[];
   float* hbuf = smem;             // [2][N]: h_t, and h_{t+1} loaded a step ahead
-  float* phbuf = hbuf + 2 * N;    // [2][N]: ph of the step
-  float* red = phbuf + 2 * N;     // [2][kWarps]: the warps' h·ph partials
-  float* pshared = red + 2 * kWarps;  // P at row stride N + 1, when kSmem
+  float* phbuf = hbuf + 2 * N;    // [2][N]: ph of the step, every block's rows
+  float* red = phbuf + 2 * N;     // [2][RED]: the warps' h·ph partials, by block and warp
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int d = blockIdx.x;
+  int rank = 0;
+  if constexpr (CS > 1) {
+    cluster_arrive();  // every block runs before any writes to its shared memory
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int d = blockIdx.x / CS;
+  const int rb = (N + CS - 1) / CS, row0 = rank * rb;
+  const int nrow = max(0, min(rb, N - row0));  // this block's rows of P
   const float* pin = p_in + (size_t)d * N * N;
-  PTile<RI, CJ, kSmem> P;
-  P.init(pshared, N + 1, N, warp, lane);
+  float P[RI][CJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int r = warp + 8 * i, c = lane + 32 * j;
-      if (r < N && c < N) P.set(i, j, pin[(size_t)r * N + c]);
+      P[i][j] = r < nrow && c < N ? pin[(size_t)(row0 + r) * N + c] : 0.0f;
     }
   for (int k = tid; k < N; k += kThreads) hbuf[k] = h_all[(size_t)d * T * N + k];
-  __syncthreads();
+  __syncthreads();  // h_0 is in place (the cluster's arrive came before it was)
+  if constexpr (CS > 1) cluster_wait();
 
-  const int ri = (lane * RI) >> 5;  // the row whose sums this lane holds after halve_rows
-  const int rrow = warp + 8 * ri;
-  const bool writer = (lane & (32 / RI - 1)) == 0 && rrow < N;
+  const int ri = (lane * RP) >> 5;  // the row whose sums this lane holds after halve_rows
+  const int rloc = warp + 8 * ri, rrow = row0 + rloc;
+  const bool writer = (lane & (32 / RP - 1)) == 0 && ri < RI && rloc < nrow;
   const bool scale = forget != 1.0f;  // x / 1 is x: skip the division when λ = 1
   for (int t = 0; t < T; ++t) {
     const int b = t & 1;
@@ -170,51 +163,63 @@ ingest_gain_kernel(const float* __restrict__ h_all, const float* __restrict__ p_
 #pragma unroll
     for (int j = 0; j < CJ; ++j) hc[j] = lane + 32 * j < N ? hv[lane + 32 * j] : 0.0f;
     // Pf = P/λ, kept; ph = Pf·h
-    float acc[RI];
+    float acc[RP];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
+    for (int i = 0; i < RP; ++i) {
       float s = 0.0f;
+      if (i < RI) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        float pf = P.get(i, j);
-        if (scale) {
-          pf = pf / forget;
-          P.set(i, j, pf);
+        for (int j = 0; j < CJ; ++j) {
+          if (scale) P[i][j] = P[i][j] / forget;
+          s = __fmaf_rn(P[i][j], hc[j], s);
         }
-        s = __fmaf_rn(pf, hc[j], s);
       }
       acc[i] = s;
     }
-    halve_rows<RI, 16>(acc, lane);
-    if (writer) phbuf[b * N + rrow] = acc[0];
+    halve_rows<RP, 16>(acc, lane);
     const float dot = warp_sum(writer ? __fmul_rn(hv[rrow], acc[0]) : 0.0f);
-    if (lane == 0) red[b * kWarps + warp] = dot;
+    if constexpr (CS > 1) {  // into every block of the cluster
+      cg::cluster_group cluster = cg::this_cluster();
+      for (int k = 0; k < CS; ++k) {
+        if (writer) cluster.map_shared_rank(phbuf, k)[b * N + rrow] = acc[0];
+        if (lane == 0) cluster.map_shared_rank(red, k)[b * RED + rank * kWarps + warp] = dot;
+      }
+    } else {
+      if (writer) phbuf[b * N + rrow] = acc[0];
+      if (lane == 0) red[b * RED + warp] = dot;
+    }
     if (t + 1 < T)
       for (int k = tid; k < N; k += kThreads)
         hbuf[(b ^ 1) * N + k] = h_all[((size_t)d * T + t + 1) * N + k];
-    __syncthreads();
+    if constexpr (CS > 1) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
     float hph = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) hph += red[b * kWarps + w];
+    for (int w = 0; w < RED; ++w) hph += red[b * RED + w];
     const float denom = 1.0f + hph;
     float phc[CJ];
 #pragma unroll
     for (int j = 0; j < CJ; ++j) phc[j] = lane + 32 * j < N ? phbuf[b * N + lane + 32 * j] : 0.0f;
     // P = Pf − ph·phᵀ/denom, and gain = P·h from the new P
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = warp + 8 * i;
-      const float phr = r < N ? phbuf[b * N + r] : 0.0f;
+    for (int i = 0; i < RP; ++i) {
       float s = 0.0f;
+      if (i < RI) {
+        const int r = warp + 8 * i;
+        const float phr = r < nrow ? phbuf[b * N + row0 + r] : 0.0f;
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float pn = __fsub_rn(P.get(i, j), __fmul_rn(phr, phc[j]) / denom);
-        P.set(i, j, pn);
-        s = __fmaf_rn(pn, hc[j], s);
+        for (int j = 0; j < CJ; ++j) {
+          P[i][j] = __fsub_rn(P[i][j], __fmul_rn(phr, phc[j]) / denom);
+          s = __fmaf_rn(P[i][j], hc[j], s);
+        }
       }
       acc[i] = s;
     }
-    halve_rows<RI, 16>(acc, lane);
+    halve_rows<RP, 16>(acc, lane);
     if (writer) gains[((size_t)d * T + t) * N + rrow] = acc[0];
   }
   float* pout = p_out + (size_t)d * N * N;
@@ -223,9 +228,8 @@ ingest_gain_kernel(const float* __restrict__ h_all, const float* __restrict__ p_
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int r = warp + 8 * i, c = lane + 32 * j;
-      if (r < N && c < N) pout[(size_t)r * N + c] = P.get(i, j);
+      if (r < nrow && c < N) pout[(size_t)(row0 + r) * N + c] = P[i][j];
     }
-
 }
 
 // Start copying rows [0, tcn) of a (·, N) array into dst (tcn rows of
@@ -356,12 +360,13 @@ template <int RW>
 __global__ void __launch_bounds__(kThreads, 2)
 ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ gains,
                    const float* __restrict__ targets, const float* beta_in, float* beta_out,
-                   float* __restrict__ loss_part, int T, int N, int M, int per, int nbuf) {
+                   float* __restrict__ loss_part, int T, int N, int M, int per, int nbuf,
+                   int chunk) {
   constexpr int TC = 8 * RW, SJ = (TC + 31) / 32, R8 = TC / 8;
   constexpr int LDH = TC + 4, LDL = TC + 1, LDE = kBetaTile + 2;  // padded against bank conflicts
   extern __shared__ __align__(16) float smem[];
   const int n16 = (N + 15) / 16 * 16, ldg = n16 + 4;
-  const int tc = min(T, kMaxChunk);
+  const int tc = min(T, chunk);
   float* tiles = smem;                       // [nbuf][n16][64]
   float* ht = tiles + nbuf * n16 * kBetaTile;  // [n16][LDH]: Hᵀ of the chunk
   float* gs = ht + n16 * LDH;                // [tc][ldg]: the chunk's gains
@@ -376,11 +381,11 @@ ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ ga
   const float* gd = gains + (size_t)d * T * N;
   const float* bin = beta_in + (size_t)d * N * M;
   float* bout = beta_out + (size_t)d * N * M;
-  const int chunks = (T + kMaxChunk - 1) / kMaxChunk;
+  const int chunks = (T + chunk - 1) / chunk;
   float sq = 0.0f;
 
   for (int c = 0; c < chunks; ++c) {
-    const int c0 = c * kMaxChunk, tcn = min(kMaxChunk, T - c0);
+    const int c0 = c * chunk, tcn = min(chunk, T - c0);
     const float* tgt = targets + ((size_t)d * T + c0) * M;
     __syncthreads();  // the last chunk is done with H, the gains and L
     load_rows_t_async(ht, hd + (size_t)c0 * N, tcn, TC, N, n16, LDH);
@@ -557,26 +562,24 @@ __global__ void ingest_loss_kernel(const float* __restrict__ part, float* __rest
   loss[d] = s / count;
 }
 
-template <int RI, int CJ, bool kSmem>
+template <int RI, int CJ, int CS>
 cudaError_t launch_gain(const float* h, const float* p_in, float* p_out, float* gains, int D,
-                        int T, int N, float forget, int smem, cudaStream_t s) {
-  auto kernel = ingest_gain_kernel<RI, CJ, kSmem>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<D, kThreads, smem, s>>>(h, p_in, p_out, gains, T, N, forget);
-  return cudaGetLastError();
+                        int T, int N, float forget, cudaStream_t s) {
+  const size_t smem = (4 * (size_t)N + 2 * CS * kWarps) * 4;
+  return launch_clustered(ingest_gain_kernel<RI, CJ, CS>, dim3(D * CS), kThreads, smem, CS, s, h,
+                          p_in, p_out, gains, T, N, forget);
 }
 
 template <int RW>
 cudaError_t launch_beta(const float* h, const float* gains, const float* targets,
                         const float* beta_in, float* beta_out, float* part, int D, int T, int N,
-                        int M, int groups, int per, int nbuf, int smem,
+                        int M, int groups, int per, int nbuf, int chunk, int smem,
                         cudaStream_t s) {
   auto kernel = ingest_beta_kernel<RW>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(groups, D), kThreads, smem, s>>>(h, gains, targets, beta_in, beta_out, part, T,
-                                                  N, M, per, nbuf);
+                                                  N, M, per, nbuf, chunk);
   return cudaGetLastError();
 }
 
@@ -590,44 +593,46 @@ int beta_smem(int N, int tc, int nbuf) {
           (big * (big + 1) + 3) / 4 * 4 + big * (kBetaTile + 2) + kWarps) * 4;
 }
 
+// The samples of a chunk at Ñ = N: 64 while 64 samples' H, gains and L fit
+// one block's shared memory beside a tile of β (Ñ ≤ 240), else 32.
+int ingest_chunk(int N) {
+  return beta_smem(N, kMaxChunk, 1) <= kMaxSmem ? kMaxChunk : kWideChunk;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory the two kernels ask for, in bytes, for a window of T
-// samples (the β kernel with one tile, the least it launches with).
-int repro_ingest_gain_smem(int N) {
-  return (4 * N + 2 * kWarps + (N > 128 ? N * (N + 1) : 0)) * 4;
-}
-int repro_ingest_beta_smem(int N, int T) { return beta_smem(N, T < kMaxChunk ? T : kMaxChunk, 1); }
 int repro_ingest_beta_tile() { return kBetaTile; }
-// The samples of a chunk of the window (the plain version chunks alike).
-int repro_ingest_chunk() { return kMaxChunk; }
+// The samples of a chunk of the window at Ñ = N (the plain version chunks
+// alike), and the widest Ñ the kernels take.
+int repro_ingest_chunk(int N) { return ingest_chunk(N); }
+int repro_ingest_max_n() { return kMaxN; }
 
 // All pointers are device pointers to contiguous f32 arrays:
 // x (D,T,n), targets (D,T,m), alpha (n,N), bias (N), p_in/p_out (D,N,N),
 // beta_in/beta_out (D,N,m), loss (D); workspaces h_ws and gain_ws (D,T,N),
 // part_ws (D, ceil(m/64)), of which each run of β tiles fills one column.
-// The window is taken in chunks of kMaxChunk samples; N ≤ 256. Returns
-// the first CUDA error, or 0.
+// The window is taken in chunks of ingest_chunk(N) samples; N ≤ kMaxN.
+// Returns the first CUDA error, or 0.
 int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
                        const float* bias, const float* p_in, const float* beta_in,
                        float* p_out, float* beta_out, float* loss, float* h_ws,
                        float* gain_ws, float* part_ws, int D, int T, int n, int N, int m,
                        int act, float forget, void* stream) {
-  if (N > 256) return cudaErrorInvalidValue;
+  if (N > kMaxN) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   e = launch_gemm<float, false>(x, alpha, bias, h_ws, 1, D * T, n, N, act, s);
   if (e != cudaSuccess) return e;
 
-  const int gsmem = repro_ingest_gain_smem(N);
   if (N <= 32)
-    e = launch_gain<4, 1, false>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, gsmem, s);
+    e = launch_gain<4, 1, 1>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, s);
   else if (N <= 128)
-    e = launch_gain<16, 4, false>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, gsmem, s);
+    e = launch_gain<16, 4, 1>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, s);
   else
-    e = launch_gain<32, 8, true>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, gsmem, s);
+    e = launch_gain<kMaxN / (8 * kGainCluster), kMaxN / 32, kGainCluster>(
+        h_ws, p_in, p_out, gain_ws, D, T, N, forget, s);
   if (e != cudaSuccess) return e;
 
   // runs of tiles: as many blocks as fill the card at two an SM, each
@@ -637,12 +642,13 @@ int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
   if (want < 1) want = 1;
   const int per = n_tiles > 0 ? (n_tiles + want - 1) / want : 1;
   const int groups = (n_tiles + per - 1) / per;
-  const int tc = T < kMaxChunk ? T : kMaxChunk;
+  const int chunk = ingest_chunk(N);
+  const int tc = T < chunk ? T : chunk;
   const int nbuf = per > 1 && beta_smem(N, tc, 2) <= kMaxSmem ? 2 : 1;
   const int bsmem = beta_smem(N, tc, nbuf);
   auto beta = beta_chunk_rows(tc) == 32 ? launch_beta<4> : launch_beta<8>;
   e = beta(h_ws, gain_ws, targets, beta_in, beta_out, part_ws, D, T, N, m, groups, per, nbuf,
-           bsmem, s);
+           chunk, bsmem, s);
   if (e != cudaSuccess) return e;
 
   ingest_loss_kernel<<<(D + 127) / 128, 128, 0, s>>>(part_ws, loss, D, groups,

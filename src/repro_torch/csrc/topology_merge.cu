@@ -28,11 +28,18 @@
 //     neighbour sum out[d] = Σ_{o=−hops..hops} x[(d+o) mod D], summed from
 //     zero in that order, the order of the Pallas accumulator. Bound: bytes;
 //     each payload read once and each sum written once is 181 MB at the har
-//     width and D = 256 (0.054 ms); with no reuse between neighbouring
-//     devices the 2·hops+1 reads make it 542 MB at hops = 2 (0.16 ms). One
-//     thread per element and device; blocks of neighbouring devices run
-//     together, so most of the repeated reads come from L2. The (d+o) mod D
-//     indexing is shared with banded_merge_solve (ring_src).
+//     width and D = 256 (0.054 ms at 3.35 TB/s). A thread owns four adjacent
+//     elements (16-byte loads and stores where the row length is a multiple
+//     of 4 and both arrays are 16-byte aligned, else one element) and walks
+//     a run of consecutive devices around the ring, keeping the 2·hops+1
+//     neighbour values it sums in a rolling window: each step loads the one
+//     payload that enters the band, so a payload is read (run + 2·hops)/run
+//     times (about 1.1 at D = 256 and the har width, where 7 runs of 37
+//     devices fill the card once at the 5 blocks an SM that the kernel's
+//     48 registers a thread allow; the plan reads the occupancy from the
+//     runtime). Bands up to ±kMixRegHops keep the window in registers (hops
+//     a template parameter); a wider band keeps it in a shared-memory ring,
+//     a thread's own slots, with fewer threads a block as it widens.
 //
 // * from_uv_solve (pallas_call :411, _solve_kernel :371, _gj_sweep :356):
 //     Gauss-Jordan without pivoting on [U+εI | I | V] per system, giving
@@ -69,7 +76,9 @@
 //     agree bit for bit. The C entry sizes the cluster from S, n and m: 8 blocks while
 //     the systems fit one wave (two blocks an SM), else the fewest that
 //     hold a system; a system wider than 8 blocks' registers splits its V
-//     columns across clusters, each eliminating A itself.
+//     columns across clusters, each eliminating A itself. Q ≤ 10 row
+//     registers take Ñ ≤ 320 (past about Ñ = 362 A alone would not fit one
+//     8-block cluster's registers).
 //
 // * banded_merge_solve (pallas_call :491, _banded_solve_kernel :425):
 //     the open ring: device d solves the sum of the payloads of devices
@@ -162,31 +171,112 @@ segment_broadcast_kernel_vec4(const float4* __restrict__ sums, const int* __rest
 // The device o places from d around a ring of D devices, for |o| < D.
 __device__ __forceinline__ int ring_src(int d, int o, int D) { return ((d + o) % D + D) % D; }
 
-// One block row per device d (blockIdx.y), one thread per element.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+template <typename V>
+__device__ __forceinline__ V zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ float4 zero_of<float4>() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+
+constexpr int kMixRegHops = 4;  // bands up to ±4 keep their window in registers
+
+// Thread e of a row of n values V (float4 or float) walks devices
+// [blockIdx.y·run, +run) ∩ [0, D). HOPS ≥ 0: the band's window in registers;
+// HOPS < 0: hops at run time, the window in this thread's slots of a
+// shared-memory ring (slot k at ring[k·blockDim.x + threadIdx.x]).
+template <int HOPS, typename V>
 __global__ void __launch_bounds__(kThreads)
-banded_mix_kernel(const float* __restrict__ x, float* __restrict__ out, int D, long long E,
-                  int hops) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= E) return;
-  const int d = blockIdx.y;
-  float acc = 0.0f;
-  for (int o = -hops; o <= hops; ++o) acc = __fadd_rn(acc, x[(size_t)ring_src(d, o, D) * E + e]);
-  out[(size_t)d * E + e] = acc;
+banded_mix_kernel(const V* __restrict__ x, V* __restrict__ out, int D, long long n, int hops,
+                  int run) {
+  extern __shared__ __align__(16) unsigned char mix_ring[];
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int d0 = blockIdx.y * run, d1 = min(d0 + run, D);
+  const int h = HOPS >= 0 ? HOPS : hops;
+  int src = ring_src(d0, h + 1, D);  // the device whose payload enters the band next
+  if constexpr (HOPS >= 0) {
+    constexpr int W = 2 * HOPS + 1;
+    V win[W];  // x[(d + o) mod D] at o + HOPS, o = −HOPS..HOPS
+#pragma unroll
+    for (int o = -HOPS; o <= HOPS; ++o) win[o + HOPS] = x[(size_t)ring_src(d0, o, D) * n + e];
+    for (int d = d0; d < d1; ++d) {
+      V next = zero_of<V>();
+      if (d + 1 < d1) next = x[(size_t)src * n + e];  // in flight while d is summed
+      V acc = zero_of<V>();
+#pragma unroll
+      for (int k = 0; k < W; ++k) acc = add_rn(acc, win[k]);
+      out[(size_t)d * n + e] = acc;
+#pragma unroll
+      for (int k = 0; k + 1 < W; ++k) win[k] = win[k + 1];
+      win[W - 1] = next;
+      if (++src == D) src = 0;
+    }
+  } else {
+    const int W = 2 * h + 1, B = blockDim.x;
+    V* ring = reinterpret_cast<V*>(mix_ring) + threadIdx.x;
+    for (int o = -h; o <= h; ++o) ring[(o + h) * B] = x[(size_t)ring_src(d0, o, D) * n + e];
+    int head = 0;  // the slot of x[(d − h) mod D]
+    for (int d = d0; d < d1; ++d) {
+      V next = zero_of<V>();
+      if (d + 1 < d1) next = x[(size_t)src * n + e];
+      V acc = zero_of<V>();
+      for (int k = 0, at = head; k < W; ++k, at = at + 1 == W ? 0 : at + 1)
+        acc = add_rn(acc, ring[at * B]);
+      out[(size_t)d * n + e] = acc;
+      ring[head * B] = next;  // x[d − h] leaves the band, x[d + 1 + h] enters
+      if (++head == W) head = 0;
+      if (++src == D) src = 0;
+    }
+  }
+}
+
+// The widest band the shared-memory ring takes: 2·hops+1 slots of 16 bytes
+// for each of 32 threads.
+constexpr int kMixMaxHops = (kMaxSmem / (32 * 16) - 1) / 2;
+
+template <typename V>
+cudaError_t launch_banded_mix(const V* x, V* out, int D, long long n, int hops, cudaStream_t st) {
+  auto kernel = hops > kMixRegHops ? banded_mix_kernel<-1, V>
+              : hops == 0          ? banded_mix_kernel<0, V>
+              : hops == 1          ? banded_mix_kernel<1, V>
+              : hops == 2          ? banded_mix_kernel<2, V>
+              : hops == 3          ? banded_mix_kernel<3, V>
+                                   : banded_mix_kernel<4, V>;
+  int threads = kThreads;
+  size_t smem = 0;
+  if (hops > kMixRegHops) {  // the ring: halve the block until 2·hops+1 slots a thread fit
+    const size_t slots = 2 * (size_t)hops + 1;
+    while (threads > 32 && slots * threads * sizeof(V) > (size_t)kMaxSmem) threads /= 2;
+    smem = slots * threads * sizeof(V);
+    if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  // runs of devices: as long as the grid still fills the card once, so
+  // each payload is read as few times as that allows
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  const long long bx = (n + threads - 1) / threads;
+  const long long fill = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+  const long long most = fill / bx < D ? fill / bx : D;
+  const int runs = most > 1 ? (int)most : 1;
+  const int run = (D + runs - 1) / runs;
+  kernel<<<dim3((unsigned)bx, (D + run - 1) / run), threads, smem, st>>>(x, out, D, n, hops, run);
+  return cudaGetLastError();
 }
 
 constexpr int kSolveWarps = 8;
 constexpr int kSolveThreads = kSolveWarps * 32;
 constexpr int kSolveTileRegs = 64;  // floats of the system a thread keeps in registers
-constexpr int kSolveMaxQ = 7;       // row registers a slot: Ñ ≤ 224
+constexpr int kSolveMaxQ = 10;      // row registers a slot: Ñ ≤ 320
 constexpr int kSolveMaxCluster = 8; // the portable cluster size
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
 
 // Write one slot's raw column (rows lane + 32q < n) into buf of every
 // block of the cluster.
@@ -361,26 +451,9 @@ cudaError_t launch_uv_solve(const float* u, long long u_ss, long long u_rs, cons
   if ((long long)S * groups * kSolveMaxCluster <= 2LL * sm_count()) cs = kSolveMaxCluster;
   const int cb = (nslot + cs - 1) / cs;
   const size_t smem = (2 * 32 * Q + kSolveWarps * ((CW + 3) / 4 * 4) + (size_t)n * (cb | 1)) * 4;
-  auto kernel = uv_solve_cluster_kernel<Q, CW>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * groups, S);
-  cfg.blockDim = dim3(kSolveThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, mg, cb,
-                         ridge, hops);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_clustered(uv_solve_cluster_kernel<Q, CW>, dim3(cs * groups, S), kSolveThreads,
+                          smem, cs, st, u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, mg, cb,
+                          ridge, hops);
 }
 
 constexpr int kDenseBM = 128;  // rows of M (and of the output) per block
@@ -513,14 +586,16 @@ dense_mix_kernel(const float* __restrict__ mt, const float* __restrict__ X,
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
-// Row registers a slot, rounded up to one of four tiles (rows past n are
-// zeros and are never stored).
+// Row registers a slot, rounded up to one of six tiles (rows past n are
+// zeros and are never stored). A thread keeps ⌊64/Q⌋ slots, so a cluster of
+// 8 blocks holds 512 at Q = 8 (Ñ ≤ 256: 3 clusters split V at m = 561) and
+// 384 at Q = 10 (Ñ ≤ 320: 9 clusters, each eliminating A again).
 cudaError_t uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
                      long long v_ss, long long v_rs, float* p, float* beta, int S, int n, int m,
                      float ridge, int hops, cudaStream_t st) {
   if (S == 0 || n == 0) return cudaSuccess;
   const int q = (n + 31) / 32;
-  switch (q <= 2 ? q : q <= 4 ? 4 : 7) {
+  switch (q <= 2 ? q : q <= 4 ? 4 : q <= 7 ? 7 : q <= 8 ? 8 : q <= 10 ? 10 : 0) {
     case 1:
       return launch_uv_solve<1, 64>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
                                     st);
@@ -533,6 +608,12 @@ cudaError_t uv_solve(const float* u, long long u_ss, long long u_rs, const float
     case 7:
       return launch_uv_solve<7, 9>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
                                    st);
+    case 8:
+      return launch_uv_solve<8, 8>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
+                                   st);
+    case 10:
+      return launch_uv_solve<10, 6>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, hops,
+                                    st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -582,13 +663,18 @@ int repro_segment_broadcast(const float* sums, const int* cids, float* out, int 
   return cudaGetLastError();
 }
 
-// x (D, E) contiguous, 2·hops+1 <= D → out (D, E), the circular ±hops sums.
+int repro_banded_mix_max_hops() { return kMixMaxHops; }
+
+// x (D, E) contiguous, 2·hops+1 <= D, hops ≤ repro_banded_mix_max_hops()
+// → out (D, E), the circular ±hops sums.
 int repro_banded_mix(const float* x, float* out, int D, long long E, int hops, void* stream) {
   if (D == 0 || E == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), D);
-  banded_mix_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, D, E, hops);
-  return cudaGetLastError();
+  if (hops < 0 || hops > kMixMaxHops) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (E % 4 == 0 && aligned16(x) && aligned16(out))
+    return launch_banded_mix(reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out),
+                             D, E / 4, hops, st);
+  return launch_banded_mix(x, out, D, E, hops, st);
 }
 
 // S systems: u (S,n,n) and v (S,n,m) with the given strides → p (S,n,n),

@@ -129,12 +129,12 @@ _SIGNATURES = {
     "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
     "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
     "repro_gla_smem": [_I] * 2,
-    "repro_quantize_pack_smem": [_I],
-    "repro_ingest_gain_smem": [_I],
-    "repro_ingest_beta_smem": [_I, _I],
+    "repro_quantize_pack_max_n": [],
     "repro_ingest_beta_tile": [],
-    "repro_ingest_chunk": [],
+    "repro_ingest_chunk": [_I],
+    "repro_ingest_max_n": [],
     "repro_uv_solve_max_n": [],
+    "repro_banded_mix_max_hops": [],
 }
 
 

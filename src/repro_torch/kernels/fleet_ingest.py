@@ -8,7 +8,8 @@ kernel of ``csrc/fleet_ingest.cu`` (four launches on one stream, see the
 source) or raises. The plain version follows the kernel's order of
 operations. The P chain is the reference's, term by term: divide P by λ,
 ``ph``, ``denom``, the rank-1 update, then gain = P_new·h as a matvec. The
-β update is taken as products, chunk by chunk (``ingest_chunks``): the
+β update is taken as products, chunk by chunk (``ingest_chunks``, 64
+samples, 32 past Ñ = 240, as the kernel chunks): the
 pre-train errors E₀ = targets − H·β, L = strictly-lower(H·Gᵀ) of the
 chunk's hidden rows and gains, the forward substitution E = (I + L)⁻¹E₀
 (each error updated in sample order, one fused multiply-add a term), then
@@ -27,23 +28,33 @@ from repro_torch.kernels.topology_merge import _fma
 
 __all__ = [
     "INGEST_CHUNK",
+    "INGEST_WIDE_CHUNK",
+    "INGEST_WIDE_N",
     "fleet_ingest",
     "fleet_ingest_cuda",
     "fleet_ingest_plain",
+    "ingest_chunk",
     "ingest_chunks",
     "validate_shared_basis",
 ]
 
 # Samples of a chunk of the window, for the plain version: the kernel's
-# kMaxChunk (``repro_ingest_chunk``), which keeps a chunk's hidden rows,
-# gains and L in shared memory.
+# (``repro_ingest_chunk``), which keeps a chunk's hidden rows, gains and L
+# in shared memory beside a tile of β: 64 samples up to Ñ = 240, 32 past it.
 INGEST_CHUNK = 64
+INGEST_WIDE_CHUNK = 32
+INGEST_WIDE_N = 240
 
 
-def ingest_chunks(t: int) -> list[tuple[int, int]]:
+def ingest_chunk(n_hidden: int) -> int:
+    """The samples of a chunk at Ñ = ``n_hidden``."""
+    return INGEST_CHUNK if n_hidden <= INGEST_WIDE_N else INGEST_WIDE_CHUNK
+
+
+def ingest_chunks(t: int, chunk: int = INGEST_CHUNK) -> list[tuple[int, int]]:
     """The window's chunks as (start, stop): consecutive runs of at most
-    ``INGEST_CHUNK`` samples, in order, covering 0..t−1 once."""
-    return [(c0, min(c0 + INGEST_CHUNK, t)) for c0 in range(0, t, INGEST_CHUNK)]
+    ``chunk`` samples, in order, covering 0..t−1 once."""
+    return [(c0, min(c0 + chunk, t)) for c0 in range(0, t, chunk)]
 
 
 def validate_shared_basis(alpha) -> None:
@@ -99,7 +110,7 @@ def fleet_ingest_plain(
         p = pf - ph[:, :, None] * ph[:, None, :] / denom[:, :, None]
         gains.append(torch.bmm(p, h[:, :, None])[:, :, 0])
     be = states.beta
-    for c0, c1 in ingest_chunks(window.shape[1]):
+    for c0, c1 in ingest_chunks(window.shape[1], ingest_chunk(states.p.shape[1])):
         h, gain = h_all[:, c0:c1], torch.stack(gains[c0:c1], dim=1)   # (D, Tc, Ñ)
         e = (e0 if c0 == 0 else tb[:, c0:c1] - torch.bmm(h, be))[:, : c1 - c0].clone()
         lmat = torch.bmm(h, gain.transpose(1, 2))                      # L[t, s] = h_t·gain_s
@@ -125,9 +136,9 @@ def fleet_ingest_cuda(
     d, t, n = window.shape
     nh, m = states.beta.shape[1], states.beta.shape[2]
     lib = _lib.library()
-    for smem in (lib.repro_ingest_gain_smem(nh), lib.repro_ingest_beta_smem(nh, t)):
-        if smem > _lib.MAX_SMEM:
-            raise ValueError(f"fleet_ingest: Ñ={nh} needs {smem} B of shared memory per block")
+    if nh > lib.repro_ingest_max_n():
+        raise ValueError(f"fleet_ingest: Ñ={nh} exceeds the kernels' limit of "
+                         f"{lib.repro_ingest_max_n()} (P's rows over one 8-block cluster)")
     n_tiles = -(-m // lib.repro_ingest_beta_tile())
     dev = window.device
     p_out = torch.empty_like(states.p)

@@ -234,7 +234,7 @@ def _check_cluster_solve_n(kernel: str, n: int) -> None:
     if n > limit:
         raise ValueError(
             f"{kernel}: Ñ={n} exceeds the cluster solve's limit of {limit} rows "
-            "(7 registers a slot for each lane)"
+            "(10 registers a slot for each lane)"
         )
 
 
@@ -245,7 +245,7 @@ def from_uv_solve(
     β = PV. On CUDA, u and v may be column slices of one packed [U | V]
     (unit column stride); the outputs are contiguous. The kernel holds
     each system in one thread-block cluster and eliminates it once; it
-    takes Ñ up to 224 and any m."""
+    takes Ñ up to 320 and any m."""
     if u.ndim != 3 or v.ndim != 3 or u.shape[:2] != v.shape[:2] or u.shape[1] != u.shape[2]:
         raise ValueError(f"need u (S, Ñ, Ñ) and v (S, Ñ, m); got {tuple(u.shape)}, {tuple(v.shape)}")
     if u.device.type == "cpu":
@@ -288,7 +288,8 @@ def banded_mix_plain(x: torch.Tensor, hops: int) -> torch.Tensor:
 def banded_mix(x: torch.Tensor, hops: int) -> torch.Tensor:
     """Circular banded neighbour sum out[d] = Σ_{o=−hops..hops} x[(d+o) mod D]
     over a stacked (D, R, C) array, summed from zero for o = −hops..+hops.
-    Needs 2·hops+1 ≤ D: a wider band would count a device twice."""
+    Needs 2·hops+1 ≤ D: a wider band would count a device twice. The
+    kernel takes hops up to 226."""
     if x.ndim != 3:
         raise ValueError(f"need x (D, R, C); got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -296,6 +297,10 @@ def banded_mix(x: torch.Tensor, hops: int) -> torch.Tensor:
     _lib.require_cuda_f32("banded_mix", x=x)
     d = x.shape[0]
     _check_band(d, hops)
+    limit = _lib.library().repro_banded_mix_max_hops()
+    if hops > limit:
+        raise ValueError(f"banded_mix: hops={hops} exceeds the kernel's limit of {limit} "
+                         "(the band's window in one block's shared memory)")
     out = torch.empty_like(x)
     status = _lib.library().repro_banded_mix(
         x.data_ptr(), out.data_ptr(), d, x[0].numel() if d else 0, hops, _lib.stream(),
@@ -322,7 +327,7 @@ def banded_merge_solve(
     """The fused open-ring merge: w (D, Ñ, Ñ+m) stacked [U | V] payloads →
     per-device P (D, Ñ, Ñ), β (D, Ñ, m) of the ±hops neighbour sum. The
     kernel is ``from_uv_solve``'s, its loader summing each device's band
-    as it reads it; it takes Ñ up to 224."""
+    as it reads it; it takes Ñ up to 320."""
     if w.ndim != 3 or w.shape[2] <= w.shape[1]:
         raise ValueError(f"need w (D, Ñ, Ñ+m); got {tuple(w.shape)}")
     if w.device.type == "cpu":

@@ -3,8 +3,9 @@
 ``repro_torch.kernels.fleet_ingest_plain`` (what the wrapper runs for a
 CPU tensor) is held to the reference Pallas kernel in interpret mode and
 to the reference's sequential ``_fleet_train`` chain, on odd D/T/Ñ/n and
-with λ < 1, and at the edges of the kernel's chunking of the window (one
-sample, and a window longer than ``INGEST_CHUNK``). Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
+with λ < 1, at the edges of the kernel's chunking of the window (one
+sample, and a window longer than ``INGEST_CHUNK``), and at a wide hidden
+layer (Ñ = 256, chunks of ``INGEST_WIDE_CHUNK``). Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
 losses at rtol 1e-5 / atol 1e-7, state at 1e-5. With sigmoid the fixture
 carries the reference's ridge 5e-2: RLS parity in f32 degrades as κ(P)².
 """
@@ -20,7 +21,13 @@ from repro.fleet.fleet import _fleet_train
 from repro.kernels.fleet_ingest import fleet_ingest_kernel
 from repro_torch.convert import oselm_state_from_numpy
 from repro_torch.kernels import fleet_ingest, fleet_ingest_plain, validate_shared_basis
-from repro_torch.kernels.fleet_ingest import INGEST_CHUNK, ingest_chunks
+from repro_torch.kernels.fleet_ingest import (
+    INGEST_CHUNK,
+    INGEST_WIDE_CHUNK,
+    INGEST_WIDE_N,
+    ingest_chunk,
+    ingest_chunks,
+)
 
 torch.set_num_threads(2)
 
@@ -104,6 +111,42 @@ def test_ingest_chunks_cover_every_sample_once_in_order(t):
     assert covered == list(range(t))
     assert all(0 < c1 - c0 <= INGEST_CHUNK for c0, c1 in chunks)
     assert all(c1 - c0 == INGEST_CHUNK for c0, c1 in chunks[:-1])
+
+
+# a wide hidden layer, Ñ = 256, where the chunk shrinks to 32 samples: one
+# chunk, two with the second ragged, and three; n = 300 features so that H
+# has full column rank. Identity only: with sigmoid on this fixture κ(P) is
+# ~1e6 and the reference's own kernel and sequential chain differ past
+# these bounds
+@pytest.mark.parametrize("t,activation,forget", [
+    (INGEST_WIDE_CHUNK, "identity", 0.95), (INGEST_WIDE_CHUNK + 6, "identity", 1.0),
+    (2 * INGEST_WIDE_CHUNK + 6, "identity", 0.95),
+])
+def test_plain_ingest_on_a_wide_layer_matches_reference(t, activation, forget):
+    ridge = 5e-2 if activation == "sigmoid" else RIDGE
+    d, n, nh = 3, 300, 256
+    rng = np.random.default_rng(11)
+    x_init = rng.uniform(0, 1, (d, 2 * nh, n)).astype(np.float32)
+    fleet = init_fleet(jax.random.PRNGKey(11), d, n, nh, jnp.asarray(x_init),
+                       activation=activation, ridge=ridge, forget=forget)
+    win = rng.uniform(0, 1, (d, t, n)).astype(np.float32)
+    assert ingest_chunk(nh) == INGEST_WIDE_CHUNK
+    got, loss = fleet_ingest_plain(_port(fleet), torch.from_numpy(win))
+    ref, ref_loss = fleet_ingest_kernel(fleet, jnp.asarray(win), block_d=4, interpret=True)
+    _assert_state_close(got, ref)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
+    seq = _fleet_train(fleet, jnp.asarray(win))
+    _assert_state_close(got, seq)
+
+
+def test_ingest_chunk_shrinks_past_the_wide_width():
+    """64 samples a chunk up to Ñ = 240, 32 past it, and chunks of 32 cover
+    a window once, in order."""
+    assert [ingest_chunk(nh) for nh in (1, 128, INGEST_WIDE_N, INGEST_WIDE_N + 1, 320)] == [
+        INGEST_CHUNK, INGEST_CHUNK, INGEST_CHUNK, INGEST_WIDE_CHUNK, INGEST_WIDE_CHUNK]
+    chunks = ingest_chunks(3 * INGEST_WIDE_CHUNK + 5, INGEST_WIDE_CHUNK)
+    assert [s for c0, c1 in chunks for s in range(c0, c1)] == list(range(3 * INGEST_WIDE_CHUNK + 5))
+    assert [c1 - c0 for c0, c1 in chunks] == [INGEST_WIDE_CHUNK] * 3 + [5]
 
 
 def test_plain_ingest_supervised_targets():

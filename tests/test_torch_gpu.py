@@ -80,7 +80,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.core.activations import ACTIVATION_CODES, get_activation
 from repro_torch.kernels import _lib
-from repro_torch.kernels.fleet_ingest import INGEST_CHUNK
+from repro_torch.kernels.fleet_ingest import INGEST_CHUNK, ingest_chunk
 
 pytestmark = pytest.mark.gpu
 
@@ -141,7 +141,9 @@ def test_ingest_kernel_matches_plain(cuda, activation, forget):
 
 # the edges of the kernel's chunks and of its P tiles: one sample; a window
 # of two chunks (the second ragged) and of three; Ñ = 16, 32 and 64 (the
-# smaller register tiles) and 160 (P in shared memory); supervised targets
+# smaller register tiles), 160 and 200 (P's rows over an 8-block cluster);
+# the wide layer, Ñ = 256 and 320 at n = 561, T = 32 (one chunk of 32) and
+# 70 (three chunks, the last ragged), λ 1 and 0.95; supervised targets
 # (m ≠ n) at m = 23, 70 and 300, none a multiple of the 64-column β tile;
 # λ < 1; Ñ = 5 in a P tile of 32 rows; and fleets large enough that a block
 # takes a run of tiles, with the next tile in a second buffer (D = 100) or,
@@ -158,6 +160,10 @@ def test_ingest_kernel_matches_plain(cuda, activation, forget):
     (5, 70, 37, 10, 70, "sigmoid", 0.95),
     (100, 150, 300, 10, None, "identity", 0.95),
     (70, 70, 240, 200, 300, "identity", 1.0),
+    (6, 32, 561, 256, None, "identity", 1.0),
+    (6, 70, 561, 256, None, "identity", 0.95),
+    (6, 32, 561, 320, None, "identity", 0.95),
+    (6, 70, 561, 320, 300, "identity", 1.0),
 ])
 def test_ingest_kernel_at_its_edges(cuda, d, t, n, nh, m, activation, forget):
     rng = np.random.default_rng(8)
@@ -198,8 +204,13 @@ def test_ingest_kernel_at_har_width(cuda):
 
 
 def test_ingest_chunk_is_the_kernels(cuda):
-    """The plain version chunks the window as the kernel does."""
-    assert _lib.library().repro_ingest_chunk() == INGEST_CHUNK
+    """The plain version chunks the window as the kernel does, at every Ñ
+    the kernel takes."""
+    lib = _lib.library()
+    assert lib.repro_ingest_max_n() >= 320
+    for nh in range(1, lib.repro_ingest_max_n() + 1):
+        assert lib.repro_ingest_chunk(nh) == ingest_chunk(nh), nh
+    assert ingest_chunk(128) == INGEST_CHUNK
 
 
 def test_masked_segment_sum_kernel_matches_plain(cuda):
@@ -283,10 +294,25 @@ def test_from_uv_solve_is_exact_where_a_double_rounding_would_show(cuda, s, n, m
     assert int((x[:, :, 2 * n :] != rb).sum()) > rb.numel() // 2
 
 
+# the wide layer: Ñ = 256 (Q = 8, V over 3 clusters) and 320 (Q = 10, V
+# over 9), one system and 16; the same elimination, so no element differs
+@pytest.mark.parametrize("s", [1, 16])
+@pytest.mark.parametrize("n", [256, 320])
+def test_from_uv_solve_is_bit_exact_on_a_wide_layer(cuda, s, n):
+    rng = np.random.default_rng(30 + n + s)
+    u = _spd(rng, s, n, cuda)
+    v = torch.from_numpy(rng.standard_normal((s, n, 561)).astype(np.float32)).to(cuda)
+    w = torch.cat([u, v], dim=2)
+    p, b = _launched("from_uv_solve", lambda: from_uv_solve(w[:, :, :n], w[:, :, n:], ridge=1e-3))
+    rp, rb = from_uv_solve_plain(u, v, ridge=1e-3)
+    assert torch.isfinite(p).all() and torch.isfinite(b).all()
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
+
+
 def test_from_uv_solve_names_its_limit(cuda):
-    u = torch.eye(225, device=cuda)[None]
-    with pytest.raises(ValueError, match="limit of 224"):
-        from_uv_solve(u, torch.zeros((1, 225, 3), device=cuda))
+    u = torch.eye(321, device=cuda)[None]
+    with pytest.raises(ValueError, match="limit of 320"):
+        from_uv_solve(u, torch.zeros((1, 321, 3), device=cuda))
 
 
 @pytest.mark.parametrize("hops", [1, 2])
@@ -303,11 +329,14 @@ def test_banded_merge_solve_kernel_matches_plain(cuda, hops):
         banded_merge_solve(w[:4].contiguous(), 2, ridge=1e-3)
 
 
-# the har width (Ñ = 128, m = 561) on a ring of 16, hops 1 and 2; and
-# m = 1000, where n + m passes the 1 024 slots one cluster holds, so the V
-# columns split over two clusters. The loader sums the band in the plain
-# version's order and the elimination is from_uv_solve's: no element differs
-@pytest.mark.parametrize("d,n,m,hops", [(16, 128, 561, 1), (16, 128, 561, 2), (5, 128, 1000, 2)])
+# the har width (Ñ = 128, m = 561) on a ring of 16, hops 1 and 2; m = 1000,
+# where n + m passes the 1 024 slots one cluster holds, so the V columns
+# split over two clusters; and the wide layer, Ñ = 256 and 320 on a ring of
+# 8. The loader sums the band in the plain version's order and the
+# elimination is from_uv_solve's: no element differs
+@pytest.mark.parametrize("d,n,m,hops", [(16, 128, 561, 1), (16, 128, 561, 2), (5, 128, 1000, 2),
+                                        (8, 256, 561, 1), (8, 256, 561, 2), (8, 320, 561, 1),
+                                        (8, 320, 561, 2)])
 def test_banded_merge_solve_is_bit_exact_with_plain(cuda, d, n, m, hops):
     rng = np.random.default_rng(9 + hops)
     u = _spd(rng, d, n, cuda)
@@ -320,9 +349,19 @@ def test_banded_merge_solve_is_bit_exact_with_plain(cuda, d, n, m, hops):
 
 
 def test_banded_merge_solve_names_its_limit(cuda):
-    w = torch.zeros((3, 225, 228), device=cuda)
-    with pytest.raises(ValueError, match="banded_merge_solve: Ñ=225 .*limit of 224"):
+    w = torch.zeros((3, 321, 324), device=cuda)
+    with pytest.raises(ValueError, match="banded_merge_solve: Ñ=321 .*limit of 320"):
         banded_merge_solve(w, 1)
+
+
+def test_ingest_and_quantize_pack_name_their_limits(cuda):
+    lib = _lib.library()
+    fleet = _fleet(cuda, "identity", 1.0, d=2, n=8, nh=lib.repro_ingest_max_n() + 1)
+    with pytest.raises(ValueError, match=f"Ñ={lib.repro_ingest_max_n() + 1} .*limit of 320"):
+        fleet_ingest(fleet, torch.zeros((2, 3, 8), device=cuda))
+    n = lib.repro_quantize_pack_max_n() + 1
+    with pytest.raises(ValueError, match=f"Ñ={n} .*limit of 512"):
+        quantize_pack(torch.zeros((1, n, n), device=cuda), torch.zeros((1, n, 3), device=cuda))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -336,8 +375,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # (256, 128, 561): the har width, tile 0 exactly U, a ragged last tile of
-# 49 columns; (13, 10, 300): tiles across the U | V seam, odd everything
-@pytest.mark.parametrize("d,n,m", [(256, 128, 561), (13, 10, 300)])
+# 49 columns, 4 blocks a tile; (13, 10, 300): tiles across the U | V seam,
+# odd everything, one block; the wide layer at (16, 256, 561) (8 blocks of
+# 32 rows) and (16, 320, 561) (8 of 40, the seam inside tile 2); and rows
+# 16-byte aligned (16-byte loads): (16, 64, 300) and (7, 320, 564)
+@pytest.mark.parametrize("d,n,m", [(256, 128, 561), (13, 10, 300), (16, 256, 561),
+                                   (16, 320, 561), (16, 64, 300), (7, 320, 564)])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_quantize_pack_kernel_matches_plain(cuda, d, n, m, with_residual):
     rng = np.random.default_rng(6)
@@ -618,12 +661,32 @@ def test_segment_broadcast_kernel_on_a_misaligned_view(cuda):
     assert torch.equal(segment_broadcast(sums, cids), segment_broadcast_plain(sums, cids))
 
 
-# (13, 10, 37): hops 1, 2 and 6 (2·hops+1 = D); the har width at hops 2
-@pytest.mark.parametrize("d,r,c,hops", [(13, 10, 37, 1), (13, 10, 37, 2), (13, 10, 37, 6),
-                                        (256, 128, 689, 2)])
+# (13, 10, 37): one element a thread, hops 0, 1, 2 and 6 (2·hops+1 = D, the
+# shared-memory ring); the har width at hops 2 (on an H100, 7 runs of 37
+# devices, the last of 34); (37, 256, 844): four elements a thread, 211
+# blocks a run of devices, so that a run is long (13 devices at hops 2 on
+# an H100, the last of 11, or the whole ring), its band wraps past device
+# 36, at hops 2, 4 (the widest register window), 5 and 7 (the
+# shared-memory ring); (61, 8, 100) at hops 30: a ring too wide for 256
+# threads a block
+@pytest.mark.parametrize("d,r,c,hops", [(13, 10, 37, 0), (13, 10, 37, 1), (13, 10, 37, 2),
+                                        (13, 10, 37, 6), (256, 128, 689, 2), (37, 256, 844, 2),
+                                        (37, 256, 844, 4), (37, 256, 844, 5), (37, 256, 844, 7),
+                                        (61, 8, 100, 30)])
 def test_banded_mix_kernel_is_bit_exact_with_plain(cuda, d, r, c, hops):
     x = torch.from_numpy(
         np.random.default_rng(23).standard_normal((d, r, c)).astype(np.float32)).to(cuda)
+    got = _launched("banded_mix", lambda: banded_mix(x, hops))
+    assert torch.equal(got, banded_mix_plain(x, hops))
+
+
+@pytest.mark.parametrize("hops", [2, 5])
+def test_banded_mix_kernel_on_a_misaligned_view(cuda, hops):
+    """Rows of 4k floats that start 4 bytes into their storage take the
+    one-element path, in registers and in the shared-memory ring."""
+    d, r, c = 37, 64, 200
+    flat = _randn(cuda, (d * r * c + 1,), seed=25)
+    x = flat[1:].view(d, r, c)
     got = _launched("banded_mix", lambda: banded_mix(x, hops))
     assert torch.equal(got, banded_mix_plain(x, hops))
 
@@ -632,6 +695,8 @@ def test_mix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((5, 4, 9), device=cuda)
     with pytest.raises(ValueError, match="band"):
         banded_mix(x, 3)
+    with pytest.raises(ValueError, match="hops=227 .*limit of 226"):
+        banded_mix(torch.zeros((455, 1, 4), device=cuda), 227)
     with pytest.raises(ValueError, match="contiguous"):
         banded_mix(x.transpose(1, 2), 1)
     with pytest.raises(TypeError, match="float32"):

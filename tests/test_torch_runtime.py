@@ -196,6 +196,37 @@ def test_tick_reports_match_reference(topo_name, forget, detector):
     _assert_state_close(port, ref)
 
 
+# a wide hidden layer (Ñ = 256, n = 561 features of the har scenario) for a
+# few ticks, two merges: what the card's merges and ingest take since they
+# hold Ñ up to 320; held as the narrow runtime is held. The scenario's har
+# windows have rank ~120, so at the spec's ridge 1e-3 the Eq. 13 boot of
+# either package is not finite past Ñ ≈ 100; ridge 1 keeps it well posed
+WIDE_SPEC = dict(n_devices=5, ticks=8, batch=3, n_hidden=256, ridge=1.0)
+
+
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_wide_layer_tick_reports_match_reference(topo_name):
+    sc, ref, port, twin = _pair(topo_name, 1.0, "short", twin=True, spec=WIDE_SPEC)
+    assert port.states.p.shape[1] == 256
+    port.warmup(sc.spec.batch)
+    feed = sc.feed()
+    merges = 0
+    port_dev, twin_dev = [], []
+    for t in range(feed.n_ticks):
+        batch = feed.tick_batch(t)
+        want = ref.tick(batch)
+        got = port.tick(batch)
+        _assert_same_report(got, want)
+        if not merges:
+            np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5, atol=1e-6)
+        port_dev.append(_max_rel(got.losses, want.losses))
+        twin_dev.append(_max_rel(twin.tick(batch).losses, want.losses))
+        merges += want.decision.merge
+    assert merges == 2
+    assert max(port_dev) <= 2 * max(twin_dev), (port_dev, twin_dev)
+    _assert_state_close(port, ref)
+
+
 def _flipped_codes(got_r, want_r):
     """Codes that differ between two runs of one merge round, read off
     their residuals: a flip moves a residual by about one quantization

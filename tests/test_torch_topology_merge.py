@@ -139,6 +139,31 @@ def test_banded_merge_solve_plain_matches_interpret(hops):
         banded_merge_solve_plain(torch.from_numpy(w[:4]), 2, ridge=RIDGE)
 
 
+# a wide hidden layer, Ñ = 256, which the card's cluster solve takes since
+# it holds 10 row registers a slot (Ñ ≤ 320): m and D kept small
+@pytest.mark.parametrize("s", [1, 2])
+def test_from_uv_solve_plain_matches_interpret_on_a_wide_layer(s):
+    rng = np.random.default_rng(40 + s)
+    u = _spd(rng, s, 256)
+    v = rng.standard_normal((s, 256, 23)).astype(np.float32)
+    ref_p, ref_b = ref_from_uv_solve(jnp.asarray(u), jnp.asarray(v), ridge=RIDGE, interpret=True)
+    p, b = from_uv_solve_plain(torch.from_numpy(u), torch.from_numpy(v), ridge=RIDGE)
+    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(b.numpy(), np.asarray(ref_b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hops", [1, 2])
+def test_banded_merge_solve_plain_matches_interpret_on_a_wide_layer(hops):
+    rng = np.random.default_rng(44 + hops)
+    u = _spd(rng, 5, 256)
+    v = rng.standard_normal((5, 256, 23)).astype(np.float32)
+    w = np.concatenate([u, v], axis=2)
+    ref_p, ref_b = ref_banded_merge_solve(jnp.asarray(w), hops, ridge=RIDGE, interpret=True)
+    p, b = banded_merge_solve_plain(torch.from_numpy(w), hops, ridge=RIDGE)
+    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(b.numpy(), np.asarray(ref_b), rtol=1e-5, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def trained_fleet():
     rng = np.random.default_rng(4)
