@@ -51,11 +51,12 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
 7. the paper's single-device path at the har width: ``hidden_proj`` and
    ``matmul_atb`` (two calls bit-identical; ``hidden_proj`` also at the
    edges of its split and k=1 kernels, f32 and bf16, and each activation
-   applied once to the finished sum) and ``rank1_add`` against
+   applied once to the finished sum), ``rank1_add`` and the k=1 step's
+   tail in one launch (``k1_update``, also at odd widths) against
    their plain versions, with the device time of each call's kernels, a
-   256-step k=1 chain card against CPU, two devices and their cooperative
-   update, the pair evaluations, Fig. 18 and Table 4, a profiler pass
-   over 200 k=1 steps;
+   256-step k=1 chain card against CPU (one ``k1_update`` a step), two
+   devices and their cooperative update, the pair evaluations, Fig. 18 and
+   Table 4, a profiler pass over 200 k=1 steps with the launches a step;
 8. repeated synchronisation and stale merges at the har width (D = 256):
    (a) ``segment_sum_mix`` (star and C = 32), ``segment_broadcast``
    (32 → 256) and ``banded_mix`` (hops 2) against their plain versions bit
@@ -81,16 +82,22 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    prefill's launches of the two kernels checked; (c) full width in f32 at
    2 layers, card against CPU: prefill logits, features and caches and 8
    decode steps; (d) a profile of one prefill and 16 decode steps;
-10. a wide hidden layer: (a) the port's ``FleetRuntime`` at D = 16,
-    Ñ = 256, the har width otherwise, on f32 star, f32 ring, int8 star and
-    the stale ring (lags up to 3), six ticks, the shifted device flagged
-    at the last, merges every 3 ticks (the second without it), card
-    against CPU (flags and decisions equal, losses within
-    phase 4's bounds) and each route's kernels launched; (b) at Ñ = 320,
+10. wide layers and the other sizes past the cluster paths: (a) the
+    port's ``FleetRuntime`` at D = 16, Ñ = 256 and at D = 8, Ñ = 384 (past
+    the cluster solve and P chain), the har width otherwise, on f32 star,
+    f32 ring, int8 star and the stale ring (lags up to 3), six ticks, the
+    shifted device flagged at the last, merges every 3 ticks (the second
+    without it), card against CPU (flags and decisions equal, losses within
+    phase 4's bounds) and each route's kernels launched; (b) at Ñ = 320
+    (m = 561), 768 and 1024 (m = 784, the mnist_like width),
     ``from_uv_solve`` (S = 1 and 16) and ``banded_merge_solve`` (hops 2)
     with no element differing from their plain versions, ``quantize_pack``
-    bit for bit, ``fleet_ingest`` (T = 32 and 64) within 1e-4, each with
-    its time alone and by events and its bound;
+    bit for bit, ``fleet_ingest`` (T = 32 and 64 at 320, 32 at 768) within
+    1e-4, each with its time alone and by events and its bound; (c)
+    ``banded_mix`` at hops 227 on 455 devices and (d)
+    ``robust_segment_sum_mix`` at trim 5 and 8 on the har-width star, bit
+    for bit; (e) ``flash_attention`` at B·H = 65 600 against its plain
+    version;
 11. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -163,15 +170,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_streams(rng, d: int, n_init: int):
-    """Data shaped like the har workload: every device draws windows from
-    one low-rank activity pattern plus noise. ``x_init`` is each device's
-    Eq. 13 boot chunk and ``ticks`` the (TICKS, d, T, n) stream. From
-    SHIFT_TICK on, every SHIFT_EVERY-th device draws from a second pattern
-    the fleet has not seen: the drift the detector has to flag."""
+def make_streams(rng, d: int, n_init: int, n_feat: int = N_FEAT):
+    """Data shaped like the har workload (n_feat features): every device
+    draws windows from one low-rank activity pattern plus noise. ``x_init``
+    is each device's Eq. 13 boot chunk and ``ticks`` the (TICKS, d, T, n)
+    stream. From SHIFT_TICK on, every SHIFT_EVERY-th device draws from a
+    second pattern the fleet has not seen: the drift the detector has to
+    flag."""
     import numpy as np
 
-    bases = rng.standard_normal((2, RANK, N_FEAT)).astype(np.float32) / np.sqrt(RANK)
+    bases = rng.standard_normal((2, RANK, n_feat)).astype(np.float32) / np.sqrt(RANK)
 
     def draw(pattern, rows):
         z = rng.standard_normal((len(pattern), rows, RANK)).astype(np.float32)
@@ -201,13 +209,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernels: tuple[str, ...]) -> float | None:
+def device_ms(fn, reps: int, kernels: tuple[str, ...] | dict[str, int]) -> float | None:
     """Device time of one wrapper call, from torch.profiler over ``reps``
     calls: the kernels alone, without the wrapper's host work, which bounds
     a short kernel's CUDA-event time. A call launches each kernel whose name
     holds one of ``kernels`` once (``matmul_atb``'s split product launches
-    two), so the time is the sum over ``kernels`` of the mean time of a
-    launch. Means, not totals over ``reps``: a session now and then drops
+    two), or as often as a dict of ``kernels`` says (the wide solve's panel
+    kernels, once a panel), so the time is the sum over ``kernels`` of the
+    mean time of a launch times its launches a call. Means, not totals over
+    ``reps``: a session now and then drops
     some of the launches (seen on an H100: 3 of 4, 4 of 10) or all of them
     (a 2 µs kernel, in three sessions running), and is then asked again.
     None, printed as not measured, when five sessions missed a kernel: the
@@ -215,6 +225,7 @@ def device_ms(fn, reps: int, kernels: tuple[str, ...]) -> float | None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    per_call = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
@@ -223,12 +234,13 @@ def device_ms(fn, reps: int, kernels: tuple[str, ...]) -> float | None:
                 fn()
             torch.cuda.synchronize()
         means = []
-        for kernel in kernels:
+        for kernel, times in per_call.items():
             events = [e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
             launches = sum(e.count for e in events)
             if launches > 0:
-                means.append(sum(e.self_device_time_total for e in events) / 1e3 / launches)
+                means.append(times * sum(e.self_device_time_total for e in events) / 1e3
+                             / launches)
         if len(means) == len(kernels):
             return sum(means)
     return None
@@ -291,9 +303,23 @@ def bound(flops: float, nbytes: float, flops_per_s: float = H100_F32_FLOPS) -> t
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# the kernels one fleet_ingest call launches, as the profiler names them
+# the kernels one fleet_ingest call launches, as the profiler names them,
+# and past Ñ = 320
 INGEST_KERNELS = ("gemm_tile_kernel", "ingest_gain_kernel", "ingest_beta_kernel",
                   "ingest_loss_kernel")
+WIDE_INGEST_KERNELS = ("gemm_tile_kernel", "ingest_gain_wide_kernel", "ingest_beta_wide_kernel",
+                       "ingest_loss_kernel")
+
+
+def solve_kernels(n: int) -> dict[str, int]:
+    """The kernels one from_uv_solve or banded_merge_solve call launches at
+    Ñ = n, with their launches a call: the cluster solve once up to
+    Ñ = 320, else the load and two launches a panel of 32 pivots."""
+    if n <= 320:
+        return {"uv_solve_cluster_kernel": 1}
+    panels = -(-n // 32)
+    return {"uv_wide_load_kernel": 1, "uv_wide_panel_kernel": panels,
+            "uv_wide_update_kernel": panels}
 
 
 def ingest_work(d: int, t: int, n: int, nh: int, m: int) -> tuple[float, float]:
@@ -1070,19 +1096,21 @@ GEMM_TOL = 1e-6
 
 
 def core_kernel_rows():
-    """hidden_proj, matmul_atb and rank1_add against their plain versions on
-    the card, at the shapes of the k=1 step and of the E²LM statistics at
-    the har width (n = m = 561, 512 samples), Ñ = 64 and 128, identity and
-    sigmoid; rank1_add bit for bit. The kernel list carries Ñ = 128,
-    identity (the har config) at the k=1 shapes: hidden_proj of one sample,
-    matmul_atb of h against P, rank1_add on β."""
+    """hidden_proj, matmul_atb, rank1_add and the k=1 step's tail
+    (k1_update, counted as rank1_add) against their plain versions on the
+    card, at the shapes of the k=1 step and of the E²LM statistics at the
+    har width (n = m = 561, 512 samples), Ñ = 64 and 128, identity and
+    sigmoid; rank1_add and k1_update bit for bit, k1_update also at odd
+    widths. The kernel list carries Ñ = 128, identity (the har config) at
+    the k=1 shapes: hidden_proj of one sample, matmul_atb of h against P,
+    and k1_update beside two torch.addr calls as its library time."""
     import numpy as np
     import torch
 
     from repro_torch.core import init_autoencoder
     from repro_torch.kernels import (
-        hidden_proj, hidden_proj_plain, matmul_atb, matmul_atb_plain, rank1_add,
-        rank1_add_plain,
+        hidden_proj, hidden_proj_plain, k1_update, k1_update_plain, matmul_atb,
+        matmul_atb_plain, rank1_add, rank1_add_plain,
     )
     from repro_torch.kernels.matmul_atb import split_plan
 
@@ -1101,14 +1129,15 @@ def core_kernel_rows():
     def row(name, label, fn, plain, flops, nbytes, library=None, kernels=None, keep=False,
             scale=None):
         got, want = fn(), plain()
-        abs_e = float((got - want).abs().max())
-        if name in ("matmul_atb", "hidden_proj"):
-            assert torch.equal(fn(), got), f"{name} {label}: two calls differ"
-        if name == "rank1_add":
-            mism = mismatches(got, want)
+        if name == "rank1_add":  # one output, or k1_update's two
+            pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+            abs_e = max(float((g - w).abs().max()) for g, w in pairs)
+            mism = sum(mismatches(g, w) for g, w in pairs)
             assert mism == 0, f"rank1_add {label}: {mism} elements differ from the plain version"
             check = f"mismatches {mism}"
         else:
+            abs_e = float((got - want).abs().max())
+            assert torch.equal(fn(), got), f"{name} {label}: two calls differ"
             assert bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output"
             rel = abs_e / scale
             assert rel <= GEMM_TOL, f"{name} {label}: max err / max |A|ᵀ|B| {rel:.3e}"
@@ -1178,7 +1207,28 @@ def core_kernel_rows():
                     lambda xx=xx, v=v, sc=sc: rank1_add_plain(xx, ph, v, sc),
                     2 * n1 * n2 + n1, 4 * (2 * n1 * n2 + n1 + n2 + 1),
                     library=lambda xx=xx, v=v, s_host=s_host: torch.addr(xx, ph, v, alpha=s_host),
-                    kernels=("rank1_kernel",), keep=main and label == "beta")
+                    kernels=("rank1_kernel",))
+            # the step's tail in one launch: both reductions, both scales and
+            # both updates; its library time is the two torch.addr calls
+            m_out = st.beta.shape[1]
+            sp, sb = float(-1.0 / denom), float(1.0 / denom)
+            row("rank1_add", f"{tag} k1_update (P {nh}x{nh}, beta {nh}x{m_out})",
+                lambda: k1_update(st.p, st.beta, h1, ph, x[0]),
+                lambda: k1_update_plain(st.p, st.beta, h1, ph, x[0]),
+                2 * nh * nh + 4 * nh * m_out + 4 * nh,
+                4 * (2 * nh * nh + 2 * nh * m_out + 2 * nh + m_out),
+                library=lambda: (torch.addr(st.p, ph, ph, alpha=sp),
+                                 torch.addr(st.beta, ph, err, alpha=sb)),
+                kernels=("k1_kernel",), keep=main)
+    # k1_update at odd widths and past the 256 rows a β strip keeps in
+    # shared memory, bit for bit
+    for nh, m in ((37, 23), (129, 64), (300, 561)):
+        g = np.random.default_rng(SEED + nh)
+        args = [torch.from_numpy(g.standard_normal(shape).astype(np.float32)).cuda()
+                for shape in ((nh, nh), (nh, m), (nh,), (nh,), (m,))]
+        mism = sum(mismatches(a, b) for a, b in zip(k1_update(*args), k1_update_plain(*args)))
+        log(f"  k1_update Ñ={nh} m={m}: mismatches {mism}")
+        assert mism == 0, f"k1_update Ñ={nh}: {mism} elements differ from the plain version"
     # hidden_proj at the edges of its split and k=1 kernels: K shorter than
     # a slice, K ending in a partial stage, 5 rows, 513 rows and 129
     # columns, K shorter than the cluster's 8 blocks, 4 rows; f32 and bf16
@@ -1328,7 +1378,7 @@ def phase_device_path():
     torch.cuda.synchronize()
     step_us = (time.perf_counter() - t0) / CHAIN_STEPS * 1e6
     add(counted("the chain", {"hidden_proj": CHAIN_STEPS, "matmul_atb": CHAIN_STEPS,
-                              "rank1_add": 2 * CHAIN_STEPS}))
+                              "rank1_add": CHAIN_STEPS}))
     cpu = dev_cpu
     for i in range(CHAIN_STEPS):
         cpu = ae_train_step(cpu, xs_cpu[i])
@@ -1393,7 +1443,7 @@ def phase_device_path():
     c = conv["cuda"]
     add(counted("Fig. 18 on the card and the CPU", {
         "hidden_proj": c["boots"] + c["k1_steps"], "matmul_atb": 2 * c["boots"] + c["k1_steps"],
-        "rank1_add": 2 * c["k1_steps"]}))
+        "rank1_add": c["k1_steps"]}))
     log(f"    Fig. 18: crossover after {c['crossover_updates']} k=1 updates on the card,"
         f" {conv['cpu']['crossover_updates']} on the CPU; merge loss card {c['merge_loss']:.6e}"
         f" CPU {conv['cpu']['merge_loss']:.6e}; loss before {c['loss_before']:.6f};"
@@ -1408,7 +1458,7 @@ def phase_device_path():
     add(counted("Table 4", {
         "hidden_proj": sum(r["oselm"]["boots"] + r["oselm"]["k1_steps"] for r in table),
         "matmul_atb": sum(2 * r["oselm"]["boots"] + r["oselm"]["k1_steps"] for r in table),
-        "rank1_add": sum(2 * r["oselm"]["k1_steps"] for r in table)}))
+        "rank1_add": sum(r["oselm"]["k1_steps"] for r in table)}))
     for line in torch_latency.table_lines(table):
         log("    " + line)
 
@@ -1426,8 +1476,10 @@ def phase_device_path():
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     assert dev_ms > 0, "the profiler saw no device time"
+    launches = sum(e.count for e in events)
     log(f"    {PROFILE_STEPS} k=1 steps: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms,"
-        f" busy share {dev_ms / wall_ms:.3f}")
+        f" busy share {dev_ms / wall_ms:.3f}; {launches / PROFILE_STEPS:.2f} kernel launches a"
+        f" step (profiler)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"      {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:80]}")
     return rows, totals
@@ -2045,9 +2097,15 @@ def phase_serving():
 # ------------------------------------------------ phase 10: a wide hidden layer
 
 D_WIDE = 16                # devices of the wide phase
-N_WIDE, N_WIDEST = 256, 320  # Ñ end to end; the widest the card's kernels are held at
+N_WIDE, N_WIDEST = 256, 320  # Ñ end to end; the widest the cluster solve and P chain take
+# past the cluster paths: the runtime at Ñ = 384 on D_WIDER devices (the
+# CPU's plain solves at Ñ = 384 and m = 561 take seconds a merge), and the
+# kernels at Ñ = 768, the mnist_like width's widest bottleneck (n = m = 784,
+# Ñ < n), and at 1024
+D_WIDER, N_WIDER = 8, 384
+N_MNIST = 784
 WIDE_TICKS = range(3, 9)   # six ticks of make_streams', the shift (flagged) at the last
-# the kernels each route launches at Ñ = 256 (each one at least once)
+# the kernels each route launches (each one at least once)
 WIDE_ROUTES = {
     ("f32", "star"): ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve"),
     ("f32", "ring"): ("fleet_ingest", "banded_merge_solve"),
@@ -2056,9 +2114,9 @@ WIDE_ROUTES = {
 }
 
 
-def wide_runtimes():
-    """FleetRuntime at Ñ = 256 on f32 star, f32 ring, int8 star and the
-    stale ring (lags up to 3), merges every 3 ticks, card against CPU:
+def wide_runtimes(d: int, nh: int):
+    """FleetRuntime at D = d, Ñ = nh on f32 star, f32 ring, int8 star and
+    the stale ring (lags up to 3), merges every 3 ticks, card against CPU:
     flags and decisions equal, losses within phase 4's bounds, and each
     route's kernels launched."""
     import numpy as np
@@ -2068,15 +2126,15 @@ def wide_runtimes():
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.runtime import FleetRuntime
 
-    x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 1), D_WIDE, 2 * N_WIDE)
-    fleet = init_fleet(torch.Generator().manual_seed(SEED), D_WIDE, N_FEAT, N_WIDE, x_init,
+    x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 1), d, 2 * nh)
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), d, N_FEAT, nh, x_init,
                        activation="identity", ridge=RIDGE, device="cuda")
     fleet_cpu = fleet.replace(params=type(fleet.params)(*(x.cpu() for x in fleet.params)),
                               beta=fleet.beta.cpu(), p=fleet.p.cpu())
-    sched = async_schedule(D_WIDE)
+    sched = async_schedule(d)
     for (kind, name), kernels in WIDE_ROUTES.items():
         extra = dict(staleness=sched) if kind == "stale" else {}
-        cfg = runtime_config(topologies(D_WIDE)[name], "int8" if kind == "int8" else "f32",
+        cfg = runtime_config(topologies(d)[name], "int8" if kind == "int8" else "f32",
                              merge_every=3, **extra)
         card = FleetRuntime(fleet, cfg, device="cuda")
         cpu = FleetRuntime(fleet_cpu, cfg, device="cpu")
@@ -2100,7 +2158,7 @@ def wide_runtimes():
             merges += da.merge
             flags += int(a.fresh_detections.sum())
         counts = launch_counts()
-        log(f"  {kind} {name}: {len(WIDE_TICKS)} ticks at D={D_WIDE}, Ñ={N_WIDE}, losses max rel"
+        log(f"  {kind} {name}: {len(WIDE_TICKS)} ticks at D={d}, Ñ={nh}, losses max rel"
             f" diff {worst:.3e}, flags {flags}, merges {merges}: equal; card"
             f" {card_s * 1e3 / len(WIDE_TICKS):.1f} ms a tick, both"
             f" {time.perf_counter() - t0:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
@@ -2110,12 +2168,12 @@ def wide_runtimes():
             assert counts[k] > 0, f"wide {kind} {name}: {k} was never launched"
 
 
-def wide_kernel_rows():
-    """At Ñ = 320 (D = 16, m = 561): from_uv_solve (S = 1 and 16) and
-    banded_merge_solve (hops 2) with no element differing from their plain
-    versions, fleet_ingest (T = 32 and 64) within its 1e-4 bound,
-    quantize_pack bit for bit; each with its time, alone and by events,
-    and its bound, and from_uv_solve beside torch.linalg.solve."""
+def wide_kernel_rows(n: int, m: int, windows: tuple[int, ...]):
+    """At Ñ = n (D = 16, m right-hand sides): from_uv_solve (S = 1 and 16)
+    and banded_merge_solve (hops 2) with no element differing from their
+    plain versions, quantize_pack bit for bit, fleet_ingest (n = m features,
+    T in ``windows``) within its 1e-4 bound; each with its time, alone and
+    by events, and its bound, and from_uv_solve beside torch.linalg.solve."""
     import numpy as np
     import torch
 
@@ -2124,8 +2182,8 @@ def wide_kernel_rows():
                                      fleet_ingest_plain, from_uv_solve, from_uv_solve_plain,
                                      quantize_pack, quantize_pack_plain)
 
-    n, m = N_WIDEST, N_FEAT
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    solves = solve_kernels(n)
 
     def payloads(s):
         a = torch.randn((s, n, 3 * n), generator=gen, device="cuda")
@@ -2147,9 +2205,9 @@ def wide_kernel_rows():
               f" ({library_device(lambda: torch.linalg.solve(a1, rhs), 10)})"
         log(f"  from_uv_solve S={s} Ñ={n} m={m}: {differ} of {s * n * (n + m)} elements differ")
         timed(f"from_uv_solve S={s}", lambda: from_uv_solve(u, v, ridge=RIDGE),
-              ("uv_solve_cluster_kernel",), solve_flops(s, n, m), 4 * s * 2 * (n * n + n * m),
-              10, lib)
+              solves, solve_flops(s, n, m), 4 * s * 2 * (n * n + n * m), 10, lib)
         assert differ == 0, f"from_uv_solve S={s} Ñ={n}: {differ} elements differ"
+        del a1, rhs, got, ref
     u, v = payloads(D_WIDE)
     w = torch.cat([u, v], dim=2).contiguous()
     got, ref = banded_merge_solve(w, HOPS, ridge=RIDGE), banded_merge_solve_plain(w, HOPS, ridge=RIDGE)
@@ -2157,9 +2215,10 @@ def wide_kernel_rows():
     log(f"  banded_merge_solve D={D_WIDE} hops={HOPS} Ñ={n}: {differ} of {D_WIDE * n * (n + m)}"
         " elements differ")
     timed("banded_merge_solve", lambda: banded_merge_solve(w, HOPS, ridge=RIDGE),
-          ("uv_solve_cluster_kernel",), D_WIDE * 2 * HOPS * n * (n + m) + solve_flops(D_WIDE, n, m),
+          solves, D_WIDE * 2 * HOPS * n * (n + m) + solve_flops(D_WIDE, n, m),
           4 * D_WIDE * (n * (n + m) + n * n + n * m), 10)
     assert differ == 0, f"banded_merge_solve Ñ={n}: {differ} elements differ"
+    del got, ref
 
     res = torch.randn((D_WIDE, n, n + m), generator=gen, device="cuda") * 0.01
     got, want = quantize_pack(u, v, res), quantize_pack_plain(u, v, res)
@@ -2169,29 +2228,98 @@ def wide_kernel_rows():
     timed("quantize_pack", lambda: quantize_pack(u, v, res), ("quantize_pack_kernel",), 5 * e,
           4 * e * 2 + e + 4 * e + 4 * got[1].numel(), 50)
     assert not any(mism.values()), f"quantize_pack Ñ={n}: {mism}"
-    del u, v, w, res, got, want, ref
+    del u, v, w, res, got, want
 
-    x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 2), D_WIDE, 2 * n)
-    fleet = init_fleet(torch.Generator().manual_seed(SEED), D_WIDE, N_FEAT, n, x_init,
+    if not windows:
+        return
+    # the autoencoder: m features in and out
+    x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 2), D_WIDE, 2 * n, m)
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), D_WIDE, m, n, x_init,
                        activation="identity", ridge=RIDGE, device="cuda")
-    for t in (T, 2 * T):
+    kernels = INGEST_KERNELS if n <= 320 else WIDE_INGEST_KERNELS
+    for t in windows:
         window = torch.from_numpy(np.concatenate(list(ticks_np[: t // T]), axis=1)).cuda()
         got_s, got_l = fleet_ingest(fleet, window)
         ref_s, ref_l = fleet_ingest_plain(fleet, window)
         _, rels = rel_err((got_s.p, got_s.beta, got_l), (ref_s.p, ref_s.beta, ref_l))
         log(f"  fleet_ingest D={D_WIDE} T={t} Ñ={n}: max_rel P={rels[0]:.3e} beta={rels[1]:.3e}"
             f" loss={rels[2]:.3e} (tol {TOL['fleet_ingest']:.0e})")
-        timed(f"fleet_ingest T={t}", lambda: fleet_ingest(fleet, window), INGEST_KERNELS,
-              *ingest_work(D_WIDE, t, N_FEAT, n, N_FEAT), 10)
+        timed(f"fleet_ingest T={t}", lambda: fleet_ingest(fleet, window), kernels,
+              *ingest_work(D_WIDE, t, m, n, m), 10)
         assert max(rels) <= TOL["fleet_ingest"], f"fleet_ingest T={t} Ñ={n}: {rels}"
 
 
 def phase_wide():
     """Phase 10."""
-    log(f"  (a) FleetRuntime at Ñ={N_WIDE} on four routes, card against CPU")
-    wide_runtimes()
-    log(f"  (b) the kernels at Ñ={N_WIDEST} against their plain versions")
-    wide_kernel_rows()
+    log(f"  (a) FleetRuntime at Ñ={N_WIDE} (D={D_WIDE}) and Ñ={N_WIDER} (D={D_WIDER}) on four"
+        " routes, card against CPU")
+    wide_runtimes(D_WIDE, N_WIDE)
+    wide_runtimes(D_WIDER, N_WIDER)
+    log(f"  (b) the kernels at Ñ={N_WIDEST} (m={N_FEAT}), 768 and 1024 (m={N_MNIST}) against"
+        " their plain versions")
+    wide_kernel_rows(N_WIDEST, N_FEAT, (T, 2 * T))
+    wide_kernel_rows(768, N_MNIST, (T,))
+    wide_kernel_rows(1024, N_MNIST, ())
+    log("  (c) banded_mix past the widest ring a block holds, (d) robust_segment_sum_mix with"
+        " chains past its registers, (e) flash_attention past 65 535 (batch, head) pairs")
+    wide_band_trim_heads()
+
+
+def wide_band_trim_heads():
+    """banded_mix at hops 227 on 455 devices (2·hops + 1 = D) of a narrow
+    payload, robust_segment_sum_mix at trim 5 and 8 on a har-width star,
+    bit for bit; flash_attention at B·H = 65 600 (bf16, S = 16, hd 64)
+    against its plain version row by row; each timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import payload_clip
+    from repro_torch.kernels import (banded_mix, banded_mix_plain, flash_attention,
+                                     flash_attention_plain, robust_segment_sum_mix,
+                                     robust_segment_sum_mix_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hops, d = 227, 455
+    x = torch.randn((d, 16, 33), generator=gen, device="cuda")
+    mism = mismatches(banded_mix(x, hops), banded_mix_plain(x, hops))
+    e = x[0].numel()
+    b = bound(2 * hops * d * e, 4 * 2 * d * e)
+    log(f"  banded_mix D={d} hops={hops} ({e} floats a device): mismatches {mism}"
+        f"  ms={cuda_ms(lambda: banded_mix(x, hops), 50):.4f} (alone"
+        f" {ms_text(device_ms(lambda: banded_mix(x, hops), 20, ('banded_mix_wide_kernel',)))})"
+        f" bound_ms={b[0]:.4f} ({b[1]})")
+    assert mism == 0, f"banded_mix hops={hops}: {mism} elements differ"
+
+    w = torch.randn((D, N_HID, N_HID + N_FEAT), generator=gen, device="cuda")
+    _, scale = payload_clip(w, float(w.flatten(1).norm(dim=1).median()))
+    mask = (torch.rand(D, generator=gen, device="cuda") < 0.9).to(torch.float32)
+    cids = np.zeros(D, np.int32)
+    e = w[0].numel()
+    for trim in (5, 8):
+        args = (w, cids, mask, scale, 1, trim)
+        mism = {k: mismatches(g, r) for k, g, r in
+                zip(("tot", "lo", "hi"), robust_segment_sum_mix(*args),
+                    robust_segment_sum_mix_plain(*args))}
+        b = bound((4 + 4 * trim) * D * e, 4 * (D * e + 2 * D + 2 + 3 * e))
+        log(f"  robust_segment_sum_mix (star, D={D}, trim={trim}): mismatches {mism}"
+            f"  ms={cuda_ms(lambda: robust_segment_sum_mix(*args), 20):.4f} (alone"
+            f" {ms_text(device_ms(lambda: robust_segment_sum_mix(*args), 10, ('robust_segsum_kernel',)))})"
+            f" bound_ms={b[0]:.4f} ({b[1]})")
+        assert not any(mism.values()), f"robust_segment_sum_mix trim={trim}: {mism}"
+    del w, scale
+
+    bh, sq, hd = 65_600, 16, 64
+    q, k, v = (torch.randn((bh, sq, 1, hd), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    rel = row_rel_err(flash_attention(q, k, v, causal=True),
+                      flash_attention_plain(q, k, v, causal=True))
+    flops, nbytes = flash_work(bh, sq, sq, 1, hd, True, 2)
+    b = bound(flops, nbytes, H100_BF16_FLOPS)
+    tol = ATTN_TOL[("flash_attention", "bfloat16")]
+    log(f"  flash_attention B·H={bh} S={sq} hd={hd} bf16 causal: row max_rel {rel:.3e}"
+        f" (tol {tol:.0e})  ms={cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20):.4f}"
+        f" bound_ms={b[0]:.4f} ({b[1]})")
+    assert rel <= tol, f"flash_attention B·H={bh}: {rel:.3e}"
 
 
 def main() -> int:
@@ -2272,7 +2400,8 @@ def main() -> int:
     launches.update(attn_launches)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
-    log("phase 10: a wide hidden layer (Ñ = 256 end to end, the kernels at Ñ = 320)")
+    log("phase 10: wide layers (Ñ = 256 and 384 end to end, the kernels at Ñ = 320, 768 and"
+        " 1024) and the other sizes past the old limits")
     t0 = time.perf_counter()
     phase_wide()
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")

@@ -84,8 +84,9 @@ struct Tile {
 };
 
 // q (B, SQ, H, HD), k and v (B, SK, H, HD), out (B, SQ, H, HD), contiguous.
-// grid (nq, B·H): blockIdx.x counts query blocks from the last, so that a
-// causal call starts its longest blocks first.
+// grid (B·H, nq): B·H on x, which takes any count; blockIdx.y counts query
+// blocks from the last, so that a causal call starts its longest blocks
+// first.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -102,8 +103,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* sp = sv + kBK * HD;   // BQ × PS
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = qb * BQ;
   const long long row_stride = (long long)H * HD;
   const T* qbase = q + ((long long)b * SQ * H + h) * HD;
@@ -257,7 +258,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// q, k, v, out as flash_fwd_kernel's, bf16; grid (nq, B·H) with kMmaRows
+// q, k, v, out as flash_fwd_kernel's, bf16; grid (B·H, nq) with kMmaRows
 // query rows a block.
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -278,8 +279,8 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4;
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = qb * kMmaRows, w0 = q0 + 16 * warp;  // the block's and the warp's first row
   const long long rs = (long long)H * HD;
   const __nv_bfloat16* qbase = q + ((long long)b * SQ * H + h) * HD;
@@ -472,7 +473,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
       flash_fwd_kernel_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   using T = __nv_bfloat16;
-  const dim3 grid((SQ + kMmaRows - 1) / kMmaRows, B * H);
+  const dim3 grid(B * H, (SQ + kMmaRows - 1) / kMmaRows);
   flash_fwd_kernel_mma<HD><<<grid, kMmaThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), H, SQ, SK, causal, scale);
@@ -487,7 +488,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((SQ + Tl::BQ - 1) / Tl::BQ, B * H);
+  const dim3 grid(B * H, (SQ + Tl::BQ - 1) / Tl::BQ);
   flash_fwd_kernel<float, HD><<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), H, SQ, SK, causal, scale);

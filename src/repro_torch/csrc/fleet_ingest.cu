@@ -54,6 +54,22 @@
 //   4. ingest_loss_kernel  — sums each device's partials, one a run of
 //      tiles, in a fixed order (no atomics), so the drift score is
 //      reproducible.
+// Past Ñ = 320 (kMaxN) P no longer fits one 8-block cluster's registers
+// (2.36 MB a device at Ñ = 768) and a tile of β no longer fits one block's
+// shared memory beside a chunk (196 KB for 64 columns at Ñ = 768), so steps
+// 2 and 3 take their wide kernels:
+//   2. ingest_gain_wide_kernel — P stays in global memory (p_out), where
+//      L2 holds it (38 MB for 16 devices at Ñ = 768); a cluster of 8 blocks
+//      a device splits its rows, a warp a row at a time, and each sample
+//      reads and writes each row once: the row's update by the last sample's
+//      ph, its gain, and its part of the next sample's ph, which goes into
+//      every block's shared memory with the warps' h·ph partials (one
+//      cluster barrier a sample);
+//   3. ingest_beta_wide_kernel — one block per (64-column tile, device)
+//      streams the tile from global memory in runs of 32 rows (cp.async, two
+//      stages), twice a chunk of 32 samples: first E₀ (and, past the first
+//      chunk, the errors under the tick-start β for the loss) and L, then,
+//      after the same substitution, β += Σ_s gain_s e_sᵀ in sample order.
 // The P chain's arithmetic is the reference's; the β update follows the
 // order above, which the plain PyTorch version
 // (repro_torch.kernels.fleet_ingest) repeats: E₀, L, the substitution,
@@ -76,8 +92,11 @@ constexpr int kBetaTile = 64;   // columns of β per block, two a lane
 constexpr int kMaxChunk = 64;   // samples of a chunk: H, the gains and L stay in shared memory
 constexpr int kWideChunk = 32;  // the chunk where 64 samples' H, gains and L do not fit
 constexpr int kGainCluster = 8; // blocks a device's P chain takes past Ñ = 128
-constexpr int kMaxN = 320;      // 8 blocks of 40 rows
+constexpr int kMaxN = 320;      // 8 blocks of 40 rows in registers; past it the wide kernels
 constexpr int kUpdateRows = 16; // rows of the β tile a thread updates at a time
+constexpr int kWideThreads = 512;  // threads of a wide P-chain block
+constexpr int kWideRows = 32;      // rows of β a wide β block stages at a time
+constexpr int kWideRun = 16;       // elements of a row a lane loads before it stores any
 
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
@@ -232,6 +251,117 @@ ingest_gain_kernel(const float* __restrict__ h_all, const float* __restrict__ p_
     }
 }
 
+// The P chain past kMaxN: a cluster of kGainCluster blocks a device, block
+// `rank` owning rows [rank·rb, min((rank+1)·rb, N)) of P, which stays in
+// p_out (read from p_in at the first sample); warp w takes rows w, w + W, ...
+// of them, a lane every 32nd column. Sample t reads each row once: P/λ, the
+// update by ph_t and denom_t (both from the step before), the row's gain_t
+// and its part of ph_{t+1} = (P_t/λ)·h_{t+1}, which goes into every block's
+// shared memory with the warps' h·ph partials; one cluster barrier a sample.
+// The arithmetic is ingest_gain_kernel's, each matvec summed in lane order
+// then by a xor-butterfly.
+__global__ void __launch_bounds__(kWideThreads, 1)
+ingest_gain_wide_kernel(const float* __restrict__ h_all, const float* __restrict__ p_in,
+                        float* __restrict__ p_out, float* __restrict__ gains, int T, int N,
+                        float forget) {
+  constexpr int CS = kGainCluster, W = kWideThreads / 32, RED = CS * W;
+  extern __shared__ __align__(16) float smem[];
+  float* phbuf = smem;          // [2][N]: ph of the step, every block's rows
+  float* red = phbuf + 2 * N;   // [2][RED]: the warps' h·ph partials, by block and warp
+  cluster_arrive();             // every block runs before any writes to its shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int d = blockIdx.x / CS;
+  const int rb = (N + CS - 1) / CS, row0 = rank * rb;
+  const int nrow = max(0, min(rb, N - row0));
+  const float* hd = h_all + (size_t)d * T * N;
+  const float* pin = p_in + (size_t)d * N * N;
+  float* pout = p_out + (size_t)d * N * N;
+  float* gd = gains + (size_t)d * T * N;
+  const bool scale = forget != 1.0f;
+  if (T == 0) {  // nothing to train on: P as it came
+    for (int r = warp; r < nrow; r += W)
+      for (int j = lane; j < N; j += 32) pout[(size_t)(row0 + r) * N + j] = pin[(size_t)(row0 + r) * N + j];
+    cluster_wait();
+    return;
+  }
+  cluster_wait();
+
+  // ph_0 = (P_0/λ)·h_0 of this block's rows and the warps' h_0·ph_0
+  float dot = 0.0f;
+  for (int r = warp; r < nrow; r += W) {
+    const int i = row0 + r;
+    const float* row = pin + (size_t)i * N;
+    float s = 0.0f;
+    for (int j = lane; j < N; j += 32) {
+      float x = row[j];
+      if (scale) x = x / forget;
+      s = __fmaf_rn(x, __ldg(hd + j), s);
+    }
+    s = warp_sum(s);
+    if (lane < CS) cluster.map_shared_rank(phbuf, lane)[i] = s;
+    dot = __fadd_rn(dot, __fmul_rn(__ldg(hd + i), s));
+  }
+  if (lane < CS) cluster.map_shared_rank(red, lane)[rank * W + warp] = dot;
+  cluster_arrive();
+  cluster_wait();
+
+  for (int t = 0; t < T; ++t) {
+    const int b = t & 1;
+    const bool more = t + 1 < T;
+    const float* ph = phbuf + b * N;
+    const float* ht = hd + (size_t)t * N;
+    const float* hn = more ? ht + N : ht;
+    float hph = 0.0f;
+#pragma unroll 8
+    for (int w = 0; w < RED; ++w) hph += red[b * RED + w];
+    const float denom = 1.0f + hph;
+    const float* cur = t == 0 ? pin : pout;
+    float dotn = 0.0f;
+    for (int r = warp; r < nrow; r += W) {
+      const int i = row0 + r;
+      const float* row = cur + (size_t)i * N;
+      float* orow = pout + (size_t)i * N;
+      const float phi = ph[i];
+      float g = 0.0f, q = 0.0f;
+      // the row is read and written in place: a run of kWideRun of a lane's
+      // elements is loaded before any of them is stored, so each run waits
+      // on memory once
+      for (int j0 = lane; j0 < N; j0 += 32 * kWideRun) {
+        float x[kWideRun];
+#pragma unroll
+        for (int k = 0; k < kWideRun; ++k) {
+          const int j = j0 + 32 * k;
+          x[k] = j < N ? row[j] : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kWideRun; ++k) {
+          const int j = j0 + 32 * k;
+          if (j >= N) break;
+          const float xs = scale ? x[k] / forget : x[k];
+          const float pn = __fsub_rn(xs, __fmul_rn(phi, ph[j]) / denom);
+          orow[j] = pn;
+          g = __fmaf_rn(pn, __ldg(ht + j), g);
+          q = __fmaf_rn(scale ? pn / forget : pn, __ldg(hn + j), q);
+        }
+      }
+      g = warp_sum(g);
+      if (lane == 0) gd[(size_t)t * N + i] = g;
+      if (more) {
+        q = warp_sum(q);
+        if (lane < CS) cluster.map_shared_rank(phbuf, lane)[(b ^ 1) * N + i] = q;
+        dotn = __fadd_rn(dotn, __fmul_rn(__ldg(hn + i), q));
+      }
+    }
+    if (more) {
+      if (lane < CS) cluster.map_shared_rank(red, lane)[(b ^ 1) * RED + rank * W + warp] = dotn;
+      cluster_arrive();
+      cluster_wait();
+    }
+  }
+}
+
 // Start copying rows [0, tcn) of a (·, N) array into dst (tcn rows of
 // stride ld ≥ n16, zero from N to n16) by cp.async: 16 bytes a copy when
 // N % 4 == 0, else 4.
@@ -330,6 +460,60 @@ __device__ __forceinline__ void chunk_errors(float* es, int lde, float& sq, cons
     }
 }
 
+// E = (I + L)⁻¹E₀ in place in es (TC rows of stride LDE, 64 columns), L in
+// ls (stride LDL), in registers: eight threads (lanes 8q..8q+7, part p)
+// take columns 2·cp and 2·cp + 1, rows t ≡ p mod 8. Once e_s is final, its
+// owner hands it to the other seven and every later error takes its term
+// s, so each error sums s in order. No block barrier inside.
+template <int TC, int LDE, int LDL>
+__device__ __forceinline__ void substitute(float* es, const float* ls, int tcn) {
+  constexpr int R8 = TC / 8;
+  const int lane = threadIdx.x % 32, cp = threadIdx.x / 8, p = threadIdx.x % 8;
+  float2 e[R8];
+#pragma unroll
+  for (int r = 0; r < R8; ++r) {
+    const int t = p + 8 * r;
+    e[r] = t < tcn ? *reinterpret_cast<const float2*>(es + t * LDE + 2 * cp)
+                   : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int s = 0; s + 1 < TC; ++s) {
+    if (s + 1 >= tcn) break;
+    const int src = (lane & ~7) | (s % 8);
+    const float ex = __shfl_sync(0xffffffffu, e[s / 8].x, src);
+    const float ey = __shfl_sync(0xffffffffu, e[s / 8].y, src);
+#pragma unroll
+    for (int r = s / 8; r < R8; ++r) {
+      const int t = p + 8 * r;
+      if (t > s && t < tcn) {
+        const float l = -ls[t * LDL + s];
+        e[r].x = __fmaf_rn(l, ex, e[r].x);
+        e[r].y = __fmaf_rn(l, ey, e[r].y);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R8; ++r) {
+    const int t = p + 8 * r;
+    if (t < tcn) *reinterpret_cast<float2*>(es + t * LDE + 2 * cp) = e[r];
+  }
+}
+
+// The block's loss partial: its threads' sq summed by warp, then the warps
+// in order (no atomics), into *part.
+__device__ __forceinline__ void store_loss_part(float sq, float* red, float* part) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  sq = warp_sum(sq);
+  __syncthreads();
+  if (lane == 0) red[warp] = sq;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += red[w];
+    *part = s;
+  }
+}
+
 // Start copying the 64-column tile j0.. of β (N × M) into bs (n16 × 64),
 // zero past N and past M, by cp.async; lane l copies columns 2l and 2l + 1.
 __device__ __forceinline__ void load_tile_async(float* bs, const float* beta, int j0, int N,
@@ -362,7 +546,7 @@ ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ ga
                    const float* __restrict__ targets, const float* beta_in, float* beta_out,
                    float* __restrict__ loss_part, int T, int N, int M, int per, int nbuf,
                    int chunk) {
-  constexpr int TC = 8 * RW, SJ = (TC + 31) / 32, R8 = TC / 8;
+  constexpr int TC = 8 * RW, SJ = (TC + 31) / 32;
   constexpr int LDH = TC + 4, LDL = TC + 1, LDE = kBetaTile + 2;  // padded against bank conflicts
   extern __shared__ __align__(16) float smem[];
   const int n16 = (N + 15) / 16 * 16, ldg = n16 + 4;
@@ -474,41 +658,7 @@ ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ ga
         chunk_errors<RW>(es, LDE, c == 0 ? sq : none, ht, LDH, bs, tgt + j0, tcn, n16, M, ncol);
       }
       __syncthreads();
-      // E = (I + L)⁻¹E₀ in registers: eight threads (lanes 8q..8q+7, part p)
-      // take columns 2·cp and 2·cp + 1, rows t ≡ p mod 8. Once e_s is final,
-      // its owner hands it to the other seven and every later error takes
-      // its term s, so each error sums s in order
-      {
-        const int cp = tid / 8, p = tid % 8;
-        float2 e[R8];
-#pragma unroll
-        for (int r = 0; r < R8; ++r) {
-          const int t = p + 8 * r;
-          e[r] = t < tcn ? *reinterpret_cast<const float2*>(es + t * LDE + 2 * cp)
-                         : make_float2(0.0f, 0.0f);
-        }
-#pragma unroll
-        for (int s = 0; s + 1 < TC; ++s) {
-          if (s + 1 >= tcn) break;
-          const int src = (lane & ~7) | (s % 8);
-          const float ex = __shfl_sync(0xffffffffu, e[s / 8].x, src);
-          const float ey = __shfl_sync(0xffffffffu, e[s / 8].y, src);
-#pragma unroll
-          for (int r = s / 8; r < R8; ++r) {
-            const int t = p + 8 * r;
-            if (t > s && t < tcn) {
-              const float l = -ls[t * LDL + s];
-              e[r].x = __fmaf_rn(l, ex, e[r].x);
-              e[r].y = __fmaf_rn(l, ey, e[r].y);
-            }
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < R8; ++r) {
-          const int t = p + 8 * r;
-          if (t < tcn) *reinterpret_cast<float2*>(es + t * LDE + 2 * cp) = e[r];
-        }
-      }
+      substitute<TC, LDE, LDL>(es, ls, tcn);
       __syncthreads();
       // β[k][c] += Σ_s gain_s[k]·e_s[c], s in order, rows 16·warp + i
       for (int kb = kUpdateRows * warp; kb < N; kb += kUpdateRows * kWarps) {
@@ -541,15 +691,167 @@ ingest_beta_kernel(const float* __restrict__ h_all, const float* __restrict__ ga
       }
     }
   }
-  sq = warp_sum(sq);
-  __syncthreads();
-  if (lane == 0) red[warp] = sq;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[w];
-    loss_part[(size_t)d * gridDim.x + blockIdx.x] = s;
+  store_loss_part(sq, red, loss_part + (size_t)d * gridDim.x + blockIdx.x);
+}
+
+// One stage of the wide β kernel: rows k0 .. k0 + kWideRows of the tile's
+// current β (bs, 64 columns), of the tick-start β when two (b0s), the
+// chunk's gains at those k (gs[k][s]) and, when hidden, its hidden rows
+// (hs[k][t]); zeros past N, M and the chunk, by 4-byte cp.async.
+constexpr int kWideLdg = kWideChunk + 4;  // hs and gs row stride
+constexpr int kWideStage = 2 * kWideRows * kBetaTile + 2 * kWideRows * kWideLdg;
+
+__device__ __forceinline__ void wide_stage(float* st, const float* bcur, const float* bin,
+                                           const float* hc, const float* gc, int k0, int N,
+                                           int M, int j0, int tcn, bool two, bool hidden) {
+  float* bs = st;
+  float* b0s = bs + kWideRows * kBetaTile;
+  float* hs = b0s + kWideRows * kBetaTile;
+  float* gs = hs + kWideRows * kWideLdg;
+  for (int idx = threadIdx.x; idx < kWideRows * kBetaTile; idx += kThreads) {
+    const int k = idx / kBetaTile, c = idx % kBetaTile;
+    const bool in = k0 + k < N && j0 + c < M;
+    const size_t at = in ? (size_t)(k0 + k) * M + j0 + c : 0;
+    cp_async<4>(bs + idx, bcur + at, in ? 4 : 0);
+    if (two) cp_async<4>(b0s + idx, bin + at, in ? 4 : 0);
   }
+  for (int idx = threadIdx.x; idx < kWideRows * kWideChunk; idx += kThreads) {
+    const int t = idx / kWideRows, k = idx % kWideRows;  // consecutive threads on consecutive k
+    const bool in = t < tcn && k0 + k < N;
+    const size_t at = in ? (size_t)t * N + k0 + k : 0;
+    if (hidden) cp_async<4>(hs + k * kWideLdg + t, hc + at, in ? 4 : 0);
+    cp_async<4>(gs + k * kWideLdg + t, gc + at, in ? 4 : 0);
+  }
+}
+
+// β past kMaxN: one block per (64-column tile, device), the window in
+// chunks of kWideChunk samples. Per chunk, pass 1 streams the tile (and,
+// after the first chunk, the tick-start tile for the loss), H and the gains
+// by runs of kWideRows rows: E₀ on the tile (rows 2·(tid/16) + {0, 1},
+// columns 4·(tid%16)..+3, k in order, one fused multiply-add each) and
+// L[t][s] = h_t·gain_s (t = tid/8, s = 4·(tid%8)..+3); then the
+// substitution; pass 2 streams the tile and the gains again: β[k][c] +=
+// Σ_s gain_s[k]·e_s[c], s in order, rows tid/8, columns 8·(tid%8)..+7.
+__global__ void __launch_bounds__(kThreads, 2)
+ingest_beta_wide_kernel(const float* __restrict__ h_all, const float* __restrict__ gains,
+                        const float* __restrict__ targets, const float* beta_in, float* beta_out,
+                        float* __restrict__ loss_part, int T, int N, int M) {
+  constexpr int TC = kWideChunk, LDE = kBetaTile + 4, LDL = TC + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* stages = smem;                  // [2][kWideStage]
+  float* es = stages + 2 * kWideStage;   // [TC][LDE]: E₀, then E
+  float* ls = es + TC * LDE;             // [TC][LDL]: the chunk's L
+  float* red = ls + TC * LDL;            // [kWarps]
+  const int tid = threadIdx.x, d = blockIdx.y, j0 = blockIdx.x * kBetaTile;
+  const int ncol = min(kBetaTile, M - j0);
+  const float* bin = beta_in + (size_t)d * N * M;
+  float* bout = beta_out + (size_t)d * N * M;
+  const int nk = (N + kWideRows - 1) / kWideRows;
+  const int eg = tid % 16, tg = tid / 16;  // E₀: columns 4·eg.., rows 2·tg, 2·tg + 1
+  const int lt = tid / 8, lg = tid % 8;    // L: row lt, samples 4·lg..; the update: row lt, columns 8·lg..
+  float sq = 0.0f;
+
+  for (int c0 = 0; c0 < T; c0 += TC) {
+    const int tcn = min(TC, T - c0);
+    const bool two = c0 > 0;  // past the first chunk: the loss's errors under the tick-start β
+    const float* bcur = two ? bout : bin;
+    const float* hc = h_all + ((size_t)d * T + c0) * N;
+    const float* gc = gains + ((size_t)d * T + c0) * N;
+    float acc[2][4] = {}, acc0[2][4] = {}, lacc[4] = {};
+    __syncthreads();  // the chunk before is done with es and the stages
+    wide_stage(stages, bcur, bin, hc, gc, 0, N, M, j0, tcn, two, true);
+    cp_async_commit();
+    for (int kb = 0; kb < nk; ++kb) {
+      if (kb + 1 < nk)
+        wide_stage(stages + ((kb + 1) & 1) * kWideStage, bcur, bin, hc, gc, (kb + 1) * kWideRows,
+                   N, M, j0, tcn, two, true);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* bs = stages + (kb & 1) * kWideStage;
+      const float* b0s = bs + kWideRows * kBetaTile;
+      const float* hs = b0s + kWideRows * kBetaTile;
+      const float* gs = hs + kWideRows * kWideLdg;
+      const int kend = min(kWideRows, N - kb * kWideRows);
+      for (int k = 0; k < kend; ++k) {
+        const float2 h2 = *reinterpret_cast<const float2*>(hs + k * kWideLdg + 2 * tg);
+        const float4 b4 = *reinterpret_cast<const float4*>(bs + k * kBetaTile + 4 * eg);
+        const float hv[2] = {h2.x, h2.y}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][c] = __fmaf_rn(hv[i], bv[c], acc[i][c]);
+        if (two) {
+          const float4 a4 = *reinterpret_cast<const float4*>(b0s + k * kBetaTile + 4 * eg);
+          const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc0[i][c] = __fmaf_rn(hv[i], av[c], acc0[i][c]);
+        }
+        const float hl = hs[k * kWideLdg + lt];
+        const float4 g4 = *reinterpret_cast<const float4*>(gs + k * kWideLdg + 4 * lg);
+        lacc[0] = __fmaf_rn(hl, g4.x, lacc[0]);
+        lacc[1] = __fmaf_rn(hl, g4.y, lacc[1]);
+        lacc[2] = __fmaf_rn(hl, g4.z, lacc[2]);
+        lacc[3] = __fmaf_rn(hl, g4.w, lacc[3]);
+      }
+      __syncthreads();  // this stage is consumed before the next iteration refills it
+    }
+    // E₀ = targets − H·β under the current β, and the loss's squares under
+    // the tick-start one; L of the chunk
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = 2 * tg + i;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 4 * eg + c;
+        const bool in = t < tcn && col < ncol;
+        const float y = in ? targets[((size_t)d * T + c0 + t) * M + j0 + col] : 0.0f;
+        const float e = in ? __fsub_rn(y, acc[i][c]) : 0.0f;
+        const float e0 = two ? (in ? __fsub_rn(y, acc0[i][c]) : 0.0f) : e;
+        sq = __fmaf_rn(e0, e0, sq);
+        es[t * LDE + col] = e;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ls[lt * LDL + 4 * lg + c] = lacc[c];
+    __syncthreads();
+    substitute<TC, LDE, LDL>(es, ls, tcn);
+    __syncthreads();
+
+    // β += Σ_s gain_s e_sᵀ, streamed: read the current tile again, write β_out
+    wide_stage(stages, bcur, bin, hc, gc, 0, N, M, j0, tcn, false, false);
+    cp_async_commit();
+    for (int kb = 0; kb < nk; ++kb) {
+      if (kb + 1 < nk)
+        wide_stage(stages + ((kb + 1) & 1) * kWideStage, bcur, bin, hc, gc, (kb + 1) * kWideRows,
+                   N, M, j0, tcn, false, false);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* bs = stages + (kb & 1) * kWideStage;
+      const float* gs = bs + 2 * kWideRows * kBetaTile + kWideRows * kWideLdg;
+      const int k = kb * kWideRows + lt;
+      float o[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[c] = bs[lt * kBetaTile + 8 * lg + c];
+      for (int s = 0; s < tcn; ++s) {
+        const float g = gs[lt * kWideLdg + s];
+        const float4 e0 = *reinterpret_cast<const float4*>(es + s * LDE + 8 * lg);
+        const float4 e1 = *reinterpret_cast<const float4*>(es + s * LDE + 8 * lg + 4);
+        const float ev[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[c] = __fmaf_rn(g, ev[c], o[c]);
+      }
+      if (k < N)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (8 * lg + c < ncol) bout[(size_t)k * M + j0 + 8 * lg + c] = o[c];
+      __syncthreads();
+    }
+  }
+  store_loss_part(sq, red, loss_part + (size_t)d * gridDim.x + blockIdx.x);
 }
 
 // loss[d] = Σ_runs part[d, run] / (T·M), summed in run order.
@@ -599,32 +901,60 @@ int ingest_chunk(int N) {
   return beta_smem(N, kMaxChunk, 1) <= kMaxSmem ? kMaxChunk : kWideChunk;
 }
 
+// Past kMaxN: the P chain and the β update of the wide kernels.
+cudaError_t launch_wide(const float* h, const float* targets, const float* p_in,
+                        const float* beta_in, float* p_out, float* beta_out, float* gains,
+                        float* part, int D, int T, int N, int M, float forget, cudaStream_t s) {
+  cudaError_t e = launch_clustered(
+      ingest_gain_wide_kernel, dim3(D * kGainCluster), kWideThreads,
+      (2 * (size_t)N + 2 * kGainCluster * (kWideThreads / 32)) * 4, kGainCluster, s, h, p_in,
+      p_out, gains, T, N, forget);
+  if (e != cudaSuccess) return e;
+  const int smem = (2 * kWideStage + kWideChunk * (kBetaTile + 4) +
+                    kWideChunk * (kWideChunk + 1) + kWarps) * 4;
+  e = cudaFuncSetAttribute(ingest_beta_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  const int n_tiles = (M + kBetaTile - 1) / kBetaTile;
+  ingest_beta_wide_kernel<<<dim3(n_tiles, D), kThreads, smem, s>>>(h, gains, targets, beta_in,
+                                                                   beta_out, part, T, N, M);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int repro_ingest_beta_tile() { return kBetaTile; }
 // The samples of a chunk of the window at Ñ = N (the plain version chunks
-// alike), and the widest Ñ the kernels take.
+// alike).
 int repro_ingest_chunk(int N) { return ingest_chunk(N); }
-int repro_ingest_max_n() { return kMaxN; }
 
 // All pointers are device pointers to contiguous f32 arrays:
 // x (D,T,n), targets (D,T,m), alpha (n,N), bias (N), p_in/p_out (D,N,N),
 // beta_in/beta_out (D,N,m), loss (D); workspaces h_ws and gain_ws (D,T,N),
 // part_ws (D, ceil(m/64)), of which each run of β tiles fills one column.
-// The window is taken in chunks of ingest_chunk(N) samples; N ≤ kMaxN.
-// Returns the first CUDA error, or 0.
+// The window is taken in chunks of ingest_chunk(N) samples. Returns the
+// first CUDA error, or 0.
 int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
                        const float* bias, const float* p_in, const float* beta_in,
                        float* p_out, float* beta_out, float* loss, float* h_ws,
                        float* gain_ws, float* part_ws, int D, int T, int n, int N, int m,
                        int act, float forget, void* stream) {
-  if (N > kMaxN) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   e = launch_gemm<float, false>(x, alpha, bias, h_ws, 1, D * T, n, N, act, s);
   if (e != cudaSuccess) return e;
+  const int n_tiles = (m + kBetaTile - 1) / kBetaTile;
+
+  if (N > kMaxN) {
+    e = launch_wide(h_ws, targets, p_in, beta_in, p_out, beta_out, gain_ws, part_ws, D, T, N, m,
+                    forget, s);
+    if (e != cudaSuccess) return e;
+    ingest_loss_kernel<<<(D + 127) / 128, 128, 0, s>>>(part_ws, loss, D, n_tiles,
+                                                       (float)T * (float)m);
+    return cudaGetLastError();
+  }
 
   if (N <= 32)
     e = launch_gain<4, 1, 1>(h_ws, p_in, p_out, gain_ws, D, T, N, forget, s);
@@ -637,7 +967,6 @@ int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
 
   // runs of tiles: as many blocks as fill the card at two an SM, each
   // loading its device's chunk once for its run
-  const int n_tiles = (m + kBetaTile - 1) / kBetaTile;
   int want = D > 0 ? 2 * sm_count() / D : 1;
   if (want < 1) want = 1;
   const int per = n_tiles > 0 ? (n_tiles + want - 1) / want : 1;

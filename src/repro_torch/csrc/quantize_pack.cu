@@ -17,6 +17,9 @@
 // up to n = 512; 4 blocks of 32 rows at n = 128), and each thread holds its
 // elements of the tile in registers (four columns × up to 8 rows): no
 // shared-memory tile, so nothing on the card grows with n but the cluster.
+// Past n = 512 a block's rows beyond the 64 it holds in registers are read
+// twice: once into the amax, and again, after the cluster's amax, to be
+// coded (their x recomputed with the same single add, so the bits agree).
 // A thread starts all of its loads of u|v and of the residual before it
 // uses any of them, so their latencies overlap. The amax is reduced
 // by shuffles within a warp, in shared memory across the block, and across
@@ -54,7 +57,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 128;        // columns per quantization tile (TILE_COLS)
 constexpr int kMaxCluster = 8;    // the portable cluster size
-constexpr int kMaxN = 8 * kMaxCluster * 8;  // 8 row passes of 8 warps in 8 blocks: n ≤ 512
+constexpr int kRegRows = 8 * kWarps;        // a block's rows in registers at R = 8
 
 // max that keeps a NaN once it has seen one
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -67,10 +70,70 @@ __device__ __forceinline__ int tile_col(int lane, int q) {
   return kVec ? 4 * lane + q : lane + 32 * q;
 }
 
+// x = u|v + r at row `row` of device d's tile, the four columns of element
+// q < 4 of lane (zeros past the tile).
+template <bool kVec>
+__device__ __forceinline__ void load_row(float (&x)[4], const float* ud, const float* vd,
+                                         const float* rr, int row, int lane, int c0, int width,
+                                         int n, int m) {
+  if constexpr (kVec) {
+    const int c = c0 + 4 * lane;
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
+    if (4 * lane < width) {
+      a = *reinterpret_cast<const float4*>(c < n ? ud + (size_t)row * n + c
+                                                 : vd + (size_t)row * m + (c - n));
+      if (rr != nullptr) b = *reinterpret_cast<const float4*>(rr + 4 * lane);
+    }
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    if (rr != nullptr)
+      x[0] = __fadd_rn(x[0], b.x), x[1] = __fadd_rn(x[1], b.y), x[2] = __fadd_rn(x[2], b.z),
+      x[3] = __fadd_rn(x[3], b.w);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = tile_col<false>(lane, q), c = c0 + j;
+      x[q] = j < width ? (c < n ? ud[(size_t)row * n + c] : vd[(size_t)row * m + (c - n)]) : 0.0f;
+      if (rr != nullptr && j < width) x[q] = __fadd_rn(x[q], rr[j]);
+    }
+  }
+}
+
+// Code x against scale and store codes and residual at row offset `at`.
+template <bool kVec>
+__device__ __forceinline__ void code_row(const float (&x)[4], float scale, signed char* codes,
+                                         float* resid, size_t at, int lane, int width) {
+  float qv[4], rv[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float c = rintf(__fdiv_rn(x[q], scale));
+    c = c != c ? 0.0f : fminf(fmaxf(c, -127.0f), 127.0f);
+    qv[q] = c;
+    rv[q] = __fmaf_rn(-c, scale, x[q]);
+  }
+  if constexpr (kVec) {
+    if (4 * lane < width) {
+      *reinterpret_cast<char4*>(codes + at + 4 * lane) =
+          make_char4((signed char)qv[0], (signed char)qv[1], (signed char)qv[2],
+                     (signed char)qv[3]);
+      *reinterpret_cast<float4*>(resid + at + 4 * lane) = make_float4(rv[0], rv[1], rv[2], rv[3]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = tile_col<false>(lane, q);
+      if (j < width) {
+        codes[at + j] = static_cast<signed char>(qv[q]);
+        resid[at + j] = rv[q];
+      }
+    }
+  }
+}
+
 // Cluster (rank) of blockIdx.x / cs = tile t, blockIdx.y = device d; block
 // `rank` takes rows [rank·rb, min((rank+1)·rb, n)), its warp w rows
-// w + 8i (i < R) of those. u (D,n,n), v (D,n,m), r (D,n,n+m) or null.
-template <int R, bool kVec>
+// w + 8i (i < R) of those in registers and, with kMore, rows 64 + w + 8i
+// past them in two reads. u (D,n,n), v (D,n,m), r (D,n,n+m) or null.
+template <int R, bool kVec, bool kMore = false>
 __global__ void __launch_bounds__(kThreads)
 quantize_pack_kernel(const float* __restrict__ u, const float* __restrict__ v,
                      const float* __restrict__ r, signed char* __restrict__ codes,
@@ -143,6 +206,15 @@ quantize_pack_kernel(const float* __restrict__ u, const float* __restrict__ v,
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) amax = nan_max(fabsf(x[i][q]), amax);
+  if constexpr (kMore) {
+    for (int rl = kRegRows + warp; rl < rows; rl += kWarps) {
+      float y[4];
+      load_row<kVec>(y, ud, vd, r == nullptr ? nullptr : r + base + (size_t)(row0 + rl) * ld + c0,
+                     row0 + rl, lane, c0, width, n, m);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) amax = nan_max(fabsf(y[q]), amax);
+    }
+  }
   for (int off = 16; off > 0; off >>= 1)
     amax = nan_max(__shfl_xor_sync(0xffffffffu, amax, off), amax);
   if (lane == 0) warp_max[warp] = amax;
@@ -164,71 +236,56 @@ quantize_pack_kernel(const float* __restrict__ u, const float* __restrict__ v,
   for (int i = 0; i < R; ++i) {
     const int rl = warp + 8 * i;
     if (rl >= rows) continue;
-    float qv[4], rv[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float c = rintf(__fdiv_rn(x[i][q], scale));
-      c = c != c ? 0.0f : fminf(fmaxf(c, -127.0f), 127.0f);
-      qv[q] = c;
-      rv[q] = __fmaf_rn(-c, scale, x[i][q]);
-    }
-    const size_t at = base + (size_t)(row0 + rl) * ld + c0;
-    if constexpr (kVec) {
-      if (4 * lane < width) {
-        *reinterpret_cast<char4*>(codes + at + 4 * lane) =
-            make_char4((signed char)qv[0], (signed char)qv[1], (signed char)qv[2],
-                       (signed char)qv[3]);
-        *reinterpret_cast<float4*>(resid + at + 4 * lane) = make_float4(rv[0], rv[1], rv[2], rv[3]);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = tile_col<false>(lane, q);
-        if (j < width) {
-          codes[at + j] = static_cast<signed char>(qv[q]);
-          resid[at + j] = rv[q];
-        }
-      }
+    code_row<kVec>(x[i], scale, codes, resid, base + (size_t)(row0 + rl) * ld + c0, lane, width);
+  }
+  if constexpr (kMore) {
+    for (int rl = kRegRows + warp; rl < rows; rl += kWarps) {
+      const size_t at = base + (size_t)(row0 + rl) * ld + c0;
+      float y[4];
+      load_row<kVec>(y, ud, vd, r == nullptr ? nullptr : r + at, row0 + rl, lane, c0, width, n, m);
+      code_row<kVec>(y, scale, codes, resid, at, lane, width);
     }
   }
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
-template <int R, bool kVec>
+template <int R, bool kVec, bool kMore = false>
 cudaError_t launch_quantize_pack(const float* u, const float* v, const float* r,
                                  signed char* codes, float* scales, float* resid, int D, int n,
                                  int m, int cs, cudaStream_t st) {
   const int nt = (n + m + kTile - 1) / kTile;
-  return launch_clustered(quantize_pack_kernel<R, kVec>, dim3(nt * cs, D), kThreads, 0, cs, st,
-                          u, v, r, codes, scales, resid, n, m, (n + cs - 1) / cs);
+  return launch_clustered(quantize_pack_kernel<R, kVec, kMore>, dim3(nt * cs, D), kThreads, 0,
+                          cs, st, u, v, r, codes, scales, resid, n, m, (n + cs - 1) / cs);
 }
 
 }  // namespace
 
 extern "C" {
 
-int repro_quantize_pack_max_n() { return kMaxN; }
-
 // u (D,n,n), v (D,n,m), r (D,n,n+m) or null, all contiguous f32 →
 // codes (D,n,n+m) int8, scales (D, ceil((n+m)/128)) f32, resid (D,n,n+m)
-// f32; n ≤ repro_quantize_pack_max_n().
+// f32.
 int repro_quantize_pack(const float* u, const float* v, const float* r, signed char* codes,
                         float* scales, float* resid, int D, int n, int m, void* stream) {
-  if (n > kMaxN) return cudaErrorInvalidValue;
   if (D == 0 || n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = n % 4 == 0 && m % 4 == 0 && aligned16(u) && aligned16(v) &&
                    (r == nullptr || aligned16(r)) && aligned16(codes) && aligned16(resid);
   // 32 rows a block (four passes of 8 warps) in the fewest blocks, a power
-  // of two; past 8 blocks of 32, 64 rows a block in 8
+  // of two; past 8 blocks of 32, 64 rows a block in 8; past 8 blocks of
+  // 64, the rest of a block's rows read twice
   int cs = 1;
   while (cs < kMaxCluster && cs * 32 < n) cs *= 2;
   if (cs * 32 >= n)
     return vec ? launch_quantize_pack<4, true>(u, v, r, codes, scales, resid, D, n, m, cs, st)
                : launch_quantize_pack<4, false>(u, v, r, codes, scales, resid, D, n, m, cs, st);
-  return vec ? launch_quantize_pack<8, true>(u, v, r, codes, scales, resid, D, n, m, cs, st)
-             : launch_quantize_pack<8, false>(u, v, r, codes, scales, resid, D, n, m, cs, st);
+  if (cs * kRegRows >= n)
+    return vec ? launch_quantize_pack<8, true>(u, v, r, codes, scales, resid, D, n, m, cs, st)
+               : launch_quantize_pack<8, false>(u, v, r, codes, scales, resid, D, n, m, cs, st);
+  return vec ? launch_quantize_pack<8, true, true>(u, v, r, codes, scales, resid, D, n, m, cs, st)
+             : launch_quantize_pack<8, false, true>(u, v, r, codes, scales, resid, D, n, m, cs,
+                                                    st);
 }
 
 }  // extern "C"

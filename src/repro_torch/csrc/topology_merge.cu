@@ -39,7 +39,10 @@
 //     48 registers a thread allow; the plan reads the occupancy from the
 //     runtime). Bands up to ±kMixRegHops keep the window in registers (hops
 //     a template parameter); a wider band keeps it in a shared-memory ring,
-//     a thread's own slots, with fewer threads a block as it widens.
+//     a thread's own slots, with fewer threads a block as it widens; a band
+//     wider than one block's shared memory takes (hops > kMixMaxHops = 226)
+//     is read straight from global memory, one thread an element and a
+//     device, the band summed from zero in the same order.
 //
 // * from_uv_solve (pallas_call :411, _solve_kernel :371, _gj_sweep :356):
 //     Gauss-Jordan without pivoting on [U+εI | I | V] per system, giving
@@ -79,6 +82,28 @@
 //     columns across clusters, each eliminating A itself. Q ≤ 10 row
 //     registers take Ñ ≤ 320 (past about Ñ = 362 A alone would not fit one
 //     8-block cluster's registers).
+//     Past Ñ = 320 (the wide solve) [A | V] stays in global memory, where L2
+//     holds it (768 × 1 552 × 4 B = 4.8 MB a system at Ñ = 768, m = 784),
+//     and the elimination is blocked into panels of kPanel = 32 pivots, two
+//     launches a panel after one that loads the systems into P and β:
+//       - uv_wide_panel_kernel: every block first eliminates the panel's
+//         32 × 32 diagonal block in step order in one warp (a lane a slot),
+//         which gives the panel's pivots, its row factors on the panel's
+//         slots and its column values on the panel's rows. Then, each thread
+//         on its own, the blocks of the column panel take one row each
+//         through the 32 steps (the slot of step k published, replaced by
+//         e_k and updated like the others), writing the row's final panel
+//         values and its 32 column values −(w[i,k] − δ); the blocks of the
+//         row panel take one slot outside the panel each through the same
+//         steps on the panel's rows, writing its 32 row factors
+//         w[k,j]/pivot_k;
+//       - uv_wide_update_kernel: each 64 × 64 tile of [P | β] takes the
+//         panel's 32 updates in step order, w = __fmaf_rn(−(col − δ), row,
+//         w), from the column values and row factors in shared memory (the
+//         panel's rows included: their column values carry the −δ); the
+//         panel's own slots take the column panel's values.
+//     Each element meets the same operations in the same order as in the
+//     unblocked sweep, so this path too is the plain version's bit for bit.
 //
 // * banded_merge_solve (pallas_call :491, _banded_solve_kernel :425):
 //     the open ring: device d solves the sum of the payloads of devices
@@ -239,8 +264,27 @@ banded_mix_kernel(const V* __restrict__ x, V* __restrict__ out, int D, long long
 // for each of 32 threads.
 constexpr int kMixMaxHops = (kMaxSmem / (32 * 16) - 1) / 2;
 
+// A band past kMixMaxHops: thread e of device blockIdx.y reads its band
+// straight from x, summed from zero for o = −hops..hops.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+banded_mix_wide_kernel(const V* __restrict__ x, V* __restrict__ out, int D, long long n,
+                       int hops) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  const int d = blockIdx.y;
+  V acc = zero_of<V>();
+  for (int o = -hops; o <= hops; ++o) acc = add_rn(acc, x[(size_t)ring_src(d, o, D) * n + e]);
+  out[(size_t)d * n + e] = acc;
+}
+
 template <typename V>
 cudaError_t launch_banded_mix(const V* x, V* out, int D, long long n, int hops, cudaStream_t st) {
+  if (hops > kMixMaxHops) {
+    banded_mix_wide_kernel<V><<<dim3((unsigned)((n + kThreads - 1) / kThreads), D), kThreads, 0,
+                                 st>>>(x, out, D, n, hops);
+    return cudaGetLastError();
+  }
   auto kernel = hops > kMixRegHops ? banded_mix_kernel<-1, V>
               : hops == 0          ? banded_mix_kernel<0, V>
               : hops == 1          ? banded_mix_kernel<1, V>
@@ -456,6 +500,218 @@ cudaError_t launch_uv_solve(const float* u, long long u_ss, long long u_rs, cons
                           ridge, hops);
 }
 
+constexpr int kPanel = 32;        // pivots a panel of the wide solve
+constexpr int kPanelThreads = 128;  // rows or slots a block of the panel kernel
+constexpr int kTileW = 64;        // rows and slots of an update tile
+
+// Element (i, slot j) of the working system: A's slots in p (n × n), V's in
+// beta (n × m).
+template <typename F>
+__device__ __forceinline__ F* wide_at(F* p, F* beta, int n, int m, int i, int j) {
+  return j < n ? p + (size_t)i * n + j : beta + (size_t)i * m + (j - n);
+}
+
+// Load system `sys` (blockIdx.y) as uv_solve_cluster_kernel's loader does:
+// the band's inputs summed in the plain version's order, the ridge on A's
+// diagonal; A into p, V into beta.
+__global__ void __launch_bounds__(kThreads)
+uv_wide_load_kernel(const float* __restrict__ u, long long u_ss, long long u_rs,
+                    const float* __restrict__ v, long long v_ss, long long v_rs,
+                    float* __restrict__ p, float* __restrict__ beta, int n, int m, float ridge,
+                    int hops) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int nm = n + m;
+  if (e >= (long long)n * nm) return;
+  const int sys = blockIdx.y, n_sys = gridDim.y;
+  const int i = (int)(e / nm), sl = (int)(e - (long long)i * nm);
+  const bool in_u = sl < n;
+  const float* src = in_u ? u : v;
+  const long long ss = in_u ? u_ss : v_ss;
+  const long long at = in_u ? i * u_rs + sl : i * v_rs + (sl - n);
+  float x = src[ring_src(sys, -hops, n_sys) * ss + at];
+  for (int o = -hops + 1; o <= hops; ++o) x = __fadd_rn(x, src[ring_src(sys, o, n_sys) * ss + at]);
+  *wide_at(p + (size_t)sys * n * n, beta + (size_t)sys * n * m, n, m, i, sl) =
+      in_u ? x + (i == sl ? ridge : 0.0f) : x;
+}
+
+// The panel of pivots k0 .. k0 + kb − 1 (kb = min(32, n − k0)) of system
+// blockIdx.y. Blocks [0, row_blocks) take the column panel, a row a thread;
+// the rest the row panel, a slot outside the panel a thread. Writes, per
+// system: nc (kPanel × n) the column values −(w[i,k] − δ_ik), pan (kPanel ×
+// n) the panel slots' values after the panel, rf (kPanel × (n+m)) the row
+// factors w[k,j]/pivot_k.
+__global__ void __launch_bounds__(kPanelThreads)
+uv_wide_panel_kernel(const float* __restrict__ p, const float* __restrict__ beta,
+                     float* __restrict__ nc, float* __restrict__ pan, float* __restrict__ rf,
+                     int n, int m, int k0, int row_blocks) {
+  __shared__ float piv[kPanel];
+  __shared__ float dnc[kPanel][kPanel];              // −(w[k0+r, k] − δ) of the diagonal block
+  __shared__ float drf[kPanel][kPanel];              // row factors on the panel's slots
+  __shared__ float tile[kPanelThreads][kPanel + 1];  // the column panel's rows, as loaded
+  const int sys = blockIdx.y, nm = n + m, kb = min(kPanel, n - k0);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const float* ps = p + (size_t)sys * n * n;
+  const float* bs = beta + (size_t)sys * n * m;
+
+  if (tid < 32) {  // the diagonal block, lane = slot k0 + lane, rows k0 .. k0 + 31
+    float x[kPanel];
+#pragma unroll
+    for (int r = 0; r < kPanel; ++r)
+      x[r] = r < kb && lane < kb ? ps[(size_t)(k0 + r) * n + k0 + lane] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) {
+      if (k >= kb) break;
+      if (lane == k) {  // publish slot k's column, then it holds e_k
+#pragma unroll
+        for (int r = 0; r < kPanel; ++r) dnc[k][r] = -(r == k ? __fsub_rn(x[r], 1.0f) : x[r]);
+        piv[k] = x[k];
+#pragma unroll
+        for (int r = 0; r < kPanel; ++r) x[r] = r == k ? 1.0f : 0.0f;
+      }
+      __syncwarp();
+      const float row = __fdiv_rn(x[k], piv[k]);
+      drf[k][lane] = row;
+#pragma unroll
+      for (int r = 0; r < kPanel; ++r) x[r] = __fmaf_rn(dnc[k][r], row, x[r]);
+      __syncwarp();
+    }
+  }
+
+  float* ncs = nc + (size_t)sys * kPanel * n;
+  if (blockIdx.x < row_blocks) {  // the column panel: row i through the panel's steps
+    const int i0 = blockIdx.x * kPanelThreads;
+    for (int idx = tid; idx < kPanelThreads * kPanel; idx += kPanelThreads) {
+      const int r = idx / kPanel, j = idx % kPanel;
+      tile[r][j] = i0 + r < n && j < kb ? ps[(size_t)(i0 + r) * n + k0 + j] : 0.0f;
+    }
+    __syncthreads();  // the tile, and the diagonal block's results
+    const int i = i0 + tid;
+    if (i >= n) return;
+    float y[kPanel];
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) y[j] = tile[tid][j];
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) {
+      if (k >= kb) break;
+      const float c = -(i == k0 + k ? __fsub_rn(y[k], 1.0f) : y[k]);
+      ncs[(size_t)k * n + i] = c;
+      y[k] = i == k0 + k ? 1.0f : 0.0f;
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) y[j] = __fmaf_rn(c, drf[k][j], y[j]);
+    }
+    float* pans = pan + (size_t)sys * kPanel * n;
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j)
+      if (j < kb) pans[(size_t)j * n + i] = y[j];
+  } else {  // the row panel: slot j (outside the panel) through the panel's rows
+    __syncthreads();
+    const int t = (blockIdx.x - row_blocks) * kPanelThreads + tid;
+    if (t >= nm - kb) return;
+    const int j = t < k0 ? t : t + kb;
+    float y[kPanel];
+#pragma unroll
+    for (int r = 0; r < kPanel; ++r) y[r] = r < kb ? *wide_at(ps, bs, n, m, k0 + r, j) : 0.0f;
+    float* rfs = rf + (size_t)sys * kPanel * nm;
+#pragma unroll
+    for (int k = 0; k < kPanel; ++k) {
+      if (k >= kb) break;
+      const float row = __fdiv_rn(y[k], piv[k]);
+      rfs[(size_t)k * nm + j] = row;
+#pragma unroll
+      for (int r = k + 1; r < kPanel; ++r) y[r] = __fmaf_rn(dnc[k][r], row, y[r]);
+    }
+  }
+}
+
+// One 64 × 64 tile (blockIdx.x: row tile · col_tiles + slot tile) of system
+// blockIdx.y after the panel at k0: every element outside the panel's slots
+// takes the kb updates in step order; the panel's slots take pan. Thread
+// (tx, ty) holds rows 4·ty .. 4·ty + 3 and slots tx + 16·c of the tile.
+__global__ void __launch_bounds__(kThreads)
+uv_wide_update_kernel(float* __restrict__ p, float* __restrict__ beta,
+                      const float* __restrict__ nc, const float* __restrict__ pan,
+                      const float* __restrict__ rf, int n, int m, int k0, int col_tiles) {
+  __shared__ __align__(16) float snc[kPanel][kTileW];  // [k][row]
+  __shared__ float srf[kPanel][kTileW];                // [k][slot]
+  const int sys = blockIdx.y, nm = n + m, kb = min(kPanel, n - k0);
+  const int i0 = (blockIdx.x / col_tiles) * kTileW, j0 = (blockIdx.x % col_tiles) * kTileW;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const float* ncs = nc + (size_t)sys * kPanel * n;
+  const float* rfs = rf + (size_t)sys * kPanel * nm;
+  for (int idx = tid; idx < kPanel * kTileW; idx += kThreads) {
+    const int k = idx / kTileW, c = idx % kTileW;
+    snc[k][c] = k < kb && i0 + c < n ? ncs[(size_t)k * n + i0 + c] : 0.0f;
+    srf[k][c] = k < kb && j0 + c < nm ? rfs[(size_t)k * nm + j0 + c] : 0.0f;
+  }
+  __syncthreads();
+  float* ps = p + (size_t)sys * n * n;
+  float* bs = beta + (size_t)sys * n * m;
+  float w[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = i0 + 4 * ty + r, j = j0 + tx + 16 * c;
+      w[r][c] = i < n && j < nm ? *wide_at(ps, bs, n, m, i, j) : 0.0f;
+    }
+#pragma unroll 8
+  for (int k = 0; k < kb; ++k) {
+    const float4 c4 = *reinterpret_cast<const float4*>(&snc[k][4 * ty]);
+    const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+    float rv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) rv[c] = srf[k][tx + 16 * c];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[r][c] = __fmaf_rn(cv[r], rv[c], w[r][c]);
+  }
+  const float* pans = pan + (size_t)sys * kPanel * n;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = i0 + 4 * ty + r, j = j0 + tx + 16 * c;
+      if (i >= n || j >= nm) continue;
+      const bool in_panel = j >= k0 && j < k0 + kb;
+      *wide_at(ps, bs, n, m, i, j) = in_panel ? pans[(size_t)(j - k0) * n + i] : w[r][c];
+    }
+}
+
+// Workspace floats of the wide solve for S systems (0 where the cluster
+// solve takes them): the column values, the panel's values and the row
+// factors of one panel.
+long long uv_wide_ws(int S, int n, int m) {
+  return n <= 32 * kSolveMaxQ ? 0 : (long long)S * kPanel * (2LL * n + n + m);
+}
+
+cudaError_t launch_uv_wide(const float* u, long long u_ss, long long u_rs, const float* v,
+                           long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
+                           int m, float ridge, int hops, float* ws, cudaStream_t st) {
+  const int nm = n + m;
+  float* nc = ws;
+  float* pan = nc + (size_t)S * kPanel * n;
+  float* rf = pan + (size_t)S * kPanel * n;
+  uv_wide_load_kernel<<<dim3((unsigned)(((long long)n * nm + kThreads - 1) / kThreads), S),
+                        kThreads, 0, st>>>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, ridge,
+                                           hops);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int row_blocks = (n + kPanelThreads - 1) / kPanelThreads;
+  const int row_tiles = (n + kTileW - 1) / kTileW, col_tiles = (nm + kTileW - 1) / kTileW;
+  for (int k0 = 0; k0 < n; k0 += kPanel) {
+    const int kb = n - k0 < kPanel ? n - k0 : kPanel;
+    const int col_blocks = (nm - kb + kPanelThreads - 1) / kPanelThreads;
+    uv_wide_panel_kernel<<<dim3(row_blocks + col_blocks, S), kPanelThreads, 0, st>>>(
+        p, beta, nc, pan, rf, n, m, k0, row_blocks);
+    uv_wide_update_kernel<<<dim3(row_tiles * col_tiles, S), kThreads, 0, st>>>(
+        p, beta, nc, pan, rf, n, m, k0, col_tiles);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 constexpr int kDenseBM = 128;  // rows of M (and of the output) per block
 constexpr int kDenseBN = 128;  // payload columns per block
 constexpr int kDenseBK = 16;   // devices k per shared-memory stage
@@ -589,11 +845,16 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 // Row registers a slot, rounded up to one of six tiles (rows past n are
 // zeros and are never stored). A thread keeps ⌊64/Q⌋ slots, so a cluster of
 // 8 blocks holds 512 at Q = 8 (Ñ ≤ 256: 3 clusters split V at m = 561) and
-// 384 at Q = 10 (Ñ ≤ 320: 9 clusters, each eliminating A again).
+// 384 at Q = 10 (Ñ ≤ 320: 9 clusters, each eliminating A again). Past
+// Ñ = 320 the wide solve, in the workspace ws (uv_wide_ws floats).
 cudaError_t uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
                      long long v_ss, long long v_rs, float* p, float* beta, int S, int n, int m,
-                     float ridge, int hops, cudaStream_t st) {
+                     float ridge, int hops, float* ws, cudaStream_t st) {
   if (S == 0 || n == 0) return cudaSuccess;
+  if (uv_wide_ws(S, n, m) > 0)
+    return ws == nullptr ? cudaErrorInvalidValue
+                         : launch_uv_wide(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge,
+                                          hops, ws, st);
   const int q = (n + 31) / 32;
   switch (q <= 2 ? q : q <= 4 ? 4 : q <= 7 ? 7 : q <= 8 ? 8 : q <= 10 ? 10 : 0) {
     case 1:
@@ -624,7 +885,9 @@ extern "C" {
 
 const char* repro_error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
-int repro_uv_solve_max_n() { return 32 * kSolveMaxQ; }
+// Workspace floats repro_uv_solve and repro_banded_merge_solve need for S
+// systems of n rows and m right-hand sides (0 where none).
+long long repro_uv_solve_ws(int S, int n, int m) { return uv_wide_ws(S, n, m); }
 
 // w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E).
 int repro_masked_segment_sum(const float* w, const int* seg_start, const float* mask,
@@ -663,13 +926,11 @@ int repro_segment_broadcast(const float* sums, const int* cids, float* out, int 
   return cudaGetLastError();
 }
 
-int repro_banded_mix_max_hops() { return kMixMaxHops; }
-
-// x (D, E) contiguous, 2·hops+1 <= D, hops ≤ repro_banded_mix_max_hops()
-// → out (D, E), the circular ±hops sums.
+// x (D, E) contiguous, 0 ≤ hops, 2·hops+1 <= D → out (D, E), the circular
+// ±hops sums.
 int repro_banded_mix(const float* x, float* out, int D, long long E, int hops, void* stream) {
   if (D == 0 || E == 0) return cudaSuccess;
-  if (hops < 0 || hops > kMixMaxHops) return cudaErrorInvalidValue;
+  if (hops < 0 || 2 * hops + 1 > D) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E % 4 == 0 && aligned16(x) && aligned16(out))
     return launch_banded_mix(reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out),
@@ -678,20 +939,22 @@ int repro_banded_mix(const float* x, float* out, int D, long long E, int hops, v
 }
 
 // S systems: u (S,n,n) and v (S,n,m) with the given strides → p (S,n,n),
-// beta (S,n,m), both contiguous; n ≤ repro_uv_solve_max_n().
+// beta (S,n,m), both contiguous; ws repro_uv_solve_ws(S, n, m) floats (or
+// null when that is 0).
 int repro_uv_solve(const float* u, long long u_ss, long long u_rs, const float* v,
                    long long v_ss, long long v_rs, float* p, float* beta, int S, int n,
-                   int m, float ridge, void* stream) {
-  return uv_solve(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, 0,
+                   int m, float ridge, float* ws, void* stream) {
+  return uv_solve(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, S, n, m, ridge, 0, ws,
                   static_cast<cudaStream_t>(stream));
 }
 
-// w (D, n, n+m) contiguous, 2·hops+1 ≤ D, n ≤ repro_uv_solve_max_n() →
-// p (D,n,n), beta (D,n,m): the solve of each device's ±hops band sum.
+// w (D, n, n+m) contiguous, 2·hops+1 ≤ D, ws repro_uv_solve_ws(D, n, m)
+// floats → p (D,n,n), beta (D,n,m): the solve of each device's ±hops band
+// sum.
 int repro_banded_merge_solve(const float* w, float* p, float* beta, int D, int n, int m,
-                             int hops, float ridge, void* stream) {
+                             int hops, float ridge, float* ws, void* stream) {
   const long long per = (long long)n * (n + m);
-  return uv_solve(w, per, n + m, w + n, per, n + m, p, beta, D, n, m, ridge, hops,
+  return uv_solve(w, per, n + m, w + n, per, n + m, p, beta, D, n, m, ridge, hops, ws,
                   static_cast<cudaStream_t>(stream));
 }
 

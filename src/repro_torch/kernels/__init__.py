@@ -19,9 +19,8 @@ from repro_torch.kernels.ops import (
     uv_from_state_kernel,
 )
 from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
-from repro_torch.kernels.rank1_add import rank1_add, rank1_add_plain
+from repro_torch.kernels.rank1_add import k1_update, k1_update_plain, rank1_add, rank1_add_plain
 from repro_torch.kernels.robust_merge import (
-    MAX_TRIM,
     robust_segment_combine,
     robust_segment_sum_mix,
     robust_segment_sum_mix_plain,
@@ -54,11 +53,11 @@ __all__ = [
     "segment_sum_mix", "segment_sum_mix_plain", "segment_broadcast", "segment_broadcast_plain",
     "banded_mix", "banded_mix_plain", "topology_mix",
     "hidden_proj", "hidden_proj_plain", "matmul_atb", "matmul_atb_plain", "uv_accum",
-    "rank1_add", "rank1_add_plain",
+    "rank1_add", "rank1_add_plain", "k1_update", "k1_update_plain",
     "flash_attention", "flash_attention_plain", "gla_forward", "gla_forward_plain",
     "oselm_step_k1_kernel", "oselm_step_k1_plain", "uv_from_batch_kernel",
     "uv_from_batch_plain", "uv_from_state_kernel",
     "quantize_pack", "quantize_pack_plain",
-    "MAX_TRIM", "robust_segment_combine", "robust_segment_sum_mix",
+    "robust_segment_combine", "robust_segment_sum_mix",
     "robust_segment_sum_mix_plain",
 ]

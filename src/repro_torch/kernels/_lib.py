@@ -118,23 +118,25 @@ _SIGNATURES = {
     "repro_segment_sum": [_P, _P, _P, _I, _L, _P],
     "repro_segment_broadcast": [_P, _P, _P, _I, _L, _P],
     "repro_banded_mix": [_P, _P, _I, _L, _I, _P],
-    "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P],
-    "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P, _P],
+    "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "repro_quantize_pack": [_P] * 6 + [_I] * 3 + [_P],
-    "repro_robust_segment_sum": [_P] * 7 + [_I, _L, _I, _P],
+    "repro_robust_segment_sum": [_P] * 7 + [_I, _L, _I, _P, _P],
     "repro_dense_mix": [_P, _P, _P, _P, _I, _L, _P],
     "repro_hidden_proj": [_P] * 5 + [_I] * 7 + [_P],
     "repro_matmul_atb": [_P] * 4 + [_I] * 7 + [_P],
     "repro_rank1_add": [_P] * 4 + [_F, _P, _I, _I, _I, _P],
+    "repro_k1_update": [_P] * 7 + [_I, _I, _P],
     "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
     "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
     "repro_gla_smem": [_I] * 2,
-    "repro_quantize_pack_max_n": [],
     "repro_ingest_beta_tile": [],
     "repro_ingest_chunk": [_I],
-    "repro_ingest_max_n": [],
-    "repro_uv_solve_max_n": [],
-    "repro_banded_mix_max_hops": [],
+}
+# entries that return a count of workspace floats
+_SIZES = {
+    "repro_uv_solve_ws": [_I, _I, _I],
+    "repro_robust_ws": [_I, _I, _L],
 }
 
 
@@ -142,10 +144,10 @@ _SIGNATURES = {
 def library() -> ctypes.CDLL:
     """The built kernel library, with every entry's ``argtypes`` set."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in {**_SIGNATURES, **_SIZES}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if name in _SIZES else ctypes.c_int
     lib.repro_error_string.argtypes = [_I]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
@@ -164,6 +166,17 @@ def check(status: int, kernel: str) -> None:
 
 # 227 KB: the shared memory one block may use on Hopper
 MAX_SMEM = 232_448
+
+
+def workspace(floats: int, device: torch.device) -> torch.Tensor | None:
+    """A kernel's f32 scratch of ``floats`` elements (a C entry's
+    ``*_ws`` count), or None where it needs none."""
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """The device pointer a C entry takes, null for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:

@@ -75,8 +75,6 @@ def flash_attention(
     b, sq, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel takes head widths {HEAD_DIMS}, got {hd}")
-    if b * h > 65_535:
-        raise ValueError(f"flash_attention: B·H = {b * h} exceeds the grid's 65 535")
     if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bf16 q, k and v must start on a 16-byte boundary "
                          "(the kernel copies 16 bytes at a time)")

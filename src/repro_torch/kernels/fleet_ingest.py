@@ -136,9 +136,6 @@ def fleet_ingest_cuda(
     d, t, n = window.shape
     nh, m = states.beta.shape[1], states.beta.shape[2]
     lib = _lib.library()
-    if nh > lib.repro_ingest_max_n():
-        raise ValueError(f"fleet_ingest: Ñ={nh} exceeds the kernels' limit of "
-                         f"{lib.repro_ingest_max_n()} (P's rows over one 8-block cluster)")
     n_tiles = -(-m // lib.repro_ingest_beta_tile())
     dev = window.device
     p_out = torch.empty_like(states.p)

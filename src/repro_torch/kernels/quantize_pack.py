@@ -121,10 +121,6 @@ def quantize_pack(
     _lib.require_cuda("quantize_pack", torch.float32, **inputs)
     d, n, _ = u.shape
     m = v.shape[2]
-    limit = _lib.library().repro_quantize_pack_max_n()
-    if n > limit:
-        raise ValueError(f"quantize_pack: Ñ={n} exceeds the kernel's limit of {limit} rows "
-                         "(a tile's rows over one 8-block cluster)")
     codes = torch.empty((d, n, n + m), dtype=torch.int8, device=u.device)
     scales = torch.empty((d, n_col_tiles(n + m)), dtype=torch.float32, device=u.device)
     resid = torch.empty((d, n, n + m), dtype=torch.float32, device=u.device)

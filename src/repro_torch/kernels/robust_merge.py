@@ -16,8 +16,7 @@ The wrapper takes ``robust_segment_sum_mix_plain`` for CPU tensors and
 launches the kernel of ``csrc/robust_merge.cu`` for CUDA tensors, or
 raises. The plain version follows the kernel's order of operations
 exactly (not the sort-based oracle of the reference), so the two agree
-bit for bit. ``trim`` is bounded by ``MAX_TRIM``, the length of the
-kernel's register chains.
+bit for bit, at any ``trim`` ≥ 0.
 """
 from __future__ import annotations
 
@@ -27,14 +26,10 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.topology_merge import _segment_starts
 
 __all__ = [
-    "MAX_TRIM",
     "robust_segment_combine",
     "robust_segment_sum_mix",
     "robust_segment_sum_mix_plain",
 ]
-
-MAX_TRIM = 4  # register chain length of csrc/robust_merge.cu
-
 
 def _check(x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor, trim: int) -> None:
     if x.ndim != 3:
@@ -45,9 +40,6 @@ def _check(x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor, trim: int) 
                          f"{tuple(scale.shape)}")
     if trim < 0:
         raise ValueError(f"need trim >= 0, got {trim}")
-    if trim > MAX_TRIM:
-        raise ValueError(f"trim={trim} exceeds MAX_TRIM={MAX_TRIM}, the length of the "
-                         "kernel's register chains")
 
 
 def robust_segment_sum_mix_plain(
@@ -106,9 +98,13 @@ def robust_segment_sum_mix(
     shape = (n_clusters,) + tuple(x.shape[1:])
     tot, lo, hi = (torch.empty(shape, dtype=torch.float32, device=x.device) for _ in range(3))
     elems = x[0].numel() if x.shape[0] else 0
-    status = _lib.library().repro_robust_segment_sum(
+    lib = _lib.library()
+    # chains too long for one block's shared memory live in a workspace
+    ws = _lib.workspace(lib.repro_robust_ws(trim, n_clusters, elems), x.device)
+    status = lib.repro_robust_segment_sum(
         x.data_ptr(), starts.data_ptr(), mask.data_ptr(), scale.data_ptr(),
-        tot.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_clusters, elems, trim, _lib.stream(),
+        tot.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_clusters, elems, trim,
+        _lib.ptr(ws), _lib.stream(),
     )
     _lib.check(status, "robust_segment_sum_mix")
     _lib.count_launch("robust_segment_sum_mix")

@@ -229,13 +229,10 @@ def from_uv_solve_plain(
     return _gj_solve_plain(a, v)
 
 
-def _check_cluster_solve_n(kernel: str, n: int) -> None:
-    limit = _lib.library().repro_uv_solve_max_n()
-    if n > limit:
-        raise ValueError(
-            f"{kernel}: Ñ={n} exceeds the cluster solve's limit of {limit} rows "
-            "(10 registers a slot for each lane)"
-        )
+def _solve_workspace(s: int, n: int, m: int, device: torch.device) -> torch.Tensor | None:
+    """The wide solve's workspace (past Ñ = 320), or None where the
+    cluster solve needs none."""
+    return _lib.workspace(_lib.library().repro_uv_solve_ws(s, n, m), device)
 
 
 def from_uv_solve(
@@ -244,8 +241,8 @@ def from_uv_solve(
     """Batched §4.2 step 5: u (S, Ñ, Ñ), v (S, Ñ, m) → P = (U+εI)⁻¹,
     β = PV. On CUDA, u and v may be column slices of one packed [U | V]
     (unit column stride); the outputs are contiguous. The kernel holds
-    each system in one thread-block cluster and eliminates it once; it
-    takes Ñ up to 320 and any m."""
+    each system in one thread-block cluster and eliminates it once, or,
+    past Ñ = 320, eliminates it in panels of 32 pivots in global memory."""
     if u.ndim != 3 or v.ndim != 3 or u.shape[:2] != v.shape[:2] or u.shape[1] != u.shape[2]:
         raise ValueError(f"need u (S, Ñ, Ñ) and v (S, Ñ, m); got {tuple(u.shape)}, {tuple(v.shape)}")
     if u.device.type == "cpu":
@@ -257,12 +254,12 @@ def from_uv_solve(
                 f"column stride; got {t.dtype} on {t.device}, strides {t.stride()}"
             )
     s, n, m = v.shape
-    _check_cluster_solve_n("from_uv_solve", n)
     p = torch.empty((s, n, n), dtype=torch.float32, device=u.device)
     beta = torch.empty((s, n, m), dtype=torch.float32, device=u.device)
+    ws = _solve_workspace(s, n, m, u.device)
     status = _lib.library().repro_uv_solve(
         u.data_ptr(), u.stride(0), u.stride(1), v.data_ptr(), v.stride(0), v.stride(1),
-        p.data_ptr(), beta.data_ptr(), s, n, m, float(ridge), _lib.stream(),
+        p.data_ptr(), beta.data_ptr(), s, n, m, float(ridge), _lib.ptr(ws), _lib.stream(),
     )
     _lib.check(status, "from_uv_solve")
     _lib.count_launch("from_uv_solve")
@@ -288,8 +285,7 @@ def banded_mix_plain(x: torch.Tensor, hops: int) -> torch.Tensor:
 def banded_mix(x: torch.Tensor, hops: int) -> torch.Tensor:
     """Circular banded neighbour sum out[d] = Σ_{o=−hops..hops} x[(d+o) mod D]
     over a stacked (D, R, C) array, summed from zero for o = −hops..+hops.
-    Needs 2·hops+1 ≤ D: a wider band would count a device twice. The
-    kernel takes hops up to 226."""
+    Needs 2·hops+1 ≤ D: a wider band would count a device twice."""
     if x.ndim != 3:
         raise ValueError(f"need x (D, R, C); got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -297,10 +293,6 @@ def banded_mix(x: torch.Tensor, hops: int) -> torch.Tensor:
     _lib.require_cuda_f32("banded_mix", x=x)
     d = x.shape[0]
     _check_band(d, hops)
-    limit = _lib.library().repro_banded_mix_max_hops()
-    if hops > limit:
-        raise ValueError(f"banded_mix: hops={hops} exceeds the kernel's limit of {limit} "
-                         "(the band's window in one block's shared memory)")
     out = torch.empty_like(x)
     status = _lib.library().repro_banded_mix(
         x.data_ptr(), out.data_ptr(), d, x[0].numel() if d else 0, hops, _lib.stream(),
@@ -327,7 +319,7 @@ def banded_merge_solve(
     """The fused open-ring merge: w (D, Ñ, Ñ+m) stacked [U | V] payloads →
     per-device P (D, Ñ, Ñ), β (D, Ñ, m) of the ±hops neighbour sum. The
     kernel is ``from_uv_solve``'s, its loader summing each device's band
-    as it reads it; it takes Ñ up to 320."""
+    as it reads it."""
     if w.ndim != 3 or w.shape[2] <= w.shape[1]:
         raise ValueError(f"need w (D, Ñ, Ñ+m); got {tuple(w.shape)}")
     if w.device.type == "cpu":
@@ -335,12 +327,13 @@ def banded_merge_solve(
     _lib.require_cuda_f32("banded_merge_solve", w=w)
     d, n, nm = w.shape
     _check_band(d, hops)
-    _check_cluster_solve_n("banded_merge_solve", n)
     m = nm - n
     p = torch.empty((d, n, n), dtype=torch.float32, device=w.device)
     beta = torch.empty((d, n, m), dtype=torch.float32, device=w.device)
+    ws = _solve_workspace(d, n, m, w.device)
     status = _lib.library().repro_banded_merge_solve(
-        w.data_ptr(), p.data_ptr(), beta.data_ptr(), d, n, m, hops, float(ridge), _lib.stream(),
+        w.data_ptr(), p.data_ptr(), beta.data_ptr(), d, n, m, hops, float(ridge), _lib.ptr(ws),
+        _lib.stream(),
     )
     _lib.check(status, "banded_merge_solve")
     _lib.count_launch("banded_merge_solve")

@@ -4,8 +4,9 @@
 CPU tensor) is held to the reference Pallas kernel in interpret mode and
 to the reference's sequential ``_fleet_train`` chain, on odd D/T/Ñ/n and
 with λ < 1, at the edges of the kernel's chunking of the window (one
-sample, and a window longer than ``INGEST_CHUNK``), and at a wide hidden
-layer (Ñ = 256, chunks of ``INGEST_WIDE_CHUNK``). Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
+sample, and a window longer than ``INGEST_CHUNK``), and at wide hidden
+layers (Ñ = 256, chunks of ``INGEST_WIDE_CHUNK``; Ñ = 384, past the card's
+cluster P chain). Bounds are those of ``tests/test_fleet_ingest.py:80-92``:
 losses at rtol 1e-5 / atol 1e-7, state at 1e-5. With sigmoid the fixture
 carries the reference's ridge 5e-2: RLS parity in f32 degrades as κ(P)².
 """
@@ -137,6 +138,33 @@ def test_plain_ingest_on_a_wide_layer_matches_reference(t, activation, forget):
     np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
     seq = _fleet_train(fleet, jnp.asarray(win))
     _assert_state_close(got, seq)
+
+
+# past the card's cluster P chain (Ñ > 320: P in global memory, β streamed
+# in runs of rows), at Ñ = 384 with n = 400 features: a window across the
+# chunk edge, λ 0.95 and 1, ridge 1 (at ridge 1e-3 the boot of a layer this
+# wide on 2·Ñ rows is too ill-posed for f32 parity in either package)
+@pytest.mark.parametrize("forget", [0.95, 1.0])
+def test_plain_ingest_past_the_cluster_chain_matches_reference(forget):
+    d, n, nh, t = 2, 400, 384, INGEST_WIDE_CHUNK + 6
+    rng = np.random.default_rng(12)
+    x_init = rng.uniform(0, 1, (d, 2 * nh, n)).astype(np.float32)
+    fleet = init_fleet(jax.random.PRNGKey(12), d, n, nh, jnp.asarray(x_init),
+                       activation="identity", ridge=1.0, forget=forget)
+    win = rng.uniform(0, 1, (d, t, n)).astype(np.float32)
+    got, loss = fleet_ingest_plain(_port(fleet), torch.from_numpy(win))
+    ref, ref_loss = fleet_ingest_kernel(fleet, jnp.asarray(win), block_d=2, interpret=True)
+    _assert_state_close(got, ref)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), rtol=1e-5, atol=1e-7)
+    seq = _fleet_train(fleet, jnp.asarray(win))
+    _assert_state_close(got, seq)
+
+
+@pytest.mark.parametrize("nh", [321, 384, 544, 768, 1024])
+def test_ingest_chunk_past_the_cluster_chain(nh):
+    """The wide kernels take the window in chunks of INGEST_WIDE_CHUNK
+    samples, and so does the plain version."""
+    assert ingest_chunk(nh) == INGEST_WIDE_CHUNK
 
 
 def test_ingest_chunk_shrinks_past_the_wide_width():

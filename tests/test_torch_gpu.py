@@ -12,8 +12,9 @@ orders in the GEMM and dot products, amplified along the RLS chain).
 ``quantize_pack``, ``robust_segment_sum_mix``, ``dense_mix``,
 ``segment_sum_mix``, ``segment_broadcast`` and ``banded_mix`` are held
 bit for bit: their plain versions repeat the kernels' operations in the
-kernels' order. So is ``rank1_add`` (one rounded product, one fused
-multiply-add in both). ``hidden_proj`` and ``matmul_atb`` are held at
+kernels' order. So are ``rank1_add`` and ``k1_update`` (one rounded
+product, one fused multiply-add in both; ``k1_update``'s two sums in one
+lane-then-butterfly order in both). ``hidden_proj`` and ``matmul_atb`` are held at
 1e-6 of max |plain|, f32 or bf16 inputs (widened to f32 exactly in both):
 each kernel sums in a fixed order of its own, the plain version is a
 PyTorch product (a batch of eight, at 1e-6 of an f64 product's largest
@@ -30,7 +31,9 @@ orders) and 2e-2 in bf16 (a p or an output that rounds to the other bf16
 neighbour), GLA at 1e-5 and 2^-8 (its plain version repeats the kernels'
 arithmetic, its products summed in PyTorch's order). ``banded_merge_solve``
 is held bit for bit at the har width: its loader sums each band in the
-plain version's order and its elimination is ``from_uv_solve``'s. The
+plain version's order and its elimination is ``from_uv_solve``'s; both
+solves stay bit for bit past Ñ = 320, where they take the blocked wide
+solve. The
 model's prefill and decode on the card are held to the CPU's at 1e-4
 (reduced hymba-1.5b, f32).
 """
@@ -57,6 +60,8 @@ from repro_torch.kernels import (
     gla_forward_plain,
     hidden_proj,
     hidden_proj_plain,
+    k1_update,
+    k1_update_plain,
     launch_counts,
     masked_segment_sum_mix,
     masked_segment_sum_mix_plain,
@@ -143,7 +148,10 @@ def test_ingest_kernel_matches_plain(cuda, activation, forget):
 # of two chunks (the second ragged) and of three; Ñ = 16, 32 and 64 (the
 # smaller register tiles), 160 and 200 (P's rows over an 8-block cluster);
 # the wide layer, Ñ = 256 and 320 at n = 561, T = 32 (one chunk of 32) and
-# 70 (three chunks, the last ragged), λ 1 and 0.95; supervised targets
+# 70 (three chunks, the last ragged), λ 1 and 0.95; past the cluster's
+# P chain (P in global memory, β streamed), Ñ = 321 (one row past it) and
+# 768 (the mnist_like width's widest bottleneck), and Ñ = 384 with
+# supervised targets across two chunks; supervised targets
 # (m ≠ n) at m = 23, 70 and 300, none a multiple of the 64-column β tile;
 # λ < 1; Ñ = 5 in a P tile of 32 rows; and fleets large enough that a block
 # takes a run of tiles, with the next tile in a second buffer (D = 100) or,
@@ -164,6 +172,9 @@ def test_ingest_kernel_matches_plain(cuda, activation, forget):
     (6, 70, 561, 256, None, "identity", 0.95),
     (6, 32, 561, 320, None, "identity", 0.95),
     (6, 70, 561, 320, 300, "identity", 1.0),
+    (4, 32, 561, 321, None, "identity", 1.0),
+    (3, 40, 400, 384, 300, "identity", 0.95),
+    (3, 32, 800, 768, None, "identity", 1.0),
 ])
 def test_ingest_kernel_at_its_edges(cuda, d, t, n, nh, m, activation, forget):
     rng = np.random.default_rng(8)
@@ -205,10 +216,9 @@ def test_ingest_kernel_at_har_width(cuda):
 
 def test_ingest_chunk_is_the_kernels(cuda):
     """The plain version chunks the window as the kernel does, at every Ñ
-    the kernel takes."""
+    up to 1024 (the cluster's P chain to 320, the wide kernels past it)."""
     lib = _lib.library()
-    assert lib.repro_ingest_max_n() >= 320
-    for nh in range(1, lib.repro_ingest_max_n() + 1):
+    for nh in range(1, 1025):
         assert lib.repro_ingest_chunk(nh) == ingest_chunk(nh), nh
     assert ingest_chunk(128) == INGEST_CHUNK
 
@@ -309,10 +319,23 @@ def test_from_uv_solve_is_bit_exact_on_a_wide_layer(cuda, s, n):
     assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
 
 
-def test_from_uv_solve_names_its_limit(cuda):
-    u = torch.eye(321, device=cuda)[None]
-    with pytest.raises(ValueError, match="limit of 320"):
-        from_uv_solve(u, torch.zeros((1, 321, 3), device=cuda))
+# past the cluster solve (the blocked wide solve, panels of 32 pivots in
+# global memory): Ñ = 321 (a last panel of one pivot), 384 and 768 (the
+# mnist_like width's widest bottleneck, m = 784), one system and three, and
+# m = 0; the same elimination step for step, so no element differs
+@pytest.mark.parametrize("s,n,m", [(1, 321, 561), (3, 321, 561), (1, 384, 561), (3, 384, 561),
+                                   (1, 768, 784), (3, 768, 784), (1, 400, 0)])
+def test_from_uv_solve_is_bit_exact_past_the_cluster_solve(cuda, s, n, m):
+    rng = np.random.default_rng(60 + n + s)
+    u = _spd(rng, s, n, cuda)
+    v = torch.from_numpy(rng.standard_normal((s, n, m)).astype(np.float32)).to(cuda)
+    w = torch.cat([u, v], dim=2)
+    p, b = _launched("from_uv_solve", lambda: from_uv_solve(w[:, :, :n], w[:, :, n:], ridge=1e-3))
+    rp, rb = from_uv_solve_plain(u, v, ridge=1e-3)
+    assert torch.isfinite(p).all() and torch.isfinite(b).all()
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
+    p2, b2 = from_uv_solve(w[:, :, :n], w[:, :, n:], ridge=1e-3)
+    assert torch.equal(p, p2) and torch.equal(b, b2)
 
 
 @pytest.mark.parametrize("hops", [1, 2])
@@ -348,20 +371,18 @@ def test_banded_merge_solve_is_bit_exact_with_plain(cuda, d, n, m, hops):
     assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
 
 
-def test_banded_merge_solve_names_its_limit(cuda):
-    w = torch.zeros((3, 321, 324), device=cuda)
-    with pytest.raises(ValueError, match="banded_merge_solve: Ñ=321 .*limit of 320"):
-        banded_merge_solve(w, 1)
-
-
-def test_ingest_and_quantize_pack_name_their_limits(cuda):
-    lib = _lib.library()
-    fleet = _fleet(cuda, "identity", 1.0, d=2, n=8, nh=lib.repro_ingest_max_n() + 1)
-    with pytest.raises(ValueError, match=f"Ñ={lib.repro_ingest_max_n() + 1} .*limit of 320"):
-        fleet_ingest(fleet, torch.zeros((2, 3, 8), device=cuda))
-    n = lib.repro_quantize_pack_max_n() + 1
-    with pytest.raises(ValueError, match=f"Ñ={n} .*limit of 512"):
-        quantize_pack(torch.zeros((1, n, n), device=cuda), torch.zeros((1, n, 3), device=cuda))
+# the open ring past the cluster solve: each band summed as it loads, then
+# the wide solve; no element differs
+@pytest.mark.parametrize("d,n,m,hops", [(5, 321, 561, 1), (5, 384, 561, 2), (5, 768, 784, 2)])
+def test_banded_merge_solve_is_bit_exact_past_the_cluster_solve(cuda, d, n, m, hops):
+    rng = np.random.default_rng(70 + n + hops)
+    u = _spd(rng, d, n, cuda)
+    v = torch.from_numpy(rng.standard_normal((d, n, m)).astype(np.float32)).to(cuda)
+    w = torch.cat([u, v], dim=2).contiguous()
+    p, b = _launched("banded_merge_solve", lambda: banded_merge_solve(w, hops, ridge=1e-3))
+    rp, rb = banded_merge_solve_plain(w, hops, ridge=1e-3)
+    assert torch.isfinite(p).all() and torch.isfinite(b).all()
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -377,10 +398,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # (256, 128, 561): the har width, tile 0 exactly U, a ragged last tile of
 # 49 columns, 4 blocks a tile; (13, 10, 300): tiles across the U | V seam,
 # odd everything, one block; the wide layer at (16, 256, 561) (8 blocks of
-# 32 rows) and (16, 320, 561) (8 of 40, the seam inside tile 2); and rows
-# 16-byte aligned (16-byte loads): (16, 64, 300) and (7, 320, 564)
+# 32 rows) and (16, 320, 561) (8 of 40, the seam inside tile 2); rows
+# 16-byte aligned (16-byte loads): (16, 64, 300) and (7, 320, 564); and past
+# the 512 rows 8 blocks hold in registers, each block's rest read twice:
+# (4, 513, 300) (one row past), (3, 600, 564) (16-byte loads) and
+# (2, 1024, 561)
 @pytest.mark.parametrize("d,n,m", [(256, 128, 561), (13, 10, 300), (16, 256, 561),
-                                   (16, 320, 561), (16, 64, 300), (7, 320, 564)])
+                                   (16, 320, 561), (16, 64, 300), (7, 320, 564), (4, 513, 300),
+                                   (3, 600, 564), (2, 1024, 561)])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_quantize_pack_kernel_matches_plain(cuda, d, n, m, with_residual):
     rng = np.random.default_rng(6)
@@ -408,9 +433,10 @@ def test_quantize_pack_kernel_matches_plain(cuda, d, n, m, with_residual):
 
 
 # (13, 10, 37): ragged clusters, one of them empty; (256, 128, 689): the
-# har width on 32 clusters, as a hierarchical fleet merges
+# har width on 32 clusters, as a hierarchical fleet merges; trims in
+# registers (0–4) and past them (5, 8: chains in shared memory)
 @pytest.mark.parametrize("d,r,c,n_clusters", [(13, 10, 37, 4), (256, 128, 689, 32)])
-@pytest.mark.parametrize("trim", [0, 1, 2, 4])
+@pytest.mark.parametrize("trim", [0, 1, 2, 4, 5, 8])
 def test_robust_segment_sum_kernel_matches_plain(cuda, d, r, c, n_clusters, trim):
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((d, r, c)).astype(np.float32)).to(cuda)
@@ -427,8 +453,23 @@ def test_robust_segment_sum_kernel_matches_plain(cuda, d, r, c, n_clusters, trim
     want = robust_segment_sum_mix_plain(x, cids, mask, scale, n_clusters, trim)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    with pytest.raises(ValueError, match="MAX_TRIM"):
-        robust_segment_sum_mix(x, cids, mask, scale, n_clusters, 5)
+
+
+# long chains: 128 threads a block (trim 100), 64 (300), 32 (500), and
+# past what 32 threads' shared memory holds, a global workspace (1000);
+# one star of 40 devices, so that a chain fills at trim 100 on neither side
+@pytest.mark.parametrize("trim", [100, 300, 500, 1000])
+def test_robust_segment_sum_kernel_with_long_chains(cuda, trim):
+    rng = np.random.default_rng(trim)
+    d = 40
+    x = torch.from_numpy(rng.standard_normal((d, 6, 11)).astype(np.float32)).to(cuda)
+    cids = np.zeros(d, np.int32)
+    mask = torch.from_numpy((rng.random(d) < 0.8).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(0.2, 1.0, d).astype(np.float32)).to(cuda)
+    got = _launched("robust_segment_sum_mix",
+                    lambda: robust_segment_sum_mix(x, cids, mask, scale, 1, trim))
+    for g, w in zip(got, robust_segment_sum_mix_plain(x, cids, mask, scale, 1, trim)):
+        assert torch.equal(g, w)
 
 
 # (13, 10, 37): everything odd; (256, 128, 689): the har width; then the
@@ -560,9 +601,10 @@ def test_matmul_atb_kernel_batches_and_refuses(cuda):
         matmul_atb(a.transpose(1, 2).contiguous().transpose(1, 2), b)
 
 
-# (128, 128): P, the 16-byte path; (128, 561): β, the scalar path;
-# (33, 257): ragged
-@pytest.mark.parametrize("n1,n2", [(128, 128), (128, 561), (33, 257)])
+# (128, 128): P; (128, 561): β, its rows crossing 16-byte vectors;
+# (33, 257): ragged; (5, 3) and (1, 7): rows shorter than a vector and one
+# row
+@pytest.mark.parametrize("n1,n2", [(128, 128), (128, 561), (33, 257), (5, 3), (1, 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rank1_add_kernel_is_bit_exact_with_plain(cuda, n1, n2, dtype):
     x = _randn(cuda, (n1, n2), dtype, 12)
@@ -584,11 +626,25 @@ def test_rank1_add_kernel_on_a_misaligned_view(cuda):
     assert torch.equal(rank1_add(x, u, v, -0.5), rank1_add_plain(x, u, v, -0.5))
 
 
+# the k=1 step's tail in one launch: the har width (Ñ = 128, m = 561), odd
+# widths, Ñ past the 256 rows a β strip keeps in shared memory, one row
+@pytest.mark.parametrize("n,m", [(128, 561), (37, 23), (300, 561), (1, 5), (129, 64)])
+def test_k1_update_kernel_is_bit_exact_with_plain(cuda, n, m):
+    rng = np.random.default_rng(n + m)
+    p = _spd(rng, 1, n, cuda)[0]
+    beta, h, ph, t = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+                      for shape in ((n, m), (n,), (n,), (m,)))
+    got = _launched("rank1_add", lambda: k1_update(p, beta, h, ph, t))
+    want = k1_update_plain(p, beta, h, ph, t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("activation,forget", [("identity", 1.0), ("sigmoid", 0.97)])
 def test_k1_step_and_batch_statistics_on_the_kernels(cuda, activation, forget):
     """One k=1 step at the har width launches hidden_proj, matmul_atb and
-    rank1_add twice and agrees with the plain composition; the batch
-    statistics launch hidden_proj once and matmul_atb twice."""
+    the k=1 tail (counted as rank1_add) once each and agrees with the plain
+    composition; the batch statistics launch hidden_proj once and
+    matmul_atb twice."""
     state = _fleet(cuda, activation, forget, d=1, n=561, nh=128)
     state = state.replace(beta=state.beta[0], p=state.p[0])
     x = torch.rand(561, generator=torch.Generator().manual_seed(0)).to(cuda)
@@ -596,7 +652,7 @@ def test_k1_step_and_batch_statistics_on_the_kernels(cuda, activation, forget):
     got = oselm_step_k1_kernel(state, x, x)
     torch.cuda.synchronize()
     after = launch_counts()
-    assert [after[k] - before[k] for k in ("hidden_proj", "matmul_atb", "rank1_add")] == [1, 1, 2]
+    assert [after[k] - before[k] for k in ("hidden_proj", "matmul_atb", "rank1_add")] == [1, 1, 1]
     want = oselm_step_k1_plain(state, x, x)
     assert _rel(got.p, want.p) <= 1e-5 and _rel(got.beta, want.beta) <= 1e-5
     xs = torch.rand((512, 561), generator=torch.Generator().manual_seed(1)).to(cuda)
@@ -668,11 +724,13 @@ def test_segment_broadcast_kernel_on_a_misaligned_view(cuda):
 # an H100, the last of 11, or the whole ring), its band wraps past device
 # 36, at hops 2, 4 (the widest register window), 5 and 7 (the
 # shared-memory ring); (61, 8, 100) at hops 30: a ring too wide for 256
-# threads a block
+# threads a block; past the widest ring one block holds (hops 226), the
+# band read from global memory: hops 227 on 455 devices (2·hops + 1 = D,
+# four elements a thread) and on 460 (one element a thread)
 @pytest.mark.parametrize("d,r,c,hops", [(13, 10, 37, 0), (13, 10, 37, 1), (13, 10, 37, 2),
                                         (13, 10, 37, 6), (256, 128, 689, 2), (37, 256, 844, 2),
                                         (37, 256, 844, 4), (37, 256, 844, 5), (37, 256, 844, 7),
-                                        (61, 8, 100, 30)])
+                                        (61, 8, 100, 30), (455, 4, 8, 227), (460, 3, 7, 227)])
 def test_banded_mix_kernel_is_bit_exact_with_plain(cuda, d, r, c, hops):
     x = torch.from_numpy(
         np.random.default_rng(23).standard_normal((d, r, c)).astype(np.float32)).to(cuda)
@@ -695,8 +753,8 @@ def test_mix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((5, 4, 9), device=cuda)
     with pytest.raises(ValueError, match="band"):
         banded_mix(x, 3)
-    with pytest.raises(ValueError, match="hops=227 .*limit of 226"):
-        banded_mix(torch.zeros((455, 1, 4), device=cuda), 227)
+    with pytest.raises(ValueError, match="band"):
+        banded_mix(torch.zeros((454, 1, 4), device=cuda), 227)
     with pytest.raises(ValueError, match="contiguous"):
         banded_mix(x.transpose(1, 2), 1)
     with pytest.raises(TypeError, match="float32"):
@@ -788,6 +846,16 @@ def test_gla_kernel_matches_plain(cuda, b, s, h, dk, dv, dtype):
     assert y.dtype == dtype and state.dtype == torch.float32
     assert _row_rel(y, want_y) <= (1e-5 if dtype == torch.float32 else 2 ** -8)
     assert _row_rel(state, want_state) <= 1e-5
+
+
+# more (batch, head) pairs than a grid's y axis takes (65 535): B·H is on x
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_past_65535_heads(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_draw(cuda, (65_600, 16, 1, 64), dtype, gen) for _ in range(3))
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, causal=True))
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert _row_rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

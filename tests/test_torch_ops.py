@@ -26,15 +26,19 @@ from repro.core import oselm_train_sequential as ref_train_sequential
 from repro.core.oselm import OSELMState as RefState
 from repro.kernels import oselm_step_k1_kernel as ref_step_kernel
 from repro.kernels import uv_from_state_kernel as ref_uv_from_state
+from repro.kernels.rank1_add import rank1_add as ref_rank1_add
 from repro.kernels.ops import uv_from_batch_kernel as ref_uv_from_batch
 from repro_torch import core as tcore
 from repro_torch.convert import oselm_state_from_numpy
 from repro_torch.kernels import (
+    k1_update,
+    k1_update_plain,
     oselm_step_k1_kernel,
     oselm_step_k1_plain,
     uv_from_batch_kernel,
     uv_from_state_kernel,
 )
+from repro_torch.kernels.rank1_add import lane_sum
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from benchmarks.torch_common import edge_config, normalized_dataset, train_edge_device  # noqa: E402
@@ -95,6 +99,50 @@ def test_k1_chain_in_kernel_order_matches_reference_kernel(activation, forget):
             assert torch.equal(got.p, other.p) and torch.equal(got.beta, other.beta)
         _close(got.p, ref.p)
         _close(got.beta, ref.beta)
+
+
+@pytest.mark.parametrize("n", [1, 10, 37, 128, 129])
+def test_lane_sum_is_the_warp_order(n):
+    """``lane_sum`` adds in the k=1 kernel's order: lane l sums rows l,
+    l + 32, ... from zero (zeros up to a multiple of 32), then each
+    xor-butterfly step adds lane l ^ off; every bit equal to that order
+    emulated lane by lane in f32."""
+    x = np.random.default_rng(n).standard_normal((n, 3)).astype(np.float32)
+    lanes = np.zeros((32, 3), np.float32)
+    for lane in range(32):
+        for i in range(lane, -(-n // 32) * 32, 32):
+            lanes[lane] = lanes[lane] + (x[i] if i < n else np.float32(0))
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ off]
+    assert np.array_equal(lane_sum(torch.from_numpy(x)).numpy(), lanes[0])
+
+
+@pytest.mark.parametrize("activation,forget", CASES)
+def test_k1_update_is_the_reference_steps_tail(activation, forget):
+    """The k=1 step's tail in one call: from the reference's own P/λ, h
+    and ph, (P', β') against the reference's glue (1 + h·ph, t − h·β, the
+    two reciprocals) and its two rank1_add kernels in interpret mode, at
+    1e-5; the CPU wrapper is the plain version, bit for bit."""
+    ref, xs = _ref_state(activation, forget, seed=8)
+    x = jnp.asarray(xs[0])
+    from repro.kernels import hidden_proj as ref_hidden_proj
+    from repro.kernels import matmul_atb as ref_matmul_atb
+
+    h = ref_hidden_proj(x[None, :], ref.params.alpha, ref.params.bias,
+                        activation=ref.activation, interpret=True)[0]
+    p = ref.p / ref.forget
+    ph = ref_matmul_atb(h[:, None], p, interpret=True)[0]
+    denom = 1.0 + h @ ph
+    want_p = ref_rank1_add(p, ph, ph, -1.0 / denom, interpret=True)
+    want_b = ref_rank1_add(ref.beta, ph, x - h @ ref.beta, 1.0 / denom, interpret=True)
+    args = [torch.from_numpy(np.array(a)) for a in (p, ref.beta, h, ph, x)]
+    got_p, got_b = k1_update_plain(*args)
+    _close(got_p, want_p)
+    _close(got_b, want_b)
+    again = k1_update(*args)
+    assert torch.equal(again[0], got_p) and torch.equal(again[1], got_b)
+    with pytest.raises(ValueError, match="k1_update"):
+        k1_update_plain(args[0], args[1], args[2], args[3], args[4][:-1])
 
 
 @pytest.mark.parametrize("activation,forget", CASES)

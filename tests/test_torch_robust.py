@@ -61,7 +61,6 @@ from repro_torch.fleet import (
 )
 from repro_torch.fleet.robust import _repair_u, nanmedian
 from repro_torch.kernels import (
-    MAX_TRIM,
     robust_segment_combine,
     robust_segment_sum_mix,
     robust_segment_sum_mix_plain,
@@ -125,10 +124,36 @@ def test_robust_segment_sum_empty_cluster_and_limits():
         np.testing.assert_allclose(g.numpy()[[0, 2, 3]], np.asarray(w)[[0, 2, 3]], atol=1e-6)
     with pytest.raises(ValueError, match="sorted"):
         robust_segment_sum_mix(xt, cids[::-1].copy(), mt, st, 4, 1)
-    with pytest.raises(ValueError, match=f"MAX_TRIM={MAX_TRIM}"):
-        robust_segment_sum_mix(xt, cids, mt, st, 4, MAX_TRIM + 1)
+    # no longest chain: trim 5 (more than any cluster's participants here)
+    # is the reference's too
+    got = robust_segment_sum_mix(xt, cids, mt, st, 4, 5)
+    want = ref_robust_segment_sum_mix(jnp.asarray(x), cids, jnp.asarray(MASK),
+                                      jnp.asarray(scale), 4, 5, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy()[[0, 2, 3]], np.asarray(w)[[0, 2, 3]], atol=1e-6)
     with pytest.raises(ValueError, match="trim >= 0"):
         robust_segment_sum_mix(xt, cids, mt, st, 4, -1)
+
+
+# chains longer than the card's registers hold (trim > 4): a star of 24
+# devices and two clusters of 12, with 6 devices masked, so a cluster has
+# more participants than 2·trim at trim 5 and as many as trim at trim 8
+@pytest.mark.parametrize("n_clusters", [1, 2])
+@pytest.mark.parametrize("trim", [5, 8])
+def test_long_chains_match_interpret(trim, n_clusters):
+    d = 24
+    rng = np.random.default_rng(30 + trim)
+    x = rng.normal(size=(d, 4, 37)).astype(np.float32)
+    scale = rng.uniform(0.2, 1.0, size=d).astype(np.float32)
+    mask = np.ones(d, np.float32)
+    mask[rng.choice(d, 6, replace=False)] = 0.0
+    cids = (np.arange(d) * n_clusters // d).astype(np.int32)
+    want = ref_robust_segment_sum_mix(jnp.asarray(x), cids, jnp.asarray(mask),
+                                      jnp.asarray(scale), n_clusters, trim, interpret=True)
+    xt, mt, st = _port(x, mask, scale)
+    got = robust_segment_sum_mix(xt, cids, mt, st, n_clusters, trim)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
 
 
 def test_robust_segment_sum_keeps_the_extremes():
@@ -136,7 +161,7 @@ def test_robust_segment_sum_keeps_the_extremes():
     largest participating scaled values, whatever order they arrive in."""
     x, scale = _x(seed=9, shape=(3, 5)), _scale()
     xt, mt, st = _port(x, MASK, scale)
-    for trim in range(1, MAX_TRIM + 1):
+    for trim in (1, 2, 3, 4, 5, 8):
         tot, lo, hi = robust_segment_sum_mix_plain(xt, np.zeros(D, np.int32), mt, st, 1, trim)
         live = (x * scale[:, None, None])[MASK > 0]
         srt = np.sort(live, axis=0)

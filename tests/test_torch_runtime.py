@@ -227,6 +227,42 @@ def test_wide_layer_tick_reports_match_reference(topo_name):
     _assert_state_close(port, ref)
 
 
+# past the card's cluster solve and P chain (Ñ > 320: the blocked wide
+# solve, P in global memory), three devices, the reports held as the
+# Ñ = 256 runtime's; the final state at twice the reference's own spread
+# between its Pallas and XLA ingests (measured: 2.2e-4 on β against the
+# port's 2.1e-5), since at this width one ulp of a merge moves β past the
+# narrow runtime's 1e-5
+WIDER_SPEC = dict(WIDE_SPEC, n_devices=3, n_hidden=384)
+
+
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_wider_layer_tick_reports_match_reference(topo_name):
+    sc, ref, port, twin = _pair(topo_name, 1.0, "short", twin=True, spec=WIDER_SPEC)
+    assert port.states.p.shape[1] == 384
+    feed = sc.feed()
+    merges = 0
+    port_dev, twin_dev = [], []
+    for t in range(feed.n_ticks):
+        batch = feed.tick_batch(t)
+        want = ref.tick(batch)
+        got = port.tick(batch)
+        _assert_same_report(got, want)
+        if not merges:
+            np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5, atol=1e-6)
+        port_dev.append(_max_rel(got.losses, want.losses))
+        twin_dev.append(_max_rel(twin.tick(batch).losses, want.losses))
+        merges += want.decision.merge
+    assert merges == 2
+    assert max(port_dev) <= 2 * max(twin_dev), (port_dev, twin_dev)
+    for name in ("p", "beta"):
+        want = np.asarray(getattr(ref.states, name))
+        port_err = float(np.abs(getattr(port.states, name).numpy() - want).max())
+        twin_err = float(np.abs(np.asarray(getattr(twin.states, name)) - want).max())
+        print(f"Ñ=384 {topo_name} {name}: port {port_err:.3e}, reference XLA ingest {twin_err:.3e}")
+        assert port_err <= 2 * twin_err, (name, port_err, twin_err)
+
+
 def _flipped_codes(got_r, want_r):
     """Codes that differ between two runs of one merge round, read off
     their residuals: a flip moves a residual by about one quantization

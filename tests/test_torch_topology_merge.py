@@ -375,3 +375,29 @@ def test_plain_solve_matches_an_elimination_rounded_once():
     want = np.array([[float(x) for x in wi] for wi in w], np.float32)
     assert np.array_equal(p[0].numpy(), want[:, n : 2 * n])
     assert np.array_equal(b[0].numpy(), want[:, 2 * n :])
+
+
+# past the card's cluster solve (Ñ > 320, the blocked wide solve on the
+# card): the plain version is the reference's elimination step for step, so
+# no element differs from the interpret-mode kernel (m and S kept small)
+@pytest.mark.parametrize("n", [384, 544])
+def test_from_uv_solve_plain_is_the_interpret_kernel_past_the_cluster_solve(n):
+    rng = np.random.default_rng(50 + n)
+    u = _spd(rng, 2, n)
+    v = rng.standard_normal((2, n, 16)).astype(np.float32)
+    ref_p, ref_b = ref_from_uv_solve(jnp.asarray(u), jnp.asarray(v), ridge=RIDGE, interpret=True)
+    p, b = from_uv_solve_plain(torch.from_numpy(u), torch.from_numpy(v), ridge=RIDGE)
+    assert np.array_equal(p.numpy(), np.asarray(ref_p))
+    assert np.array_equal(b.numpy(), np.asarray(ref_b))
+
+
+@pytest.mark.parametrize("n", [384, 544])
+def test_banded_merge_solve_plain_is_the_interpret_kernel_past_the_cluster_solve(n):
+    rng = np.random.default_rng(60 + n)
+    u = _spd(rng, 3, n)
+    v = rng.standard_normal((3, n, 16)).astype(np.float32)
+    w = np.concatenate([u, v], axis=2)
+    ref_p, ref_b = ref_banded_merge_solve(jnp.asarray(w), 1, ridge=RIDGE, interpret=True)
+    p, b = banded_merge_solve_plain(torch.from_numpy(w), 1, ridge=RIDGE)
+    assert np.array_equal(p.numpy(), np.asarray(ref_p))
+    assert np.array_equal(b.numpy(), np.asarray(ref_b))
