@@ -97,8 +97,21 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     ``banded_mix`` at hops 227 on 455 devices and (d)
     ``robust_segment_sum_mix`` at trim 5 and 8 on the har-width star, bit
     for bit; (e) ``flash_attention`` at B·H = 65 600 against its plain
-    version;
-11. the kernel list, one JSON object per kernel, then the result line.
+    version; (f) ``gla_forward`` past one block's shared memory, at
+    dk × dv = 128 × 128 and xLSTM's 512 × 513 (B = 1, S = 2048, H = 4),
+    bf16 and f32, on its tiled wide path; (g) ``flash_attention`` at head
+    widths 80, 96 and 320 (B = 4, S = 512, H = 25) and on a bf16 view off
+    a 16-byte boundary; each against its plain version, with its time
+    alone, its bound and ``scaled_dot_product_attention``'s time;
+11. telemetry and the paper's §5 table: (a) ``FleetRuntime`` on the
+    har-width star (D = 256) without and with ``TelemetryConfig()``, in
+    turns (off, on, on, off, twice): reports equal tick for tick, bit for bit;
+    the sink's bytes, merge rounds and detections equal to the governor's
+    ledger and the reports; tick p50/p99 from the sink and the overhead;
+    (b) ``benchmarks/torch_paper_eval.py``'s smoke grid (driving, har,
+    mnist_like on ring and star) in f32 and int8: its claims asserted,
+    every routed kernel launched, one row per (scenario, topology);
+12. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -117,6 +130,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 SEED = 0
 D, T, N_FEAT, N_HID = 256, 32, 561, 128   # har width (configs/oselm_edge.py)
@@ -1578,10 +1592,15 @@ def mix_kernel_rows(fleet, topo_hier):
         lambda: segment_broadcast_plain(sums, cids), lambda: sums.index_select(0, cids_t),
         "segment_broadcast_kernel", 4 * (n_cl * e + d * e + d))
     # each payload read once and each sum written once; with no reuse of a
-    # neighbour's payload between devices the reads are 2·hops+1 times as many
+    # neighbour's payload between devices the reads are 2·hops+1 times as many.
+    # The library call: torch.mm by the circular band's 0/1 D × D matrix
+    idx = torch.arange(d, device="cuda")
+    off = (idx[None, :] - idx[:, None]) % d
+    band = ((off <= HOPS) | (off >= d - HOPS)).to(torch.float32)
+    w2 = w.view(d, e)
     rows["banded_mix"] = r = row(
         "banded_mix", f"hops={HOPS}", lambda: banded_mix(w, HOPS), lambda: banded_mix_plain(w, HOPS),
-        None, "banded_mix_kernel", 4 * 2 * d * e)
+        lambda: torch.mm(band, w2).view_as(w), "banded_mix_kernel", 4 * 2 * d * e)
     no_reuse = 4 * (2 * HOPS + 2) * d * e
     log(f"    banded_mix with {2 * HOPS + 1} reads of every payload: bound"
         f" {bound(0, no_reuse)[0]:.4f} ms ({no_reuse / 1e6:.1f} MB);"
@@ -1852,8 +1871,10 @@ SERVE_CPU_REL = 1e-4
 NEAR_TIE = 1e-4             # top-two logit gap, relative to max |logit|
 
 
-# the kernels one gla_forward call launches, as the profiler names them
+# the kernels one gla_forward call launches, as the profiler names them, and
+# past one block's shared memory
 GLA_KERNELS = ("gla_chunk_state_kernel", "gla_carry_kernel", "gla_chunk_out_kernel")
+WIDE_GLA_KERNELS = ("gla_wide_state_kernel", "gla_carry_kernel", "gla_wide_out_kernel")
 
 
 def row_rel_err(got, want) -> float:
@@ -2263,6 +2284,9 @@ def phase_wide():
     log("  (c) banded_mix past the widest ring a block holds, (d) robust_segment_sum_mix with"
         " chains past its registers, (e) flash_attention past 65 535 (batch, head) pairs")
     wide_band_trim_heads()
+    log("  (f) gla_forward past one block's shared memory, (g) flash_attention at other head"
+        " widths and on a misaligned view")
+    wide_heads()
 
 
 def wide_band_trim_heads():
@@ -2320,6 +2344,170 @@ def wide_band_trim_heads():
         f" (tol {tol:.0e})  ms={cuda_ms(lambda: flash_attention(q, k, v, causal=True), 20):.4f}"
         f" bound_ms={b[0]:.4f} ({b[1]})")
     assert rel <= tol, f"flash_attention B·H={bh}: {rel:.3e}"
+
+
+def wide_heads():
+    """(f) gla_forward at dk × dv = 128 × 128 and 512 × 513 (B = 1,
+    S = 2048, H = 4) on its tiled wide path, (g) flash_attention at head
+    widths 80, 96 and 320 (B = 4, S = 512, H = 25, causal) and on a bf16
+    view 2 bytes into its storage; bf16 and f32, each row by row against
+    its plain version (ATTN_TOL), with its time by events and alone, its
+    bound, and flash beside scaled_dot_product_attention on the same
+    inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (flash_attention, flash_attention_plain, gla_forward,
+                                     gla_forward_plain)
+    from repro_torch.kernels.gla_scan import wide_path
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def check(name, label, dtype, fn, plain, kernels, work, library=None):
+        got, want = fn(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        rels = [row_rel_err(g, w) for g, w in zip(got, want)]
+        tol = ATTN_TOL[(name, str(dtype).split(".")[-1])]
+        b = bound(*work, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
+        lib = "" if library is None else (
+            f" sdpa_ms={cuda_ms(library, 10):.4f} ({library_device(library, 5)})")
+        log(f"  {name} {label}: max rel in a row {', '.join(f'{x:.2e}' for x in rels)}"
+            f" (tol {tol:.1e})  ms={cuda_ms(fn, 10):.4f} (kernel alone"
+            f" {ms_text(device_ms(fn, 5, kernels))}) plain_ms={cuda_ms(plain, 2):.4f}{lib}"
+            f"  bound_ms={b[0]:.4f} ({b[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB)")
+        assert all(x <= tol for x in rels), f"{name} {label}: kernel != plain"
+
+    b, s, h = 1, SERVE_LONG, 4
+    for dk, dv in ((128, 128), (512, 513)):
+        assert wide_path(dk, dv), f"gla_forward {dk} x {dv} is not past a block's shared memory"
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = (torch.randn((b, s, h, dk), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            v = torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dtype)
+            la = -F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+            check("gla_forward", f"B={b} S={s} H={h} dk={dk} dv={dv} {dtype}", dtype,
+                  lambda: gla_forward(q, k, v, la), lambda: gla_forward_plain(q, k, v, la),
+                  WIDE_GLA_KERNELS, gla_work(b, s, h, dk, dv, q.element_size()))
+            del q, k, v, la
+
+    b, s, h = 4, 512, 25
+    for hd in (80, 96, 320):
+        kernel = ("flash_fwd_wide_kernel",) if hd > 256 else ("flash_fwd_kernel",)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            check("flash_attention", f"B={b} S={s} H={h} hd={hd} causal {dtype}", dtype,
+                  lambda: flash_attention(q, k, v, causal=True),
+                  lambda: flash_attention_plain(q, k, v, causal=True), kernel,
+                  flash_work(b, s, s, h, hd, True, q.element_size()),
+                  lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    hd = 64
+    shape = (b, s, h, hd)
+
+    def view():
+        flat = torch.randn(b * s * h * hd + 1, generator=gen, device="cuda").to(torch.bfloat16)
+        return flat[1:].view(shape)  # contiguous, 2 bytes into its storage
+
+    q, k, v = view(), view(), view()
+    assert q.data_ptr() % 16
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    check("flash_attention", f"B={b} S={s} H={h} hd={hd} causal bf16, a view off 16 bytes",
+          torch.bfloat16, lambda: flash_attention(q, k, v, causal=True),
+          lambda: flash_attention_plain(q, k, v, causal=True), ("flash_fwd_kernel",),
+          flash_work(b, s, s, h, hd, True, 2),
+          lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+
+
+# ------------------------------------------- phase 11: telemetry, the §5 table
+
+TELEMETRY_TURNS = (False, True, True, False) * 2  # telemetry off and on, in turns
+
+
+def phase_telemetry(fleet, ticks_dev):
+    """(a) FleetRuntime on the har-width star without and with telemetry,
+    in turns: reports equal bit for bit, the sink held to the governor's
+    ledger and the reports, tick p50/p99, the overhead, and the host time
+    of the sink's bookkeeping (``_record_telemetry``) a tick; (b) the §5
+    smoke grid in f32 and int8 on the card, its claims asserted."""
+    import dataclasses
+
+    import numpy as np
+
+    from benchmarks.torch_paper_eval import run_bench, table_lines
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.runtime import runtime as runtime_module
+
+    cfg = runtime_config(topologies(D)["star"])
+    first, tick_ms, ingest_ms, runs = None, {False: [], True: []}, {False: [], True: []}, []
+    record = runtime_module.FleetRuntime._record_telemetry
+    booked = []
+
+    def timed_record(self, *a, **k):
+        t0 = time.perf_counter()
+        record(self, *a, **k)
+        booked.append(time.perf_counter() - t0)
+
+    runtime_module.FleetRuntime._record_telemetry = timed_record
+    try:
+        for on in TELEMETRY_TURNS:
+            rt, reports, ms, _, _ = drive(
+                fleet, ticks_dev,
+                dataclasses.replace(cfg, telemetry=TelemetryConfig()) if on else cfg)
+            tick_ms[on] += ms
+            ingest_ms[on] += [r.ingest_seconds * 1e3 for r in reports]
+            runs.append(f"{'on' if on else 'off'} {np.median(ms):.3f}")
+            if first is None:
+                first = reports
+            for a, b in zip(reports, first, strict=True):
+                assert np.array_equal(a.losses, b.losses), f"tick {a.tick}: losses differ"
+                assert np.array_equal(a.drifted, b.drifted) and np.array_equal(
+                    a.fresh_detections, b.fresh_detections), f"tick {a.tick}: flags differ"
+                assert dataclasses.asdict(a.decision) == dataclasses.asdict(b.decision), (
+                    f"tick {a.tick}: decisions differ")
+            if not on:
+                assert rt.finalize_telemetry() is None
+                continue
+            summary = rt.finalize_telemetry()
+            merges = sum(r.decision.merge for r in reports)
+            fresh = sum(int(r.fresh_detections.sum()) for r in reports)
+            assert summary["ticks"] == TICKS
+            assert summary["bytes_total"] == rt.governor.state.bytes_spent == sum(
+                r.decision.round_bytes for r in reports if r.decision.merge)
+            assert summary["merge_rounds"] == rt.governor.state.merges == merges >= 2
+            assert summary["detections_total"] == rt.detections_total == fresh
+            lat = summary["tick_latency"]
+            phases = ", ".join(f"{p} {s['p50_s'] * 1e3:.3f}" for p, s in summary["phases"].items())
+            log(f"  star D={D}, {TICKS} ticks with telemetry: sink tick p50="
+                f"{lat['p50_s'] * 1e3:.3f} p99={lat['p99_s'] * 1e3:.3f} ms; phase p50 ms:"
+                f" {phases}; bytes {summary['bytes_total']}, merge rounds"
+                f" {summary['merge_rounds']}, detections {summary['detections_total']}: equal to"
+                " the governor's ledger and the reports")
+    finally:
+        runtime_module.FleetRuntime._record_telemetry = record
+    off, on = np.median(tick_ms[False]), np.median(tick_ms[True])
+    log(f"  tick p50 (host clock around tick(), {len(TELEMETRY_TURNS)} runs in turns:"
+        f" {'; '.join(runs)}): off {off:.3f} ms, on {on:.3f} ms: overhead {on / off:.4f}x;"
+        f" ingest p50 off {np.median(ingest_ms[False]):.3f} ms, on"
+        f" {np.median(ingest_ms[True]):.3f} ms; the sink's bookkeeping a tick p50"
+        f" {np.median(booked) * 1e3:.4f} ms, mean {np.mean(booked) * 1e3:.4f} ms"
+        f" ({len(booked)} ticks); reports equal bit for bit in all runs")
+
+    for precision in ("f32", "int8"):
+        t0 = time.perf_counter()
+        report = run_bench(smoke=True, payload_precision=precision, device="cuda")
+        for line in table_lines(report):
+            log(f"  {line}")
+        claims = report["claims"]
+        launches = {f"{n}/{t}": r["launches"] for n, row in report["scenarios"].items()
+                    for t, r in row["topologies"].items()}
+        log(f"  §5 smoke grid {precision} on {report['backend']} in"
+            f" {time.perf_counter() - t0:.1f} s: all green {claims['all_green']}, AUC+comm"
+            f" scenarios {claims['auc_and_comm_scenarios']}, kernels launched"
+            f" {claims['kernels_launched']} {launches}")
+        assert claims["all_green"], claims["green"]
+        assert claims["auc_and_comm_scenarios"], f"{precision}: no scenario meets the claims"
+        assert claims["kernels_launched"] is True, launches
 
 
 def main() -> int:
@@ -2401,12 +2589,18 @@ def main() -> int:
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
     log("phase 10: wide layers (Ñ = 256 and 384 end to end, the kernels at Ñ = 320, 768 and"
-        " 1024) and the other sizes past the old limits")
+        " 1024) and the other sizes past the old limits (bands, trims, heads, GLA and flash"
+        " widths)")
     t0 = time.perf_counter()
     phase_wide()
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 11: kernels (phases 1-10 took {time.perf_counter() - start:.1f} s)")
+    log("phase 11: telemetry on the har-width star, the paper's §5 table (torch_paper_eval)")
+    t0 = time.perf_counter()
+    phase_telemetry(fleet, ticks_dev)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 12: kernels (phases 1-11 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

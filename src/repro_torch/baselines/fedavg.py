@@ -52,12 +52,14 @@ def run_fedavg(
     fl: FedAvgConfig = FedAvgConfig(),
     *,
     device: str | torch.device | None = None,
+    params=None,
 ):
     """Full BP-NN3-FL training on ``device`` (the card unless
-    ``device="cpu"``): R rounds of local training and averaging."""
+    ``device="cpu"``): R rounds of local training and averaging, from
+    ``params`` or, when None, from a network drawn from ``generator``."""
     device = resolve_device(device)
     data = [torch.as_tensor(np.asarray(c, np.float32), device=device) for c in client_data]
-    global_params = init_bpnn(generator, cfg, device=device)
+    global_params = init_bpnn(generator, cfg, device=device) if params is None else params
     for _ in range(fl.rounds):
         global_params = fedavg_round(generator, global_params, cfg, data, fl.local_epochs)
     return global_params

@@ -20,7 +20,8 @@
 // KV tiles wholly above the block's last query: their p is exactly 0 in f32
 // once a row has seen key 0, which every row has.
 //
-// Two kernels, one for each input type:
+// Two kernels, one for each input type, at the head widths 64, 128 and
+// 256 (template instances):
 //
 // * bf16, flash_fwd_kernel_mma (FlashAttention-2's layout): 64 query rows a
 //   block, 4 warps of 16 rows each. Q is copied once into shared memory as
@@ -49,6 +50,24 @@
 //   holds a (BQ/8) × 4 block of scores and a (BQ/8) × (hd/16) block of the
 //   output.
 //
+// Other head widths and views take the same kernels or a third:
+//
+// * hd ≤ 256 and not an instance: the next larger instance, masked at hd
+//   (kMasked): q, k and v columns past hd load as zeros, so they add
+//   nothing to q·kᵀ, columns past hd are not stored, and the scale is the
+//   true hd^−½ (the wrapper's). The row stride is H·hd. bf16 stays on the
+//   tensor cores where its 16-byte copies can go: hd a multiple of 8 and
+//   q, k, v and out on 16-byte boundaries. Otherwise (hd·2 bytes not a
+//   multiple of 16, or a view that starts off a 16-byte boundary) bf16
+//   runs flash_fwd_kernel, which loads element by element, widened to f32,
+//   and rounds p to bf16 before p·v as the tensor-core kernel does.
+// * hd > 256: flash_fwd_wide_kernel, one block per (batch·head, 16 query
+//   rows, 64 columns of the output). It streams q·kᵀ over hd in slices of
+//   64 through shared memory (41 KB), runs the online softmax on the whole
+//   scores and accumulates only its 64 columns of p·v: each column slice
+//   computes the scores again (hd/64 times at hd = 512). f32 on the CUDA
+//   cores for both types, element loads. A repair, not tuned.
+//
 // Bound on an H100 at the hymba-1.5b serving shape (B = 4, S = 512, H = 25,
 // hd = 64, causal, bf16): q, k, v and out are 26 MB, 7.8 µs at 3.35 TB/s;
 // the products are 3.4 GFLOP, 3.4 µs at 989 TFLOP/s: bound by bytes. At
@@ -60,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "ptx.cuh"
 
 namespace {
@@ -69,11 +90,56 @@ constexpr int kBK = 64;        // keys per tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T narrow(float x);
 template <>
 __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The online softmax of one tile of a thread's RM × CN block of scores
+// (rows q0 + ty + 8i, keys k0 + tx + 16j; 16 threads a row): scale and
+// mask, the rows' new max over the 16 threads, p = exp(s − m_new) rounded
+// to T into sp (the sum l over the unrounded p), and acc rescaled.
+template <typename T, int RM, int CN, int DN>
+__device__ __forceinline__ void softmax_tile(float (&s)[RM][CN], float (&m)[RM], float (&l)[RM],
+                                             float (&acc)[RM][DN], float* sp, int ps, int q0,
+                                             int k0, int SK, int causal, float scale, int tx,
+                                             int ty) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qpos = q0 + ty + 8 * i;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const int kpos = k0 + tx + 16 * j;
+      const bool valid = kpos < SK && (!causal || kpos <= qpos);
+      s[i][j] = valid ? s[i][j] * scale : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const float p = expf(s[i][j] - m_new);
+      sum += p;
+      sp[(ty + 8 * i) * ps + tx + 16 * j] = widen(narrow<T>(p));
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float alpha = expf(m[i] - m_new);
+    l[i] = l[i] * alpha + sum;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
+    m[i] = m_new;
+  }
+}
 
 template <int HD>
 struct Tile {
@@ -83,14 +149,15 @@ struct Tile {
   static constexpr int smem_floats = BQ * QS + kBK * QS + kBK * HD + BQ * PS;
 };
 
-// q (B, SQ, H, HD), k and v (B, SK, H, HD), out (B, SQ, H, HD), contiguous.
+// q (B, SQ, H, hd), k and v (B, SK, H, hd), out (B, SQ, H, hd), contiguous,
+// hd = HD unless kMasked (then hd < HD, the columns past it zeros).
 // grid (B·H, nq): B·H on x, which takes any count; blockIdx.y counts query
 // blocks from the last, so that a causal call starts its longest blocks
 // first.
-template <typename T, int HD>
+template <typename T, int HD, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int H, int SQ, int SK, int causal, float scale) {
+                 T* __restrict__ out, int H, int SQ, int SK, int hd, int causal, float scale) {
   using Tl = Tile<HD>;
   constexpr int BQ = Tl::BQ, QS = Tl::QS, PS = Tl::PS;
   constexpr int RM = BQ / 8;    // query rows a thread holds
@@ -106,14 +173,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int qb = gridDim.y - 1 - blockIdx.y;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = qb * BQ;
-  const long long row_stride = (long long)H * HD;
-  const T* qbase = q + ((long long)b * SQ * H + h) * HD;
-  const T* kbase = k + ((long long)b * SK * H + h) * HD;
-  const T* vbase = v + ((long long)b * SK * H + h) * HD;
+  const int dim = kMasked ? hd : HD;
+  const long long row_stride = (long long)H * dim;
+  const T* qbase = q + ((long long)b * SQ * H + h) * dim;
+  const T* kbase = k + ((long long)b * SK * H + h) * dim;
+  const T* vbase = v + ((long long)b * SK * H + h) * dim;
 
   for (int e = tid; e < BQ * HD; e += kThreads) {
     const int r = e / HD, d = e % HD, s = q0 + r;
-    sq[r * QS + d] = s < SQ ? widen(qbase[s * row_stride + d]) : 0.f;
+    sq[r * QS + d] = s < SQ && (!kMasked || d < dim) ? widen(qbase[s * row_stride + d]) : 0.f;
   }
 
   float m[RM], l[RM], acc[RM][DN];
@@ -135,7 +203,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // the previous tile's k, v and p are consumed
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int r = e / HD, d = e % HD, s = k0 + r;
-      const bool in = s < SK;
+      const bool in = s < SK && (!kMasked || d < dim);
       sk[r * QS + d] = in ? widen(kbase[s * row_stride + d]) : 0.f;
       sv[r * HD + d] = in ? widen(vbase[s * row_stride + d]) : 0.f;
     }
@@ -159,35 +227,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
     }
 
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qpos = q0 + ty + 8 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool valid = kpos < SK && (!causal || kpos <= qpos);
-        s[i][j] = valid ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        sp[(ty + 8 * i) * PS + tx + 16 * j] = widen(narrow<T>(p));
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-      m[i] = m_new;
-    }
+    softmax_tile<T>(s, m, l, acc, sp, PS, q0, k0, SK, causal, scale, tx, ty);
     __syncthreads();
 
 #pragma unroll 4
@@ -204,6 +244,112 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
   }
 
+  T* obase = out + ((long long)b * SQ * H + h) * dim;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int s = q0 + ty + 8 * i;
+    if (s >= SQ) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+      if (!kMasked || tx + 16 * j < dim)
+        obase[s * row_stride + tx + 16 * j] = narrow<T>(acc[i][j] / denom);
+  }
+}
+
+// ---- head widths past 256
+
+constexpr int kSlice = 64;   // head dims a step of q·kᵀ, and output columns a block
+constexpr int kWideBQ = 16;  // query rows a block
+
+// q, k, v, out as flash_fwd_kernel's with any HD; grid (B·H, nq, ⌈HD/64⌉):
+// blockIdx.z is the block's slice of 64 output columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ out, int H, int SQ, int SK, int HD, int causal,
+                      float scale) {
+  constexpr int BQ = kWideBQ, QS = kSlice + 1, PS = kBK + 1;
+  constexpr int RM = BQ / 8, CN = kBK / 16, DN = kSlice / 16;
+  __shared__ float sq[BQ * QS];
+  __shared__ float sk[kBK * QS];
+  __shared__ float sv[kBK * kSlice];
+  __shared__ float sp[BQ * PS];
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = qb * BQ, c0 = blockIdx.z * kSlice;
+  const long long row_stride = (long long)H * HD;
+  const T* qbase = q + ((long long)b * SQ * H + h) * HD;
+  const T* kbase = k + ((long long)b * SK * H + h) * HD;
+  const T* vbase = v + ((long long)b * SK * H + h) * HD;
+
+  float m[RM], l[RM], acc[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+  }
+
+  int n_tiles = (SK + kBK - 1) / kBK;
+  if (causal) {
+    const int last_q = min(q0 + BQ, SQ) - 1;
+    n_tiles = min(n_tiles, last_q / kBK + 1);
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBK;
+    float s[RM][CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < HD; d0 += kSlice) {
+      __syncthreads();  // the previous slice's q and k, the previous tile's v and p, are consumed
+      for (int e = tid; e < BQ * kSlice; e += kThreads) {
+        const int r = e / kSlice, d = e % kSlice, sr = q0 + r;
+        sq[r * QS + d] = sr < SQ && d0 + d < HD ? widen(qbase[sr * row_stride + d0 + d]) : 0.f;
+      }
+      for (int e = tid; e < kBK * kSlice; e += kThreads) {
+        const int r = e / kSlice, d = e % kSlice, sr = k0 + r;
+        sk[r * QS + d] = sr < SK && d0 + d < HD ? widen(kbase[sr * row_stride + d0 + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kSlice; ++d) {
+        float a[RM], c[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) a[i] = sq[(ty + 8 * i) * QS + d];
+#pragma unroll
+        for (int j = 0; j < CN; ++j) c[j] = sk[(tx + 16 * j) * QS + d];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+      }
+    }
+    softmax_tile<T>(s, m, l, acc, sp, PS, q0, k0, SK, causal, scale, tx, ty);
+    for (int e = tid; e < kBK * kSlice; e += kThreads) {
+      const int r = e / kSlice, d = e % kSlice, sr = k0 + r;
+      sv[r * kSlice + d] = sr < SK && c0 + d < HD ? widen(vbase[sr * row_stride + c0 + d]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      float p[RM], w[DN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) p[i] = sp[(ty + 8 * i) * PS + c];
+#pragma unroll
+      for (int j = 0; j < DN; ++j) w[j] = sv[c * kSlice + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
+    }
+  }
+
   T* obase = out + ((long long)b * SQ * H + h) * HD;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -211,7 +357,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (s >= SQ) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DN; ++j) obase[s * row_stride + tx + 16 * j] = narrow<T>(acc[i][j] / denom);
+    for (int j = 0; j < DN; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col < HD) obase[s * row_stride + col] = narrow<T>(acc[i][j] / denom);
+    }
   }
 }
 
@@ -258,13 +407,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// q, k, v, out as flash_fwd_kernel's, bf16; grid (B·H, nq) with kMmaRows
-// query rows a block.
-template <int HD>
+// q, k, v, out as flash_fwd_kernel's, bf16, each on a 16-byte boundary (and
+// hd a multiple of 8 when kMasked); grid (B·H, nq) with kMmaRows query rows
+// a block.
+template <int HD, bool kMasked>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     int H, int SQ, int SK, int causal, float scale) {
+                     int H, int SQ, int SK, int hd, int causal, float scale) {
   using Tl = MmaTile<HD>;
   constexpr int LD = Tl::LD, TILE = kBK * LD;
   constexpr int CH = HD / 8;               // 16-byte chunks a row
@@ -282,30 +432,32 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int qb = gridDim.y - 1 - blockIdx.y;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = qb * kMmaRows, w0 = q0 + 16 * warp;  // the block's and the warp's first row
-  const long long rs = (long long)H * HD;
-  const __nv_bfloat16* qbase = q + ((long long)b * SQ * H + h) * HD;
-  const __nv_bfloat16* kbase = k + ((long long)b * SK * H + h) * HD;
-  const __nv_bfloat16* vbase = v + ((long long)b * SK * H + h) * HD;
+  const int dim = kMasked ? hd : HD;
+  const long long rs = (long long)H * dim;
+  const __nv_bfloat16* qbase = q + ((long long)b * SQ * H + h) * dim;
+  const __nv_bfloat16* kbase = k + ((long long)b * SK * H + h) * dim;
+  const __nv_bfloat16* vbase = v + ((long long)b * SK * H + h) * dim;
   // s·log2(e), so that exp(s − m) is one exp2 of a difference; m, like s, in
   // those units, and a masked score is −1e30 in them
   const float scale2 = scale * kLog2e;
 
   // Copy rows row0..row0+63 (those below n; the rest zero-filled) of a
-  // (·, H, HD) array into a padded tile. Thread tid copies the 16 bytes at
-  // column lc of rows lr, lr + RSTEP, ...; a tile wholly below n skips the
-  // row checks.
+  // (·, H, hd) array into a padded tile. Thread tid copies the 16 bytes at
+  // column lc of rows lr, lr + RSTEP, ... (zeros at a column past hd); a
+  // tile wholly below n skips the row checks.
   const int lr = tid / CH, lc = (tid % CH) * 8;
+  const bool col_in = !kMasked || lc < dim;
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* base, int row0, int n) {
     dst += lr * LD + lc;
     const __nv_bfloat16* src = base + (row0 + lr) * rs + lc;
     if (row0 + kBK <= n) {
 #pragma unroll
       for (int i = 0; i < kBK / RSTEP; ++i)
-        cp_async<16>(dst + i * RSTEP * LD, src + i * RSTEP * rs, 16);
+        cp_async<16>(dst + i * RSTEP * LD, col_in ? src + i * RSTEP * rs : base, col_in ? 16 : 0);
     } else {
 #pragma unroll
       for (int i = 0; i < kBK / RSTEP; ++i) {
-        const bool in = row0 + lr + i * RSTEP < n;
+        const bool in = col_in && row0 + lr + i * RSTEP < n;
         cp_async<16>(dst + i * RSTEP * LD, in ? src + i * RSTEP * rs : base, in ? 16 : 0);
       }
     }
@@ -453,11 +605,11 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           __floats2bfloat162_rn(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
   }
   __syncwarp();
-  __nv_bfloat16* obase = out + ((long long)b * SQ * H + h) * HD;
+  __nv_bfloat16* obase = out + ((long long)b * SQ * H + h) * dim;
 #pragma unroll
   for (int c = lane; c < 16 * CH; c += 32) {
     const int r = c / CH, col = (c % CH) * 8, s = w0 + r;
-    if (s < SQ)
+    if (s < SQ && (!kMasked || col < dim))
       *reinterpret_cast<uint4*>(obase + s * rs + col) =
           *reinterpret_cast<const uint4*>(so + r * LD + col);
   }
@@ -465,47 +617,74 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 // The dynamic shared memory above 48 KB is allowed once per kernel instance
 // (a function-local static), not at every launch.
-template <int HD>
+template <int HD, bool kMasked>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-               int SK, int causal, float scale, cudaStream_t st) {
+               int SK, int hd, int causal, float scale, cudaStream_t st) {
   constexpr int smem = MmaTile<HD>::smem_bytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel_mma<HD, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   using T = __nv_bfloat16;
   const dim3 grid(B * H, (SQ + kMmaRows - 1) / kMmaRows);
-  flash_fwd_kernel_mma<HD><<<grid, kMmaThreads, smem, st>>>(
+  flash_fwd_kernel_mma<HD, kMasked><<<grid, kMmaThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, SQ, SK, causal, scale);
+      static_cast<T*>(out), H, SQ, SK, hd, causal, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-               int SK, int causal, float scale, cudaStream_t st) {
+template <typename T, int HD, bool kMasked>
+int launch_simt(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
+                int SK, int hd, int causal, float scale, cudaStream_t st) {
   using Tl = Tile<HD>;
   constexpr int smem = Tl::smem_floats * (int)sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<T, HD, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(B * H, (SQ + Tl::BQ - 1) / Tl::BQ);
-  flash_fwd_kernel<float, HD><<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), H, SQ, SK, causal, scale);
+  flash_fwd_kernel<T, HD, kMasked><<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), H, SQ, SK, hd, causal, scale);
   return cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-             int SK, int HD, int causal, float scale, int bf16, cudaStream_t st) {
-  switch (HD * 2 + bf16) {
-    case 64 * 2 + 1: return launch_mma<64>(q, k, v, out, B, H, SQ, SK, causal, scale, st);
-    case 128 * 2 + 1: return launch_mma<128>(q, k, v, out, B, H, SQ, SK, causal, scale, st);
-    case 256 * 2 + 1: return launch_mma<256>(q, k, v, out, B, H, SQ, SK, causal, scale, st);
-    case 64 * 2: return launch_f32<64>(q, k, v, out, B, H, SQ, SK, causal, scale, st);
-    case 128 * 2: return launch_f32<128>(q, k, v, out, B, H, SQ, SK, causal, scale, st);
-    case 256 * 2: return launch_f32<256>(q, k, v, out, B, H, SQ, SK, causal, scale, st);
-    default: return cudaErrorInvalidValue;
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
+                int SK, int hd, int causal, float scale, cudaStream_t st) {
+  const dim3 grid(B * H, (SQ + kWideBQ - 1) / kWideBQ, (hd + kSlice - 1) / kSlice);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  flash_fwd_wide_kernel<T><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), H, SQ, SK, hd, causal, scale);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+// hd ≤ 256 on the instance of the next width up (masked past hd unless
+// equal); bf16 on the tensor cores where its 16-byte copies go, else on
+// the CUDA cores; past 256 the wide kernel.
+template <int HD>
+int dispatch_width(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
+                   int SK, int hd, int causal, float scale, int bf16, cudaStream_t st) {
+  using B16 = __nv_bfloat16;
+  if (bf16) {
+    const bool vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+    if (vec && hd == HD) return launch_mma<HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+    if (vec) return launch_mma<HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+    return launch_simt<B16, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
   }
+  if (hd == HD) return launch_simt<float, HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+  return launch_simt<float, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
+             int SK, int hd, int causal, float scale, int bf16, cudaStream_t st) {
+  if (hd < 1) return cudaErrorInvalidValue;
+  if (hd <= 64) return dispatch_width<64>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, st);
+  if (hd <= 128) return dispatch_width<128>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, st);
+  if (hd <= 256) return dispatch_width<256>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, st);
+  if (bf16) return launch_wide<__nv_bfloat16>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+  return launch_wide<float>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
 }
 
 }  // namespace
@@ -514,7 +693,7 @@ extern "C" {
 
 // q (B, SQ, H, HD), k and v (B, SK, H, HD), out (B, SQ, H, HD): device
 // pointers to contiguous arrays of one type (f32, or bf16 when bf16 is 1).
-// HD is 64, 128 or 256; causal masks the keys after the query's row.
+// Any HD ≥ 1 and any alignment; causal masks the keys after the query's row.
 // Returns the launch's CUDA error, or 0.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int H,
                           int SQ, int SK, int HD, int causal, float scale, int bf16,

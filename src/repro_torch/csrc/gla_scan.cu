@@ -54,6 +54,23 @@
 //   warp 0, while the other warps load the chunk and other blocks share
 //   the SM.
 //
+// * Past one block's shared memory (repro_gla_smem above kMaxSmem: from
+//   dk × dv = 128 × 64 or 96 × 96 on; xLSTM's mLSTM is 512 × 513), the same
+//   three passes over tiles (gla_wide_state_kernel, gla_carry_kernel,
+//   gla_wide_out_kernel). ΔS's rows depend only on their own column of k
+//   and its columns only on their own column of v, so the state pass takes
+//   one block per (b·h, chunk, 64 × 64 tile of ΔS): the chunk's two strips
+//   of k and v, 65 KB. The output pass takes one block per (b·h, chunk, 64
+//   columns of y) and streams q, k and S_in through shared memory in dk
+//   strips of 32, summing the chunk's 128 × 128 scores and the inter term
+//   in registers; the gate is applied once the scores are whole, then the
+//   gated tile (64 KB) meets the block's 64 columns of v. Each column tile
+//   builds the scores again: at 512 × 513, 9 times 128·128·512 fused
+//   multiply-adds a chunk, against the inter term's 128·512·513. Loads are
+//   element by element, so any width and any alignment go. 140 KB of shared
+//   memory, one block an SM. The scratch dstate is (B, H, ⌈S/C⌉, dk, dv) f32
+//   on either path: 268 MB at B = 4, S = 2048, H = 4 and 512 × 513.
+//
 // Arithmetic, as the reference's kernel: inputs widened to f32, every sum
 // in f32; the intra-chunk gate built by select, 0 above the diagonal, so
 // that an e^{cum_t − cum_τ} that overflows for τ > t never meets a 0
@@ -67,6 +84,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "device.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -516,6 +534,262 @@ cudaError_t launch_gla_path(const T* q, const T* k, const T* v, const float* log
   return cudaGetLastError();
 }
 
+// ---- the wide path: dk × dv past one block's shared memory
+
+constexpr int kWideTile = 64;   // ΔS tile rows and columns; y columns a block
+constexpr int kWideStrip = 32;  // dk rows of q, k and S_in a step of the output pass
+
+// Columns j0 .. j0 + cols of the chunk's rows r < kMaxChunk of a (·, width)
+// array whose token t sits at src + (base + t·H)·width, widened to f32 into
+// dst[r·ld + j − j0] (or, with kTransposed, dst[(j − j0)·ld + r]), zeros
+// past `valid` rows and past `width`. Element by element, every load of a
+// lane's column issued before any store, as load_rows.
+template <bool kTransposed, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ src, long long base, int H,
+                                          int width, int j0, int cols, int valid, float* dst,
+                                          int ld) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int jj = lane; jj < cols; jj += 32) {
+    const int j = j0 + jj;
+    float x[kRowsPerWarp];
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int r = warp + s * kWarps;
+      x[s] = r < valid && j < width ? widen(src[(base + (long long)r * H) * width + j]) : 0.0f;
+    }
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int r = warp + s * kWarps;
+      dst[kTransposed ? jj * ld + r : r * ld + jj] = x[s];
+    }
+  }
+}
+
+// shared memory, in floats
+constexpr int kWideStateSmem = 2 * kMaxChunk * kWideTile + 2 * kMaxChunk;
+constexpr int kWideOutSmem = 2 * kWideStrip * kStride + kWideStrip * kWideTile +
+                             kMaxChunk * kWideTile + kMaxChunk * kStride + kMaxChunk;
+
+// Pass 1 of the wide path, one block per (b·h, chunk, tile of ΔS): rows
+// i0..i0+63 and columns j0..j0+63 of ΔS = (k ⊙ e^{tot − cum})ᵀ·v into
+// dstate, a 4 × 4 block a thread summed over the chunk's tokens in order;
+// the tile-(0, 0) block also writes e^{tot}. tj: column tiles of ΔS.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gla_wide_state_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ log_a, float* __restrict__ dstate,
+                      float* __restrict__ decay, int S, int H, int DK, int DV, int C,
+                      int n_chunks, int tiles, int tj) {
+  extern __shared__ __align__(16) float smem[];
+  float* ke = smem;                         // [kMaxChunk][kWideTile]: k ⊙ e^{tot − cum}
+  float* vs = ke + kMaxChunk * kWideTile;   // [kMaxChunk][kWideTile]
+  float* cum = vs + kMaxChunk * kWideTile;  // [kMaxChunk]
+  float* ew = cum + kMaxChunk;              // [kMaxChunk]
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int tile = blockIdx.x % tiles;
+  const Chunk ch = chunk_of(blockIdx.x / tiles, S, H, C, n_chunks);
+  const int i0 = tile / tj * kWideTile, j0 = tile % tj * kWideTile;
+
+  if (warp == 0) chunk_cumsum(log_a + ch.base, H, ch.valid, cum);
+  load_cols<false>(k, ch.base, H, DK, i0, kWideTile, ch.valid, ke, kWideTile);
+  load_cols<false>(v, ch.base, H, DV, j0, kWideTile, ch.valid, vs, kWideTile);
+  __syncthreads();
+  if (tid < kMaxChunk) ew[tid] = expf(cum[C - 1] - cum[tid]);
+  __syncthreads();
+  for (int e = tid; e < C * kWideTile; e += kThreads)
+    ke[e] = __fmul_rn(ke[e], ew[e / kWideTile]);
+  __syncthreads();
+
+  const int a0 = 4 * (tid / 16), b0 = 4 * (tid % 16);  // this thread's 4 × 4 block
+  float acc[4][4] = {};
+#pragma unroll 4
+  for (int tau = 0; tau < C; ++tau) {
+    const float4 a = ld4(ke + tau * kWideTile + a0), w = ld4(vs + tau * kWideTile + b0);
+    const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) acc[x][z] = __fmaf_rn(av[x], wv[z], acc[x][z]);
+  }
+  float* ds = dstate + ((long long)ch.bh * n_chunks + ch.c) * DK * DV;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int i = i0 + a0 + x;
+    if (i >= DK) break;
+#pragma unroll
+    for (int z = 0; z < 4; ++z)
+      if (j0 + b0 + z < DV) ds[(long long)i * DV + j0 + b0 + z] = acc[x][z];
+  }
+  if (tile == 0 && tid == 0) decay[(long long)ch.bh * n_chunks + ch.c] = expf(cum[C - 1]);
+}
+
+// Pass 3 of the wide path, one block per (b·h, chunk, 64 columns of y): the
+// scores q·kᵀ (a thread's four 4 t × 4 τ blocks, one in each 32-τ strip)
+// and the inter term (q ⊙ e^{cum})·S_in[:, cols] (8 rows × 4 columns a
+// thread, as gla_chunk_out_kernel) summed over dk strips of 32; then the
+// gate by select into shared memory and the gated scores · v. tj: column
+// tiles of y.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gla_wide_out_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ log_a, const float* __restrict__ sin,
+                    T* __restrict__ y, int S, int H, int DK, int DV, int C, int n_chunks,
+                    int tj) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                          // [kWideStrip][kStride]: q, token-minor
+  float* ks = qs + kWideStrip * kStride;     // [kWideStrip][kStride]: k, token-minor
+  float* ss = ks + kWideStrip * kStride;     // [kWideStrip][kWideTile]: S_in's strip
+  float* vs = ss + kWideStrip * kWideTile;   // [kMaxChunk][kWideTile]
+  float* gt = vs + kMaxChunk * kWideTile;    // [kMaxChunk][kStride]: gated scores gt[τ][t]
+  float* cum = gt + kMaxChunk * kStride;     // [kMaxChunk]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int j0 = blockIdx.x % tj * kWideTile;
+  const Chunk ch = chunk_of(blockIdx.x / tj, S, H, C, n_chunks);
+  const float* sc = sin + ((long long)ch.bh * n_chunks + ch.c) * DK * DV;
+
+  if (warp == 0) chunk_cumsum(log_a + ch.base, H, ch.valid, cum);
+  load_cols<false>(v, ch.base, H, DV, j0, kWideTile, ch.valid, vs, kWideTile);
+  __syncthreads();
+
+  const int ly = lane / 16, lx = lane % 16;
+  const int r0 = 16 * warp + 8 * ly;                    // this thread's 8 rows
+  const int wend = 16 * warp < C ? min(16 * warp + 16, C) : 0;  // this warp's rows end
+  const int ta = 4 * (tid / 8), ua = 4 * (tid % 8);     // score blocks: rows ta.., τ 32s + ua..
+  float eq[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) eq[r] = expf(cum[r0 + r]);
+  float sco[4][4][4], inter[8][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) sco[s][x][z] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) inter[r][x] = 0.0f;
+
+  for (int i0 = 0; i0 < DK; i0 += kWideStrip) {
+    const int w = min(kWideStrip, DK - i0);
+    __syncthreads();  // the previous strip is consumed
+    load_cols<true>(q, ch.base, H, DK, i0, kWideStrip, ch.valid, qs, kStride);
+    load_cols<true>(k, ch.base, H, DK, i0, kWideStrip, ch.valid, ks, kStride);
+    for (int e = tid; e < kWideStrip * kWideTile; e += kThreads) {
+      const int i = i0 + e / kWideTile, j = j0 + e % kWideTile;
+      ss[e] = i < DK && j < DV ? sc[(long long)i * DV + j] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int u = 32 * s + ua;
+      if (ta + 3 >= u && ta < C && u < C) {  // blocks wholly above the diagonal stay 0
+        for (int i = 0; i < w; ++i) {
+          const float4 a = ld4(qs + i * kStride + ta);
+          const float4 b = ld4(ks + i * kStride + u);
+          const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+#pragma unroll
+            for (int z = 0; z < 4; ++z) sco[s][x][z] = __fmaf_rn(av[x], bv[z], sco[s][x][z]);
+        }
+      }
+    }
+    for (int i = 0; i < w; ++i) {
+      const float4 a0 = ld4(qs + i * kStride + r0);
+      const float4 a1 = ld4(qs + i * kStride + r0 + 4);
+      const float4 sv = ld4(ss + i * kWideTile + 4 * lx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float wv[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float qe = __fmul_rn(av[r], eq[r]);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) inter[r][x] = __fmaf_rn(qe, wv[x], inter[r][x]);
+      }
+    }
+  }
+
+  // the gate, by select: (q·k) ⊙ e^{cum_t − cum_τ} for τ ≤ t, else 0
+  const float4 ct = ld4(cum + ta);
+  const float cta[4] = {ct.x, ct.y, ct.z, ct.w};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int u = 32 * s + ua;
+    const float4 cu = ld4(cum + u);
+    const float cua[4] = {cu.x, cu.y, cu.z, cu.w};
+    const bool live = ta + 3 >= u && ta < C && u < C;
+#pragma unroll
+    for (int z = 0; z < 4; ++z) {
+      float g[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        g[x] = live && u + z <= ta + x ? __fmul_rn(sco[s][x][z], expf(cta[x] - cua[z])) : 0.0f;
+      *reinterpret_cast<float4*>(gt + (u + z) * kStride + ta) = make_float4(g[0], g[1], g[2], g[3]);
+    }
+  }
+  __syncthreads();
+
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[r][x] = 0.0f;
+#pragma unroll 4
+  for (int u = 0; u < wend; ++u) {  // past the warp's last row the scores are 0
+    const float4 g0 = ld4(gt + u * kStride + r0);
+    const float4 g1 = ld4(gt + u * kStride + r0 + 4);
+    const float4 w = ld4(vs + u * kWideTile + 4 * lx);
+    const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[r][x] = __fmaf_rn(gv[r], wv[x], acc[r][x]);
+  }
+  T* yc = y + ch.base * DV;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int t = r0 + r;
+    if (t >= ch.valid) continue;
+    T* row = yc + (long long)t * H * DV;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int j = j0 + 4 * lx + x;
+      if (j < DV) row[j] = narrow<T>(__fadd_rn(inter[r][x], acc[r][x]));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gla_wide(const T* q, const T* k, const T* v, const float* log_a, T* y,
+                            float* state, float* dstate, float* decay, int B, int S, int H,
+                            int DK, int DV, int C, cudaStream_t st) {
+  const int n_chunks = (S + C - 1) / C;
+  const int ti = (DK + kWideTile - 1) / kWideTile, tj = (DV + kWideTile - 1) / kWideTile;
+  const long long chunks = (long long)B * H * n_chunks;
+  const long long E = (long long)DK * DV, per = (E + kThreads - 1) / kThreads;
+  if (chunks * ti * tj > INT_MAX || E > INT_MAX || B * H * per > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int smem1 = kWideStateSmem * (int)sizeof(float);
+  const int smem3 = kWideOutSmem * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(gla_wide_state_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(gla_wide_out_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem3);
+  if (e != cudaSuccess) return e;
+  gla_wide_state_kernel<T><<<(unsigned)(chunks * ti * tj), kThreads, smem1, st>>>(
+      k, v, log_a, dstate, decay, S, H, DK, DV, C, n_chunks, ti * tj, tj);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  gla_carry_kernel<<<(unsigned)(B * H * per), kThreads, 0, st>>>(dstate, decay, state, n_chunks,
+                                                                    (int)E, (int)per);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  gla_wide_out_kernel<T><<<(unsigned)(chunks * tj), kThreads, smem3, st>>>(
+      q, k, v, log_a, dstate, y, S, H, DK, DV, C, n_chunks, tj);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 // The vector path takes rows of whole 16-byte vectors on 16-byte boundaries
@@ -524,6 +798,9 @@ template <typename T>
 cudaError_t launch_gla(const T* q, const T* k, const T* v, const float* log_a, T* y,
                        float* state, float* dstate, float* decay, int B, int S, int H, int DK,
                        int DV, int C, cudaStream_t st) {
+  const int a = state_smem_floats(DK, DV), b = out_smem_floats(DK, DV);
+  if ((long long)(a > b ? a : b) * (long long)sizeof(float) > kMaxSmem)
+    return launch_gla_wide<T>(q, k, v, log_a, y, state, dstate, decay, B, S, H, DK, DV, C, st);
   constexpr int kE = 16 / sizeof(T);
   const bool vec = DK % kE == 0 && DV % kE == 0 && aligned16(q) && aligned16(k) &&
                    aligned16(v) && aligned16(y);
@@ -537,7 +814,8 @@ cudaError_t launch_gla(const T* q, const T* k, const T* v, const float* log_a, T
 
 extern "C" {
 
-// The larger of the two chunk kernels' shared memory, in bytes.
+// The larger of the two chunk kernels' shared memory, in bytes; past a
+// block's kMaxSmem the call takes the wide path.
 int repro_gla_smem(int DK, int DV) {
   const int a = state_smem_floats(DK, DV), b = out_smem_floats(DK, DV);
   return (a > b ? a : b) * (int)sizeof(float);
@@ -547,7 +825,8 @@ int repro_gla_smem(int DK, int DV) {
 // of one type (f32, or bf16 when bf16 is 1); log_a (B, S, H) f32; y
 // (B, S, H, DV) of the input type; state (B, H, DK, DV) f32; scratch
 // dstate (B, H, ⌈S/C⌉, DK, DV) and decay (B, H, ⌈S/C⌉) f32. C is the chunk
-// (1 ≤ C ≤ 128). Returns the first failed launch's CUDA error, or 0.
+// (1 ≤ C ≤ 128); any DK and DV. Returns the first failed launch's CUDA
+// error, or 0.
 int repro_gla_forward(const void* q, const void* k, const void* v, const float* log_a, void* y,
                       float* state, float* dstate, float* decay, int B, int S, int H, int DK,
                       int DV, int C, int bf16, void* stream) {

@@ -5,8 +5,13 @@
 launches a kernel of ``csrc/flash_attn.cu`` for CUDA tensors, or raises:
 bf16 on the tensor cores, f32 on the CUDA cores. q, k and v are (B, S, H,
 hd) of one type, f32 or bf16, with the kv heads already repeated to H; the
-result has q's shape and type. The plain version walks the KV axis in the kernel's tiles of 64 keys with the
-kernel's arithmetic (scale after the dot product, −1e30 for masked
+result has q's shape and type. Any head width and any view go: a width
+under 256 runs the next larger of the kernel's instances (64, 128, 256)
+masked at hd, bf16 on the CUDA cores where its 16-byte copies cannot go
+(hd not a multiple of 8, or a view off a 16-byte boundary), and a width
+past 256 a kernel that streams q·kᵀ over hd in slices. The plain version
+walks the KV axis in the kernel's tiles of 64 keys with the kernel's
+arithmetic (scale after the dot product, −1e30 for masked
 scores, p rounded to v's type before p·v, out = acc / max(l, 1e-30)); its
 dot products are PyTorch's, so the two agree to f32 rounding, not bit for
 bit.
@@ -21,7 +26,6 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 NEG_INF = -1e30
 KV_TILE = 64               # keys per tile, the kernel's kBK
-HEAD_DIMS = (64, 128, 256)  # the kernel's template instances
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -73,11 +77,6 @@ def flash_attention(
     _check(q, k, v)
     bf16 = _lib.require_cuda_f32_or_bf16("flash_attention", q=q, k=k, v=v)
     b, sq, h, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head widths {HEAD_DIMS}, got {hd}")
-    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k and v must start on a 16-byte boundary "
-                         "(the kernel copies 16 bytes at a time)")
     out = torch.empty_like(q)
     status = _lib.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, k.shape[1], hd,

@@ -8,7 +8,10 @@ q's type and the final state (B, H, dk, dv) in f32, which the reference's
 kernel drops. Chunks are min(128, S) tokens. On the card one call runs
 the chunks in parallel: each chunk's state increment, the carry of the
 state through the chunks in order, then each chunk's output (three
-launches, one count). The plain version repeats the kernels' arithmetic
+launches, one count); where dk × dv needs more shared memory than a block
+has (``wide_path``: from 128 × 64 or 96 × 96 on), the same three passes run
+over 64 × 64 tiles of the state and 64-column tiles of y, streaming q, k and
+the state through shared memory. The plain version repeats the kernels' arithmetic
 chunk by chunk: f32 inside, the cumsum of log a sequential in token
 order, the gate by select, the carry S·e^{tot} + ΔS, padding with
 log a = 0 and zeroed q, k, v; its products are PyTorch's, so the two
@@ -20,9 +23,15 @@ import torch
 
 from repro_torch.kernels import _lib
 
-__all__ = ["CHUNK", "gla_forward", "gla_forward_plain"]
+__all__ = ["CHUNK", "gla_forward", "gla_forward_plain", "wide_path"]
 
 CHUNK = 128  # tokens per chunk at most, the kernel's kMaxChunk
+
+
+def wide_path(dk: int, dv: int) -> bool:
+    """Whether the card runs dk × dv on the tiled wide path (the chunk
+    kernels' shared memory past a block's)."""
+    return _lib.library().repro_gla_smem(dk, dv) > _lib.MAX_SMEM
 
 
 def _check(q, k, v, log_a) -> None:
@@ -97,12 +106,9 @@ def gla_forward(
     c = min(CHUNK, s)
     n = -(-s // c)
     lib = _lib.library()
-    smem = lib.repro_gla_smem(dk, dv)
-    if smem > _lib.MAX_SMEM:
-        raise ValueError(f"gla_forward: dk = {dk}, dv = {dv} need {smem} bytes of shared "
-                         f"memory, more than a block's {_lib.MAX_SMEM}")
     # the kernels' scratch: each chunk's state increment, then the state
-    # entering it, and each chunk's decay e^{tot}
+    # entering it, and each chunk's decay e^{tot}; (B, H, n, dk, dv) f32 is
+    # 268 MB at B = 4, S = 2048, H = 4 and xLSTM's dk × dv = 512 × 513
     dstate = torch.empty((b, h, n, dk, dv), dtype=torch.float32, device=q.device)
     decay = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     status = lib.repro_gla_forward(

@@ -24,10 +24,19 @@ serving device, seeded alike; the monitor's basis from a CPU generator
 seeded with ``seed + 7``. ``--reduced`` is always on, as in the reference
 (its flag is ``store_true`` with ``default=True``); ``serve`` itself runs
 any config it is given.
+
+``--telemetry-dir DIR`` (``serve(..., telemetry=sink)``) books each round
+into a ``repro_torch.obs.TelemetrySink``: the serve counters (rounds,
+tokens, drift flags), the round-time histogram, the drift-score gauge and
+a ``serve_round`` span a round in ``DIR/trace.jsonl``; at the end the
+exposition goes to ``DIR/exposition.txt`` and one ``telemetry:`` line
+sums the run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
 from typing import NamedTuple
 
@@ -39,6 +48,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import ae_score, ae_train_stream, init_autoencoder, oselm_step
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs import TelemetryConfig, TelemetrySink
 from repro_torch.runtime import DetectorConfig, detector_update, init_detector
 
 MONITOR = DetectorConfig(alpha=0.7, k_sigma=4.0, warmup=2, patience=1)
@@ -92,10 +102,12 @@ def serve(
     seed: int = 0,
     device: str | torch.device | None = None,
     params: dict | None = None,
+    telemetry: TelemetrySink | None = None,
 ) -> list[ServeRound]:
     """Run the serving loop on ``device`` (the card unless ``device="cpu"``)
     and print the reference's line per round. ``drift_round`` < 0 means the
-    last round. ``params`` defaults to weights drawn from ``seed``."""
+    last round. ``params`` defaults to weights drawn from ``seed``.
+    ``telemetry`` books every round into that sink."""
     if rounds < 1 or batch < 1:
         raise ValueError(f"need rounds >= 1 and batch >= 1, got {rounds} and {batch}")
     device = resolve_device(device)
@@ -119,23 +131,33 @@ def serve(
     )
     detector = ae_train_stream(detector, warm_feats)
     monitor = init_detector(1, device=device)
+    if telemetry is not None:
+        r = telemetry.registry
+        rounds_total = r.counter("serve_rounds_total", "serving rounds completed")
+        round_seconds = r.histogram("serve_round_seconds", "wall-clock per serving round")
+        tokens_total = r.counter("serve_tokens_total", "tokens decoded")
+        drift_score = r.gauge("serve_drift_score", "monitor's latest mean ae_score")
+        drift_flags = r.counter("serve_drift_flags_total", "rounds the monitor flagged")
 
     out = []
     for rnd, prompt in enumerate(prompts):
         tokens = ids(prompt)
         _sync(device)
-        t0 = time.perf_counter()
-        logits, caches, features = prefill(params, cfg, tokens, cache_len=max_seq)
-        tok = logits.argmax(-1)
-        _sync(device)
-        t1 = time.perf_counter()
-        generated = [tok]
-        for i in range(new_tokens):
-            logits, caches = decode_step(params, cfg, tok, caches, s + i, max_seq=max_seq)
+        span = (contextlib.nullcontext() if telemetry is None
+                else telemetry.span("serve_round", round=rnd))
+        with span:
+            t0 = time.perf_counter()
+            logits, caches, features = prefill(params, cfg, tokens, cache_len=max_seq)
             tok = logits.argmax(-1)
-            generated.append(tok)
-        _sync(device)
-        t2 = time.perf_counter()
+            _sync(device)
+            t1 = time.perf_counter()
+            generated = [tok]
+            for i in range(new_tokens):
+                logits, caches = decode_step(params, cfg, tok, caches, s + i, max_seq=max_seq)
+                tok = logits.argmax(-1)
+                generated.append(tok)
+            _sync(device)
+            t2 = time.perf_counter()
         dt = t2 - t0
 
         # every round is scored against the current detector, which then trains on it
@@ -144,6 +166,13 @@ def serve(
             monitor, torch.tensor([score], dtype=torch.float32, device=device), MONITOR)
         detector = oselm_step(detector, features, features)
         flagged = bool(flagged[0])
+        if telemetry is not None:
+            rounds_total.inc()
+            round_seconds.observe(dt)
+            tokens_total.inc(b * new_tokens)
+            drift_score.set(score)
+            if flagged:
+                drift_flags.inc()
         flag = "  << DRIFT" if rnd == drift_round else ""
         if flagged:
             flag += "  [DETECTED]"
@@ -167,7 +196,7 @@ def main(argv: list[str] | None = None) -> list[ServeRound]:
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed (prompts, params, the monitor's basis)")
     ap.add_argument("--telemetry-dir", default=None,
-                    help="not ported yet (ROADMAP queue 1, item 1: telemetry)")
+                    help="emit trace.jsonl/exposition.txt into this directory")
     ap.add_argument("--fleet", action="store_true",
                     help="not ported yet (ROADMAP queue 1, item 6: serving)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -175,21 +204,30 @@ def main(argv: list[str] | None = None) -> list[ServeRound]:
     if args.fleet:
         raise NotImplementedError("--fleet (the async fleet-ingress driver) is not ported yet: "
                                   "ROADMAP queue 1, item 6 (serving)")
-    if args.telemetry_dir is not None:
-        raise NotImplementedError("--telemetry-dir is not ported yet: ROADMAP queue 1, item 1 "
-                                  "(telemetry)")
     if args.rounds < 1:
         ap.error(f"--rounds must be >= 1 (got {args.rounds}): a zero-round serving loop does "
                  "nothing")
     if args.batch < 1:
         ap.error(f"--batch must be >= 1 (got {args.batch}): every round serves at least one "
                  "request")
+    sink = (TelemetrySink(TelemetryConfig(dir=args.telemetry_dir))
+            if args.telemetry_dir else None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    return serve(cfg, rounds=args.rounds, batch=args.batch, prompt_len=args.prompt_len,
-                 new_tokens=args.new_tokens, drift_round=args.drift_round, seed=args.seed,
-                 device=args.device)
+    out = serve(cfg, rounds=args.rounds, batch=args.batch, prompt_len=args.prompt_len,
+                new_tokens=args.new_tokens, drift_round=args.drift_round, seed=args.seed,
+                device=args.device, telemetry=sink)
+    if sink is not None:
+        sink.close()
+        r = sink.registry
+        print("telemetry:", json.dumps({
+            "dir": args.telemetry_dir,
+            "rounds": int(r.counter("serve_rounds_total").value),
+            "tokens": int(r.counter("serve_tokens_total").value),
+            "drift_flags": int(r.counter("serve_drift_flags_total").value),
+        }))
+    return out
 
 
 if __name__ == "__main__":

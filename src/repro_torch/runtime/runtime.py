@@ -1,6 +1,6 @@
 """Resident streaming fleet runtime; port of ``repro.runtime.runtime``
 (exact-f32 and quantized payloads, robust merges and fault injection,
-stale merges; no snapshots or telemetry yet).
+stale merges, telemetry; no snapshots yet).
 
 One ``tick`` runs the paper's loop over the whole fleet:
 
@@ -36,6 +36,15 @@ runtime the risk mask) come back to the host, where the governor
 decides. The runtime always takes the kernel family: on a CUDA device
 every tick launches the ingest kernel and every admitted round the
 merge kernels of its topology.
+
+With ``RuntimeConfig.telemetry`` set, a ``repro_torch.obs.TelemetrySink``
+times each phase of the tick (poison, ingest, quantize, govern, merge),
+counts ticks, merge rounds, bytes by wire precision, detections, faults
+and rejected payloads, samples the detector's band every
+``band_sample_every`` ticks, keeps a flight ring of recent ticks, and
+dumps it with the failing tick's post-poison batch when an exception
+escapes ``tick`` (or a payload is non-finite, or a tick breaks its SLO).
+Telemetry changes no result: the reports are the same with it on or off.
 """
 from __future__ import annotations
 
@@ -62,6 +71,7 @@ from repro_torch.fleet.robust import RobustConfig, finite_payload_mask, robust_m
 from repro_torch.fleet.staleness import StalenessSchedule, init_ring, stale_merge_round
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels.fleet_ingest import fleet_ingest
+from repro_torch.obs import TelemetryConfig, TelemetrySink
 from repro_torch.runtime.detector import (
     DetectorConfig,
     DetectorState,
@@ -90,6 +100,9 @@ class RuntimeConfig:
     faults: FaultInjector | None = None  # deterministic faults at the payload
                                          # boundary (repro_torch.fleet.faults)
     detections_cap: int = 4096        # length of the detection-event ring
+    telemetry: TelemetryConfig | None = None  # metrics, tracing and the flight
+                                              # recorder (repro_torch.obs);
+                                              # None: no instrumentation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +137,30 @@ def _where_served(keep: torch.Tensor, new, old):
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class _NullPhase:
+    """The telemetry phase timer's ``with``/``fence`` surface, measuring
+    nothing: one shared instance keeps the uninstrumented tick free of
+    per-phase allocations."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NullPhase":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def fence(self, tree) -> None:
+        pass
+
+
+_NULL_PHASE = _NullPhase()
+
+
+def _host(batch) -> np.ndarray:
+    return batch.cpu().numpy() if isinstance(batch, torch.Tensor) else np.asarray(batch)
 
 
 class FleetRuntime:
@@ -208,6 +245,8 @@ class FleetRuntime:
         self.detections_total = 0
         self._post_merge = False
         self._merge_mask = np.ones(n_devices, bool)
+        self.telemetry = TelemetrySink(config.telemetry) if config.telemetry is not None else None
+        self._tick_inputs = None  # the last post-poison batch, for flight dumps
 
     @staticmethod
     def _hardened(config: RuntimeConfig) -> bool:
@@ -302,6 +341,14 @@ class FleetRuntime:
             scores = scores_t.cpu().numpy()
         return scores, int((~finite).sum())
 
+    def _phase(self, name: str):
+        """The phase's timer (a shared no-op when telemetry is off)."""
+        return _NULL_PHASE if self.telemetry is None else self.telemetry.phase(name)
+
+    def _observe_phase(self, name: str, seconds: float) -> None:
+        if self.telemetry is not None:
+            self.telemetry._phase_observe[name](seconds)
+
     def tick(
         self,
         batch,
@@ -314,7 +361,21 @@ class FleetRuntime:
         ``batch`` is (n_devices, B, features), a numpy array or a tensor.
         Devices marked False in ``served`` carry padding in their row and
         keep their model and detector state untouched. ``allow_merge=False``
-        vetoes any merge this tick while the governor's ledger advances."""
+        vetoes any merge this tick while the governor's ledger advances.
+
+        With telemetry on, an exception that escapes the tick dumps the
+        flight ring with this tick's post-poison batch before it propagates."""
+        try:
+            return self._tick(batch, served, allow_merge)
+        except Exception:
+            tel = self.telemetry
+            if tel is not None:
+                inputs = None if self._tick_inputs is None else _host(self._tick_inputs)
+                tel.maybe_dump(self.tick_no, "exception", inputs=inputs)
+                tel.write_outputs()
+            raise
+
+    def _tick(self, batch, served: np.ndarray | None, allow_merge: bool) -> TickReport:
         t = self.tick_no
         d = self.n_devices
         injector = self.config.faults
@@ -333,38 +394,47 @@ class FleetRuntime:
             served_np = np.asarray(served).astype(bool)
             if served_np.shape != (d,):
                 raise ValueError(f"served mask must be ({d},); got {served_np.shape}")
-        if injector is not None and any(k == "poison" for k, _ in injector.active_faults(t)):
-            # data poisoning attacks through training itself, upstream of
-            # the payload boundary
-            batch = injector.poison_batch(torch.as_tensor(batch).cpu().numpy(), t)
+        t_start = time.perf_counter()
+        with self._phase("poison"):
+            if injector is not None and any(k == "poison" for k, _ in injector.active_faults(t)):
+                # data poisoning attacks through training itself, upstream of
+                # the payload boundary
+                batch = injector.poison_batch(torch.as_tensor(batch).cpu().numpy(), t)
+        # the post-poison batch is what reaches the model: what a flight dump
+        # must carry for the failing tick to be replayed
+        self._tick_inputs = batch
         x = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
 
         t0 = time.perf_counter()
         losses, drifted, fresh = self._ingest_detect(x.contiguous(), served_np)
         _synchronize(self.device)
         ingest_seconds = time.perf_counter() - t0
+        self._observe_phase("ingest", ingest_seconds)
 
         losses_np = losses.cpu().numpy()
         drifted_np = drifted.cpu().numpy()
         fresh_np = fresh.cpu().numpy()
-        self.detections_total += int(fresh_np.sum())
+        n_fresh = int(fresh_np.sum())
+        self.detections_total += n_fresh
         for dev in np.flatnonzero(fresh_np):
             self.detections.append((t, int(dev)))
 
         # detector-gated precision: on candidate rounds of a quantized
         # runtime, devices at quarantine risk are priced and shipped at f32
-        fp_mask = None
-        if self._residual is not None and (t + 1) % self.config.governor.merge_every == 0:
-            fp_mask = quarantine_risk(self.det, self.config.detector).cpu().numpy()
+        with self._phase("quantize"):
+            fp_mask = None
+            if self._residual is not None and (t + 1) % self.config.governor.merge_every == 0:
+                fp_mask = quarantine_risk(self.det, self.config.detector).cpu().numpy()
 
-        if self.config.gate_merges:
-            mask = self.governor.participation(drifted_np, losses_np)
-        else:
-            mask = np.ones(d, bool)
-        if injector is not None:
-            # crashed devices neither publish nor download, whatever the gating
-            mask = mask & ~injector.crash_mask(t)
-        decision = self.governor.decide(t, mask, fp_mask, allow=allow_merge)
+        with self._phase("govern"):
+            if self.config.gate_merges:
+                mask = self.governor.participation(drifted_np, losses_np)
+            else:
+                mask = np.ones(d, bool)
+            if injector is not None:
+                # crashed devices neither publish nor download, whatever the gating
+                mask = mask & ~injector.crash_mask(t)
+            decision = self.governor.decide(t, mask, fp_mask, allow=allow_merge)
 
         merge_seconds, scores, nonfinite = None, None, 0
         if decision.merge:
@@ -372,10 +442,19 @@ class FleetRuntime:
             scores, nonfinite = self._merge(mask, fp_mask, drifted_np, t)
             _synchronize(self.device)
             merge_seconds = time.perf_counter() - t0
+            self._observe_phase("merge", merge_seconds)
             if scores is not None:
                 self.governor.observe_robust(scores)
             self._merge_mask = mask.copy()
             self.merge_round += 1
+        # the tick's serving latency: poison through merge
+        tick_seconds = time.perf_counter() - t_start
+        if self.telemetry is not None:
+            self._record_telemetry(
+                t, batch, losses_np, drifted_np, fresh_np, n_fresh, decision, ingest_seconds,
+                merge_seconds, tick_seconds, scores, nonfinite,
+                None if served is None else served_np,
+            )
         self._post_merge = decision.merge
         self.tick_no = t + 1
         return TickReport(
@@ -384,6 +463,108 @@ class FleetRuntime:
             nonfinite_payloads=nonfinite, ingest_seconds=ingest_seconds,
             served=None if served is None else served_np,
         )
+
+    def _record_telemetry(
+        self, t: int, batch, losses: np.ndarray, drifted: np.ndarray, fresh: np.ndarray,
+        n_fresh: int, decision: MergeDecision, ingest_seconds: float,
+        merge_seconds: float | None, tick_seconds: float, robust_scores: np.ndarray | None,
+        nonfinite: int, served: np.ndarray | None,
+    ) -> None:
+        """Fold one tick into the sink: counters, gauges and histograms,
+        the flight-ring record, and the non-finite and SLO dump triggers."""
+        tel, cfg = self.telemetry, self.config
+        tel.ticks.inc()
+        tel.tick_seconds.observe(tick_seconds)
+        if n_fresh:
+            tel.detections.inc(n_fresh)
+        faults = cfg.faults.active_faults(t) if cfg.faults is not None else []
+        for kind, n in faults:
+            tel.fault_events.labels(kind=kind).inc(n)
+        n_quarantined = int(drifted.sum())
+        tel.quarantined.set(n_quarantined)
+        if cfg.robust is not None:
+            tel.robust_quarantined.set(int(self.governor.robust_quarantined.sum()))
+
+        # the detector's band over calibrated devices (detector._sigma, the
+        # band the flags fire against), read back from the card every
+        # band_sample_every ticks: three reads of detector state per sample
+        det_cfg = cfg.detector
+        if t % tel.config.band_sample_every == 0:
+            calibrated = self.det.count.cpu().numpy() >= det_cfg.warmup
+            if calibrated.any():
+                mean = self.det.mean.cpu().numpy()
+                sigma = np.maximum(
+                    np.sqrt(np.maximum(self.det.var.cpu().numpy(), 0.0)) + det_cfg.min_sigma,
+                    det_cfg.rel_sigma * mean,
+                )
+                tel.band_width.observe_many(det_cfg.k_sigma * sigma[calibrated])
+                tel.loss_ratio.observe_many(
+                    losses[calibrated] / np.maximum(mean[calibrated], det_cfg.min_sigma))
+
+        if decision.merge:
+            tel.merge_rounds.inc()
+            split = self.governor.round_bytes_by_precision(
+                decision.participants, decision.fp_participants)
+            for precision, nbytes in split.items():
+                tel.merge_bytes.labels(precision=precision).inc(nbytes)
+            if self._residual is not None:
+                tel.ef_residual_norm.set(float(torch.sqrt(torch.sum(self._residual ** 2))))
+        if nonfinite:
+            tel.nonfinite.inc(nonfinite)
+
+        # a partly served window: the padded rows scored padding, so the loss
+        # statistics take the served devices only
+        live = losses if served is None or served.all() else losses[served]
+        if live.size == 0:
+            live = losses
+        rec = {
+            "tick": t,
+            "loss_mean": float(live.mean()),
+            "loss_max": float(live.max()),
+            "quarantined": n_quarantined,
+            "fresh": np.flatnonzero(fresh).tolist() if n_fresh else [],
+            "decision": {
+                "merge": decision.merge, "reason": decision.reason,
+                "participants": decision.participants,
+                "round_bytes": decision.round_bytes,
+                "fp_participants": decision.fp_participants,
+            },
+            "ingest_seconds": ingest_seconds,
+            "merge_seconds": merge_seconds,
+            "tick_seconds": tick_seconds,
+            "nonfinite_payloads": nonfinite,
+        }
+        if served is not None and not served.all():
+            rec["n_served"] = int(served.sum())
+        if losses.shape[0] <= 512:
+            # small fleets: the whole loss vector and quarantine set, what a
+            # replay compares; large fleets keep the ring lean
+            rec["losses"] = losses.tolist()
+            rec["drifted"] = np.flatnonzero(drifted).tolist() if n_quarantined else []
+        if faults:
+            rec["faults"] = faults
+        if robust_scores is not None and robust_scores.size:
+            top = np.argsort(robust_scores)[::-1][:5]
+            rec["robust_outliers"] = [(int(d), float(robust_scores[d])) for d in top]
+        tel.flight.record(rec)
+
+        if nonfinite:
+            tel.maybe_dump(t, "nonfinite", inputs=_host(batch),
+                           extra={"nonfinite_payloads": nonfinite})
+        slo = tel.config.slo_tick_seconds
+        if slo is not None and tick_seconds > slo:
+            tel.slo_breaches.inc()
+            tel.maybe_dump(t, "slo", inputs=_host(batch),
+                           extra={"tick_seconds": tick_seconds, "slo_seconds": slo})
+
+    def finalize_telemetry(self) -> dict | None:
+        """Flush the sink's outputs (the trace and the exposition, with a
+        directory) and return the end-of-run summary; None when telemetry
+        is off."""
+        if self.telemetry is None:
+            return None
+        self.telemetry.close()
+        return self.telemetry.summary()
 
     def run(self, feed: TickFeed, *, ticks: int | None = None) -> list[TickReport]:
         """Drive the runtime over a feed (all of it by default). Asking for
@@ -402,8 +583,8 @@ class FleetRuntime:
         stale round's mix kernels when a staleness schedule is set), on
         all-zero operands and an all-zero mask, before live traffic arrives:
         the first real tick then does not pay for ``nvcc``. Every output is
-        discarded — no model, detector, residual, payload, ring or governor
-        state changes."""
+        discarded — no model, detector, residual, payload, ring, governor or
+        telemetry state changes."""
         saved = (self.states, self.det, self._residual, self._last_good)
         slot = None
         if self._hist is not None:

@@ -11,7 +11,8 @@
   ``FleetRuntime`` on any topology, on the card unless ``device="cpu"``:
   local (pre-merge) per-device AUC, post-merge AUC, merges, comm bytes,
   detection stats; a spec with fault schedules runs with its injector and,
-  by default, the robust merge.
+  by default, the robust merge; with ``telemetry`` the sink's summary
+  comes back on ``ScenarioResult.telemetry``.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from repro_torch.data.synthetic import AnomalyDataset
 from repro_torch.fleet.fleet import fleet_score, fleet_train
 from repro_torch.fleet.robust import RobustConfig
 from repro_torch.fleet.topology import Topology, make_topology
+from repro_torch.obs import TelemetryConfig
 from repro_torch.runtime.governor import GovernorConfig
 from repro_torch.runtime.runtime import FleetRuntime, RuntimeConfig, TickReport
 from repro_torch.scenarios.spec import ScenarioSpec
@@ -197,6 +199,8 @@ class ScenarioResult:
     reports: list[TickReport]
     payload_precision: str = "f32"   # wire format the merges shipped at
     robust: RobustConfig | None = None  # robust-merge config the run used
+    telemetry: dict | None = None    # TelemetrySink.summary() of the run
+                                     # (None when telemetry was off)
 
     @property
     def clean_devices(self) -> list[int]:
@@ -221,14 +225,18 @@ class ScenarioResult:
 _LOCAL_AUC_CACHE: dict[tuple[ScenarioSpec, int, str], np.ndarray] = {}
 
 
+def _train_local(fleet, sc, device: torch.device) -> np.ndarray:
+    local = fleet_train(fleet, torch.as_tensor(sc.streams.xs, device=device))
+    return fleet_aucs(local, sc.x_eval, sc.y_eval)
+
+
 def _local_aucs(sc, key_seed: int, device: torch.device) -> np.ndarray:
     cache_key = (sc.spec, key_seed, str(device))
     if cache_key not in _LOCAL_AUC_CACHE:
         if len(_LOCAL_AUC_CACHE) > 32:
             _LOCAL_AUC_CACHE.clear()
         fleet = sc.init_fleet(torch.Generator().manual_seed(key_seed), device=device)
-        local = fleet_train(fleet, torch.as_tensor(sc.streams.xs, device=device))
-        _LOCAL_AUC_CACHE[cache_key] = fleet_aucs(local, sc.x_eval, sc.y_eval)
+        _LOCAL_AUC_CACHE[cache_key] = _train_local(fleet, sc, device)
     return _LOCAL_AUC_CACHE[cache_key]
 
 
@@ -243,7 +251,9 @@ def run_scenario(
     key_seed: int = 0,
     scenario=None,
     robust: RobustConfig | str | None = "auto",
+    telemetry: TelemetryConfig | None = None,
     device: str | torch.device | None = None,
+    fleet=None,
 ) -> ScenarioResult:
     """Drive one built scenario end to end through ``FleetRuntime``.
 
@@ -261,14 +271,25 @@ def run_scenario(
     gives ``RobustConfig(trim=1)`` exactly when the spec carries fault
     schedules, so clean presets keep the exact merge; pass a
     ``RobustConfig`` to force one, or None to run a fault-carrying spec
-    through the naive merge."""
+    through the naive merge.
+
+    ``telemetry`` threads a ``repro_torch.obs.TelemetryConfig`` into the
+    runtime; the finalized ``TelemetrySink.summary()`` rides back on
+    ``ScenarioResult.telemetry``. ``fleet`` takes the runtime's initial
+    fleet, on ``device``, in place of the one drawn from ``key_seed`` (the
+    local baseline then starts from it too)."""
     device = resolve_device(device)
     sc = spec.build() if scenario is None else scenario
     topo = scenario_topology(topology, spec.n_devices, **(topology_kwargs or {}))
     if robust == "auto":
         robust = RobustConfig(trim=1) if spec.faults else None
+    if fleet is None:
+        init = sc.init_fleet(torch.Generator().manual_seed(key_seed), device=device)
+        local_aucs = _local_aucs(sc, key_seed, device)
+    else:
+        init, local_aucs = fleet, _train_local(fleet, sc, device)
     rt = FleetRuntime(
-        sc.init_fleet(torch.Generator().manual_seed(key_seed), device=device),
+        init,
         RuntimeConfig(
             topology=topo,
             ridge=spec.ridge,
@@ -278,6 +299,7 @@ def run_scenario(
             payload_precision=payload_precision,
             robust=robust,
             faults=spec.fault_injector(),
+            telemetry=telemetry,
         ),
         device=device,
     )
@@ -286,7 +308,7 @@ def run_scenario(
     return ScenarioResult(
         spec=spec,
         topology=topo.name,
-        local_aucs=_local_aucs(sc, key_seed, device),
+        local_aucs=local_aucs,
         merged_aucs=fleet_aucs(rt.states, sc.x_eval, sc.y_eval,
                                nonfinite="coerce" if spec.faults else "strict"),
         merges=rt.governor.state.merges,
@@ -297,4 +319,5 @@ def run_scenario(
         reports=reports,
         payload_precision=payload_precision,
         robust=robust,
+        telemetry=rt.finalize_telemetry(),
     )

@@ -57,6 +57,18 @@ def test_flash_attention_matches_the_reference_kernel_and_oracle(s, cq, ck, caus
                                rtol=0, atol=0)
 
 
+# head widths off the card's instances (32, 80, 96: masked in the next one
+# up) and past 256 (320: the slice-streaming kernel): the plain version the
+# card's kernels are held to, against the reference's interpret-mode kernel
+@pytest.mark.parametrize("hd", [32, 80, 96, 320])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_other_head_widths_matches_the_reference_kernel(hd, causal):
+    q, k, v = _qkv(hd, 2, 77, 2, hd)
+    got = _port(flash_attention, (q, k, v), causal=causal)
+    kernel = np.asarray(ref_flash(q, k, v, causal=causal, cq=32, ck=32, interpret=True))
+    np.testing.assert_allclose(got, kernel, **F32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_dtypes(dtype):
     q, k, v = _qkv(0, 1, 128, 2, 32)

@@ -61,6 +61,20 @@ def test_gla_matches_the_reference_kernel_and_engine(s):
         assert torch.equal(got_y, y) and torch.equal(got_state, state)
 
 
+# the widths the card runs on its tiled wide path (dk × dv past one block's
+# shared memory), up to xLSTM's mLSTM (512 × 513): the plain version the
+# card's kernels are held to, against the reference's interpret-mode kernel
+@pytest.mark.parametrize("s,dk,dv", [(64, 128, 128), (40, 512, 513)])
+def test_gla_at_wide_heads_matches_the_reference_kernel(s, dk, dv):
+    x = _inputs(s + dk, 1, s, 2, dk, dv)
+    y, state = gla_forward_plain(*_t(x))
+    kernel = np.asarray(ref_gla(*x, chunk=CHUNK, interpret=True))
+    want_y, want_state = ref_engine(*x, chunk=CHUNK)
+    np.testing.assert_allclose(y.numpy(), kernel, **F32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **F32)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_state), **F32)
+
+
 @pytest.mark.parametrize("s,chunk", [(33, 16), (100, 32), (256, 64)])
 def test_gla_is_the_engine_at_other_chunks(s, chunk):
     """The chunked factorisation is exact: the port's 128-token chunks give

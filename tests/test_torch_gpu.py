@@ -878,23 +878,120 @@ def test_gla_kernel_on_a_misaligned_view(cuda, dtype):
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 32, device=cuda)
-    with pytest.raises(ValueError, match="head widths"):
-        flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError, match="must be"):
         flash_attention(q, q.bfloat16(), q.bfloat16())
-    shifted = torch.zeros(1 * 8 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        qb = shifted.view(1, 8, 2, 64)  # contiguous, 2 bytes into its storage
-        flash_attention(qb, qb, qb)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError, match="differ"):
+        flash_attention(q, q[..., :32].contiguous(), q[..., :32].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         gla_forward(q[..., :16], q[..., :16], q, torch.zeros(1, 8, 2, device=cuda))
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 128, 1, 256, device=cuda)
-        gla_forward(big, big, big, torch.zeros(1, 128, 1, device=cuda))
+    with pytest.raises(ValueError, match="log_a"):
+        gla_forward(q, q, q, torch.zeros(1, 8, 3, device=cuda))
+
+
+# every head width the reference takes: under 64, between the instances
+# (100: hd·2 bytes not a multiple of 16, so bf16 loads element by element)
+# and past 256 (the slice-streaming kernel); one query, a short odd prompt
+# and the serving length
+@pytest.mark.parametrize("hd", [16, 32, 80, 96, 100, 320, 512])
+@pytest.mark.parametrize("s", [1, 77, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_any_head_width(cuda, hd, s, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + hd)
+    q, k, v = (_draw(cuda, (2, s, 3, hd), dtype, gen) for _ in range(3))
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, causal=causal))
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _row_rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_a_misaligned_view(cuda, hd, dtype):
+    """Contiguous views one element into their storage (2 bytes for bf16,
+    off the tensor-core kernel's 16-byte copies): element loads instead."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    shape = (2, 150, 3, hd)
+
+    def view():
+        flat = _draw(cuda, (int(np.prod(shape)) + 1,), dtype, gen)
+        return flat[1:].view(shape)
+
+    q, k, v = view(), view(), view()
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, causal=True))
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert _row_rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+# dk × dv past one block's shared memory (the tiled wide path), from the
+# first widths it takes to xLSTM's mLSTM (512 × 513) and a wide v; one
+# token, a second chunk of one token, four chunks
+GLA_WIDE = [(128, 64), (96, 96), (128, 128), (256, 256), (512, 513), (16, 2048)]
+
+
+def test_gla_wide_path_starts_past_a_blocks_shared_memory(cuda):
+    from repro_torch.kernels.gla_scan import wide_path
+
+    assert not wide_path(16, 64) and not wide_path(64, 128)
+    assert all(wide_path(dk, dv) for dk, dv in GLA_WIDE)
+
+
+def _gla_terms_rel(y, want, q, k, v, log_a):
+    """f32: max over y's rows of max |y − want| / the row's largest term
+    magnitude: the plain version on |q|, |k|, |v| (every product and
+    partial sum of a row is at most that). At dk = 512 a row of y is
+    (q_t·k_τ)-weighted and q·k can cancel to any fraction of its 512
+    terms, so two f32 summation orders (the kernel's in dk order, cuBLAS's
+    for the plain version's products) part by more than 1e-5 of such a
+    row itself (measured 2.6e-5 at S = 1); the repository holds such
+    ill-posed f32 sums on their terms' magnitudes."""
+    scale, _ = gla_forward_plain(q.abs(), k.abs(), v.abs(), log_a)
+    got, want, scale = (x.float().flatten(0, -2) for x in (y, want, scale))
+    assert torch.isfinite(got).all()
+    return float(((got - want).abs().amax(-1) / scale.amax(-1)).max())
+
+
+@pytest.mark.parametrize("dk,dv", GLA_WIDE)
+@pytest.mark.parametrize("s", [1, 129, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_wide_kernel_matches_plain(cuda, dk, dv, s, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + dk + dv)
+    q, k = (_draw(cuda, (1, s, 2, dk), dtype, gen) for _ in range(2))
+    v = _draw(cuda, (1, s, 2, dv), dtype, gen)
+    log_a = -torch.nn.functional.softplus(torch.randn((1, s, 2), generator=gen, device=cuda))
+    y, state = _launched("gla_forward", lambda: gla_forward(q, k, v, log_a))
+    want_y, want_state = gla_forward_plain(q, k, v, log_a)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    if dtype == torch.float32:
+        assert _gla_terms_rel(y, want_y, q, k, v, log_a) <= 1e-5
+    else:
+        assert _row_rel(y, want_y) <= 2 ** -8
+    assert _row_rel(state, want_state) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_wide_kernel_on_a_misaligned_view(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, s, h, dk, dv = 1, 300, 2, 128, 128
+
+    def view(shape):
+        flat = _draw(cuda, (int(np.prod(shape)) + 1,), dtype, gen)
+        return flat[1:].view(shape)
+
+    q, k, v = view((b, s, h, dk)), view((b, s, h, dk)), view((b, s, h, dv))
+    log_a = -torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=cuda))
+    y, state = _launched("gla_forward", lambda: gla_forward(q, k, v, log_a))
+    want_y, want_state = gla_forward_plain(q, k, v, log_a)
+    if dtype == torch.float32:
+        assert _gla_terms_rel(y, want_y, q, k, v, log_a) <= 1e-5
+    else:
+        assert _row_rel(y, want_y) <= 2 ** -8
+    assert _row_rel(state, want_state) <= 1e-5
 
 
 def test_model_on_the_card_is_the_cpu_model(cuda):

@@ -62,6 +62,51 @@ def test_sources_import_no_jax_and_no_reference(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+@pytest.mark.parametrize("path", [
+    *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "benchmarks").glob("torch_*.py"))],
+    *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "examples").glob("torch_*.py"))]])
+def test_benchmarks_and_examples_load_no_jax_and_no_reference(path):
+    """Importing a port benchmark or example, and everything it imports in
+    turn (the reference's ``benchmarks/history.py`` and
+    ``benchmarks/common.py`` import JAX), loads no ``jax`` and no ``repro``
+    module."""
+    code = (
+        "import sys, importlib.util\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+        "spec = importlib.util.spec_from_file_location("
+        f"'module_under_test', {str(ROOT / path)!r})\n"
+        "module = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(module)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin"}, cwd=ROOT,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"{path} loaded: {res.stdout.strip()}"
+
+
+def test_paper_eval_entry_points_raise_without_a_card(monkeypatch):
+    """The §5 harness and its example run on the card unless asked for the
+    CPU."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_paper_tables
+
+    from benchmarks import torch_paper_eval
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_paper_eval.run_bench()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_paper_eval.eval_scenario("har", torch_paper_eval.SMOKE_SIZES, ("star",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_paper_tables.main(["--scenario", "har"])
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     """With no card and no explicit CPU request the port raises; it
     never carries on on the CPU."""
