@@ -111,7 +111,23 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     (b) ``benchmarks/torch_paper_eval.py``'s smoke grid (driving, har,
     mnist_like on ring and star) in f32 and int8: its claims asserted,
     every routed kernel launched, one row per (scenario, topology);
-12. the kernel list, one JSON object per kernel, then the result line.
+12. durability at the har width: (a) the hardened star with telemetry
+    (phase 3's faults) snapshotting every 16 ticks, killed at tick 40, its
+    newest snapshot cut to 128 bytes, a new runtime restored from the one
+    before and replayed to tick 64: the tail bit for bit equal to an
+    uninterrupted card run's, telemetry continuous, each kernel launched as
+    often as in the uninterrupted tail; the snapshot's bytes, save and
+    restore seconds, and the host time of snapshot ticks beside the same
+    ticks without one; (b) a D = 16 card snapshot (f32 and hardened star)
+    restored on the CPU and ticked against the card at phase 4's bounds;
+13. the paper's device-level API at the har width, on the card and the
+    same run on the CPU: four ``EdgeDevice``s booted and trained under a
+    registered activation (one poisoned), ``cooperative_round`` with
+    ``loss_threshold_selection`` (the same devices chosen, the comm log
+    equal, Ñ(Ñ+m)·4 bytes an upload, AUCs within bounds), 64 k=1 steps of a
+    merged device and ``train_elm``, with each routed kernel's launches
+    (``hidden_proj``, ``matmul_atb``, ``rank1_add``, ``fleet_ingest``);
+14. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -2510,6 +2526,286 @@ def phase_telemetry(fleet, ticks_dev):
         assert claims["kernels_launched"] is True, launches
 
 
+# ---------------------------------------------- phase 12: durability
+
+CHAOS_TICKS, CHAOS_EVERY, CHAOS_KILL = 64, 16, 40
+
+
+def phase_durability(fleet, ticks_dev, ticks_np):
+    """(a) The chaos sequence of benchmarks/torch_robust_fleet.py at the har
+    width: the hardened star (phase 3's faults, robust trim 1) with
+    telemetry, snapshots every 16 ticks, killed at tick 40, the newest
+    snapshot cut to 128 bytes, a new runtime restored from the one before
+    and replayed to tick 64: every report of the tail equal to an
+    uninterrupted card run's bit for bit, the final state equal, the
+    telemetry counters continuous and each kernel launched as often as in
+    the uninterrupted tail; the snapshot's bytes, its save and restore
+    seconds, and the tick times of snapshot windows beside the same ticks
+    without one. (b) A D = 16 card snapshot restored on the CPU (f32 and
+    hardened star) and ticked against the card at phase 4's bounds."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import RobustConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.runtime import FleetRuntime
+
+    base = runtime_config(topologies(D)["star"], robust=RobustConfig(trim=1),
+                          faults=fault_injector(D), telemetry=TelemetryConfig())
+
+    def timed_ticks(rt, t0, t1, counts=None):
+        reports, ms = [], []
+        for t in range(t0, t1):
+            start = time.perf_counter()
+            reports.append(rt.tick(ticks_dev[t % TICKS]))  # the stream's ticks, cycled
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - start) * 1e3)
+            if counts is not None:
+                counts.append(launch_counts())
+        return reports, ms
+
+    whole = FleetRuntime(fleet, base, device="cuda")
+    whole.warmup(T)
+    reset_launch_counts()
+    counts_after = []
+    want, whole_ms = timed_ticks(whole, 0, CHAOS_TICKS, counts_after)
+    whole_summary = whole.finalize_telemetry()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = dataclasses.replace(base, snapshot_every=CHAOS_EVERY, snapshot_dir=tmp)
+        doomed = FleetRuntime(fleet, snap, device="cuda")
+        doomed.warmup(T)
+        _, doomed_ms = timed_ticks(doomed, 0, CHAOS_KILL)
+        save_s = doomed.telemetry.phase_stats()["snapshot"]
+        del doomed  # the crash
+        files = sorted(Path(tmp).glob("ckpt_*.npz"))
+        nbytes = files[0].stat().st_size
+        files[-1].write_bytes(files[-1].read_bytes()[:128])  # the torn newest snapshot
+
+        # the revived runtime restores and replays without saving again
+        revived = FleetRuntime(fleet, dataclasses.replace(snap, snapshot_every=None),
+                               device="cuda")
+        t0 = time.perf_counter()
+        restored = revived.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    assert restored == CHAOS_KILL // CHAOS_EVERY * CHAOS_EVERY - CHAOS_EVERY, restored
+    assert int(revived.telemetry.ticks.value) == restored
+    reset_launch_counts()
+    got, _ = timed_ticks(revived, restored, CHAOS_TICKS)
+    replay_launches = launch_counts()
+    tail = {k: counts_after[-1][k] - counts_after[restored - 1][k] for k in replay_launches}
+    for a, b in zip(got, want[restored:], strict=True):
+        assert np.array_equal(a.losses, b.losses, equal_nan=True), f"tick {a.tick}: losses"
+        assert np.array_equal(a.drifted, b.drifted) and np.array_equal(
+            a.fresh_detections, b.fresh_detections), f"tick {a.tick}: flags"
+        assert a.decision == b.decision, f"tick {a.tick}: decisions"
+        assert a.nonfinite_payloads == b.nonfinite_payloads, f"tick {a.tick}: non-finite"
+        assert (a.robust_scores is None) == (b.robust_scores is None)
+        assert a.robust_scores is None or np.array_equal(a.robust_scores, b.robust_scores)
+    assert torch.equal(revived.states.beta, whole.states.beta)
+    assert torch.equal(revived.states.p, whole.states.p)
+    assert replay_launches == tail, (replay_launches, tail)
+    summary = revived.finalize_telemetry()
+    for key in ("ticks", "merge_rounds", "bytes_total", "detections_total",
+                "nonfinite_payloads_total"):
+        assert summary[key] == whole_summary[key], (key, summary[key], whole_summary[key])
+    rounds = sum(r.decision.merge for r in got)
+    nonfinite = sum(r.nonfinite_payloads for r in got)
+    assert rounds >= 2 and nonfinite > 0
+    snap_ticks = [t for t in range(CHAOS_KILL) if (t + 1) % CHAOS_EVERY == 0]
+    other = [t for t in range(CHAOS_KILL) if (t + 1) % CHAOS_EVERY]
+    log(f"  chaos at D={D}, n={N_FEAT}, Ñ={N_HID} (hardened star, telemetry): snapshots every"
+        f" {CHAOS_EVERY}, killed at {CHAOS_KILL}, newest torn, restored tick {restored}, replayed"
+        f" to {CHAOS_TICKS}: {len(got)} reports equal bit for bit ({rounds} merges, {nonfinite}"
+        f" non-finite payloads), final P and β equal, telemetry continuous, launches equal to the"
+        f" uninterrupted tail {({k: v for k, v in tail.items() if v})}")
+    log(f"  snapshot: {nbytes} bytes on disk (np.savez_compressed), save mean"
+        f" {save_s['mean_s']:.3f} s, max {save_s['max_s']:.3f} s over {save_s['count']} saves"
+        f" (the sink's snapshot phase), restore {restore_s:.3f} s")
+    log(f"  host ms around tick(): snapshot ticks {snap_ticks}:"
+        f" {[round(doomed_ms[t], 3) for t in snap_ticks]}, the same ticks without a snapshot"
+        f" {[round(whole_ms[t], 3) for t in snap_ticks]}; the other ticks' p50 with snapshots"
+        f" configured {np.median([doomed_ms[t] for t in other]):.3f}, without"
+        f" {np.median([whole_ms[t] for t in other]):.3f}; a snapshot amortized over its window"
+        f" {save_s['mean_s'] * 1e3 / CHAOS_EVERY:.3f} ms a tick")
+
+    # (b) a card snapshot on the CPU at D_CPU
+    small = fleet.replace(beta=fleet.beta[:D_CPU].contiguous(), p=fleet.p[:D_CPU].contiguous())
+    for label, extra, after_rtol in (
+            ("f32", {}, LOSS_RTOL),
+            ("hardened", dict(robust=RobustConfig(trim=2), faults=fault_injector(D_CPU)),
+             HARD_LOSS_RTOL)):
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = runtime_config(topologies(D_CPU)["star"], snapshot_dir=tmp, **extra)
+            card = FleetRuntime(small, cfg, device="cuda")
+            for t in range(TICKS // 2):
+                card.tick(np.ascontiguousarray(ticks_np[t, :D_CPU]))
+            card.snapshot()
+            cpu = FleetRuntime(small, cfg, device="cpu")
+            assert cpu.restore() == TICKS // 2
+        assert torch.equal(cpu.states.beta, card.states.beta.cpu())
+        worst, merges = 0.0, 0
+        for t in range(TICKS // 2, TICKS):
+            batch = np.ascontiguousarray(ticks_np[t, :D_CPU])
+            a, b = card.tick(batch), cpu.tick(batch)
+            np.testing.assert_allclose(a.losses, b.losses, rtol=after_rtol if merges else LOSS_RTOL,
+                                       atol=LOSS_ATOL)
+            assert np.array_equal(a.drifted, b.drifted) and a.decision == b.decision
+            assert a.nonfinite_payloads == b.nonfinite_payloads
+            assert np.array_equal(card.governor.robust_quarantined,
+                                  cpu.governor.robust_quarantined)
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+            merges += a.decision.merge
+        assert merges >= 2
+        log(f"  {label} star D={D_CPU}: card snapshot at tick {TICKS // 2} restored on the CPU"
+            f" bit for bit, {TICKS // 2} more ticks beside the card: losses max rel diff"
+            f" {worst:.3e}, flags, decisions and quarantines equal ({merges} merges)")
+
+
+# ------------------------------------- phase 13: the paper's device-level API
+
+PROTOCOL_DEVICES = ("walking", "sitting", "laying", "walking_upstairs")  # the last poisoned
+# an activation the registry does not hold: the kernels project with the
+# identity code and the wrappers apply it (a saturating one, such as
+# softsign, leaves P too ill conditioned at this width for the unridged
+# Eq. 15 inverse of the merge)
+REGISTERED_ACTIVATION = "leaky_relu_smoke"
+K1_STEPS = 64
+
+
+def _leaky_relu(x):
+    import torch
+
+    return torch.where(x > 0, x, 0.1 * x)
+
+
+def protocol_run(device, data):
+    """Four EdgeDevices booted and trained at the har width (Ñ = 128) under
+    a registered activation, the last one poisoned; a cooperative round with
+    loss_threshold_selection; 64 k=1 steps of one merged device; train_elm
+    on the pooled boot chunks. Returns what the two devices are held to."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ae_score, ae_train_step, init_slfn, predict_elm, train_elm
+    from repro_torch.data import make_pattern_stream, roc_auc
+    from repro_torch.federated import (
+        EdgeDevice,
+        FederationServer,
+        cooperative_round,
+        loss_threshold_selection,
+    )
+
+    train, test, x_eval, y_eval = data
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    devices = []
+    for i, pattern in enumerate(PROTOCOL_DEVICES):
+        xs = make_pattern_stream(train, pattern, seed=SEED + i)
+        dev = EdgeDevice(f"edge-{i}", torch.Generator().manual_seed(SEED), train.n_features,
+                         N_HID, xs[:2 * N_HID], activation=REGISTERED_ACTIVATION, ridge=RIDGE,
+                         device=device)
+        dev.train(xs[2 * N_HID:])
+        devices.append(dev)
+    rng = np.random.default_rng(SEED)
+    devices[-1].train(rng.normal(size=(200, train.n_features)).astype(np.float32) * 40)
+    sync()
+    boot_s = time.perf_counter() - t0
+    losses = {d.device_id: float(d.score(test.pattern(p)[:32]).mean())
+              for d, p in zip(devices, PROTOCOL_DEVICES)}
+    # a non-finite loss of the poisoned device is excluded all the same
+    max_loss = 10.0 * float(np.nanmedian(list(losses.values())))
+    select = loss_threshold_selection(losses, max_loss=max_loss)
+    honest = devices[:-1]
+    before = [roc_auc(d.score(x_eval), y_eval) for d in honest]
+    server = FederationServer()
+    t0 = time.perf_counter()
+    cooperative_round(devices, server, select=select)
+    sync()
+    round_s = time.perf_counter() - t0
+    chosen = list(select([d.device_id for d in devices]))
+    after = [roc_auc(d.score(x_eval), y_eval) for d in honest]
+    st = devices[0].state
+    xs = torch.as_tensor(make_pattern_stream(test, "standing", seed=SEED)[:K1_STEPS],
+                         device=st.device)
+    for i in range(K1_STEPS):
+        st = ae_train_step(st, xs[i])
+    k1_loss = float(ae_score(st, xs).mean())
+    pool = np.concatenate([make_pattern_stream(train, p, seed=SEED)[:N_HID]
+                           for p in PROTOCOL_DEVICES[:3]])
+    params = init_slfn(torch.Generator().manual_seed(SEED), train.n_features, N_HID,
+                       device=device)
+    t0 = time.perf_counter()
+    model = train_elm(params, pool, pool, activation=REGISTERED_ACTIVATION, ridge=RIDGE)
+    sync()
+    elm_s = time.perf_counter() - t0
+    pooled = torch.as_tensor(pool, device=model.beta.device)
+    elm_loss = float(((predict_elm(model, pooled) - pooled) ** 2).mean())
+    return dict(losses=losses, chosen=chosen, before=before, after=after, log=server.log,
+                boot_s=boot_s, round_s=round_s, elm_s=elm_s, k1_loss=k1_loss,
+                elm_loss=elm_loss)
+
+
+def phase_protocol():
+    """The paper's client/server protocol of §4.2 at the har width, on the
+    card and the same run on the CPU: selection, comm log and bytes equal,
+    the payload Ñ(Ñ+m)·4 bytes an upload, AUCs and losses within bounds,
+    and every kernel the path routes to launched (hidden_proj and
+    matmul_atb at the boots and train_elm, fleet_ingest training under the
+    registered activation, rank1_add in the k=1 steps)."""
+    import numpy as np
+
+    from benchmarks.torch_common import normalized_dataset
+    from repro_torch.core import register_activation
+    from repro_torch.core.activations import kernel_code
+    from repro_torch.data import anomaly_eval_arrays, train_test_split
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    register_activation(REGISTERED_ACTIVATION, _leaky_relu)
+    assert kernel_code(REGISTERED_ACTIVATION) is None
+    train, test = train_test_split(normalized_dataset("har", seed=SEED, samples_per_class=500),
+                                   0.8, seed=SEED)
+    patterns = [test.class_names.index(p) for p in PROTOCOL_DEVICES[:3]]
+    x_eval, y_eval = anomaly_eval_arrays(test, patterns, seed=SEED)
+    data = (train, test, x_eval, y_eval)
+    reset_launch_counts()
+    card = protocol_run("cuda", data)
+    counts = launch_counts()
+    cpu = protocol_run("cpu", data)
+    n_dev = len(PROTOCOL_DEVICES)
+    expected = {"hidden_proj": n_dev + K1_STEPS + 1, "matmul_atb": 2 * n_dev + K1_STEPS + 2,
+                "rank1_add": K1_STEPS, "fleet_ingest": n_dev + 1}
+    got = {k: counts[k] for k in expected}
+    log(f"  launches on the card: {got} (expected {expected})")
+    assert got == expected, (got, expected)
+    payload = N_HID * (N_HID + N_FEAT) * 4
+    log(f"  card: boot+train of {n_dev} devices {card['boot_s']:.3f} s, cooperative round"
+        f" {card['round_s'] * 1e3:.3f} ms, train_elm {card['elm_s'] * 1e3:.3f} ms (host clock);"
+        f" CPU: {cpu['boot_s']:.3f} s, {cpu['round_s'] * 1e3:.3f} ms, {cpu['elm_s'] * 1e3:.3f} ms")
+    log(f"  validation losses card {card['losses']} CPU {cpu['losses']}; chosen {card['chosen']}")
+    rounded = {k: [np.round(r[k], 4).tolist() for r in (card, cpu)] for k in ("before", "after")}
+    log(f"  honest devices' AUC before/after the round, card {rounded['before'][0]} ->"
+        f" {rounded['after'][0]}, CPU {rounded['before'][1]} -> {rounded['after'][1]}")
+    log(f"  comm log: {card['log']} ({payload} bytes an upload: Ñ(Ñ+m)·4)")
+    assert card["chosen"] == cpu["chosen"] == [f"edge-{i}" for i in range(n_dev - 1)]
+    assert card["log"] == cpu["log"]
+    assert card["log"].bytes_up == n_dev * payload and card["log"].uploads == n_dev
+    assert card["log"].bytes_down == (n_dev - 1) * (n_dev - 2) * payload
+    assert max(abs(a - b) for a, b in zip(card["after"], cpu["after"])) <= AUC_TOL["f32"]
+    assert min(card["after"]) >= min(card["before"])
+    # the merged model's k=1 steps and the batch ELM solve (Cholesky on the
+    # card and on the CPU), at phase 7's bound for a merged model's losses
+    for key in ("k1_loss", "elm_loss"):
+        rel = abs(card[key] - cpu[key]) / abs(cpu[key])
+        log(f"  {key}: card {card[key]:.6e} CPU {cpu[key]:.6e} (rel {rel:.2e}, tol 1e-2)")
+        assert rel <= 1e-2, key
+
+
 def main() -> int:
     import torch
 
@@ -2600,7 +2896,19 @@ def main() -> int:
     phase_telemetry(fleet, ticks_dev)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 12: kernels (phases 1-11 took {time.perf_counter() - start:.1f} s)")
+    log("phase 12: durability at the har width (the chaos sequence, snapshot size and times,"
+        " a card snapshot on the CPU)")
+    t0 = time.perf_counter()
+    phase_durability(fleet, ticks_dev, ticks_np)
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    log("phase 13: the paper's device-level API at the har width (EdgeDevice,"
+        " cooperative_round, train_elm, a registered activation), card against CPU")
+    t0 = time.perf_counter()
+    phase_protocol()
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 14: kernels (phases 1-13 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

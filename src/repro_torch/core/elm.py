@@ -1,14 +1,18 @@
-"""Batch ELM pieces the OS-ELM path needs (port of ``repro.core.elm``).
+"""Batch ELM — the Extreme Learning Machine of §3.1, Eqs. 1–5 (port of
+``repro.core.elm``).
 
-SLFN y = G(x·α + b)·β with a random frozen (α, b). ``invert_u`` and
-``solve_beta`` are the Cholesky solves of Eqs. 4–5 and 13; the
-reference runs them through XLA outside any Pallas kernel, so here they
-are ``torch.linalg`` calls.
+SLFN y = G(x·α + b)·β with a random frozen (α, b); only β is trained, in
+one shot: β̂ = (HᵀH + εI)⁻¹Hᵀt (``train_elm``). HᵀH and Hᵀt come from the
+core kernels (``uv_from_batch_kernel``: one ``hidden_proj`` and two
+``matmul_atb`` launches on the card). ``invert_u`` and ``solve_beta`` are
+the Cholesky solves of Eqs. 4–5 and 13; the reference runs them through
+XLA outside any Pallas kernel, so here they are ``torch.linalg`` calls.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -84,3 +88,36 @@ def invert_u(u: torch.Tensor, *, ridge: float = 0.0) -> torch.Tensor:
     n = u.shape[-1]
     eye = torch.eye(n, dtype=u.dtype, device=u.device).expand_as(u)
     return torch.cholesky_solve(eye, _cholesky(_ridged(u, ridge))).contiguous()
+
+
+class ELMModel(NamedTuple):
+    params: SLFNParams
+    beta: torch.Tensor  # (Ñ, m)
+    activation: str = "sigmoid"
+
+
+def _on(params: SLFNParams, x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=params.alpha.device, dtype=torch.float32).contiguous()
+    return torch.as_tensor(np.asarray(x, np.float32), device=params.alpha.device)
+
+
+def train_elm(
+    params: SLFNParams,
+    x,
+    t,
+    *,
+    activation: str = "sigmoid",
+    ridge: float = 0.0,
+) -> ELMModel:
+    """One-shot batch solve β̂ = (HᵀH + εI)⁻¹Hᵀt (Eqs. 4–5) for ``x`` (k, n)
+    and ``t`` (k, m), arrays or tensors, on the basis's device."""
+    from repro_torch.kernels.ops import uv_from_batch_kernel  # it imports this module
+
+    u, v = uv_from_batch_kernel(params.alpha, params.bias, _on(params, x), _on(params, t),
+                                activation=activation)
+    return ELMModel(params=params, beta=solve_beta(u, v, ridge=ridge), activation=activation)
+
+
+def predict_elm(model: ELMModel, x: torch.Tensor) -> torch.Tensor:
+    return hidden(model.params, x, model.activation) @ model.beta

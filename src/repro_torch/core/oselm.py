@@ -30,8 +30,9 @@ class OSELMState:
     params: SLFNParams
     beta: torch.Tensor   # (Ñ, m), or (D, Ñ, m) for a fleet
     p: torch.Tensor      # (Ñ, Ñ), or (D, Ñ, Ñ) for a fleet
-    activation: str = "sigmoid"
-    forget: float = 1.0
+    # static metadata, no leaves of a snapshot (as in the reference)
+    activation: str = dataclasses.field(default="sigmoid", metadata=dict(static=True))
+    forget: float = dataclasses.field(default=1.0, metadata=dict(static=True))
 
     @property
     def n_hidden(self) -> int:

@@ -930,21 +930,23 @@ int repro_ingest_beta_tile() { return kBetaTile; }
 // alike).
 int repro_ingest_chunk(int N) { return ingest_chunk(N); }
 
-// All pointers are device pointers to contiguous f32 arrays:
-// x (D,T,n), targets (D,T,m), alpha (n,N), bias (N), p_in/p_out (D,N,N),
-// beta_in/beta_out (D,N,m), loss (D); workspaces h_ws and gain_ws (D,T,N),
-// part_ws (D, ceil(m/64)), of which each run of β tiles fills one column.
-// The window is taken in chunks of ingest_chunk(N) samples. Returns the
-// first CUDA error, or 0.
-int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
-                       const float* bias, const float* p_in, const float* beta_in,
-                       float* p_out, float* beta_out, float* loss, float* h_ws,
-                       float* gain_ws, float* part_ws, int D, int T, int n, int N, int m,
-                       int act, float forget, void* stream) {
+// The ingest's first half: the projection h_ws (D,T,N) = G(x·α + b) of the
+// window x (D,T,n), with activation code act. Returns the CUDA error, or 0.
+int repro_fleet_ingest_project(const float* x, const float* alpha, const float* bias,
+                               float* h_ws, int D, int T, int n, int N, int act, void* stream) {
+  return launch_gemm<float, false>(x, alpha, bias, h_ws, 1, D * T, n, N, act,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The ingest's second half, from the hidden rows h_ws (D,T,N): the P chain,
+// the β update and the pre-train loss. A registered activation without a
+// code of its own takes this route after the wrapper applied it to h_ws.
+int repro_fleet_ingest_update(const float* targets, const float* p_in, const float* beta_in,
+                              float* p_out, float* beta_out, float* loss, const float* h_ws,
+                              float* gain_ws, float* part_ws, int D, int T, int N, int m,
+                              float forget, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  e = launch_gemm<float, false>(x, alpha, bias, h_ws, 1, D * T, n, N, act, s);
-  if (e != cudaSuccess) return e;
   const int n_tiles = (m + kBetaTile - 1) / kBetaTile;
 
   if (N > kMaxN) {
@@ -983,6 +985,23 @@ int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
   ingest_loss_kernel<<<(D + 127) / 128, 128, 0, s>>>(part_ws, loss, D, groups,
                                                      (float)T * (float)m);
   return cudaGetLastError();
+}
+
+// All pointers are device pointers to contiguous f32 arrays:
+// x (D,T,n), targets (D,T,m), alpha (n,N), bias (N), p_in/p_out (D,N,N),
+// beta_in/beta_out (D,N,m), loss (D); workspaces h_ws and gain_ws (D,T,N),
+// part_ws (D, ceil(m/64)), of which each run of β tiles fills one column.
+// The window is taken in chunks of ingest_chunk(N) samples. Returns the
+// first CUDA error, or 0.
+int repro_fleet_ingest(const float* x, const float* targets, const float* alpha,
+                       const float* bias, const float* p_in, const float* beta_in,
+                       float* p_out, float* beta_out, float* loss, float* h_ws,
+                       float* gain_ws, float* part_ws, int D, int T, int n, int N, int m,
+                       int act, float forget, void* stream) {
+  int e = repro_fleet_ingest_project(x, alpha, bias, h_ws, D, T, n, N, act, stream);
+  if (e != 0) return e;
+  return repro_fleet_ingest_update(targets, p_in, beta_in, p_out, beta_out, loss, h_ws, gain_ws,
+                                   part_ws, D, T, N, m, forget, stream);
 }
 
 }  // extern "C"

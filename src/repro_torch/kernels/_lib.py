@@ -114,6 +114,8 @@ _F = ctypes.c_float
 
 _SIGNATURES = {
     "repro_fleet_ingest": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "repro_fleet_ingest_project": [_P] * 4 + [_I] * 5 + [_P],
+    "repro_fleet_ingest_update": [_P] * 9 + [_I] * 4 + [_F, _P],
     "repro_masked_segment_sum": [_P, _P, _P, _P, _I, _L, _P],
     "repro_segment_sum": [_P, _P, _P, _I, _L, _P],
     "repro_segment_broadcast": [_P, _P, _P, _I, _L, _P],

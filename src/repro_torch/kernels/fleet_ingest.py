@@ -15,13 +15,20 @@ chunk's hidden rows and gains, the forward substitution E = (I + L)⁻¹E₀
 (each error updated in sample order, one fused multiply-add a term), then
 β += Σ_s gain_s·e_sᵀ in sample order, one fused multiply-add a sample, as
 the sequential updates round it.
+
+A registered activation with no code of the kernel's (a new name, or a
+built-in name registered again) splits the C entry after its projection:
+the projection runs with the identity code, the wrapper applies the
+registered function to the hidden rows in place, and the P chain, β and
+loss kernels take them from there (``repro_fleet_ingest_project`` then
+``repro_fleet_ingest_update``). Either way a call counts one launch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.activations import ACTIVATION_CODES, get_activation
+from repro_torch.core.activations import ACTIVATION_CODES, get_activation, kernel_code
 from repro_torch.core.oselm import OSELMState
 from repro_torch.kernels import _lib
 from repro_torch.kernels.topology_merge import _fma
@@ -144,13 +151,26 @@ def fleet_ingest_cuda(
     h_ws = torch.empty((d, t, nh), dtype=torch.float32, device=dev)
     gain_ws = torch.empty((d, t, nh), dtype=torch.float32, device=dev)
     part_ws = torch.empty((d, n_tiles), dtype=torch.float32, device=dev)
-    status = lib.repro_fleet_ingest(
-        window.data_ptr(), tb.data_ptr(), alpha.data_ptr(), bias.data_ptr(),
-        states.p.data_ptr(), states.beta.data_ptr(), p_out.data_ptr(), beta_out.data_ptr(),
-        loss.data_ptr(), h_ws.data_ptr(), gain_ws.data_ptr(), part_ws.data_ptr(),
-        d, t, n, nh, m, ACTIVATION_CODES[states.activation], float(states.forget),
-        _lib.stream(),
-    )
+    code = kernel_code(states.activation)
+    if code is not None:
+        status = lib.repro_fleet_ingest(
+            window.data_ptr(), tb.data_ptr(), alpha.data_ptr(), bias.data_ptr(),
+            states.p.data_ptr(), states.beta.data_ptr(), p_out.data_ptr(), beta_out.data_ptr(),
+            loss.data_ptr(), h_ws.data_ptr(), gain_ws.data_ptr(), part_ws.data_ptr(),
+            d, t, n, nh, m, code, float(states.forget), _lib.stream(),
+        )
+    else:
+        status = lib.repro_fleet_ingest_project(
+            window.data_ptr(), alpha.data_ptr(), bias.data_ptr(), h_ws.data_ptr(), d, t, n, nh,
+            ACTIVATION_CODES["identity"], _lib.stream(),
+        )
+        _lib.check(status, "fleet_ingest")
+        h_ws.copy_(get_activation(states.activation)(h_ws))
+        status = lib.repro_fleet_ingest_update(
+            tb.data_ptr(), states.p.data_ptr(), states.beta.data_ptr(), p_out.data_ptr(),
+            beta_out.data_ptr(), loss.data_ptr(), h_ws.data_ptr(), gain_ws.data_ptr(),
+            part_ws.data_ptr(), d, t, nh, m, float(states.forget), _lib.stream(),
+        )
     _lib.check(status, "fleet_ingest")
     _lib.count_launch("fleet_ingest")
     return states.replace(p=p_out, beta=beta_out), loss

@@ -12,12 +12,18 @@ the k=1 step's shape, one cluster of blocks per 32 columns does (see
 ``csrc/hidden_proj.cu``). Either way each output is summed in a fixed
 order of its own, so two calls give the same bits; the plain version is a
 PyTorch matrix product, so the two agree to f32 rounding, not bit for bit.
+
+A registered activation that has no code of the kernel's (a new name, or
+a built-in name registered again) is taken in one launch all the same:
+the kernel projects with the identity code and the wrapper applies the
+registered function once to the kernel's output, as the plain version
+applies it to its sum.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.activations import ACTIVATION_CODES, get_activation
+from repro_torch.core.activations import ACTIVATION_CODES, get_activation, kernel_code
 from repro_torch.kernels import _lib
 from repro_torch.kernels.matmul_atb import split_plan
 
@@ -46,7 +52,7 @@ def hidden_proj(
     if x.device.type == "cpu":
         return hidden_proj_plain(x, alpha, bias, activation=activation)
     _check(x, alpha, bias)
-    get_activation(activation)  # raises on an unknown name
+    code = kernel_code(activation)  # raises on an unknown name
     bf16 = _lib.require_cuda_f32_or_bf16("hidden_proj", x=x, alpha=alpha, bias=bias)
     k, n = alpha.shape
     m = x.numel() // k
@@ -59,8 +65,8 @@ def hidden_proj(
     status = _lib.library().repro_hidden_proj(
         x.data_ptr(), alpha.data_ptr(), bias.data_ptr(), out.data_ptr(),
         0 if ws is None else ws.data_ptr(), m, k, n, max(length, 1), slices,
-        ACTIVATION_CODES[activation], bf16, _lib.stream(),
+        ACTIVATION_CODES["identity"] if code is None else code, bf16, _lib.stream(),
     )
     _lib.check(status, "hidden_proj")
     _lib.count_launch("hidden_proj")
-    return out
+    return get_activation(activation)(out) if code is None else out

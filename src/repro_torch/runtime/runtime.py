@@ -1,6 +1,6 @@
 """Resident streaming fleet runtime; port of ``repro.runtime.runtime``
 (exact-f32 and quantized payloads, robust merges and fault injection,
-stale merges, telemetry; no snapshots yet).
+stale merges, telemetry, snapshots).
 
 One ``tick`` runs the paper's loop over the whole fleet:
 
@@ -28,7 +28,14 @@ One ``tick`` runs the paper's loop over the whole fleet:
    its fresh payload into a ring of published versions and merges its own
    fresh (U, V) with each neighbour's payload as old as that neighbour's
    lag (``repro_torch.fleet.staleness.stale_merge_round``, on the
-   topology's sparse mix kernels).
+   topology's sparse mix kernels);
+5. **snapshot** — with ``snapshot_dir`` and ``snapshot_every`` set, every
+   ``snapshot_every``-th tick persists the fleet (model, detector, ledger,
+   the residual, the last finite payloads, the ring of published versions,
+   the telemetry registry) through ``repro_torch.checkpoint``, after the
+   tick and outside its ``tick_seconds``, so that a restart resumes
+   mid-stream (``restore``). The file is the reference's, leaf for leaf:
+   either package restores the other's snapshots.
 
 The fleet state, the residual and the detector bank stay on the device;
 only the (D,) losses and flags (and on candidate rounds of a quantized
@@ -52,11 +59,13 @@ import dataclasses
 import logging
 import time
 from collections import deque
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.oselm import OSELMState
 from repro_torch.federated.selection import FleetMaskFn
 from repro_torch.fleet.faults import FaultInjector
@@ -100,6 +109,9 @@ class RuntimeConfig:
     faults: FaultInjector | None = None  # deterministic faults at the payload
                                          # boundary (repro_torch.fleet.faults)
     detections_cap: int = 4096        # length of the detection-event ring
+    snapshot_every: int | None = None  # ticks between snapshots (None: none)
+    snapshot_dir: str | Path | None = None  # where CheckpointManager keeps them
+    snapshot_keep: int = 3            # the newest snapshots kept
     telemetry: TelemetryConfig | None = None  # metrics, tracing and the flight
                                               # recorder (repro_torch.obs);
                                               # None: no instrumentation
@@ -247,6 +259,10 @@ class FleetRuntime:
         self._merge_mask = np.ones(n_devices, bool)
         self.telemetry = TelemetrySink(config.telemetry) if config.telemetry is not None else None
         self._tick_inputs = None  # the last post-poison batch, for flight dumps
+        self.ckpt = (
+            CheckpointManager(config.snapshot_dir, keep=config.snapshot_keep)
+            if config.snapshot_dir is not None else None
+        )
 
     @staticmethod
     def _hardened(config: RuntimeConfig) -> bool:
@@ -457,6 +473,15 @@ class FleetRuntime:
             )
         self._post_merge = decision.merge
         self.tick_no = t + 1
+        # snapshots amortize over the snapshot_every window: timed as a phase
+        # of their own, outside tick_seconds
+        if (
+            self.ckpt is not None
+            and self.config.snapshot_every
+            and self.tick_no % self.config.snapshot_every == 0
+        ):
+            with self._phase("snapshot"):
+                self.snapshot()
         return TickReport(
             tick=t, losses=losses_np, drifted=drifted_np, fresh_detections=fresh_np,
             decision=decision, merge_seconds=merge_seconds, robust_scores=scores,
@@ -575,6 +600,112 @@ class FleetRuntime:
             )
         n = feed.n_ticks if ticks is None else min(ticks, feed.n_ticks)
         return [self.tick(feed.tick_batch(t)) for t in range(n)]
+
+    # ------------------------------------------------------------ durability
+
+    def _snapshot_tree(self) -> dict:
+        """The reference's snapshot tree. Device state stays tensors (moved
+        to the host as it is saved); the shared basis is written broadcast
+        to (D, n, Ñ) and (D, Ñ), as the reference stores one basis a
+        device, and the stale ring as its two halves ``hist_u`` and
+        ``hist_v``."""
+        d, st = self.n_devices, self.states
+        alpha, bias = (x.detach().cpu().numpy() for x in st.params)
+        tree = {
+            "states": st.replace(params=type(st.params)(
+                np.broadcast_to(alpha, (d,) + alpha.shape),
+                np.broadcast_to(bias, (d,) + bias.shape),
+            )),
+            "det": self.det,
+            # host counters stay numpy (int64 exact through npz)
+            "tick": np.asarray(self.tick_no, np.int64),
+            "merge_round": np.asarray(self.merge_round, np.int64),
+            "gov": np.asarray(
+                [self.governor.state.ticks, self.governor.state.merges,
+                 self.governor.state.bytes_spent, self.governor.state.deferred_budget,
+                 self.governor.state.deferred_participants,
+                 self.governor.state.deferred_degraded], np.int64,
+            ),
+            # the (N, 2) detection ring, restored whole whatever its length
+            "detections": np.asarray(self.detections, np.int64).reshape(-1, 2),
+            "detections_total": np.asarray(self.detections_total, np.int64),
+            "post_merge": np.asarray(self._post_merge, np.int32),
+            "merge_mask": np.asarray(self._merge_mask, np.int32),
+        }
+        if self.telemetry is not None:
+            # the registry and the flight ring as a JSON blob in a uint8 leaf,
+            # so that a restored runtime's counters carry on where they were
+            tree["telemetry"] = np.frombuffer(self.telemetry.state_bytes(), np.uint8)
+        if self._hist is not None:
+            n = st.p.shape[-1]
+            tree["hist_u"] = self._hist[..., :n]
+            tree["hist_v"] = self._hist[..., n:]
+        if self._residual is not None:
+            tree["residual"] = self._residual
+        if self._last_good is not None:
+            tree["last_good"] = self._last_good
+            tree["robust_gov"] = np.stack([
+                self.governor.robust_strikes,
+                self.governor.robust_calm,
+                self.governor.robust_quarantined.astype(np.int64),
+            ])
+        return tree
+
+    def snapshot(self) -> Path:
+        if self.ckpt is None:
+            raise RuntimeError("runtime has no snapshot_dir configured")
+        return self.ckpt.save(self.tick_no, self._snapshot_tree())
+
+    def restore(self, step: int | None = None) -> int:
+        """Load the newest readable (or the given) snapshot into the live
+        runtime, from either package's files; returns the restored tick.
+        A snapshot whose devices carry different bases raises ValueError:
+        the port keeps one basis for the fleet."""
+        if self.ckpt is None:
+            raise RuntimeError("runtime has no snapshot_dir configured")
+        tree, _ = self.ckpt.restore(self._snapshot_tree(), step)
+        st = tree["states"]
+        alpha, bias = st.params
+        if not (np.array_equal(alpha, np.broadcast_to(alpha[:1], alpha.shape))
+                and np.array_equal(bias, np.broadcast_to(bias[:1], bias.shape))):
+            raise ValueError(
+                "the snapshot carries per-device SLFN bases; the fleet keeps one "
+                "shared basis (α of shape (n, Ñ)), so it cannot restore them"
+            )
+        dev = self.device
+        self.states = st.replace(params=type(st.params)(
+            torch.from_numpy(np.ascontiguousarray(alpha[0])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(bias[0])).to(dev),
+        ))
+        self.det = tree["det"]
+        self.tick_no = int(tree["tick"])
+        self.merge_round = int(tree["merge_round"])
+        gov = np.asarray(tree["gov"])
+        state = self.governor.state
+        state.ticks, state.merges, state.bytes_spent = int(gov[0]), int(gov[1]), int(gov[2])
+        state.deferred_budget, state.deferred_participants = int(gov[3]), int(gov[4])
+        # a 5-entry ledger (no deferred_degraded) resets only that counter
+        state.deferred_degraded = int(gov[5]) if gov.shape[0] > 5 else 0
+        self.detections = deque(
+            ((int(t), int(d)) for t, d in np.asarray(tree["detections"])),
+            maxlen=self.config.detections_cap,
+        )
+        self.detections_total = int(tree["detections_total"])
+        if self.telemetry is not None:
+            self.telemetry.load_state_bytes(np.asarray(tree["telemetry"], np.uint8).tobytes())
+        self._post_merge = bool(int(tree["post_merge"]))
+        self._merge_mask = np.asarray(tree["merge_mask"]).astype(bool)
+        if self._hist is not None:
+            self._hist = torch.cat([tree["hist_u"], tree["hist_v"]], dim=-1)
+        if self._residual is not None:
+            self._residual = tree["residual"]
+        if self._last_good is not None:
+            self._last_good = tree["last_good"]
+            rg = np.asarray(tree["robust_gov"])
+            self.governor.robust_strikes = rg[0].astype(np.int64)
+            self.governor.robust_calm = rg[1].astype(np.int64)
+            self.governor.robust_quarantined = rg[2].astype(bool)
+        return self.tick_no
 
     def warmup(self, batch_size: int) -> None:
         """Build the kernels and launch each kernel the tick can reach once

@@ -35,7 +35,11 @@ plain version's order and its elimination is ``from_uv_solve``'s; both
 solves stay bit for bit past Ñ = 320, where they take the blocked wide
 solve. The
 model's prefill and decode on the card are held to the CPU's at 1e-4
-(reduced hymba-1.5b, f32).
+(reduced hymba-1.5b, f32). A registered activation (a new name, or a
+built-in name registered again) goes through ``hidden_proj`` (k=1 and
+split) and ``fleet_ingest`` in one launch, at their plain versions'
+bounds; a snapshot written on the card restores on the CPU bit for bit,
+and the reverse, and ticks on at ``chip_smoke.py`` phase 4's bounds.
 """
 import numpy as np
 import pytest
@@ -1026,3 +1030,114 @@ def test_model_on_the_card_is_the_cpu_model(cuda):
         lg_c, c_c = decode_step(cpu, cfg, tok, c_c, 100 + i, max_seq=104)
         assert _rel(lg_g.cpu(), lg_c) <= 1e-4, i
         tok = lg_c.argmax(-1)
+
+
+# ------------------------------------------------- registered activations
+
+# a new name, and a built-in name registered again with another function:
+# neither has a code of the kernels', so both take the identity projection
+# and the registered function applied by the wrapper
+_REGISTERED = {
+    "softplus_test": lambda x: torch.log1p(torch.exp(-x.abs())) + torch.clamp_min(x, 0.0),
+    "tanh": lambda x: 1.7159 * torch.tanh(x * (2.0 / 3.0)),
+}
+
+
+@pytest.fixture(params=sorted(_REGISTERED))
+def registered(request, cuda):
+    from repro_torch.core import activations
+
+    name = request.param
+    saved = activations._REGISTRY.get(name)
+    activations.register_activation(name, _REGISTERED[name])
+    try:
+        yield name
+    finally:
+        if saved is None:
+            activations._REGISTRY.pop(name, None)
+        else:
+            activations._REGISTRY[name] = saved
+
+
+@pytest.mark.parametrize("m", [1, 4, 33, 512])
+def test_hidden_proj_kernel_takes_a_registered_activation(cuda, registered, m):
+    """k=1 (one cluster kernel) and split (past four rows) shapes: one
+    launch, the registered function applied once to the finished sum."""
+    x, a = _randn(cuda, (m, 561), seed=31) * 0.1, _randn(cuda, (561, 128), seed=32)
+    b = _randn(cuda, (128,), seed=33)
+    before = launch_counts()["hidden_proj"]
+    got = hidden_proj(x, a, b, activation=registered)
+    torch.cuda.synchronize()
+    assert launch_counts()["hidden_proj"] == before + 1
+    pre = hidden_proj(x, a, b, activation="identity")
+    assert torch.equal(got, _REGISTERED[registered](pre))
+    assert _proj_err(x, a, b, registered) <= 1e-6
+
+
+@pytest.mark.parametrize("d,t,n,nh", [(13, 17, 37, 10), (6, 32, 561, 128), (4, 9, 561, 384)])
+def test_ingest_kernel_takes_a_registered_activation(cuda, registered, d, t, n, nh):
+    """The split C entry: projection with the identity code, the function
+    on the hidden rows, then the P chain, β and loss kernels (the wide
+    ones at Ñ = 384); one launch, held to the plain version at 1e-4."""
+    fleet = _fleet(cuda, "identity", 1.0, d=d, n=n, nh=nh, seed=3)
+    fleet = fleet.replace(activation=registered)
+    win = torch.from_numpy(
+        np.random.default_rng(4).uniform(-1, 1, (d, t, n)).astype(np.float32) * 0.2).to(cuda)
+    before = launch_counts()["fleet_ingest"]
+    got, loss = fleet_ingest(fleet, win)
+    torch.cuda.synchronize()
+    assert launch_counts()["fleet_ingest"] == before + 1
+    ref, ref_loss = fleet_ingest_plain(fleet, win)
+    assert _rel(got.p, ref.p) < 1e-4
+    assert _rel(got.beta, ref.beta) < 1e-4
+    assert _rel(loss, ref_loss) < 1e-4
+
+
+# ------------------------------------------------------------- snapshots
+
+
+def _small_runtime(device, tmp, *, hardened=False):
+    from repro_torch.fleet import FaultInjector, FaultSpec, RobustConfig
+    from repro_torch.runtime import FleetRuntime, GovernorConfig, RuntimeConfig
+    from repro_torch.scenarios import make_scenario, scenario_topology
+
+    sc = make_scenario("har", n_devices=6, ticks=24, batch=3, n_hidden=10).build()
+    extra = {}
+    if hardened:
+        extra = dict(robust=RobustConfig(trim=1), faults=FaultInjector((
+            FaultSpec(kind="scale", devices=(1,), magnitude=-25.0, start_tick=4),
+            FaultSpec(kind="nan", devices=(4,), start_tick=7, period=8)), 6))
+    config = RuntimeConfig(topology=scenario_topology("star", 6), ridge=sc.spec.ridge,
+                           detector=sc.spec.detector, governor=GovernorConfig(merge_every=4),
+                           snapshot_dir=tmp, **extra)
+    fleet = sc.init_fleet(torch.Generator().manual_seed(0), device=device)
+    return sc.feed(), FleetRuntime(fleet, config, device=device)
+
+
+@pytest.mark.parametrize("hardened", [False, True])
+@pytest.mark.parametrize("source,target", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_snapshot_crosses_between_card_and_cpu(cuda, tmp_path, source, target, hardened):
+    """A snapshot written on one device restores on the other bit for bit,
+    and the restored runtime ticks on beside the writer: flags, decisions
+    and non-finite counts equal, losses at the card-against-CPU bounds of
+    chip_smoke.py phase 4 (2e-4; 5e-4 after a hardened merge)."""
+    feed, writer = _small_runtime(source, tmp_path, hardened=hardened)
+    for t in range(12):
+        writer.tick(feed.tick_batch(t))
+    writer.snapshot()
+    _, reader = _small_runtime(target, tmp_path, hardened=hardened)
+    assert reader.restore() == 12
+    assert reader.states.beta.device.type == target
+    assert torch.equal(reader.states.beta.cpu(), writer.states.beta.cpu())
+    assert torch.equal(reader.states.p.cpu(), writer.states.p.cpu())
+    assert torch.equal(reader.det.ewma.cpu(), writer.det.ewma.cpu())
+    if hardened:
+        assert torch.equal(reader._last_good.cpu(), writer._last_good.cpu())
+    rtol = 5e-4 if hardened else 2e-4
+    for t in range(12, feed.n_ticks):
+        a, b = reader.tick(feed.tick_batch(t)), writer.tick(feed.tick_batch(t))
+        live = np.isfinite(b.losses)
+        np.testing.assert_allclose(a.losses[live], b.losses[live], rtol=rtol, atol=1e-6)
+        assert np.array_equal(a.drifted, b.drifted)
+        assert a.decision == b.decision
+        assert a.nonfinite_payloads == b.nonfinite_payloads
