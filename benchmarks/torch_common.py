@@ -52,6 +52,24 @@ def timed_ms(fn, device: torch.device, *, warmup: int = 2, iters: int = 10) -> f
     return float(np.median(ts))
 
 
+def bench_device(device: str | torch.device | None) -> torch.device:
+    """The benchmark's device (the card unless ``"cpu"``), with TF32 off:
+    the RLS chains and the solves lose every bound under TF32."""
+    from repro_torch._device import resolve_device
+
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return device
+
+
+def where_line(device: torch.device) -> str:
+    """What a benchmark's times were taken on: the card's name and power
+    limit, or the host."""
+    return card_line() if device.type == "cuda" else "cpu (host clock, not the card's)"
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(

@@ -23,11 +23,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmarks.torch_common import (  # noqa: E402
-    card_line,
     edge_config,
     normalized_dataset,
     timed_ms,
     train_edge_device,
+    where_line,
 )
 from repro_torch._device import resolve_device  # noqa: E402
 from repro_torch.core import ae_score, ae_train_step, cooperative_update, to_uv  # noqa: E402
@@ -94,7 +94,7 @@ def main(argv=None) -> list[str]:
     assert r["merge_loss"] < r["loss_before"] / 5, r
     cross = r["crossover_updates"]
     assert cross is None or cross >= 50  # the merge is not beaten at once
-    where = card_line() if device.type == "cuda" else "cpu (host clock, not the card's)"
+    where = where_line(device)
     return [
         f"device: {where}",
         f"convergence/har: merge_loss={r['merge_loss']:.6f} before={r['loss_before']:.6f}"

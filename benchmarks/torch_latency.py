@@ -23,7 +23,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from benchmarks.torch_common import card_line, timed_ms  # noqa: E402
+from benchmarks.torch_common import timed_ms, where_line  # noqa: E402
 from repro_torch._device import resolve_device  # noqa: E402
 from repro_torch.baselines import average_params, bpnn3_config, bpnn_loss, init_bpnn  # noqa: E402
 from repro_torch.baselines.bpnn import bpnn_grads  # noqa: E402
@@ -106,7 +106,7 @@ def main(argv=None) -> list[str]:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    where = card_line() if device.type == "cuda" else "cpu (host clock, not the card's)"
+    where = where_line(device)
     return [f"device: {where}"] + table_lines([run(n, device=device) for n in (64, 128)])
 
 

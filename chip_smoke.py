@@ -127,7 +127,20 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     equal, Ñ(Ñ+m)·4 bytes an upload, AUCs within bounds), 64 k=1 steps of a
     merged device and ``train_elm``, with each routed kernel's launches
     (``hidden_proj``, ``matmul_atb``, ``rank1_add``, ``fleet_ingest``);
-14. the kernel list, one JSON object per kernel, then the result line.
+14. the port's benchmarks on the card: (a) ``benchmarks/torch_kernel_bench.py``,
+    ``torch_merge_loss.py``, ``torch_ablation_hidden.py``,
+    ``torch_rocauc_grid.py`` (quick), ``torch_fleet_scale.py`` (D = 64 and
+    256, then ``--merge-bench`` at D = 256, 1024 and 4096) and
+    ``torch_fleet_ingest.py`` (D = 256, 1024 and 4096), each main at its
+    full grid with every claim asserted (sparse mixing and the fused
+    ingest faster than their baselines at D ≥ 1024) and every line passed
+    on, each benchmark's routed kernels launched; (b) ``segment_sum_mix``
+    (C = 1 and D/8) and ``banded_mix`` (hops 2) at D = 4096 on (32, 80)
+    payloads and ``from_uv_solve`` at Ñ = 32, m = 48, S = 4096 with no
+    element differing from their plain versions, ``fleet_ingest`` at
+    D = 4096, Ñ = 32, n = m = 64, T = 32 within 1e-4, each with its time
+    alone and its bound; (c) ``fleet_scale``'s D = 8 rows card against CPU;
+15. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -2806,6 +2819,180 @@ def phase_protocol():
         assert rel <= 1e-2, key
 
 
+# ------------------------------------- phase 14: the port's benchmarks
+
+# the kernels each benchmark routes to (the device path's boots launch
+# hidden_proj and matmul_atb, its streams fleet_ingest of one device; the
+# cooperative update and the scores are library calls, as in the reference)
+DEVICE_PATH_ROUTES = ("fleet_ingest", "hidden_proj", "matmul_atb")
+BENCH_ROUTES = {
+    "torch_kernel_bench": ("hidden_proj", "matmul_atb", "rank1_add"),
+    "torch_merge_loss": DEVICE_PATH_ROUTES,
+    "torch_ablation_hidden": DEVICE_PATH_ROUTES,
+    "torch_rocauc_grid": DEVICE_PATH_ROUTES,
+    "torch_fleet_scale": DEVICE_PATH_ROUTES + (
+        "segment_sum_mix", "banded_merge_solve", "from_uv_solve"),
+    "torch_fleet_scale --merge-bench": ("segment_sum_mix", "banded_mix", "from_uv_solve"),
+    "torch_fleet_ingest": DEVICE_PATH_ROUTES,
+}
+BENCH_D = 4096            # the merge and ingest benches' largest fleet
+BENCH_NH, BENCH_M = 32, 48  # the merge bench's payloads: (32, 80)
+INGEST_N = 64             # fleet_ingest.py's features (n = m) and window
+INGEST_T = 32
+
+
+def bench_kernel_rows():
+    """(b) the kernels at the benches' new shapes against their plain
+    versions, each with its time by events, alone and its bound:
+    segment_sum_mix (C = 1 and D/8) and banded_mix (hops 2) at D = 4096 on
+    (32, 80) payloads and from_uv_solve at Ñ = 32, m = 48, S = 4096, no
+    element differing; fleet_ingest at D = 4096, Ñ = 32, n = m = 64, T = 32
+    within phase 2's bound."""
+    import numpy as np
+    import torch
+
+    from benchmarks.torch_fleet_ingest import make_fleet
+    from repro_torch.kernels import (
+        banded_mix, banded_mix_plain, fleet_ingest, fleet_ingest_plain, from_uv_solve,
+        from_uv_solve_plain, segment_sum_mix, segment_sum_mix_plain,
+    )
+
+    d, nh, m = BENCH_D, BENCH_NH, BENCH_M
+    g = torch.Generator().manual_seed(SEED)
+    w = torch.randn((d, nh, nh + m), generator=g).cuda()
+    e = nh * (nh + m)
+
+    def row(label, fn, plain, kernels, flops, nbytes, exact=True):
+        got, want = fn(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        if exact:
+            differ = sum(mismatches(a, b) for a, b in zip(got, want))
+            err = f"{differ} elements differ"
+            assert differ == 0, f"{label}: {err} from the plain version"
+        else:
+            rel = max(rel_err(got, want)[1])
+            err = f"max_rel {rel:.3e} (tol {TOL['fleet_ingest']:.0e})"
+            assert rel <= TOL["fleet_ingest"], f"{label}: {err}"
+        ms, alone = cuda_ms(fn, 20), device_ms(fn, 10, kernels)
+        b = bound(flops, nbytes)
+        log(f"  {label}: {err}; ms={ms:.4f} (kernels alone {ms_text(alone)})"
+            f" plain_ms={cuda_ms(plain, 2):.4f} bound_ms={b[0]:.4f} ({b[1]},"
+            f" {nbytes / 1e6:.1f} MB)")
+
+    for n_cl in (1, d // 8):
+        cids = (np.arange(d) * n_cl // d).astype(np.int32)
+        row(f"segment_sum_mix D={d} C={n_cl}", lambda: segment_sum_mix(w, cids, n_cl),
+            lambda: segment_sum_mix_plain(w, cids, n_cl), ("segsum_kernel<false>",),
+            (d - n_cl) * e, 4 * (d * e + n_cl * e + n_cl + 1))
+    row(f"banded_mix D={d} hops={HOPS}", lambda: banded_mix(w, HOPS),
+        lambda: banded_mix_plain(w, HOPS), ("banded_mix_kernel",), 2 * HOPS * d * e,
+        4 * 2 * d * e)
+    h = torch.randn((d, 2 * nh, nh), generator=g).cuda()
+    u = h.transpose(1, 2) @ h + 1e-2 * torch.eye(nh, device=w.device)
+    v = w[:, :, nh:]
+    row(f"from_uv_solve Ñ={nh} m={m} S={d}", lambda: from_uv_solve(u, v),
+        lambda: from_uv_solve_plain(u, v), tuple(solve_kernels(nh)), solve_flops(d, nh, m),
+        4 * d * (2 * nh * nh + 2 * nh * m))
+    fleet, window = make_fleet(d, SEED, "cuda")
+    flops, nbytes = ingest_work(d, INGEST_T, INGEST_N, nh, INGEST_N)
+    row(f"fleet_ingest D={d} Ñ={nh} n=m={INGEST_N} T={INGEST_T}",
+        lambda: (lambda s, l: (s.p, s.beta, l))(*fleet_ingest(fleet, window)),
+        lambda: (lambda s, l: (s.p, s.beta, l))(*fleet_ingest_plain(fleet, window)),
+        INGEST_KERNELS, flops, nbytes, exact=False)
+
+
+def fleet_scale_card_vs_cpu():
+    """(c) fleet_scale's D = 8 rows, card against CPU, from one fleet
+    trained on the CPU and copied to the card: merged β within phase 4's
+    bound, AUC rows within 1e-3, payloads and bytes equal."""
+    from benchmarks.torch_fleet_scale import run, train_fleet
+
+    trained = {}
+
+    def on_cpu(fs, seed, device):
+        trained["fleet"] = train_fleet(fs, seed, "cpu")
+        return trained["fleet"]
+
+    def on_card(fs, seed, device):
+        f = trained["fleet"]
+        return f.replace(params=type(f.params)(*(t.cuda() for t in f.params)),
+                         beta=f.beta.cuda(), p=f.p.cuda())
+
+    cpu = run((8,), device="cpu", train=on_cpu)
+    card = run((8,), device="cuda", train=on_card)
+    worst_beta = worst_auc = 0.0
+    for a, b in zip(card, cpu, strict=True):
+        assert (a["topology"], a["payloads"], a["bytes"]) == (b["topology"], b["payloads"],
+                                                              b["bytes"])
+        if "merged_beta" not in a:
+            continue
+        ref = b["merged_beta"]
+        diff = float((a["merged_beta"].cpu() - ref).abs().max())
+        rel = diff / float(ref.abs().max())
+        auc = max(abs(a["auc_mean"] - b["auc_mean"]), abs(a["auc_min"] - b["auc_min"]))
+        log(f"  fleet_scale/{a['topology']}/d8 card against CPU: merged beta max_rel {rel:.3e}"
+            f" (tol {LOSS_RTOL:.0e}; max_abs {diff:.2e}),"
+            f" AUC mean {a['auc_mean']:.4f} / {b['auc_mean']:.4f},"
+            f" min {a['auc_min']:.4f} / {b['auc_min']:.4f}; payloads {a['payloads']},"
+            f" bytes {a['bytes']} equal")
+        assert rel <= LOSS_RTOL, (a["topology"], rel)
+        assert auc <= AUC_TOL["f32"], (a["topology"], auc)
+        worst_beta, worst_auc = max(worst_beta, rel), max(worst_auc, auc)
+    log(f"  fleet_scale D=8 card against CPU: merged beta within {worst_beta:.3e},"
+        f" AUCs within {worst_auc:.2e}")
+
+
+def phase_benchmarks():
+    """Phase 14: (a) the six port benchmarks' mains on the card at their
+    full grids, every claim asserted and every line passed on, each
+    benchmark's routed kernels launched (the counts set to 0 before each);
+    (b) the kernels at the benches' new shapes; (c) fleet_scale's D = 8
+    rows card against CPU."""
+    import torch
+
+    from benchmarks import (
+        torch_ablation_hidden, torch_fleet_ingest, torch_fleet_scale, torch_kernel_bench,
+        torch_merge_loss, torch_rocauc_grid,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    merge_out = str(ROOT / "BENCH_torch_fleet_merge.json")
+    ingest_args = ["--out", str(ROOT / "BENCH_torch_fleet_ingest.json"),
+                   "--history", str(ROOT / "BENCH_torch_history.jsonl")]
+    runs = {
+        "torch_kernel_bench": lambda: torch_kernel_bench.main([]),
+        "torch_merge_loss": lambda: torch_merge_loss.main([]),
+        "torch_ablation_hidden": lambda: torch_ablation_hidden.main([]),
+        "torch_rocauc_grid": lambda: torch_rocauc_grid.main([]),
+        "torch_fleet_scale": lambda: torch_fleet_scale.main([]),
+        "torch_fleet_scale --merge-bench": lambda: torch_fleet_scale.main(
+            ["--merge-bench", "--merge-out", merge_out]),
+        "torch_fleet_ingest": lambda: torch_fleet_ingest.main(ingest_args),
+    }
+    assert runs.keys() == BENCH_ROUTES.keys()
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        lines = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        for line in lines:
+            log(f"  {line}")
+        routed = {k: counts[k] for k in BENCH_ROUTES[name]}
+        log(f"  {name}: {secs:.1f} s, launches {routed}")
+        assert all(n > 0 for n in routed.values()), f"{name}: a routed kernel never ran: {routed}"
+    merge = json.loads(Path(merge_out).read_text())["rows"]
+    dense = [r for r in merge if r["dense_row_rel_err"] is not None]
+    log("  merge bench: each device's dense row against its sparse sum, max_rel"
+        f" {max(r['dense_row_rel_err'] for r in dense):.3e} (tol 1e-5) over {len(dense)} rows;"
+        " dense/sparse at D >= 1024: " + ", ".join(
+            f"{r['topology']} {r['mix_speedup']:.2f}x" for r in dense if r["n_devices"] >= 1024))
+    bench_kernel_rows()
+    fleet_scale_card_vs_cpu()
+
+
 def main() -> int:
     import torch
 
@@ -2908,7 +3095,13 @@ def main() -> int:
     phase_protocol()
     log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 14: kernels (phases 1-13 took {time.perf_counter() - start:.1f} s)")
+    log("phase 14: the port's benchmarks (kernel_bench, merge_loss, ablation_hidden,"
+        " rocauc_grid, fleet_scale and its merge bench, fleet_ingest) at their full grids")
+    t0 = time.perf_counter()
+    phase_benchmarks()
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 15: kernels (phases 1-14 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

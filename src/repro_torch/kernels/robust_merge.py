@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.topology_merge import _segment_starts
+from repro_torch.kernels.topology_merge import _device_starts, _segment_starts
 
 __all__ = [
     "robust_segment_combine",
@@ -93,8 +93,8 @@ def robust_segment_sum_mix(
     mask = mask.to(torch.float32).contiguous()
     scale = scale.to(torch.float32).contiguous()
     _lib.require_cuda_f32("robust_segment_sum_mix", x=x, mask=mask, scale=scale)
-    starts = _segment_starts(cluster_ids, x.shape[0], n_clusters, "robust_segment_sum_mix")
-    starts = torch.from_numpy(starts).to(x.device)
+    starts = _device_starts(cluster_ids, x.shape[0], n_clusters, "robust_segment_sum_mix",
+                            x.device)
     shape = (n_clusters,) + tuple(x.shape[1:])
     tot, lo, hi = (torch.empty(shape, dtype=torch.float32, device=x.device) for _ in range(3))
     elems = x[0].numel() if x.shape[0] else 0

@@ -28,6 +28,7 @@ device k, in increasing k.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -75,8 +76,30 @@ def _segment_starts(
     return np.searchsorted(cids, np.arange(n_clusters + 1), side="left").astype(np.int32)
 
 
-def _device_ints(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+# The kernels' int32 arguments derived from the cluster ids (the segment
+# offsets, the broadcast's ids) are checked, computed and copied to the
+# device once per content, device and size (up to 64 kept): a copy from
+# pageable host memory waits for the stream, and with the host's checks it
+# cost a merge round over 1024 devices more than the dense product. The
+# kernels only read them; never write to one.
+
+
+def _ids_key(cluster_ids) -> tuple[bytes, tuple[int, ...]]:
+    cids = np.asarray(cluster_ids)
+    return np.ascontiguousarray(cids, np.int64).tobytes(), cids.shape
+
+
+@functools.lru_cache(maxsize=64)
+def _starts_on(ids: bytes, shape: tuple[int, ...], n_devices: int, n_clusters: int,
+               kernel: str, device: torch.device) -> torch.Tensor:
+    cids = np.frombuffer(ids, np.int64).reshape(shape)
+    return torch.from_numpy(_segment_starts(cids, n_devices, n_clusters, kernel)).to(device)
+
+
+def _device_starts(cluster_ids, n_devices: int, n_clusters: int, kernel: str,
+                   device: torch.device) -> torch.Tensor:
+    """``_segment_starts`` on ``device`` (see above)."""
+    return _starts_on(*_ids_key(cluster_ids), n_devices, n_clusters, kernel, torch.device(device))
 
 
 def _segment_sum_plain(w, cluster_ids, n_clusters, mask, kernel):
@@ -98,7 +121,7 @@ def _segment_sum(w, cluster_ids, n_clusters, mask, kernel):
         _lib.require_cuda_f32(kernel, w=w, mask=mask)
         if mask.shape != (w.shape[0],):
             raise ValueError(f"mask must be ({w.shape[0]},); got {tuple(mask.shape)}")
-    starts = _device_ints(_segment_starts(cluster_ids, w.shape[0], n_clusters, kernel), w.device)
+    starts = _device_starts(cluster_ids, w.shape[0], n_clusters, kernel, w.device)
     out = torch.empty((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
     elems = w[0].numel() if w.shape[0] else 0
     lib = _lib.library()
@@ -150,6 +173,13 @@ def _broadcast_ids(cluster_ids, n_clusters: int) -> np.ndarray:
     return cids
 
 
+@functools.lru_cache(maxsize=64)
+def _broadcast_on(ids: bytes, shape: tuple[int, ...], n_clusters: int,
+                  device: torch.device) -> torch.Tensor:
+    cids = _broadcast_ids(np.frombuffer(ids, np.int64).reshape(shape), n_clusters)
+    return torch.from_numpy(cids.astype(np.int32)).to(device)
+
+
 def segment_broadcast_plain(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
     cids = _broadcast_ids(cluster_ids, sums.shape[0])
     return sums[torch.as_tensor(cids, dtype=torch.long, device=sums.device)]
@@ -161,7 +191,7 @@ def segment_broadcast(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
     if sums.device.type == "cpu":
         return segment_broadcast_plain(sums, cluster_ids)
     _lib.require_cuda_f32("segment_broadcast", sums=sums)
-    cids = _device_ints(_broadcast_ids(cluster_ids, sums.shape[0]), sums.device)
+    cids = _broadcast_on(*_ids_key(cluster_ids), sums.shape[0], sums.device)
     d = cids.shape[0]
     out = torch.empty((d,) + tuple(sums.shape[1:]), dtype=sums.dtype, device=sums.device)
     elems = sums[0].numel() if sums.shape[0] else 0

@@ -39,7 +39,10 @@ model's prefill and decode on the card are held to the CPU's at 1e-4
 built-in name registered again) goes through ``hidden_proj`` (k=1 and
 split) and ``fleet_ingest`` in one launch, at their plain versions'
 bounds; a snapshot written on the card restores on the CPU bit for bit,
-and the reverse, and ticks on at ``chip_smoke.py`` phase 4's bounds.
+and the reverse, and ticks on at ``chip_smoke.py`` phase 4's bounds. The
+fleet-scale benchmarks' shapes (D = 4096 fleets of (32, 80) payloads,
+4096 systems at Ñ = 32, the ingest at n = m = 64) are held at the same
+bounds.
 """
 import numpy as np
 import pytest
@@ -90,6 +93,7 @@ from repro_torch.kernels import (
 from repro_torch.core.activations import ACTIVATION_CODES, get_activation
 from repro_torch.kernels import _lib
 from repro_torch.kernels.fleet_ingest import INGEST_CHUNK, ingest_chunk
+from repro_torch.kernels.topology_merge import _starts_on
 
 pytestmark = pytest.mark.gpu
 
@@ -751,6 +755,64 @@ def test_banded_mix_kernel_on_a_misaligned_view(cuda, hops):
     x = flat[1:].view(d, r, c)
     got = _launched("banded_mix", lambda: banded_mix(x, hops))
     assert torch.equal(got, banded_mix_plain(x, hops))
+
+
+# the fleet-scale benchmarks' shapes (benchmarks/torch_fleet_scale.py's
+# merge bench and benchmarks/torch_fleet_ingest.py): D = 4096 fleets of
+# (32, 80) payloads as a star (C = 1) and a hierarchy (C = D/8), the ring's
+# hops 2, 4096 systems at Ñ = 32, m = 48, and the ingest at Ñ = 32,
+# n = m = 64, T = 32
+@pytest.mark.parametrize("n_clusters", [1, 512])
+def test_segment_sum_kernel_at_fleet_scale(cuda, n_clusters):
+    w = _randn(cuda, (4096, 32, 80), seed=40)
+    cids = (np.arange(4096) * n_clusters // 4096).astype(np.int32)
+    got = _launched("segment_sum_mix", lambda: segment_sum_mix(w, cids, n_clusters))
+    assert torch.equal(got, segment_sum_mix_plain(w, cids, n_clusters))
+
+
+def test_banded_mix_kernel_at_fleet_scale(cuda):
+    w = _randn(cuda, (4096, 32, 80), seed=41)
+    got = _launched("banded_mix", lambda: banded_mix(w, 2))
+    assert torch.equal(got, banded_mix_plain(w, 2))
+
+
+def test_from_uv_solve_is_bit_exact_at_fleet_scale(cuda):
+    rng = np.random.default_rng(42)
+    u = _spd(rng, 4096, 32, cuda)
+    v = torch.from_numpy(rng.standard_normal((4096, 32, 48)).astype(np.float32)).to(cuda)
+    p, b = _launched("from_uv_solve", lambda: from_uv_solve(u, v))
+    rp, rb = from_uv_solve_plain(u, v)
+    assert torch.isfinite(p).all() and torch.isfinite(b).all()
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
+
+
+def test_ingest_kernel_at_fleet_scale(cuda):
+    rng = np.random.default_rng(43)
+    params = SLFNParams(
+        torch.from_numpy(rng.uniform(-1, 1, (64, 32)).astype(np.float32)).to(cuda),
+        torch.from_numpy(rng.uniform(-1, 1, 32).astype(np.float32)).to(cuda),
+    )
+    x0 = torch.from_numpy(rng.uniform(0, 1, (4096, 64, 64)).astype(np.float32)).to(cuda)
+    fleet = init_oselm(params, x0, x0, activation="identity", ridge=1e-3)
+    win = torch.from_numpy(rng.uniform(0, 1, (4096, 32, 64)).astype(np.float32)).to(cuda)
+    got, loss = _launched("fleet_ingest", lambda: fleet_ingest(fleet, win))
+    ref, ref_loss = fleet_ingest_plain(fleet, win)
+    assert _rel(got.p, ref.p) < 1e-4
+    assert _rel(got.beta, ref.beta) < 1e-4
+    assert _rel(loss, ref_loss) < 1e-4
+
+
+def test_segment_offsets_go_to_the_card_once(cuda):
+    """A second segment sum over the same clusters reads the offsets the
+    first one copied (a copy from pageable memory at every call waits for
+    the stream)."""
+    w = _randn(cuda, (1024, 32, 80), seed=44)
+    cids = (np.arange(1024) * 128 // 1024).astype(np.int32)
+    segment_sum_mix(w, cids, 128)
+    hits = _starts_on.cache_info().hits
+    got = _launched("segment_sum_mix", lambda: segment_sum_mix(w, cids.copy(), 128))
+    assert _starts_on.cache_info().hits == hits + 1
+    assert torch.equal(got, segment_sum_mix_plain(w, cids, 128))
 
 
 def test_mix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
