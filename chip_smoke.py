@@ -139,8 +139,15 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     payloads and ``from_uv_solve`` at Ñ = 32, m = 48, S = 4096 with no
     element differing from their plain versions, ``fleet_ingest`` at
     D = 4096, Ñ = 32, n = m = 64, T = 32 within 1e-4, each with its time
-    alone and its bound; (c) ``fleet_scale``'s D = 8 rows card against CPU;
-15. the kernel list, one JSON object per kernel, then the result line.
+    alone and its bound, ``masked_segment_sum_mix`` (C = 1) and
+    ``segment_sum_mix`` (C = 1) at D = 4096 and 1024 beside their library
+    calls, bounded by the larger of their bytes and their chain of adds,
+    and ``robust_segment_sum_mix`` at D = 4096, C = 1, trim 1; (c)
+    ``fleet_scale``'s D = 8 rows card against CPU;
+15. strided and mixed-type operands through ``hidden_proj``,
+    ``segment_sum_mix`` and ``flash_attention``, each against its plain
+    version on the same operands;
+16. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -254,39 +261,29 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, reps: int, kernels: tuple[str, ...] | dict[str, int]) -> float | None:
     """Device time of one wrapper call, from torch.profiler over ``reps``
-    calls: the kernels alone, without the wrapper's host work, which bounds
-    a short kernel's CUDA-event time. A call launches each kernel whose name
-    holds one of ``kernels`` once (``matmul_atb``'s split product launches
-    two), or as often as a dict of ``kernels`` says (the wide solve's panel
-    kernels, once a panel), so the time is the sum over ``kernels`` of the
-    mean time of a launch times its launches a call. Means, not totals over
-    ``reps``: a session now and then drops
-    some of the launches (seen on an H100: 3 of 4, 4 of 10) or all of them
-    (a 2 µs kernel, in three sessions running), and is then asked again.
-    None, printed as not measured, when five sessions missed a kernel: the
-    time is a log line's, and no check reads it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    calls (``benchmarks/torch_device_time.py``): the kernels alone, without the
+    wrapper's host work, which bounds a short kernel's CUDA-event time. A
+    call launches each kernel whose name holds one of ``kernels`` once
+    (``matmul_atb``'s split product launches two), or as often as a dict of
+    ``kernels`` says (the wide solve's panel kernels, once a panel), so the
+    time is the sum over ``kernels`` of the mean time of a launch times its
+    launches a call. Means, not totals over ``reps``: a session now and then
+    drops some of the launches (seen on an H100: 3 of 4, 4 of 10) or all of
+    them (a 2 µs kernel, in three sessions running), and is then asked
+    again. None, printed as not measured, when five sessions missed a
+    kernel: the time is a log line's, and no check reads it."""
+    from benchmarks.torch_device_time import profile_sessions
 
     per_call = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        means = []
-        for kernel, times in per_call.items():
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-            launches = sum(e.count for e in events)
-            if launches > 0:
-                means.append(times * sum(e.self_device_time_total for e in events) / 1e3
-                             / launches)
-        if len(means) == len(kernels):
-            return sum(means)
-    return None
+    try:
+        ((by, _),) = profile_sessions(fn, calls=reps, needs=tuple(per_call))
+    except RuntimeError:
+        return None
+    total = 0.0
+    for kernel, times in per_call.items():
+        hits = [(mean, n) for name, (mean, n) in by.items() if kernel in name]
+        total += times * sum(mean * n for mean, n in hits) / sum(n for _, n in hits)
+    return total / 1e3
 
 
 def ms_text(ms: float | None) -> str:
@@ -295,27 +292,16 @@ def ms_text(ms: float | None) -> str:
 
 def call_device(fn, reps: int, what: str = "library alone") -> str:
     """Device time of one call of ``fn`` (every kernel it launches) and the
-    name of its longest kernel, from torch.profiler over ``reps`` calls.
-    Each kernel's mean launch time counts once for each launch a call
-    makes, so a dropped launch does not shorten it."""
-    import math
+    name of its longest kernel, from one torch.profiler session of ``reps``
+    calls (``benchmarks/torch_device_time.py``)."""
+    from benchmarks.torch_device_time import per_call_us, profile_sessions
 
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
-    if not events:
+    try:
+        ((by, _),) = profile_sessions(fn, calls=reps)
+    except RuntimeError:
         return f"{what} not measured"
-    ms = sum(e.self_device_time_total / e.count * math.ceil(e.count / reps) for e in events)
-    top = max(events, key=lambda e: e.self_device_time_total)
-    return f"{what} {ms / 1e3:.4f}: {top.key[:72]}"
+    us = per_call_us(by, reps)
+    return f"{what} {sum(us.values()) / 1e3:.4f}: {max(us, key=us.get)[:72]}"
 
 
 def library_device(fn, reps: int) -> str:
@@ -2841,28 +2827,44 @@ INGEST_N = 64             # fleet_ingest.py's features (n = m) and window
 INGEST_T = 32
 
 
+# a cluster's sum is a chain of dependent adds in device order: D_cluster
+# adds at the add's latency of 4 cycles, at the H100's 1.98 GHz boost clock
+ADD_CYCLES, H100_CLOCK = 4, 1.98e9
+
+
+def chain_ms(longest: int) -> float:
+    return longest * ADD_CYCLES / H100_CLOCK * 1e3
+
+
 def bench_kernel_rows():
     """(b) the kernels at the benches' new shapes against their plain
     versions, each with its time by events, alone and its bound:
-    segment_sum_mix (C = 1 and D/8) and banded_mix (hops 2) at D = 4096 on
-    (32, 80) payloads and from_uv_solve at Ñ = 32, m = 48, S = 4096, no
-    element differing; fleet_ingest at D = 4096, Ñ = 32, n = m = 64, T = 32
-    within phase 2's bound."""
+    segment_sum_mix (C = 1 at D = 4096 and 1024, D/8 at 4096) and
+    masked_segment_sum_mix (C = 1 at D = 4096 and 1024) on (32, 80)
+    payloads, each beside its library call alone and bounded by the larger
+    of its bytes and its chain of adds; banded_mix (hops 2) at D = 4096 and
+    from_uv_solve at Ñ = 32, m = 48, S = 4096, no element differing;
+    fleet_ingest at D = 4096, Ñ = 32, n = m = 64, T = 32 within phase 2's
+    bound; and robust_segment_sum_mix at D = 4096, C = 1, trim 1, bit for
+    bit, timed against its bound (no library call computes it)."""
     import numpy as np
     import torch
 
     from benchmarks.torch_fleet_ingest import make_fleet
     from repro_torch.kernels import (
         banded_mix, banded_mix_plain, fleet_ingest, fleet_ingest_plain, from_uv_solve,
-        from_uv_solve_plain, segment_sum_mix, segment_sum_mix_plain,
+        from_uv_solve_plain, masked_segment_sum_mix, masked_segment_sum_mix_plain,
+        robust_segment_sum_mix, robust_segment_sum_mix_plain, segment_sum_mix,
+        segment_sum_mix_plain,
     )
 
     d, nh, m = BENCH_D, BENCH_NH, BENCH_M
     g = torch.Generator().manual_seed(SEED)
     w = torch.randn((d, nh, nh + m), generator=g).cuda()
+    mask = (torch.rand(d, generator=g) < 0.9).float().cuda()
     e = nh * (nh + m)
 
-    def row(label, fn, plain, kernels, flops, nbytes, exact=True):
+    def row(label, fn, plain, kernels, flops, nbytes, exact=True, library=None, chain=0.0):
         got, want = fn(), plain()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         if exact:
@@ -2873,17 +2875,49 @@ def bench_kernel_rows():
             rel = max(rel_err(got, want)[1])
             err = f"max_rel {rel:.3e} (tol {TOL['fleet_ingest']:.0e})"
             assert rel <= TOL["fleet_ingest"], f"{label}: {err}"
-        ms, alone = cuda_ms(fn, 20), device_ms(fn, 10, kernels)
+        ms = cuda_ms(fn, 20)
+        # None: every kernel the call launches, named by the longest (the
+        # segment sums' plan is the wrapper's to pick)
+        alone = (call_device(fn, 10, "kernels alone") if kernels is None else
+                 f"kernels alone {ms_text(device_ms(fn, 10, kernels))}, {kernels[0]}")
         b = bound(flops, nbytes)
-        log(f"  {label}: {err}; ms={ms:.4f} (kernels alone {ms_text(alone)})"
-            f" plain_ms={cuda_ms(plain, 2):.4f} bound_ms={b[0]:.4f} ({b[1]},"
-            f" {nbytes / 1e6:.1f} MB)")
+        b = (chain, "chain") if chain > b[0] else b
+        lib = "" if library is None else (f" {library[0]} {cuda_ms(library[1], 20):.4f},"
+                                          f" {library_device(library[1], 10)};")
+        log(f"  {label}: {err}; ms={ms:.4f} ({alone});"
+            f"{lib} plain_ms={cuda_ms(plain, 2):.4f} bound_ms={b[0]:.4f} ({b[1]};"
+            f" bytes {nbytes / H100_BYTES_PER_S * 1e3:.4f} for"
+            f" {nbytes / 1e6:.1f} MB, chain {chain:.4f})")
 
-    for n_cl in (1, d // 8):
-        cids = (np.arange(d) * n_cl // d).astype(np.int32)
-        row(f"segment_sum_mix D={d} C={n_cl}", lambda: segment_sum_mix(w, cids, n_cl),
-            lambda: segment_sum_mix_plain(w, cids, n_cl), ("segsum_kernel<false>",),
-            (d - n_cl) * e, 4 * (d * e + n_cl * e + n_cl + 1))
+    wf = w.view(d, e)
+    for dd, n_cl in ((d, 1), (d // 4, 1), (d, d // 8)):
+        ws, cids = w[:dd], (np.arange(dd) * n_cl // dd).astype(np.int32)
+        longest = -(-dd // n_cl)
+        nbytes = 4 * (dd * e + n_cl * e + n_cl + 1)
+        lib = ("w.sum(0)", lambda ws=ws: ws.sum(0, keepdim=True)) if n_cl == 1 else None
+        row(f"segment_sum_mix D={dd} C={n_cl}",
+            lambda ws=ws, cids=cids, n_cl=n_cl: segment_sum_mix(ws, cids, n_cl),
+            lambda ws=ws, cids=cids, n_cl=n_cl: segment_sum_mix_plain(ws, cids, n_cl),
+            None, (dd - n_cl) * e, nbytes, library=lib,
+            chain=chain_ms(longest))
+        if n_cl == 1:
+            ms_, wfs = mask[:dd], wf[:dd]
+            row(f"masked_segment_sum_mix D={dd} C=1",
+                lambda ws=ws, cids=cids, ms_=ms_: masked_segment_sum_mix(ws, cids, ms_, 1),
+                lambda ws=ws, cids=cids, ms_=ms_: masked_segment_sum_mix_plain(ws, cids, ms_, 1),
+                None, 2 * dd * e, nbytes + 4 * dd,
+                library=("torch.mv by the mask", lambda wfs=wfs, ms_=ms_: torch.mv(wfs.t(), ms_)),
+                chain=chain_ms(dd))
+    zeros = np.zeros(d, np.int32)
+    scale = (0.5 + 0.5 * torch.rand(d, generator=g)).cuda()
+    robust = (w, zeros, mask, scale, 1, 1)
+    # its loads, clip product, masked add and two insertion chains a device
+    # and element; the bytes: the payloads, mask and scale read once, the
+    # three sums written once
+    row(f"robust_segment_sum_mix D={d} C=1 trim=1",
+        lambda: robust_segment_sum_mix(*robust), lambda: robust_segment_sum_mix_plain(*robust),
+        ("robust_segsum_kernel",), 4 * d * e, 4 * (d * e + 3 * e + 2 * d + 2),
+        chain=chain_ms(d))
     row(f"banded_mix D={d} hops={HOPS}", lambda: banded_mix(w, HOPS),
         lambda: banded_mix_plain(w, HOPS), ("banded_mix_kernel",), 2 * HOPS * d * e,
         4 * 2 * d * e)
@@ -2991,6 +3025,82 @@ def phase_benchmarks():
             f"{r['topology']} {r['mix_speedup']:.2f}x" for r in dense if r["n_devices"] >= 1024))
     bench_kernel_rows()
     fleet_scale_card_vs_cpu()
+
+
+# ------------------------- phase 15: operands the reference takes, on the card
+
+
+def phase_operands():
+    """Phase 15: the kernels take what the reference and their plain versions
+    take. hidden_proj (the k=1 step's row and the boot's 512 rows at the har
+    width), segment_sum_mix (the har width's star and a D = 4096 star on
+    (32, 80) payloads: both plans) and flash_attention (hymba-1.5b's
+    prefill shape) each get a strided operand and a bf16 operand beside f32
+    ones (computed in f32, as the reference promotes them), launch their
+    kernel once a call, and equal the plain version on the same operands at
+    the kernel's bound: hidden_proj at 1e-6 of the identity projection's
+    largest value, the segment sums bit for bit, flash at 1e-5 of a row
+    (f32, its plain version's dot products in PyTorch's orders; with k and
+    v bf16 or f16, p rounded to v's type before p·v on both sides)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_plain, hidden_proj, hidden_proj_plain, launch_counts,
+        segment_sum_mix, segment_sum_mix_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def held(name, what, fn, plain, measure, tol):
+        before = launch_counts()[name]
+        got = fn()
+        torch.cuda.synchronize()
+        launched = launch_counts()[name] - before
+        want = plain()
+        assert got.dtype == want.dtype and got.shape == want.shape, (name, what)
+        err = measure(got, want)
+        log(f"  {name} {what}: {'mismatches' if tol == 0 else 'max_rel'} {err:.3e}"
+            f" (tol {tol:.0e}), launches {launched}")
+        assert launched == 1, f"{name} {what}: {launched} launches"
+        assert err <= tol, f"{name} {what}: {err:.3e} against its plain version"
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    def row_rel(got, want):
+        got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+        return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+
+    def count(got, want):
+        return mismatches(got, want)
+
+    alpha, bias = randn(N_FEAT, N_HID), randn(N_HID)
+    for rows in (1, 512):
+        xt = randn(N_FEAT, rows).t()  # (rows, 561), strided
+        for what, args in ((f"{rows} rows, x strided", (xt, alpha, bias)),
+                           (f"{rows} rows, alpha bf16", (xt.contiguous(), alpha.bfloat16(), bias))):
+            held("hidden_proj", what, lambda a=args: hidden_proj(*a, activation="identity"),
+                 lambda a=args: hidden_proj_plain(*a, activation="identity"), rel, 1e-6)
+    for d, r, c in ((D, N_HID, N_HID + N_FEAT), (BENCH_D, BENCH_NH, BENCH_NH + BENCH_M)):
+        packed = randn(d, r, c + 7)
+        zeros = np.zeros(d, np.int32)
+        for what, w in ((f"D={d} ({r}, {c}), a column slice", packed[:, :, :c]),
+                        (f"D={d} ({r}, {c}), bf16", packed[:, :, :c].contiguous().bfloat16())):
+            held("segment_sum_mix", what, lambda w=w: segment_sum_mix(w, zeros, 1),
+                 lambda w=w: segment_sum_mix_plain(w, zeros, 1), count, 0)
+    b, s, h, hd = 4, 512, 25, 64
+    q, k, v = (randn(b, h, s, hd).transpose(1, 2) for _ in range(3))  # (B, S, H, hd) views
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    for what, args in (("q, k, v strided", (q, k, v)),
+                       ("k bf16", (qc, kc.bfloat16(), vc)),
+                       ("k, v bf16 (p rounded to bf16)", (qc, kc.bfloat16(), vc.bfloat16())),
+                       ("k, v f16 (p rounded to f16)", (qc, kc.half(), vc.half()))):
+        held("flash_attention", what, lambda a=args: flash_attention(*a),
+             lambda a=args: flash_attention_plain(*a), row_rel, 1e-5)
 
 
 def main() -> int:
@@ -3101,7 +3211,13 @@ def main() -> int:
     phase_benchmarks()
     log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 15: kernels (phases 1-14 took {time.perf_counter() - start:.1f} s)")
+    log("phase 15: strided and mixed-type operands (hidden_proj, segment_sum_mix,"
+        " flash_attention) against their plain versions")
+    t0 = time.perf_counter()
+    phase_operands()
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 16: kernels (phases 1-15 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

@@ -48,7 +48,9 @@
 //   shared memory: 64 query rows for hd = 64, 32 for 128, 16 for 256
 //   (152 KB). 128 threads as 8 row groups × 16 column groups; a thread
 //   holds a (BQ/8) × 4 block of scores and a (BQ/8) × (hd/16) block of the
-//   output.
+//   output. Operands of mixed types, or f16, come to it widened to f32; it
+//   then rounds p to the type the caller's v had (p_round), as the
+//   reference does.
 //
 // Other head widths and views take the same kernels or a third:
 //
@@ -77,6 +79,7 @@
 // is later work. The f32 kernel cannot come within 10× of its bound
 // (67 TFLOP/s at best on the CUDA cores).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -101,15 +104,27 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// p rounded to the type of v: kRoundNone (v is f32), kRoundBf16 or
+// kRoundF16, for f32 kernels whose v the wrapper widened from a narrower
+// type (a mix of types, or f16).
+constexpr int kRoundNone = 0, kRoundBf16 = 1, kRoundF16 = 2;
+
+__device__ __forceinline__ float round_p(float p, int p_round) {
+  if (p_round == kRoundBf16) return __bfloat162float(__float2bfloat16_rn(p));
+  if (p_round == kRoundF16) return __half2float(__float2half_rn(p));
+  return p;
+}
+
 // The online softmax of one tile of a thread's RM × CN block of scores
 // (rows q0 + ty + 8i, keys k0 + tx + 16j; 16 threads a row): scale and
 // mask, the rows' new max over the 16 threads, p = exp(s − m_new) rounded
-// to T into sp (the sum l over the unrounded p), and acc rescaled.
+// to T, then to v's type (p_round), into sp (the sum l over the unrounded
+// p), and acc rescaled.
 template <typename T, int RM, int CN, int DN>
 __device__ __forceinline__ void softmax_tile(float (&s)[RM][CN], float (&m)[RM], float (&l)[RM],
                                              float (&acc)[RM][DN], float* sp, int ps, int q0,
-                                             int k0, int SK, int causal, float scale, int tx,
-                                             int ty) {
+                                             int k0, int SK, int causal, float scale,
+                                             int p_round, int tx, int ty) {
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qpos = q0 + ty + 8 * i;
@@ -129,7 +144,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[RM][CN], float (&m)[RM],
     for (int j = 0; j < CN; ++j) {
       const float p = expf(s[i][j] - m_new);
       sum += p;
-      sp[(ty + 8 * i) * ps + tx + 16 * j] = widen(narrow<T>(p));
+      sp[(ty + 8 * i) * ps + tx + 16 * j] = round_p(widen(narrow<T>(p)), p_round);
     }
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -157,7 +172,8 @@ struct Tile {
 template <typename T, int HD, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int H, int SQ, int SK, int hd, int causal, float scale) {
+                 T* __restrict__ out, int H, int SQ, int SK, int hd, int causal, float scale,
+                 int p_round) {
   using Tl = Tile<HD>;
   constexpr int BQ = Tl::BQ, QS = Tl::QS, PS = Tl::PS;
   constexpr int RM = BQ / 8;    // query rows a thread holds
@@ -227,7 +243,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
     }
 
-    softmax_tile<T>(s, m, l, acc, sp, PS, q0, k0, SK, causal, scale, tx, ty);
+    softmax_tile<T>(s, m, l, acc, sp, PS, q0, k0, SK, causal, scale, p_round, tx, ty);
     __syncthreads();
 
 #pragma unroll 4
@@ -268,7 +284,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       T* __restrict__ out, int H, int SQ, int SK, int HD, int causal,
-                      float scale) {
+                      float scale, int p_round) {
   constexpr int BQ = kWideBQ, QS = kSlice + 1, PS = kBK + 1;
   constexpr int RM = BQ / 8, CN = kBK / 16, DN = kSlice / 16;
   __shared__ float sq[BQ * QS];
@@ -330,7 +346,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
           for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
       }
     }
-    softmax_tile<T>(s, m, l, acc, sp, PS, q0, k0, SK, causal, scale, tx, ty);
+    softmax_tile<T>(s, m, l, acc, sp, PS, q0, k0, SK, causal, scale, p_round, tx, ty);
     for (int e = tid; e < kBK * kSlice; e += kThreads) {
       const int r = e / kSlice, d = e % kSlice, sr = k0 + r;
       sv[r * kSlice + d] = sr < SK && c0 + d < HD ? widen(vbase[sr * row_stride + c0 + d]) : 0.f;
@@ -634,7 +650,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
 
 template <typename T, int HD, bool kMasked>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-                int SK, int hd, int causal, float scale, cudaStream_t st) {
+                int SK, int hd, int causal, float scale, int p_round, cudaStream_t st) {
   using Tl = Tile<HD>;
   constexpr int smem = Tl::smem_floats * (int)sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -643,18 +659,18 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int B, i
   const dim3 grid(B * H, (SQ + Tl::BQ - 1) / Tl::BQ);
   flash_fwd_kernel<T, HD, kMasked><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, SQ, SK, hd, causal, scale);
+      static_cast<T*>(out), H, SQ, SK, hd, causal, scale, p_round);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-                int SK, int hd, int causal, float scale, cudaStream_t st) {
+                int SK, int hd, int causal, float scale, int p_round, cudaStream_t st) {
   const dim3 grid(B * H, (SQ + kWideBQ - 1) / kWideBQ, (hd + kSlice - 1) / kSlice);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   flash_fwd_wide_kernel<T><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, SQ, SK, hd, causal, scale);
+      static_cast<T*>(out), H, SQ, SK, hd, causal, scale, p_round);
   return cudaGetLastError();
 }
 
@@ -665,26 +681,35 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 // the CUDA cores; past 256 the wide kernel.
 template <int HD>
 int dispatch_width(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-                   int SK, int hd, int causal, float scale, int bf16, cudaStream_t st) {
+                   int SK, int hd, int causal, float scale, int bf16, int p_round,
+                   cudaStream_t st) {
   using B16 = __nv_bfloat16;
   if (bf16) {
     const bool vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
     if (vec && hd == HD) return launch_mma<HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
     if (vec) return launch_mma<HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
-    return launch_simt<B16, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+    return launch_simt<B16, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, kRoundNone,
+                                      st);
   }
-  if (hd == HD) return launch_simt<float, HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
-  return launch_simt<float, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+  if (hd == HD)
+    return launch_simt<float, HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, p_round, st);
+  return launch_simt<float, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, p_round, st);
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-             int SK, int hd, int causal, float scale, int bf16, cudaStream_t st) {
+             int SK, int hd, int causal, float scale, int bf16, int p_round, cudaStream_t st) {
   if (hd < 1) return cudaErrorInvalidValue;
-  if (hd <= 64) return dispatch_width<64>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, st);
-  if (hd <= 128) return dispatch_width<128>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, st);
-  if (hd <= 256) return dispatch_width<256>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, st);
-  if (bf16) return launch_wide<__nv_bfloat16>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
-  return launch_wide<float>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
+  if (bf16) p_round = kRoundNone;  // bf16 kernels round p to bf16 already
+  if (hd <= 64)
+    return dispatch_width<64>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, p_round, st);
+  if (hd <= 128)
+    return dispatch_width<128>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, p_round, st);
+  if (hd <= 256)
+    return dispatch_width<256>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, p_round, st);
+  if (bf16)
+    return launch_wide<__nv_bfloat16>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, kRoundNone,
+                                      st);
+  return launch_wide<float>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, p_round, st);
 }
 
 }  // namespace
@@ -694,13 +719,16 @@ extern "C" {
 // q (B, SQ, H, HD), k and v (B, SK, H, HD), out (B, SQ, H, HD): device
 // pointers to contiguous arrays of one type (f32, or bf16 when bf16 is 1).
 // Any HD ≥ 1 and any alignment; causal masks the keys after the query's row.
-// Returns the launch's CUDA error, or 0.
+// p_round (f32 only): p rounded to bf16 (1) or f16 (2) before p·v, as the
+// reference rounds it to v's type where the caller's v was that type, or
+// not (0). Returns the launch's CUDA error, or 0.
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int H,
                           int SQ, int SK, int HD, int causal, float scale, int bf16,
-                          void* stream) {
+                          int p_round, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (SQ == 0 || B * H == 0) return cudaSuccess;
-  return dispatch(q, k, v, out, B, H, SQ, SK, HD, causal, scale, bf16, st);
+  if (p_round < kRoundNone || p_round > kRoundF16) return cudaErrorInvalidValue;
+  return dispatch(q, k, v, out, B, H, SQ, SK, HD, causal, scale, bf16, p_round, st);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Asynchronous copies and bf16 tensor-core products in inline PTX for
-// Hopper (sm_90a), shared by flash_attn.cu, matmul_atb.cu and gla_scan.cu.
+// Asynchronous copies, shared-memory barriers and bf16 tensor-core
+// products in inline PTX for Hopper (sm_90a), shared by the kernel sources.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -25,7 +25,39 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, int src_byt
   }
 }
 
+// The 16-byte copy with a hint to fetch the naturally aligned 256 bytes
+// around src into L2: neighbouring blocks' slices of the same row then find
+// their bytes there.
+__device__ __forceinline__ void cp_async16_l2_256(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+// Shared-memory barriers (mbarrier) for producer/consumer pipelines.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// one arrival on bar once every cp.async this thread issued before has landed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// wait until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile("{\n .reg .pred p;\n LAB_WAIT:\n"
+               " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+               " @!p bra LAB_WAIT;\n}\n"
+               :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
 
 // wait until at most N committed groups of this thread are in flight
 template <int N>

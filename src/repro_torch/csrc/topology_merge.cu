@@ -8,13 +8,35 @@
 //     w = [U | V] of shape (D, Ñ, Ñ+m); the unmasked form reads no mask.
 //     Bound on an H100: bytes. At the har width it reads 90 MB (0.027 ms at
 //     3.35 TB/s) and does one add (and, masked, one multiply) per element
-//     read. One thread owns one element of the payload for one cluster and
-//     walks the cluster's members in ascending device order from zero
-//     (cluster offsets from the sorted ids, checked on the host), so the
-//     sum has a fixed order and needs no atomics: the order of the Pallas
-//     accumulator. The multiply and the add are rounded separately, as the
-//     plain version rounds them. One kernel source, the mask a template
-//     parameter.
+//     read. Each element of a cluster's sum is added from zero over the
+//     cluster's members in ascending device order (cluster offsets from the
+//     sorted ids, checked on the host), so the sum has a fixed order and
+//     needs no atomics: the order of the Pallas accumulator. The multiply
+//     and the add are rounded separately, as the plain version rounds them.
+//     The mask is a template parameter. Two launch plans, chosen by the
+//     wrapper from the shape (kernels/topology_merge.py::segsum_streamed),
+//     add in that same order:
+//       - segsum_kernel: one thread an element and a cluster, walking the
+//         cluster's devices itself (8 loads in flight). It wins where
+//         clusters are short or elements × clusters many (the har width:
+//         345 blocks at C = 1);
+//       - segsum_stream_kernel, where the longest cluster gives each of its
+//         blocks more than 64 rows for each wave of blocks (one block an
+//         SM), e.g. one cluster of 4096 devices on (32, 80) payloads, where
+//         the per-element grid is 10 blocks whose threads each walk 4096
+//         dependent loads (0.20 ms). Its
+//         blocks take 32 elements each (80 there: 128-byte row segments read
+//         faster than narrower ones on more SMs), warp-specialised: warps
+//         1-7 stream the cluster's rows of the slice (and the mask) into a
+//         ring of 4 stages of 256 rows in shared memory (cp.async, 16 bytes
+//         with an L2 prefetch hint where every row's slice starts on 16
+//         bytes, else 4), each stage published by an mbarrier when its
+//         copies land; warp 0 adds each column from shared memory in device
+//         order, one lane a column, and frees the stage by another mbarrier
+//         (a block-wide barrier a stage tied the copies to the adds: 28 µs
+//         against 16 µs). A cluster's sum is a chain of dependent adds, so
+//         no plan beats D_cluster × the add's latency (4 cycles: 8.3 µs at
+//         D = 4096 and 1.98 GHz); the bytes bound the rest.
 //
 // * segment_broadcast (pallas_call :269, _gather_kernel :251):
 //     out[d] = sums[cid[d]], (C, Ñ, Ñ+m) → (D, Ñ, Ñ+m). Bound: bytes, the
@@ -171,6 +193,122 @@ segsum_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
     acc = __fadd_rn(acc, kMasked ? __fmul_rn(x, mask[d]) : x);
   }
   out[(size_t)c * E + e] = acc;
+}
+
+constexpr int kSegSlice = 32;   // elements a block of the streamed plan: 128-byte rows
+constexpr int kSegRows = 256;   // device rows a stage of its ring
+constexpr int kSegStages = 4;   // stages of the ring
+constexpr int kSegCopiers = kThreads - 32;  // warps 1-7 copy, warp 0 adds
+constexpr int kSegSmem = 4 * kSegStages * kSegRows * (kSegSlice + 1);  // rows and mask
+
+// The streamed plan: block (x, c) sums elements [x·kSegSlice, +kSegSlice)
+// of cluster c, VEC floats a copy (4 needs E % 4 == 0 and w on 16 bytes).
+// Warps 1-7 copy a stage's rows (and mask) and arrive on its full barrier
+// when their copies land; warp 0 waits for it, adds the stage's rows in
+// device order, one lane a column, and arrives on its empty barrier, which
+// the copiers wait for before they refill it.
+template <bool kMasked, int VEC>
+__global__ void __launch_bounds__(kThreads)
+segsum_stream_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
+                     const float* __restrict__ mask, float* __restrict__ out, long long E) {
+  extern __shared__ __align__(16) float seg_smem[];
+  __shared__ uint64_t full[kSegStages], empty[kSegStages];
+  float (*ring)[kSegRows][kSegSlice] = reinterpret_cast<float (*)[kSegRows][kSegSlice]>(seg_smem);
+  float (*mring)[kSegRows] =
+      reinterpret_cast<float (*)[kSegRows]>(seg_smem + kSegStages * kSegRows * kSegSlice);
+  const long long e0 = (long long)blockIdx.x * kSegSlice;
+  const int c = blockIdx.y;
+  const int d0 = seg_start[c], n = seg_start[c + 1] - d0;
+  const int width = (int)min((long long)kSegSlice, E - e0);
+  const int chunks = (n + kSegRows - 1) / kSegRows;
+  if (threadIdx.x < kSegStages) {
+    mbar_init(&full[threadIdx.x], kSegCopiers);
+    mbar_init(&empty[threadIdx.x], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) {
+    const int p = threadIdx.x - 32;
+    const int per_row = (width + VEC - 1) / VEC;  // copies a row
+    const bool mask16 = kMasked && reinterpret_cast<std::uintptr_t>(mask + d0) % 16 == 0;
+    for (int k = 0; k < chunks; ++k) {
+      const int slot = k % kSegStages, r0 = k * kSegRows, rows = min(kSegRows, n - r0);
+      if (k >= kSegStages) mbar_wait(&empty[slot], (k / kSegStages - 1) & 1);
+      const float* src = w + (size_t)(d0 + r0) * E + e0;
+      for (int i = p; i < rows * per_row; i += kSegCopiers) {
+        const int r = i / per_row, j = (i % per_row) * VEC;
+        if constexpr (VEC == 4) {
+          cp_async16_l2_256(&ring[slot][r][j], src + (size_t)r * E + j);
+        } else {
+          cp_async<4>(&ring[slot][r][j], src + (size_t)r * E + j, 4);
+        }
+      }
+      if constexpr (kMasked) {
+        const float* m = mask + d0 + r0;
+        if (mask16) {
+          for (int q = p; 4 * q < rows; q += kSegCopiers)
+            cp_async<16>(&mring[slot][4 * q], m + 4 * q, 4 * min(4, rows - 4 * q));
+        } else {
+          for (int r = p; r < rows; r += kSegCopiers) cp_async<4>(&mring[slot][r], m + r, 4);
+        }
+      }
+      cp_async_mbar_arrive(&full[slot]);
+    }
+    return;
+  }
+  const int t = threadIdx.x;
+  float acc = 0.0f;
+  for (int k = 0; k < chunks; ++k) {
+    const int slot = k % kSegStages, rows = min(kSegRows, n - k * kSegRows);
+    mbar_wait(&full[slot], (k / kSegStages) & 1);
+    if (t < width) {
+      if (rows == kSegRows) {
+        float x[kSegRows];
+#pragma unroll
+        for (int r = 0; r < kSegRows; ++r) x[r] = ring[slot][r][t];
+        if constexpr (kMasked) {
+#pragma unroll
+          for (int r = 0; r < kSegRows; r += 4) {
+            const float4 m = *reinterpret_cast<const float4*>(&mring[slot][r]);
+            x[r] = __fmul_rn(x[r], m.x);
+            x[r + 1] = __fmul_rn(x[r + 1], m.y);
+            x[r + 2] = __fmul_rn(x[r + 2], m.z);
+            x[r + 3] = __fmul_rn(x[r + 3], m.w);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kSegRows; ++r) acc = __fadd_rn(acc, x[r]);
+      } else {
+        for (int r = 0; r < rows; ++r) {
+          const float x = ring[slot][r][t];
+          acc = __fadd_rn(acc, kMasked ? __fmul_rn(x, mring[slot][r]) : x);
+        }
+      }
+    }
+    __syncwarp();
+    if (t == 0) mbar_arrive(&empty[slot]);
+  }
+  if (t < width) out[(size_t)c * E + e0 + t] = acc;
+}
+
+// w (D, E), seg_start (C + 1), mask (D) when kMasked → out (C, E), on the
+// plan the wrapper chose.
+template <bool kMasked>
+int launch_segsum(const float* w, const int* seg_start, const float* mask, float* out, int C,
+                  long long E, int streamed, cudaStream_t st) {
+  if (C == 0 || E == 0) return cudaSuccess;
+  if (streamed) {
+    const dim3 grid((unsigned)((E + kSegSlice - 1) / kSegSlice), C);
+    const bool vec = E % 4 == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
+    auto kernel = vec ? segsum_stream_kernel<kMasked, 4> : segsum_stream_kernel<kMasked, 1>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSegSmem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, kSegSmem, st>>>(w, seg_start, mask, out, E);
+  } else {
+    const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), C);
+    segsum_kernel<kMasked><<<grid, kThreads, 0, st>>>(w, seg_start, mask, out, E);
+  }
+  return cudaGetLastError();
 }
 
 // One block row per device d (blockIdx.y): out[d, :] = sums[cid[d], :].
@@ -889,24 +1027,19 @@ const char* repro_error_string(int e) { return cudaGetErrorString(static_cast<cu
 // systems of n rows and m right-hand sides (0 where none).
 long long repro_uv_solve_ws(int S, int n, int m) { return uv_wide_ws(S, n, m); }
 
-// w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E).
+// w (D, E) with E = Ñ·(Ñ+m), seg_start (C+1) int32, mask (D) → out (C, E);
+// streamed: 1 for the streamed plan, 0 for the per-element one.
 int repro_masked_segment_sum(const float* w, const int* seg_start, const float* mask,
-                             float* out, int C, long long E, void* stream) {
-  if (C == 0 || E == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), C);
-  segsum_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, seg_start, mask, out, E);
-  return cudaGetLastError();
+                             float* out, int C, long long E, int streamed, void* stream) {
+  return launch_segsum<true>(w, seg_start, mask, out, C, E, streamed,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // w (D, E), seg_start (C+1) int32 → out (C, E): the unmasked cluster sums.
 int repro_segment_sum(const float* w, const int* seg_start, float* out, int C, long long E,
-                      void* stream) {
-  if (C == 0 || E == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((E + kThreads - 1) / kThreads), C);
-  segsum_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, seg_start, nullptr, out, E);
-  return cudaGetLastError();
+                      int streamed, void* stream) {
+  return launch_segsum<false>(w, seg_start, nullptr, out, C, E, streamed,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // sums (C, E), cids (D) int32 in [0, C) → out (D, E) with out[d] = sums[cids[d]].

@@ -116,8 +116,8 @@ _SIGNATURES = {
     "repro_fleet_ingest": [_P] * 12 + [_I] * 6 + [_F, _P],
     "repro_fleet_ingest_project": [_P] * 4 + [_I] * 5 + [_P],
     "repro_fleet_ingest_update": [_P] * 9 + [_I] * 4 + [_F, _P],
-    "repro_masked_segment_sum": [_P, _P, _P, _P, _I, _L, _P],
-    "repro_segment_sum": [_P, _P, _P, _I, _L, _P],
+    "repro_masked_segment_sum": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "repro_segment_sum": [_P, _P, _P, _I, _L, _I, _P],
     "repro_segment_broadcast": [_P, _P, _P, _I, _L, _P],
     "repro_banded_mix": [_P, _P, _I, _L, _I, _P],
     "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P, _P],
@@ -129,7 +129,7 @@ _SIGNATURES = {
     "repro_matmul_atb": [_P] * 4 + [_I] * 7 + [_P],
     "repro_rank1_add": [_P] * 4 + [_F, _P, _I, _I, _I, _P],
     "repro_k1_update": [_P] * 7 + [_I, _I, _P],
-    "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
     "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
     "repro_gla_smem": [_I] * 2,
     "repro_ingest_beta_tile": [],
@@ -181,28 +181,43 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def require_cuda(kernel: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
-    """Every tensor a kernel touches must be a contiguous CUDA tensor of
-    ``dtype``."""
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def operands(kernel: str, dtypes: tuple[torch.dtype, ...] = F32, *, unit_last: bool = False,
+             **tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The ``tensors`` as ``kernel`` reads them, in the order given.
+
+    - Every tensor must lie on the first one's device (``ValueError``).
+    - Every tensor must be of a floating type (``TypeError`` on an integer,
+      bool or complex tensor). Operands all of one type in ``dtypes`` keep
+      it; any other mix (bf16 with f32, f16, f64) is cast to f32, the type
+      the reference computes it in (jax promotes bf16 with f32 to f32 and,
+      with 64-bit floats off, takes f64 as f32), as the plain versions do.
+    - A strided operand is copied contiguous; with ``unit_last`` only one
+      whose last axis is strided (the kernel takes the other strides).
+
+    A tensor that needs neither cast nor copy is returned as it is.
+    """
+    first = next(iter(tensors.values()))
+    device, dtype = first.device, first.dtype
     for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{kernel}: {name} is on {t.device}, not on a CUDA device")
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, {next(iter(tensors))} on "
+                             f"{device}")
         if t.dtype != dtype:
-            raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous")
-
-
-def require_cuda_f32(kernel: str, **tensors: torch.Tensor) -> None:
-    require_cuda(kernel, torch.float32, **tensors)
-
-
-def require_cuda_f32_or_bf16(kernel: str, **tensors: torch.Tensor) -> int:
-    """Like ``require_cuda``, for kernels that read f32 or bf16 operands
-    (all of one type); returns 1 for bf16, 0 for f32, the flag their C
-    entries take."""
-    dtype = next(iter(tensors.values())).dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{kernel}: operands must be float32 or bfloat16, got {dtype}")
-    require_cuda(kernel, dtype, **tensors)
-    return int(dtype == torch.bfloat16)
+            dtype = None
+    if dtype not in dtypes:  # a mix, or one type the kernel does not take
+        for name, t in tensors.items():
+            if not t.is_floating_point():
+                raise TypeError(f"{kernel}: {name} must be a floating-point tensor, got {t.dtype}")
+        dtype = torch.float32
+    out = []
+    for t in tensors.values():
+        if t.dtype != dtype:
+            t = t.to(dtype)
+        if not (t.stride(-1) == 1 if unit_last and t.ndim else t.is_contiguous()):
+            t = t.contiguous()
+        out.append(t)
+    return out

@@ -4,17 +4,18 @@
 ``flash_attention`` takes ``flash_attention_plain`` for CPU tensors and
 launches a kernel of ``csrc/flash_attn.cu`` for CUDA tensors, or raises:
 bf16 on the tensor cores, f32 on the CUDA cores. q, k and v are (B, S, H,
-hd) of one type, f32 or bf16, with the kv heads already repeated to H; the
-result has q's shape and type. Any head width and any view go: a width
-under 256 runs the next larger of the kernel's instances (64, 128, 256)
-masked at hd, bf16 on the CUDA cores where its 16-byte copies cannot go
-(hd not a multiple of 8, or a view off a 16-byte boundary), and a width
-past 256 a kernel that streams q·kᵀ over hd in slices. The plain version
-walks the KV axis in the kernel's tiles of 64 keys with the kernel's
-arithmetic (scale after the dot product, −1e30 for masked
-scores, p rounded to v's type before p·v, out = acc / max(l, 1e-30)); its
-dot products are PyTorch's, so the two agree to f32 rounding, not bit for
-bit.
+hd) with the kv heads already repeated to H, f32 or bf16 on the card (a
+mix, or another floating type, computes in f32: ``_lib.operands``, with p
+still rounded to v's type before p·v); the result has q's shape and type.
+Any head width and any view go: a width under 256 runs the next larger of
+the kernel's instances (64, 128, 256) masked at hd, bf16 on the CUDA cores
+where its 16-byte copies cannot go (hd not a multiple of 8, or a view off
+a 16-byte boundary), and a width past 256 a kernel that streams q·kᵀ over
+hd in slices. The plain version walks the KV axis in the kernel's tiles of
+64 keys with the kernel's arithmetic (scale after the dot product, −1e30
+for masked scores, p rounded to v's type before p·v, out = acc / max(l,
+1e-30)); its dot products are PyTorch's, so the two agree to f32 rounding,
+not bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 
 NEG_INF = -1e30
 KV_TILE = 64               # keys per tile, the kernel's kBK
+# the C entry's p_round: where v came as bf16 or f16 and the kernel runs in
+# f32 (a mix of types, or f16), p is rounded to v's type before p·v
+P_ROUND = {torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -75,13 +79,14 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     _check(q, k, v)
-    bf16 = _lib.require_cuda_f32_or_bf16("flash_attention", q=q, k=k, v=v)
+    dtype, p_round = q.dtype, P_ROUND.get(v.dtype, 0)
+    q, k, v = _lib.operands("flash_attention", _lib.F32_BF16, q=q, k=k, v=v)
     b, sq, h, hd = q.shape
     out = torch.empty_like(q)
     status = _lib.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, k.shape[1], hd,
-        int(causal), hd ** -0.5, bf16, _lib.stream(),
+        int(causal), hd ** -0.5, int(q.dtype == torch.bfloat16), p_round, _lib.stream(),
     )
     _lib.check(status, "flash_attention")
     _lib.count_launch("flash_attention")
-    return out
+    return out.to(dtype)

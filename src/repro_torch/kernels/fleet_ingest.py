@@ -101,11 +101,15 @@ def _check_shapes(states: OSELMState, window: torch.Tensor, targets: torch.Tenso
 def fleet_ingest_plain(
     states: OSELMState, window: torch.Tensor, targets: torch.Tensor | None = None
 ) -> tuple[OSELMState, torch.Tensor]:
-    """Plain PyTorch version: (trained fleet, (D,) pre-train losses)."""
+    """Plain PyTorch version: (trained fleet, (D,) pre-train losses), in
+    f32 whatever the operands' floating types, as the reference computes."""
     _check_shapes(states, window, targets)
-    tb = window if targets is None else targets
+    window = window.float()
+    tb = window if targets is None else targets.float()
+    alpha, bias = (x.float() for x in states.params)
+    states = states.replace(p=states.p.float(), beta=states.beta.float())
     g = get_activation(states.activation)
-    h_all = g(window @ states.params.alpha + states.params.bias)        # (D, T, Ñ)
+    h_all = g(window @ alpha + bias)                                    # (D, T, Ñ)
     e0 = tb - torch.bmm(h_all, states.beta)
     loss = torch.mean(e0 * e0, dim=(1, 2))
     p, gains = states.p, []
@@ -131,22 +135,20 @@ def fleet_ingest_plain(
 def fleet_ingest_cuda(
     states: OSELMState, window: torch.Tensor, targets: torch.Tensor | None = None
 ) -> tuple[OSELMState, torch.Tensor]:
-    """Launch the CUDA ingest kernel; every operand must be a contiguous
-    f32 tensor on one CUDA device."""
+    """Launch the CUDA ingest kernel on the operands of one CUDA device,
+    as ``_lib.operands`` hands them to it (f32, contiguous)."""
     _check_shapes(states, window, targets)
-    tb = window if targets is None else targets
-    alpha, bias = states.params.alpha, states.params.bias
-    _lib.require_cuda_f32(
-        "fleet_ingest", window=window, targets=tb, alpha=alpha, bias=bias,
-        p=states.p, beta=states.beta,
+    window, tb, alpha, bias, p, beta = _lib.operands(
+        "fleet_ingest", window=window, targets=window if targets is None else targets,
+        alpha=states.params.alpha, bias=states.params.bias, p=states.p, beta=states.beta,
     )
     d, t, n = window.shape
-    nh, m = states.beta.shape[1], states.beta.shape[2]
+    nh, m = beta.shape[1], beta.shape[2]
     lib = _lib.library()
     n_tiles = -(-m // lib.repro_ingest_beta_tile())
     dev = window.device
-    p_out = torch.empty_like(states.p)
-    beta_out = torch.empty_like(states.beta)
+    p_out = torch.empty_like(p)
+    beta_out = torch.empty_like(beta)
     loss = torch.empty(d, dtype=torch.float32, device=dev)
     h_ws = torch.empty((d, t, nh), dtype=torch.float32, device=dev)
     gain_ws = torch.empty((d, t, nh), dtype=torch.float32, device=dev)
@@ -155,7 +157,7 @@ def fleet_ingest_cuda(
     if code is not None:
         status = lib.repro_fleet_ingest(
             window.data_ptr(), tb.data_ptr(), alpha.data_ptr(), bias.data_ptr(),
-            states.p.data_ptr(), states.beta.data_ptr(), p_out.data_ptr(), beta_out.data_ptr(),
+            p.data_ptr(), beta.data_ptr(), p_out.data_ptr(), beta_out.data_ptr(),
             loss.data_ptr(), h_ws.data_ptr(), gain_ws.data_ptr(), part_ws.data_ptr(),
             d, t, n, nh, m, code, float(states.forget), _lib.stream(),
         )
@@ -167,7 +169,7 @@ def fleet_ingest_cuda(
         _lib.check(status, "fleet_ingest")
         h_ws.copy_(get_activation(states.activation)(h_ws))
         status = lib.repro_fleet_ingest_update(
-            tb.data_ptr(), states.p.data_ptr(), states.beta.data_ptr(), p_out.data_ptr(),
+            tb.data_ptr(), p.data_ptr(), beta.data_ptr(), p_out.data_ptr(),
             beta_out.data_ptr(), loss.data_ptr(), h_ws.data_ptr(), gain_ws.data_ptr(),
             part_ws.data_ptr(), d, t, nh, m, float(states.forget), _lib.stream(),
         )

@@ -2,8 +2,9 @@
 
 ``gla_forward`` takes ``gla_forward_plain`` for CPU tensors and launches
 the kernels of ``csrc/gla_scan.cu`` for CUDA tensors, or raises. q and k
-are (B, S, H, dk), v (B, S, H, dv), all of one type (f32 or bf16), and
-log a (B, S, H) the per-token log decay; it returns y (B, S, H, dv) in
+are (B, S, H, dk), v (B, S, H, dv), f32 or bf16 on the card (a mix, or
+another floating type, computes in f32: ``_lib.operands``), and log a
+(B, S, H) the per-token log decay; it returns y (B, S, H, dv) in
 q's type and the final state (B, H, dk, dv) in f32, which the reference's
 kernel drops. Chunks are min(128, S) tokens. On the card one call runs
 the chunks in parallel: each chunk's state increment, the carry of the
@@ -94,15 +95,18 @@ def gla_forward(
     if q.device.type == "cpu":
         return gla_forward_plain(q, k, v, log_a)
     _check(q, k, v, log_a)
-    bf16 = _lib.require_cuda_f32_or_bf16("gla_forward", q=q, k=k, v=v)
+    dtype = q.dtype
+    q, k, v = _lib.operands("gla_forward", _lib.F32_BF16, q=q, k=k, v=v)
+    bf16 = int(q.dtype == torch.bfloat16)
     la = log_a.float().contiguous()
-    _lib.require_cuda_f32("gla_forward", log_a=la)
+    if la.device != q.device:
+        raise ValueError(f"gla_forward: log_a is on {la.device}, q on {q.device}")
     b, s, h, dk = q.shape
     dv = v.shape[-1]
-    y = torch.empty_like(v, dtype=q.dtype)
+    y = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=q.device)
     if s == 0:
-        return y, state.zero_()
+        return y.to(dtype), state.zero_()
     c = min(CHUNK, s)
     n = -(-s // c)
     lib = _lib.library()
@@ -117,4 +121,4 @@ def gla_forward(
     )
     _lib.check(status, "gla_forward")
     _lib.count_launch("gla_forward")
-    return y, state
+    return y.to(dtype), state

@@ -3,11 +3,13 @@
 
 ``hidden_proj`` takes ``hidden_proj_plain`` for CPU tensors and launches
 the kernel of ``csrc/hidden_proj.cu`` for CUDA tensors, or raises. The
-operands are f32 or bf16 (all three of one type) and the result is f32,
-summed in f32 with the bias and activation applied to the finished sum,
-as the reference's kernel does. Past four rows the kernel cuts the
-feature axis K into the slices of ``matmul_atb.split_plan`` (one block per
-output tile and slice, then the slices added in order); up to four rows,
+operands are f32 or bf16 (all three of one type; any other floating
+types, or a mix, are cast to f32, and strided ones copied, by
+``_lib.operands``) and the result is f32, summed in f32 with the bias and
+activation applied to the finished sum, as the reference's kernel does.
+Past four rows the kernel cuts the feature axis K into the slices of
+``matmul_atb.split_plan`` (one block per output tile and slice, then the
+slices added in order); up to four rows,
 the k=1 step's shape, one cluster of blocks per 32 columns does (see
 ``csrc/hidden_proj.cu``). Either way each output is summed in a fixed
 order of its own, so two calls give the same bits; the plain version is a
@@ -53,7 +55,8 @@ def hidden_proj(
         return hidden_proj_plain(x, alpha, bias, activation=activation)
     _check(x, alpha, bias)
     code = kernel_code(activation)  # raises on an unknown name
-    bf16 = _lib.require_cuda_f32_or_bf16("hidden_proj", x=x, alpha=alpha, bias=bias)
+    x, alpha, bias = _lib.operands("hidden_proj", _lib.F32_BF16, x=x, alpha=alpha, bias=bias)
+    bf16 = int(x.dtype == torch.bfloat16)
     k, n = alpha.shape
     m = x.numel() // k
     out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32, device=x.device)

@@ -6,8 +6,9 @@ U = HᵀH, V = Hᵀt (Eq. 6) and the k=1 step's P·h; port of
 the kernel of ``csrc/matmul_atb.cu`` for CUDA tensors, or raises. A reads
 in place (Aᵀ is never materialised); leading axes batch independent
 products, as a fleet's Eq. 13 boot needs. Operands are f32 or bf16 (both
-of one type), the result f32. The kernel sums each output in a fixed order
-of its own; the plain version is a PyTorch matrix product, so the two
+of one type; other types and mixes are cast to f32, as ``_lib.operands``
+says), the result f32. The kernel sums each output in a fixed order of
+its own; the plain version is a PyTorch matrix product, so the two
 agree to f32 rounding, not bit for bit. ``split_plan`` cuts the sample
 axis into the slices the kernel sums side by side (one block per output
 tile and slice, then the slices added in order).
@@ -65,7 +66,8 @@ def matmul_atb(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return matmul_atb_plain(a, b)
     _check(a, b)
-    bf16 = _lib.require_cuda_f32_or_bf16("matmul_atb", a=a, b=b)
+    a, b = _lib.operands("matmul_atb", _lib.F32_BF16, a=a, b=b)
+    bf16 = int(a.dtype == torch.bfloat16)
     k, n1, n2 = a.shape[-2], a.shape[-1], b.shape[-1]
     out = torch.empty(a.shape[:-2] + (n1, n2), dtype=torch.float32, device=a.device)
     if out.numel() == 0 or k == 0:

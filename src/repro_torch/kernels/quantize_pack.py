@@ -7,9 +7,10 @@ The payload is the stacked w = [U | V] of shape (D, Ñ, Ñ+m), cut into
 its own absolute maximum. ``quantize_pack`` runs the whole publish step
 of a device in one pass: pack [U | V], add the error-feedback residual,
 and per tile take amax → scale (1.0 on an all-zero tile) → int8 codes
-clip(rint(x/scale), ±127) → new residual x − q·scale. For CPU tensors it
-takes ``quantize_pack_plain``; for CUDA tensors it launches the kernel of
-``csrc/quantize_pack.cu`` or raises.
+clip(rint(x/scale), ±127) → new residual x − q·scale, in f32 (operands
+of other floating types are cast to it, as ``_lib.operands`` says). For
+CPU tensors it takes ``quantize_pack_plain``; for CUDA tensors it
+launches the kernel of ``csrc/quantize_pack.cu`` or raises.
 
 Both are bit-exact with the reference (``quantize_pack`` and
 ``quantize_pack_xla``) as XLA compiles it: one f32 add for x; the scale
@@ -101,8 +102,8 @@ def quantize_pack_plain(
     u: torch.Tensor, v: torch.Tensor, residual: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     _check_shapes(u, v, residual)
-    w = torch.cat([u, v], dim=2)
-    x = w if residual is None else w + residual
+    w = torch.cat([u.float(), v.float()], dim=2)
+    x = w if residual is None else w + residual.float()
     codes, scales = quantize_tiles(x)
     return codes, scales, quantize_residual(x, codes, scales)
 
@@ -118,13 +119,13 @@ def quantize_pack(
     if u.device.type == "cpu":
         return quantize_pack_plain(u, v, residual)
     inputs = {"u": u, "v": v} | ({} if residual is None else {"residual": residual})
-    _lib.require_cuda("quantize_pack", torch.float32, **inputs)
+    u, v, *rest = _lib.operands("quantize_pack", **inputs)
+    residual = rest[0] if rest else None
     d, n, _ = u.shape
     m = v.shape[2]
     codes = torch.empty((d, n, n + m), dtype=torch.int8, device=u.device)
     scales = torch.empty((d, n_col_tiles(n + m)), dtype=torch.float32, device=u.device)
     resid = torch.empty((d, n, n + m), dtype=torch.float32, device=u.device)
-    _lib.require_cuda("quantize_pack", torch.int8, codes=codes)
     status = _lib.library().repro_quantize_pack(
         u.data_ptr(), v.data_ptr(), None if residual is None else residual.data_ptr(),
         codes.data_ptr(), scales.data_ptr(), resid.data_ptr(), d, n, m, _lib.stream(),

@@ -52,11 +52,12 @@ def rank1_add(
     if x.device.type == "cpu":
         return rank1_add_plain(x, u, v, scale)
     _check(x, u, v)
-    bf16 = _lib.require_cuda_f32_or_bf16("rank1_add", x=x, u=u, v=v)
+    x, u, v = _lib.operands("rank1_add", _lib.F32_BF16, x=x, u=u, v=v)
+    bf16 = int(x.dtype == torch.bfloat16)
     if isinstance(scale, torch.Tensor):
         if scale.numel() != 1:
             raise ValueError(f"rank1_add: scale must hold one value; got {tuple(scale.shape)}")
-        _lib.require_cuda_f32("rank1_add", scale=scale)
+        (scale,) = _lib.operands("rank1_add", scale=scale)
         if scale.device != x.device:
             raise ValueError(f"rank1_add: scale is on {scale.device}, x on {x.device}")
         s_ptr, s_val = scale.data_ptr(), 0.0
@@ -105,6 +106,7 @@ def k1_update_plain(
     p: torch.Tensor, beta: torch.Tensor, h: torch.Tensor, ph: torch.Tensor, t: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     _k1_check(p, beta, h, ph, t)
+    p, beta, h, ph, t = (x.float() for x in (p, beta, h, ph, t))
     denom = 1.0 + lane_sum(h * ph)
     err = t - lane_sum(h[:, None] * beta)
     one = torch.ones_like(denom)
@@ -122,7 +124,7 @@ def k1_update(
     if p.device.type == "cpu":
         return k1_update_plain(p, beta, h, ph, t)
     _k1_check(p, beta, h, ph, t)
-    _lib.require_cuda_f32("k1_update", p=p, beta=beta, h=h, ph=ph, t=t)
+    p, beta, h, ph, t = _lib.operands("k1_update", p=p, beta=beta, h=h, ph=ph, t=t)
     n, m = beta.shape
     p_out = torch.empty_like(p)
     beta_out = torch.empty_like(beta)

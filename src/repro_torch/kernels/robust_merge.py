@@ -90,11 +90,10 @@ def robust_segment_sum_mix(
     _check(x, mask, scale, trim)
     if x.device.type == "cpu":
         return robust_segment_sum_mix_plain(x, cluster_ids, mask, scale, n_clusters, trim)
-    mask = mask.to(torch.float32).contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    _lib.require_cuda_f32("robust_segment_sum_mix", x=x, mask=mask, scale=scale)
-    starts = _device_starts(cluster_ids, x.shape[0], n_clusters, "robust_segment_sum_mix",
-                            x.device)
+    x, mask, scale = _lib.operands("robust_segment_sum_mix", x=x, mask=mask.to(torch.float32),
+                                   scale=scale.to(torch.float32))
+    starts, _ = _device_starts(cluster_ids, x.shape[0], n_clusters, "robust_segment_sum_mix",
+                               x.device)
     shape = (n_clusters,) + tuple(x.shape[1:])
     tot, lo, hi = (torch.empty(shape, dtype=torch.float32, device=x.device) for _ in range(3))
     elems = x[0].numel() if x.shape[0] else 0

@@ -91,46 +91,78 @@ def _ids_key(cluster_ids) -> tuple[bytes, tuple[int, ...]]:
 
 @functools.lru_cache(maxsize=64)
 def _starts_on(ids: bytes, shape: tuple[int, ...], n_devices: int, n_clusters: int,
-               kernel: str, device: torch.device) -> torch.Tensor:
+               kernel: str, device: torch.device) -> tuple[torch.Tensor, int]:
     cids = np.frombuffer(ids, np.int64).reshape(shape)
-    return torch.from_numpy(_segment_starts(cids, n_devices, n_clusters, kernel)).to(device)
+    starts = _segment_starts(cids, n_devices, n_clusters, kernel)
+    return torch.from_numpy(starts).to(device), int(np.diff(starts).max(initial=0))
 
 
 def _device_starts(cluster_ids, n_devices: int, n_clusters: int, kernel: str,
-                   device: torch.device) -> torch.Tensor:
-    """``_segment_starts`` on ``device`` (see above)."""
+                   device: torch.device) -> tuple[torch.Tensor, int]:
+    """``_segment_starts`` on ``device`` (see above), and the devices of
+    the longest cluster."""
     return _starts_on(*_ids_key(cluster_ids), n_devices, n_clusters, kernel, torch.device(device))
+
+
+# The segment sums' two launch plans (csrc/topology_merge.cu): one thread an
+# element and a cluster, walking the cluster's devices itself; or blocks of
+# 32 elements of a cluster that stream its rows through shared memory and
+# add each column in device order. Both add in the same order, so the plan
+# moves no bit.
+SEG_SLICE = 32         # elements a block of the streamed plan (kSegSlice)
+SEG_ROWS_A_WAVE = 64   # rows a streamed block must get for each wave
+
+
+def segsum_streamed(n_clusters: int, elems: int, longest: int, sms: int) -> bool:
+    """Whether the segment sums of ``n_clusters`` clusters of ``elems``
+    elements, the longest of ``longest`` devices, take the streamed plan on
+    a card of ``sms`` SMs. That plan runs one block an SM (its ring takes
+    135 KB), one for each 32-element slice of each cluster, and each wave of
+    blocks pays ~1-2 µs to fill and drain the ring: it wins where the
+    longest cluster gives a block more than 64 rows for each wave. Set from
+    both plans timed on an H100 at 34 shapes (PERF.md §6): the star of 4096
+    devices on (32, 80) payloads streams (12× faster), the har width and
+    many short clusters take the per-element plan (2-26× faster)."""
+    waves = -(-(-(-elems // SEG_SLICE) * n_clusters) // sms)
+    return longest > SEG_ROWS_A_WAVE * waves
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _segment_sum_plain(w, cluster_ids, n_clusters, mask, kernel):
     starts = _segment_starts(cluster_ids, w.shape[0], n_clusters, kernel)
-    out = torch.zeros((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
-    mf = None if mask is None else mask.to(w.dtype)
+    out = torch.zeros((n_clusters,) + tuple(w.shape[1:]), dtype=torch.float32, device=w.device)
+    wf = w.float()
+    mf = None if mask is None else mask.to(torch.float32)
     for c in range(n_clusters):
         for d in range(int(starts[c]), int(starts[c + 1])):
-            out[c] += w[d] if mf is None else w[d] * mf[d]
+            out[c] += wf[d] if mf is None else wf[d] * mf[d]
     return out
 
 
 def _segment_sum(w, cluster_ids, n_clusters, mask, kernel):
     """Launch the segment-sum kernel, masked when ``mask`` is given."""
     if mask is None:
-        _lib.require_cuda_f32(kernel, w=w)
+        (w,) = _lib.operands(kernel, w=w)
     else:
-        mask = mask.to(torch.float32).contiguous()
-        _lib.require_cuda_f32(kernel, w=w, mask=mask)
+        w, mask = _lib.operands(kernel, w=w, mask=mask.to(torch.float32))
         if mask.shape != (w.shape[0],):
             raise ValueError(f"mask must be ({w.shape[0]},); got {tuple(mask.shape)}")
-    starts = _device_starts(cluster_ids, w.shape[0], n_clusters, kernel, w.device)
+    starts, longest = _device_starts(cluster_ids, w.shape[0], n_clusters, kernel, w.device)
     out = torch.empty((n_clusters,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
     elems = w[0].numel() if w.shape[0] else 0
+    streamed = int(segsum_streamed(n_clusters, elems, longest, _sm_count(w.device)))
     lib = _lib.library()
     if mask is None:
         status = lib.repro_segment_sum(w.data_ptr(), starts.data_ptr(), out.data_ptr(),
-                                       n_clusters, elems, _lib.stream())
+                                       n_clusters, elems, streamed, _lib.stream())
     else:
         status = lib.repro_masked_segment_sum(w.data_ptr(), starts.data_ptr(), mask.data_ptr(),
-                                              out.data_ptr(), n_clusters, elems, _lib.stream())
+                                              out.data_ptr(), n_clusters, elems, streamed,
+                                              _lib.stream())
     _lib.check(status, kernel)
     _lib.count_launch(kernel)
     return out
@@ -182,7 +214,7 @@ def _broadcast_on(ids: bytes, shape: tuple[int, ...], n_clusters: int,
 
 def segment_broadcast_plain(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
     cids = _broadcast_ids(cluster_ids, sums.shape[0])
-    return sums[torch.as_tensor(cids, dtype=torch.long, device=sums.device)]
+    return sums.float()[torch.as_tensor(cids, dtype=torch.long, device=sums.device)]
 
 
 def segment_broadcast(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
@@ -190,7 +222,7 @@ def segment_broadcast(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
     (C, R, Cc) → (D, R, Cc)."""
     if sums.device.type == "cpu":
         return segment_broadcast_plain(sums, cluster_ids)
-    _lib.require_cuda_f32("segment_broadcast", sums=sums)
+    (sums,) = _lib.operands("segment_broadcast", sums=sums)
     cids = _broadcast_on(*_ids_key(cluster_ids), sums.shape[0], sums.device)
     d = cids.shape[0]
     out = torch.empty((d,) + tuple(sums.shape[1:]), dtype=sums.dtype, device=sums.device)
@@ -255,8 +287,8 @@ def from_uv_solve_plain(
     u: torch.Tensor, v: torch.Tensor, *, ridge: float = 0.0
 ) -> tuple[torch.Tensor, torch.Tensor]:
     n = u.shape[-1]
-    a = u + ridge * torch.eye(n, dtype=u.dtype, device=u.device)
-    return _gj_solve_plain(a, v)
+    a = u.float() + ridge * torch.eye(n, dtype=torch.float32, device=u.device)
+    return _gj_solve_plain(a, v.float())
 
 
 def _solve_workspace(s: int, n: int, m: int, device: torch.device) -> torch.Tensor | None:
@@ -277,12 +309,7 @@ def from_uv_solve(
         raise ValueError(f"need u (S, Ñ, Ñ) and v (S, Ñ, m); got {tuple(u.shape)}, {tuple(v.shape)}")
     if u.device.type == "cpu":
         return from_uv_solve_plain(u, v, ridge=ridge)
-    for name, t in (("u", u), ("v", v)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or t.stride(2) != 1:
-            raise ValueError(
-                f"from_uv_solve: {name} must be a float32 CUDA tensor with unit "
-                f"column stride; got {t.dtype} on {t.device}, strides {t.stride()}"
-            )
+    u, v = _lib.operands("from_uv_solve", unit_last=True, u=u, v=v)
     s, n, m = v.shape
     p = torch.empty((s, n, n), dtype=torch.float32, device=u.device)
     beta = torch.empty((s, n, m), dtype=torch.float32, device=u.device)
@@ -306,6 +333,7 @@ def _check_band(d: int, hops: int) -> None:
 
 def banded_mix_plain(x: torch.Tensor, hops: int) -> torch.Tensor:
     _check_band(x.shape[0], hops)
+    x = x.float()
     acc = torch.zeros_like(x)
     for o in range(-hops, hops + 1):  # device d adds x[(d+o) mod D]
         acc = acc + torch.roll(x, -o, dims=0)
@@ -320,7 +348,7 @@ def banded_mix(x: torch.Tensor, hops: int) -> torch.Tensor:
         raise ValueError(f"need x (D, R, C); got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return banded_mix_plain(x, hops)
-    _lib.require_cuda_f32("banded_mix", x=x)
+    (x,) = _lib.operands("banded_mix", x=x)
     d = x.shape[0]
     _check_band(d, hops)
     out = torch.empty_like(x)
@@ -337,6 +365,7 @@ def banded_merge_solve_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     d, n, _ = w.shape
     _check_band(d, hops)
+    w = w.float()
     wsum = torch.roll(w, hops, dims=0)  # device d sees (d − hops) first
     for o in range(-hops + 1, hops + 1):
         wsum = wsum + torch.roll(w, -o, dims=0)
@@ -354,7 +383,7 @@ def banded_merge_solve(
         raise ValueError(f"need w (D, Ñ, Ñ+m); got {tuple(w.shape)}")
     if w.device.type == "cpu":
         return banded_merge_solve_plain(w, hops, ridge=ridge)
-    _lib.require_cuda_f32("banded_merge_solve", w=w)
+    (w,) = _lib.operands("banded_merge_solve", w=w)
     d, n, nm = w.shape
     _check_band(d, hops)
     m = nm - n
@@ -384,7 +413,7 @@ def _dense_operands(x: torch.Tensor, matrix) -> tuple[torch.Tensor, torch.Tensor
 
 
 def dense_mix_plain(x: torch.Tensor, matrix) -> torch.Tensor:
-    xf, m = _dense_operands(x, matrix)
+    xf, m = _dense_operands(x.float(), matrix)
     acc = torch.zeros_like(xf)
     for k in range(xf.shape[0]):
         acc = _fma(m[:, k : k + 1], xf[k : k + 1], acc)
@@ -398,8 +427,8 @@ def dense_mix(x: torch.Tensor, matrix) -> torch.Tensor:
     product is exact)."""
     if x.device.type == "cpu":
         return dense_mix_plain(x, matrix)
+    (x,) = _lib.operands("dense_mix", x=x)
     xf, m = _dense_operands(x, matrix)
-    _lib.require_cuda_f32("dense_mix", x=x, matrix=m)
     d, f = xf.shape
     out = torch.empty_like(x)
     mt = torch.empty_like(m)  # the kernel's scratch copy of Mᵀ

@@ -13,6 +13,7 @@ within 1e-5 of its sparse sum; the ingest baseline at the reference's own
 agreement bounds (``benchmarks/fleet_ingest.py:100-111``: β at rtol 1e-4
 / atol 1e-5, the losses at 1e-5 / 1e-7).
 """
+import functools
 import json
 import sys
 from pathlib import Path
@@ -39,7 +40,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from benchmarks import fleet_ingest as ref_fleet_ingest  # noqa: E402
 from benchmarks import fleet_scale as ref_fleet_scale  # noqa: E402
-from benchmarks import torch_fleet_ingest, torch_fleet_scale  # noqa: E402
+from benchmarks import torch_fleet_ingest, torch_fleet_scale, torch_history  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -178,7 +179,25 @@ def test_ingest_report_writes_its_artifact_and_history(tmp_path):
     assert json.loads(out.read_text())["backend"] == "cpu"
     entry = json.loads(history.read_text())
     assert entry["bench"] == "torch_fleet_ingest" and set(entry["metrics"]) == {
-        "fused_d16_us", "baseline_d16_us"}
+        "fused_d16_host_ms", "baseline_d16_host_ms"}
+
+
+def test_ingest_gate_reads_the_device_time_keys_only(tmp_path):
+    """The standalone ingest gate: a 30 % rise of a device-time key fires
+    it; entries of the old events keys (``fused_d{D}_us``) are no baseline
+    for the new keys, and the CPU's host-clock keys gate nothing."""
+    path = tmp_path / "history.jsonl"
+    gate = functools.partial(torch_history.record_and_gate, "torch_fleet_ingest",
+                             backend="NVIDIA H100 80GB HBM3", path=path)
+    gate({"fused_d256_us": 100.0, "baseline_d256_us": 5000.0})       # an old run
+    gate({"fused_d256_device_us": 90.0, "baseline_d256_device_us": 900.0})  # seeds
+    gate({"fused_d256_device_us": 110.0, "baseline_d256_device_us": 1100.0})  # +22 %
+    with pytest.raises(AssertionError, match=r"fused_d256_device_us.*30% slower"):
+        gate({"fused_d256_device_us": 143.0, "baseline_d256_device_us": 1100.0})
+    host = functools.partial(torch_history.record_and_gate, "torch_fleet_ingest",
+                             backend="cpu", path=path)
+    host({"fused_d16_host_ms": 1.0})
+    host({"fused_d16_host_ms": 9.0})
 
 
 def test_kernel_offsets_are_kept_by_content():
@@ -189,7 +208,8 @@ def test_kernel_offsets_are_kept_by_content():
     cpu = torch.device("cpu")
     ids = np.array([0, 0, 1, 1, 1, 3], np.int32)
     got = tm._device_starts(ids, 6, 4, "segment_sum_mix", cpu)
-    assert got.dtype == torch.int32 and got.tolist() == [0, 2, 5, 5, 6]
+    starts, longest = got
+    assert starts.dtype == torch.int32 and starts.tolist() == [0, 2, 5, 5, 6] and longest == 3
     assert tm._device_starts(ids.astype(np.int64), 6, 4, "segment_sum_mix", cpu) is got
     assert tm._device_starts(ids, 6, 5, "segment_sum_mix", cpu) is not got
     with pytest.raises(ValueError, match="sorted"):

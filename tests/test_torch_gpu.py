@@ -44,6 +44,8 @@ fleet-scale benchmarks' shapes (D = 4096 fleets of (32, 80) payloads,
 4096 systems at Ñ = 32, the ingest at n = m = 64) are held at the same
 bounds.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -394,13 +396,24 @@ def test_banded_merge_solve_is_bit_exact_past_the_cluster_solve(cuda, d, n, m, h
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """What the reference takes goes: an f64 window computes in f32, as the
+    reference computes it with 64-bit floats off, and a strided payload is
+    copied; an integer window still raises."""
     fleet = _fleet(cuda, "identity", 1.0)
-    win = torch.zeros((D_ODD, 3, F_ODD), dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32"):
-        fleet_ingest(fleet, win)
-    w = torch.zeros((5, 9, 4), device=cuda).transpose(1, 2)  # (5, 4, 9), strided
-    with pytest.raises(ValueError, match="contiguous"):
-        banded_merge_solve(w, 1)
+    win = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (D_ODD, 3, F_ODD))).to(cuda)  # f64
+    got, loss = _launched("fleet_ingest", lambda: fleet_ingest(fleet, win))
+    ref, ref_loss = fleet_ingest_plain(fleet, win)
+    assert _rel(got.p, ref.p) < 1e-4 and _rel(got.beta, ref.beta) < 1e-4
+    assert _rel(loss, ref_loss) < 1e-4
+    with pytest.raises(TypeError, match="floating-point"):
+        fleet_ingest(fleet, win.to(torch.int32))
+    rng = np.random.default_rng(5)
+    w = torch.cat([_spd(rng, 5, 4, cuda), _randn(cuda, (5, 4, 5), seed=6)], 2)
+    w = w.transpose(1, 2).contiguous().transpose(1, 2)  # (5, 4, 9), strided
+    got = _launched("banded_merge_solve", lambda: banded_merge_solve(w, 1))
+    want = banded_merge_solve_plain(w, 1)
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
 
 
 # (256, 128, 561): the har width, tile 0 exactly U, a ragged last tile of
@@ -601,12 +614,17 @@ def test_matmul_atb_kernel_on_a_batch_of_eight(cuda, k):
 
 
 def test_matmul_atb_kernel_batches_and_refuses(cuda):
+    """f64 operands compute in f32 and a strided one is copied, each equal
+    to the plain version at the kernel's bound; an integer one raises."""
     a, b = _randn(cuda, (3, 50, 12), seed=10), _randn(cuda, (3, 50, 20), seed=11)
     assert _rel(matmul_atb(a, b), matmul_atb_plain(a, b)) <= 1e-6
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        matmul_atb(a.double(), b.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        matmul_atb(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    got = _launched("matmul_atb", lambda: matmul_atb(a.double(), b.double()))
+    assert got.dtype == torch.float32
+    assert _rel(got, matmul_atb_plain(a.double(), b.double())) <= 1e-6
+    strided = a.transpose(1, 2).contiguous().transpose(1, 2)
+    assert _rel(matmul_atb(strided, b), matmul_atb_plain(strided, b)) <= 1e-6
+    with pytest.raises(TypeError, match="floating-point"):
+        matmul_atb(a.to(torch.int32), b)
 
 
 # (128, 128): P; (128, 561): β, its rows crossing 16-byte vectors;
@@ -815,18 +833,188 @@ def test_segment_offsets_go_to_the_card_once(cuda):
     assert torch.equal(got, segment_sum_mix_plain(w, cids, 128))
 
 
+# the two plans of the segment sums (kernels/topology_merge.py::
+# segsum_streamed), both instances, 0 elements differing: D = 4096 on
+# (32, 80) payloads as a star (C = 1, streamed), in three uneven clusters
+# with one of a single device (streamed) and in 512 (per-element); odd
+# payloads of 1, 3 and 2559 elements (streamed, 4-byte copies); D = 1024 as
+# a star; the har width, 88 192 elements, as a star (per-element)
+SEGSUM_CLUSTERS = {
+    "star": lambda d: np.zeros(d, np.int32),
+    "uneven": lambda d: np.repeat(np.arange(3, dtype=np.int32), [d - d // 4 - 1, 1, d // 4]),
+    "c512": lambda d: (np.arange(d) * 512 // d).astype(np.int32),
+}
+SEGSUM_SHAPES = [
+    (4096, (32, 80), "star"), (4096, (32, 80), "uneven"), (4096, (32, 80), "c512"),
+    (4096, (1, 1), "star"), (4096, (1, 3), "star"), (4096, (3, 853), "star"),
+    (1024, (32, 80), "star"), (256, (128, 689), "star"),
+]
+
+
+def _segsum_case(cuda, d, rc, clusters, seed, offset=0):
+    cids = SEGSUM_CLUSTERS[clusters](d)
+    n_cl = int(cids.max()) + 1
+    e = rc[0] * rc[1]
+    flat = _randn(cuda, (d * e + offset,), seed=seed)
+    w = flat[offset:].view(d, *rc)  # offset 1: a view off a 16-byte boundary
+    gen = np.random.default_rng(seed + 1)
+    mask = torch.from_numpy((gen.random(d) < 0.8).astype(np.float32)).to(cuda)
+    assert (mask == 0).any()
+    return w, cids, n_cl, mask
+
+
+def _segsum_holds(w, cids, n_cl, mask):
+    got = _launched("segment_sum_mix", lambda: segment_sum_mix(w, cids, n_cl))
+    assert _differ(got, segment_sum_mix_plain(w, cids, n_cl)) == 0
+    got = _launched("masked_segment_sum_mix",
+                    lambda: masked_segment_sum_mix(w, cids, mask, n_cl))
+    assert _differ(got, masked_segment_sum_mix_plain(w, cids, mask, n_cl)) == 0
+
+
+def _differ(got, want):
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    return int((got != want).sum())
+
+
+@pytest.mark.parametrize("d,rc,clusters", SEGSUM_SHAPES)
+def test_segment_sums_on_either_plan_are_the_plain_versions(cuda, d, rc, clusters):
+    _segsum_holds(*_segsum_case(cuda, d, rc, clusters, seed=50))
+
+
+@pytest.mark.parametrize("d,rc,clusters", [(4096, (32, 80), "star"), (4096, (32, 80), "uneven"),
+                                           (256, (128, 689), "star")])
+def test_segment_sums_on_a_misaligned_view(cuda, d, rc, clusters):
+    w, *rest = _segsum_case(cuda, d, rc, clusters, seed=51, offset=1)
+    assert w.data_ptr() % 16 != 0
+    _segsum_holds(w, *rest)
+
+
+def test_segment_sum_shapes_take_both_plans(cuda):
+    from repro_torch.kernels.topology_merge import segsum_streamed
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plans = set()
+    for d, (r, c), clusters in SEGSUM_SHAPES:
+        cids = SEGSUM_CLUSTERS[clusters](d)
+        plans.add(segsum_streamed(int(cids.max()) + 1, r * c, int(np.bincount(cids).max()),
+                                  sms))
+    assert plans == {True, False}
+
+
+def _mixed(*tensors):
+    """The operands as a caller may pass them: every other one bf16 (a lone
+    one too), the first one strided."""
+    out = [t.bfloat16() if i % 2 or len(tensors) == 1 else t for i, t in enumerate(tensors)]
+    out[0] = out[0].transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not out[0].is_contiguous()
+    return out
+
+
+def _mixed_cases(cuda):
+    """name → (kernel, plain, operands, bound: 0 for bit for bit, else the
+    kernel's bound against its plain version on its own test's measure)."""
+    r = functools.partial(_randn, cuda)
+    rng = np.random.default_rng(60)
+    cids = np.array([0, 0, 0, 1, 2, 2], np.int32)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0, 0.0], device=cuda)
+    fleet = _fleet(cuda, "identity", 0.95)
+    return {
+        "hidden_proj": (lambda x, a, b: hidden_proj(x, a, b, activation="identity"),
+                        lambda x, a, b: hidden_proj_plain(x, a, b, activation="identity"),
+                        (r((33, 257), seed=1), r((257, 129), seed=2), r((129,), seed=3)), 1e-6),
+        "matmul_atb": (matmul_atb, matmul_atb_plain, (r((257, 33), seed=4), r((257, 129), seed=5)),
+                       1e-6),
+        "rank1_add": (lambda x, u, v: rank1_add(x, u, v, 0.37),
+                      lambda x, u, v: rank1_add_plain(x, u, v, 0.37),
+                      (r((33, 257), seed=6), r((33,), seed=7), r((257,), seed=8)), 0),
+        "k1_update": (k1_update, k1_update_plain,
+                      (r((37, 37), seed=9), r((37, 23), seed=10), r((37,), seed=11),
+                       r((37,), seed=12), r((23,), seed=13)), 0),
+        "flash_attention": (flash_attention, flash_attention_plain,
+                            tuple(r((2, 77, 3, 64), seed=14 + i) for i in range(3)), 1e-5),
+        "gla_forward": (gla_forward, gla_forward_plain,
+                        (r((2, 200, 3, 16), seed=17), r((2, 200, 3, 16), seed=18),
+                         r((2, 200, 3, 64), seed=19), -r((2, 200, 3), seed=20).abs() * 0.1), 1e-5),
+        "fleet_ingest": (lambda win: fleet_ingest(fleet, win),
+                         lambda win: fleet_ingest_plain(fleet, win),
+                         (r((D_ODD, T_ODD, F_ODD), seed=21),), 1e-4),
+        "quantize_pack": (quantize_pack, quantize_pack_plain,
+                          (r((13, 10, 10), seed=22), r((13, 10, 27), seed=23),
+                           r((13, 10, 37), seed=24) * 0.01), 0),
+        "banded_mix": (lambda x: banded_mix(x, 2), lambda x: banded_mix_plain(x, 2),
+                       (r((13, 10, 37), seed=25),), 0),
+        "banded_merge_solve": (
+            lambda w: banded_merge_solve(w, 1, ridge=1e-3),
+            lambda w: banded_merge_solve_plain(w, 1, ridge=1e-3),
+            (torch.cat([_spd(rng, 5, 10, cuda), r((5, 10, 27), seed=26)], 2),), 0),
+        "dense_mix": (lambda x: dense_mix(x, np.ones((13, 13), np.float32)),
+                      lambda x: dense_mix_plain(x, np.ones((13, 13), np.float32)),
+                      (r((13, 10, 37), seed=27),), 0),
+        "from_uv_solve": (lambda u, v: from_uv_solve(u, v, ridge=1e-3),
+                          lambda u, v: from_uv_solve_plain(u, v, ridge=1e-3),
+                          (_spd(rng, 3, 10, cuda), r((3, 10, 27), seed=28)), 0),
+        "segment_sum_mix": (lambda w: segment_sum_mix(w, cids, 3),
+                            lambda w: segment_sum_mix_plain(w, cids, 3), (r((6, 10, 37), seed=29),),
+                            0),
+        "masked_segment_sum_mix": (
+            lambda w, m: masked_segment_sum_mix(w, cids, m, 3),
+            lambda w, m: masked_segment_sum_mix_plain(w, cids, m, 3),
+            (r((6, 10, 37), seed=30), mask), 0),
+        "segment_broadcast": (lambda s: segment_broadcast(s, cids),
+                              lambda s: segment_broadcast_plain(s, cids),
+                              (r((3, 10, 37), seed=31),), 0),
+        "robust_segment_sum_mix": (
+            lambda x, m, sc: robust_segment_sum_mix(x, cids, m, sc, 3, 1),
+            lambda x, m, sc: robust_segment_sum_mix_plain(x, cids, m, sc, 3, 1),
+            (r((6, 10, 37), seed=32), mask, torch.full((6,), 0.5, device=cuda)), 0),
+    }
+
+
+MIXED_NAMES = ["hidden_proj", "matmul_atb", "rank1_add", "k1_update", "flash_attention",
+               "gla_forward", "fleet_ingest", "quantize_pack", "banded_mix", "banded_merge_solve",
+               "dense_mix", "from_uv_solve", "segment_sum_mix", "masked_segment_sum_mix",
+               "segment_broadcast", "robust_segment_sum_mix"]
+
+
+@pytest.mark.parametrize("name", MIXED_NAMES)
+def test_wrappers_take_strided_and_mixed_operands(cuda, name):
+    """Every wrapper takes what the reference and its plain version take: a
+    strided operand and a bf16 one beside f32 (computed in f32), launching
+    its kernel once and equal to the plain version on the same operands at
+    the kernel's bound (0: bit for bit)."""
+    kernel, plain, args, tol = _mixed_cases(cuda)[name]
+    args = _mixed(*args)
+    counted = "rank1_add" if name == "k1_update" else name
+    got = _launched(counted, lambda: kernel(*args))
+    want = plain(*args)
+    if name == "fleet_ingest":
+        got, want = (got[0].p, got[0].beta, got[1]), (want[0].p, want[0].beta, want[1])
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if tol == 0:
+            assert int(((g != w) & ~(torch.isnan(g) & torch.isnan(w))).sum()) == 0
+        elif name in ("flash_attention", "gla_forward"):
+            assert _row_rel(g, w) <= tol
+        else:
+            assert _rel(g, w) <= tol
+
+
 def test_mix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros((5, 4, 9), device=cuda)
+    """Bands wider than the ring and ids out of range still raise; strided
+    and f64 payloads go, each bit for bit with the plain version."""
+    x = _randn(cuda, (5, 4, 9), seed=12)
     with pytest.raises(ValueError, match="band"):
         banded_mix(x, 3)
     with pytest.raises(ValueError, match="band"):
         banded_mix(torch.zeros((454, 1, 4), device=cuda), 227)
-    with pytest.raises(ValueError, match="contiguous"):
-        banded_mix(x.transpose(1, 2), 1)
-    with pytest.raises(TypeError, match="float32"):
-        segment_sum_mix(x.double(), np.zeros(5, np.int32), 1)
-    with pytest.raises(ValueError, match="contiguous"):
-        segment_broadcast(x.transpose(1, 2), np.zeros(5, np.int32))
+    xt = x.transpose(1, 2)
+    assert torch.equal(_launched("banded_mix", lambda: banded_mix(xt, 1)), banded_mix_plain(xt, 1))
+    zeros = np.zeros(5, np.int32)
+    got = _launched("segment_sum_mix", lambda: segment_sum_mix(x.double(), zeros, 1))
+    assert torch.equal(got, segment_sum_mix_plain(x.double(), zeros, 1))
+    got = _launched("segment_broadcast", lambda: segment_broadcast(xt, zeros))
+    assert torch.equal(got, segment_broadcast_plain(xt, zeros))
     with pytest.raises(ValueError, match=r"\[0, 5\)"):
         segment_broadcast(x, np.arange(6, dtype=np.int32))
 
@@ -944,17 +1132,34 @@ def test_gla_kernel_on_a_misaligned_view(cuda, dtype):
 
 
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 64, device=cuda)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(TypeError, match="must be"):
-        flash_attention(q, q.bfloat16(), q.bfloat16())
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    """f16, bf16/f32 and f16/f32 mixes and strided operands go, each against
+    the plain version. These compute in f32 on the card with p rounded to
+    v's type before p·v, as the plain version and the reference round it:
+    an f32 output is held at the f32 bound (1e-5 of the row), a narrower one
+    at one step of its type (the two f32 results, 1e-7 apart, may round to
+    neighbours). Mismatched shapes and an integer operand still raise."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = _draw(cuda, (1, 8, 2, 64), torch.float32, gen)
+    k, v = (_draw(cuda, (1, 8, 2, 64), torch.float32, gen) for _ in range(2))
+    for ops, bound in [((q.half(), k.half(), v.half()), 2 ** -10),
+                       ((q, k.half(), v.half()), 1e-5),
+                       ((q, k.bfloat16(), v.bfloat16()), 1e-5),
+                       ((q.bfloat16(), k, v), 2 ** -8)]:
+        got = _launched("flash_attention", lambda: flash_attention(*ops))
+        want = flash_attention_plain(*ops)
+        assert got.dtype == want.dtype == ops[0].dtype and _row_rel(got, want) <= bound
+    strided = [t.transpose(1, 2) for t in (q, k, v)]
+    got = _launched("flash_attention", lambda: flash_attention(*strided))
+    assert _row_rel(got, flash_attention_plain(*strided)) <= 1e-5
     with pytest.raises(ValueError, match="differ"):
         flash_attention(q, q[..., :32].contiguous(), q[..., :32].contiguous())
-    with pytest.raises(ValueError, match="contiguous"):
-        gla_forward(q[..., :16], q[..., :16], q, torch.zeros(1, 8, 2, device=cuda))
+    with pytest.raises(TypeError, match="floating-point"):
+        flash_attention(q, k.to(torch.int32), v)
+    log_a = -torch.rand((1, 8, 2), generator=gen, device=cuda)
+    args = (q[..., :16], k[..., :16], v, log_a)  # q and k strided slices
+    y, state = _launched("gla_forward", lambda: gla_forward(*args))
+    want_y, want_state = gla_forward_plain(*args)
+    assert _row_rel(y, want_y) <= 1e-5 and _row_rel(state, want_state) <= 1e-5
     with pytest.raises(ValueError, match="log_a"):
         gla_forward(q, q, q, torch.zeros(1, 8, 3, device=cuda))
 

@@ -27,46 +27,16 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from benchmarks.torch_device_time import events_ms, profiled  # noqa: E402
+
 SEED = 0
-
-
-def events_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def alone_ms(fn, reps: int) -> tuple[float, dict[str, float]]:
-    """(device ms of one call, device ms by kernel) over ``reps`` calls; a
-    kernel's mean launch time counts once for each launch a call makes."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0:
-            by[e.key[:60]] = e.self_device_time_total / e.count * math.ceil(e.count / reps) / 1e3
-    return sum(by.values()), by
 
 
 def main() -> int:
@@ -103,11 +73,11 @@ def main() -> int:
         except ValueError as e:  # a width this tree's wrapper does not take
             emit(what, refused=str(e))
             return
-        dev, by = alone_ms(fn, reps)
+        dev, _, by = profiled(fn, reps)
         extra = {}
         if library is not None:
             extra = dict(sdpa_events_ms=events_ms(library, reps),
-                         sdpa_alone_ms=alone_ms(library, reps)[0])
+                         sdpa_alone_ms=profiled(library, reps)[0])
         emit(what, events_ms=events_ms(fn, reps), alone_ms=dev, by_kernel=by, **extra)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)

@@ -28,51 +28,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from benchmarks.torch_device_time import events_ms, profiled  # noqa: E402
+
 SEED = 0
 D, N_FEAT, N_HID, HOPS, T, ROUNDS, RIDGE = 256, 561, 128, 2, 32, 4, 1e-3
-
-
-def events_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def profiled(fn, reps: int) -> tuple[float, float, dict[str, float]]:
-    """(device ms of one call, wall ms of one call, device ms by kernel) over
-    ``reps`` calls. A kernel's mean launch time counts once for each launch
-    a call makes, so a launch the profiler drops does not shorten it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0:
-            by[e.key[:60]] = e.self_device_time_total / e.count * math.ceil(e.count / reps) / 1e3
-    return sum(by.values()), wall, by
 
 
 def main() -> int:

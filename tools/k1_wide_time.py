@@ -43,9 +43,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(ROOT))
 
-from gla_banded_time import events_ms, profiled  # noqa: E402
+from benchmarks.torch_device_time import events_ms, profiled  # noqa: E402
 
 SEED = 0
 D, N_FEAT, N_HID, HOPS, T, RIDGE = 256, 561, 128, 2, 32, 1e-3
