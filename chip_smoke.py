@@ -95,14 +95,15 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     bit for bit, ``fleet_ingest`` (T = 32 and 64 at 320, 32 at 768) within
     1e-4, each with its time alone and by events and its bound; (c)
     ``banded_mix`` at hops 227 on 455 devices and (d)
-    ``robust_segment_sum_mix`` at trim 5 and 8 on the har-width star, bit
-    for bit; (e) ``flash_attention`` at B·H = 65 600 against its plain
-    version; (f) ``gla_forward`` past one block's shared memory, at
-    dk × dv = 128 × 128 and xLSTM's 512 × 513 (B = 1, S = 2048, H = 4),
-    bf16 and f32, on its tiled wide path; (g) ``flash_attention`` at head
-    widths 80, 96 and 320 (B = 4, S = 512, H = 25) and on a bf16 view off
-    a 16-byte boundary; each against its plain version, with its time
-    alone, its bound and ``scaled_dot_product_attention``'s time;
+    ``robust_segment_sum_mix`` at trim 5 and 8 on the har-width star (its
+    longest chains in registers), bit for bit; (e) ``flash_attention`` at
+    B·H = 65 600 against its plain version; (f) ``gla_forward`` past one
+    block's shared memory, at dk × dv = 128 × 128 and xLSTM's 512 × 513
+    (B = 1, S = 2048, H = 4), bf16 and f32, on its tiled wide path; (g)
+    ``flash_attention`` at head widths 80, 96 and 320 (B = 4, S = 512,
+    H = 25) and on a bf16 view off a 16-byte boundary; each against its
+    plain version, with its time alone, its bound and
+    ``scaled_dot_product_attention``'s time;
 11. telemetry and the paper's §5 table: (a) ``FleetRuntime`` on the
     har-width star (D = 256) without and with ``TelemetryConfig()``, in
     turns (off, on, on, off, twice): reports equal tick for tick, bit for bit;
@@ -142,8 +143,9 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     alone and its bound, ``masked_segment_sum_mix`` (C = 1) and
     ``segment_sum_mix`` (C = 1) at D = 4096 and 1024 beside their library
     calls, bounded by the larger of their bytes and their chain of adds,
-    and ``robust_segment_sum_mix`` at D = 4096, C = 1, trim 1; (c)
-    ``fleet_scale``'s D = 8 rows card against CPU;
+    and ``robust_segment_sum_mix`` (C = 1) at D = 4096 at trims 1 and 5
+    and at D = 1024 at trim 1, bit for bit; (c) ``fleet_scale``'s D = 8 rows
+    card against CPU;
 15. strided and mixed-type operands through ``hidden_proj``,
     ``segment_sum_mix`` and ``flash_attention``, each against its plain
     version on the same operands;
@@ -594,21 +596,21 @@ def phase_robust_segment_sum(w, mask, topo_hier):
         got, want = robust_segment_sum_mix(*args), robust_segment_sum_mix_plain(*args)
         mism = {k: mismatches(g, x) for k, g, x in zip(("tot", "lo", "hi"), got, want)}
         # reads x, mask, scale and the cluster offsets once, writes tot, lo
-        # and hi; per element read a scale multiply, a mask multiply-add
-        # and 2·trim min/max pairs
+        # and hi; per element read a scale multiply, a mask multiply and
+        # add, the two sentinel selects and 2·trim min/max pairs
         nbytes = 4 * (d * e + 2 * d + n_cl + 1 + 3 * n_cl * e)
-        flops = (4 + 4 * trim) * d * e
+        flops = robust_ops(trim, d * e)
         r = runs[topo, trim] = dict(
             abs=max(float((g - x).abs().max()) for g, x in zip(got, want)), rels={},
             flops=flops, nbytes=nbytes, library_ms=None,
             ms=cuda_ms(lambda: robust_segment_sum_mix(*args), 50),
             plain_ms=cuda_ms(lambda: robust_segment_sum_mix_plain(*args), 2),
         )
-        kernel_ms = device_ms(lambda: robust_segment_sum_mix(*args), 20,
-                              ("robust_segsum_kernel",))
+        # every kernel the call launches: the plan is the wrapper's to pick
+        alone = call_device(lambda: robust_segment_sum_mix(*args), 20, "kernels alone")
         b = bound(flops, nbytes)
         log(f"  robust_segment_sum_mix ({topo}, C={n_cl}, trim={trim}): mismatches {mism}"
-            f"  ms={r['ms']:.4f} (kernel alone {ms_text(kernel_ms)})"
+            f"  ms={r['ms']:.4f} ({alone})"
             f" plain_ms={r['plain_ms']:.4f} library_ms=None"
             f"  bound_ms={b[0]:.4f} ({b[1]}, {nbytes / 1e6:.1f} MB)")
         for out, k in mism.items():
@@ -2296,8 +2298,8 @@ def phase_wide():
     wide_kernel_rows(N_WIDEST, N_FEAT, (T, 2 * T))
     wide_kernel_rows(768, N_MNIST, (T,))
     wide_kernel_rows(1024, N_MNIST, ())
-    log("  (c) banded_mix past the widest ring a block holds, (d) robust_segment_sum_mix with"
-        " chains past its registers, (e) flash_attention past 65 535 (batch, head) pairs")
+    log("  (c) banded_mix past the widest ring a block holds, (d) robust_segment_sum_mix at"
+        " trims 5 and 8, (e) flash_attention past 65 535 (batch, head) pairs")
     wide_band_trim_heads()
     log("  (f) gla_forward past one block's shared memory, (g) flash_attention at other head"
         " widths and on a misaligned view")
@@ -2339,10 +2341,10 @@ def wide_band_trim_heads():
         mism = {k: mismatches(g, r) for k, g, r in
                 zip(("tot", "lo", "hi"), robust_segment_sum_mix(*args),
                     robust_segment_sum_mix_plain(*args))}
-        b = bound((4 + 4 * trim) * D * e, 4 * (D * e + 2 * D + 2 + 3 * e))
+        b = bound(robust_ops(trim, D * e), 4 * (D * e + 2 * D + 2 + 3 * e))
         log(f"  robust_segment_sum_mix (star, D={D}, trim={trim}): mismatches {mism}"
-            f"  ms={cuda_ms(lambda: robust_segment_sum_mix(*args), 20):.4f} (alone"
-            f" {ms_text(device_ms(lambda: robust_segment_sum_mix(*args), 10, ('robust_segsum_kernel',)))})"
+            f"  ms={cuda_ms(lambda: robust_segment_sum_mix(*args), 20):.4f}"
+            f" ({call_device(lambda: robust_segment_sum_mix(*args), 10, 'kernels alone')})"
             f" bound_ms={b[0]:.4f} ({b[1]})")
         assert not any(mism.values()), f"robust_segment_sum_mix trim={trim}: {mism}"
     del w, scale
@@ -2836,6 +2838,13 @@ def chain_ms(longest: int) -> float:
     return longest * ADD_CYCLES / H100_CLOCK * 1e3
 
 
+def robust_ops(trim: int, device_elements: int) -> int:
+    """robust_segment_sum_mix's operations: a device and element, the clip
+    product, the masked product and add, the two sentinel selects and the
+    chains' 4·trim min and max."""
+    return (5 + 4 * trim) * device_elements
+
+
 def bench_kernel_rows():
     """(b) the kernels at the benches' new shapes against their plain
     versions, each with its time by events, alone and its bound:
@@ -2910,14 +2919,16 @@ def bench_kernel_rows():
                 chain=chain_ms(dd))
     zeros = np.zeros(d, np.int32)
     scale = (0.5 + 0.5 * torch.rand(d, generator=g)).cuda()
-    robust = (w, zeros, mask, scale, 1, 1)
-    # its loads, clip product, masked add and two insertion chains a device
-    # and element; the bytes: the payloads, mask and scale read once, the
-    # three sums written once
-    row(f"robust_segment_sum_mix D={d} C=1 trim=1",
-        lambda: robust_segment_sum_mix(*robust), lambda: robust_segment_sum_mix_plain(*robust),
-        ("robust_segsum_kernel",), 4 * d * e, 4 * (d * e + 3 * e + 2 * d + 2),
-        chain=chain_ms(d))
+    # its loads, clip product, masked product and add, the sentinel selects
+    # and two insertion chains a device and element; the bytes: the
+    # payloads, mask and scale read once, the three sums written once
+    for dd, trim in ((d, 1), (d // 4, 1), (d, 5)):
+        robust = (w[:dd], zeros[:dd], mask[:dd], scale[:dd], 1, trim)
+        row(f"robust_segment_sum_mix D={dd} C=1 trim={trim}",
+            lambda robust=robust: robust_segment_sum_mix(*robust),
+            lambda robust=robust: robust_segment_sum_mix_plain(*robust),
+            None, robust_ops(trim, dd * e), 4 * (dd * e + 3 * e + 2 * dd + 2),
+            chain=chain_ms(dd))
     row(f"banded_mix D={d} hops={HOPS}", lambda: banded_mix(w, HOPS),
         lambda: banded_mix_plain(w, HOPS), ("banded_mix_kernel",), 2 * HOPS * d * e,
         4 * 2 * d * e)

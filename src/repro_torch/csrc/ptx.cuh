@@ -35,6 +35,21 @@ __device__ __forceinline__ void cp_async16_l2_256(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 
+// min and max that return NaN when either operand is NaN, as torch.minimum
+// and torch.maximum do (fminf and fmaxf would drop it), one instruction each
+// (sm_80+: FMNMX.NAN).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Shared-memory barriers (mbarrier) for producer/consumer pipelines.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));

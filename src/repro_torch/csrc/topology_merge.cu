@@ -28,7 +28,8 @@
 //         blocks take 32 elements each (80 there: 128-byte row segments read
 //         faster than narrower ones on more SMs), warp-specialised: warps
 //         1-7 stream the cluster's rows of the slice (and the mask) into a
-//         ring of 4 stages of 256 rows in shared memory (cp.async, 16 bytes
+//         ring of 4 stages of 256 rows in shared memory (stream_ring.cuh,
+//         shared with the robust sum's streamed plan: cp.async, 16 bytes
 //         with an L2 prefetch hint where every row's slice starts on 16
 //         bytes, else 4), each stage published by an mbarrier when its
 //         copies land; warp 0 adds each column from shared memory in device
@@ -169,6 +170,7 @@
 
 #include "device.cuh"
 #include "ptx.cuh"
+#include "stream_ring.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -195,79 +197,52 @@ segsum_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
   out[(size_t)c * E + e] = acc;
 }
 
-constexpr int kSegSlice = 32;   // elements a block of the streamed plan: 128-byte rows
-constexpr int kSegRows = 256;   // device rows a stage of its ring
-constexpr int kSegStages = 4;   // stages of the ring
 constexpr int kSegCopiers = kThreads - 32;  // warps 1-7 copy, warp 0 adds
-constexpr int kSegSmem = 4 * kSegStages * kSegRows * (kSegSlice + 1);  // rows and mask
+// rows and the mask's room, unmasked too: one shared-memory carveout for both
+constexpr int kSegSmem = ring_smem_bytes<1>();
 
-// The streamed plan: block (x, c) sums elements [x·kSegSlice, +kSegSlice)
+// The streamed plan: block (x, c) sums elements [x·kRingSlice, +kRingSlice)
 // of cluster c, VEC floats a copy (4 needs E % 4 == 0 and w on 16 bytes).
-// Warps 1-7 copy a stage's rows (and mask) and arrive on its full barrier
-// when their copies land; warp 0 waits for it, adds the stage's rows in
-// device order, one lane a column, and arrives on its empty barrier, which
-// the copiers wait for before they refill it.
+// Warps 1-7 fill the ring (stream_ring.cuh) with the slice's rows (and the
+// mask); warp 0 waits for each stage, adds its rows in device order, one
+// lane a column, and frees it.
 template <bool kMasked, int VEC>
 __global__ void __launch_bounds__(kThreads)
 segsum_stream_kernel(const float* __restrict__ w, const int* __restrict__ seg_start,
                      const float* __restrict__ mask, float* __restrict__ out, long long E) {
   extern __shared__ __align__(16) float seg_smem[];
-  __shared__ uint64_t full[kSegStages], empty[kSegStages];
-  float (*ring)[kSegRows][kSegSlice] = reinterpret_cast<float (*)[kSegRows][kSegSlice]>(seg_smem);
-  float (*mring)[kSegRows] =
-      reinterpret_cast<float (*)[kSegRows]>(seg_smem + kSegStages * kSegRows * kSegSlice);
-  const long long e0 = (long long)blockIdx.x * kSegSlice;
+  __shared__ uint64_t full[kRingStages], empty[kRingStages];
+  const RingRows ring = ring_rows(seg_smem);
+  const long long e0 = (long long)blockIdx.x * kRingSlice;
   const int c = blockIdx.y;
   const int d0 = seg_start[c], n = seg_start[c + 1] - d0;
-  const int width = (int)min((long long)kSegSlice, E - e0);
-  const int chunks = (n + kSegRows - 1) / kSegRows;
-  if (threadIdx.x < kSegStages) {
+  const int width = (int)min((long long)kRingSlice, E - e0);
+  const int chunks = (n + kRingRows - 1) / kRingRows;
+  if (threadIdx.x < kRingStages) {
     mbar_init(&full[threadIdx.x], kSegCopiers);
     mbar_init(&empty[threadIdx.x], 1);
   }
   __syncthreads();
   if (threadIdx.x >= 32) {
-    const int p = threadIdx.x - 32;
-    const int per_row = (width + VEC - 1) / VEC;  // copies a row
-    const bool mask16 = kMasked && reinterpret_cast<std::uintptr_t>(mask + d0) % 16 == 0;
-    for (int k = 0; k < chunks; ++k) {
-      const int slot = k % kSegStages, r0 = k * kSegRows, rows = min(kSegRows, n - r0);
-      if (k >= kSegStages) mbar_wait(&empty[slot], (k / kSegStages - 1) & 1);
-      const float* src = w + (size_t)(d0 + r0) * E + e0;
-      for (int i = p; i < rows * per_row; i += kSegCopiers) {
-        const int r = i / per_row, j = (i % per_row) * VEC;
-        if constexpr (VEC == 4) {
-          cp_async16_l2_256(&ring[slot][r][j], src + (size_t)r * E + j);
-        } else {
-          cp_async<4>(&ring[slot][r][j], src + (size_t)r * E + j, 4);
-        }
-      }
-      if constexpr (kMasked) {
-        const float* m = mask + d0 + r0;
-        if (mask16) {
-          for (int q = p; 4 * q < rows; q += kSegCopiers)
-            cp_async<16>(&mring[slot][4 * q], m + 4 * q, 4 * min(4, rows - 4 * q));
-        } else {
-          for (int r = p; r < rows; r += kSegCopiers) cp_async<4>(&mring[slot][r], m + r, 4);
-        }
-      }
-      cp_async_mbar_arrive(&full[slot]);
-    }
+    const float* sides[1] = {mask};
+    ring_fill<VEC, kMasked ? 1 : 0>(seg_smem, full, empty, w, E, e0, width, d0, n, sides,
+                                    threadIdx.x - 32, kSegCopiers);
     return;
   }
   const int t = threadIdx.x;
   float acc = 0.0f;
   for (int k = 0; k < chunks; ++k) {
-    const int slot = k % kSegStages, rows = min(kSegRows, n - k * kSegRows);
-    mbar_wait(&full[slot], (k / kSegStages) & 1);
+    const int slot = k % kRingStages, rows = min(kRingRows, n - k * kRingRows);
+    mbar_wait(&full[slot], ring_parity(k));
     if (t < width) {
-      if (rows == kSegRows) {
-        float x[kSegRows];
+      if (rows == kRingRows) {
+        float x[kRingRows];
 #pragma unroll
-        for (int r = 0; r < kSegRows; ++r) x[r] = ring[slot][r][t];
+        for (int r = 0; r < kRingRows; ++r) x[r] = ring[slot][r][t];
         if constexpr (kMasked) {
+          const RingSide mring = ring_side(seg_smem, 0);
 #pragma unroll
-          for (int r = 0; r < kSegRows; r += 4) {
+          for (int r = 0; r < kRingRows; r += 4) {
             const float4 m = *reinterpret_cast<const float4*>(&mring[slot][r]);
             x[r] = __fmul_rn(x[r], m.x);
             x[r + 1] = __fmul_rn(x[r + 1], m.y);
@@ -276,11 +251,11 @@ segsum_stream_kernel(const float* __restrict__ w, const int* __restrict__ seg_st
           }
         }
 #pragma unroll
-        for (int r = 0; r < kSegRows; ++r) acc = __fadd_rn(acc, x[r]);
+        for (int r = 0; r < kRingRows; ++r) acc = __fadd_rn(acc, x[r]);
       } else {
         for (int r = 0; r < rows; ++r) {
           const float x = ring[slot][r][t];
-          acc = __fadd_rn(acc, kMasked ? __fmul_rn(x, mring[slot][r]) : x);
+          acc = __fadd_rn(acc, kMasked ? __fmul_rn(x, ring_side(seg_smem, 0)[slot][r]) : x);
         }
       }
     }
@@ -297,11 +272,11 @@ int launch_segsum(const float* w, const int* seg_start, const float* mask, float
                   long long E, int streamed, cudaStream_t st) {
   if (C == 0 || E == 0) return cudaSuccess;
   if (streamed) {
-    const dim3 grid((unsigned)((E + kSegSlice - 1) / kSegSlice), C);
+    const dim3 grid((unsigned)((E + kRingSlice - 1) / kRingSlice), C);
     const bool vec = E % 4 == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
     auto kernel = vec ? segsum_stream_kernel<kMasked, 4> : segsum_stream_kernel<kMasked, 1>;
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSegSmem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSegSmem);
     if (e != cudaSuccess) return e;
     kernel<<<grid, kThreads, kSegSmem, st>>>(w, seg_start, mask, out, E);
   } else {

@@ -123,7 +123,7 @@ _SIGNATURES = {
     "repro_uv_solve": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _F, _P, _P],
     "repro_banded_merge_solve": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "repro_quantize_pack": [_P] * 6 + [_I] * 3 + [_P],
-    "repro_robust_segment_sum": [_P] * 7 + [_I, _L, _I, _P, _P],
+    "repro_robust_segment_sum": [_P] * 7 + [_I, _L, _I, _P, _I, _P],
     "repro_dense_mix": [_P, _P, _P, _P, _I, _L, _P],
     "repro_hidden_proj": [_P] * 5 + [_I] * 7 + [_P],
     "repro_matmul_atb": [_P] * 4 + [_I] * 7 + [_P],

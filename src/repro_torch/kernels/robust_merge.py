@@ -2,34 +2,81 @@
 ``masked_segment_sum_mix``; port of ``repro.kernels.robust_merge``.
 
 - ``robust_segment_sum_mix`` — per cluster c, over its contiguous run of
-  devices in ascending order: v = x[d]·scale[d] (the clip factor, rounded
-  once), tot[c] += v·mask[d], and per coordinate the ``trim`` smallest
-  and ``trim`` largest participating values in online insertion chains
-  (each register does cur = r; r = min(cur, v); v = max(cur, v), with
-  ±inf sentinels for masked devices). lo and hi are the registers
-  summed in register order, an unfilled (non-finite) register taken as
-  0. An empty cluster is written as zeros.
+  devices: v = x[d]·scale[d] (the clip factor, rounded once), tot[c] =
+  Σ v·mask[d], and per coordinate the ``trim`` smallest and ``trim``
+  largest participating values in online insertion chains (each register
+  does cur = r; r = min(cur, v); v = max(cur, v), with ±inf sentinels for
+  masked devices). lo and hi are the registers summed in register order,
+  an unfilled (non-finite) register taken as 0. An empty cluster is
+  written as zeros.
 - ``robust_segment_combine`` — the trimmed-mean estimate of each
   segment sum from those three outputs (plain PyTorch).
 
 The wrapper takes ``robust_segment_sum_mix_plain`` for CPU tensors and
 launches the kernel of ``csrc/robust_merge.cu`` for CUDA tensors, or
-raises. The plain version follows the kernel's order of operations
-exactly (not the sort-based oracle of the reference), so the two agree
-bit for bit, at any ``trim`` ≥ 0.
+raises. The plain version inserts and adds in ascending device order
+(not the sort-based oracle of the reference), and the kernel agrees with
+it bit for bit at any ``trim`` ≥ 0:
+
+- tot keeps that order on the card: one chain of adds from +0 in device
+  order, each product rounded apart;
+- lo and hi are free of it: a chain's registers end holding the sorted
+  ``trim`` extremes of its live values whatever the order they came in (a
+  NaN fills every register, which sums as 0; a tie of −0 and +0 moves
+  only a zero's sign, which a sum from +0 does not show). So the card may
+  split a cluster's devices among several chains and merge them.
+
+``robust_streamed`` picks the kernel's plan from the shape, the trim and
+the card's SMs (one launch count a call either way).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.topology_merge import _device_starts, _segment_starts
+from repro_torch.kernels.topology_merge import (
+    SEG_SLICE,
+    _device_starts,
+    _segment_starts,
+    _sm_count,
+)
 
 __all__ = [
     "robust_segment_combine",
     "robust_segment_sum_mix",
     "robust_segment_sum_mix_plain",
+    "robust_streamed",
 ]
+
+# The kernel's two launch plans (csrc/robust_merge.cu): one thread an
+# element and a cluster, walking the cluster's devices itself; or blocks of
+# 32 elements of a cluster that stream its rows through shared memory,
+# split them among nine warps' chains and add tot in device order on one
+# more. Both give the plain version's bits.
+ROBUST_REG_TRIM = 8  # the longest chains in registers, the streamed plan's limit
+# rows of the longest cluster a streamed block must get for each wave of
+# blocks, by trim: past trim 6 the per-element plan's chains gain on the
+# streamed plan's sorters
+ROBUST_ROWS_A_WAVE = (40, 40, 40, 40, 40, 40, 40, 48, 128)
+
+
+def robust_streamed(n_clusters: int, elems: int, longest: int, trim: int, sms: int) -> bool:
+    """Whether ``robust_segment_sum_mix`` over ``n_clusters`` clusters of
+    ``elems`` elements, the longest of ``longest`` devices, at ``trim``
+    takes the streamed plan on a card of ``sms`` SMs. That plan runs one
+    block an SM (its ring and the chains' merge take 136-154 KB), one for
+    each 32-element slice of
+    each cluster, and takes trims up to ``ROBUST_REG_TRIM``: it wins where
+    the longest cluster gives a block more than ``ROBUST_ROWS_A_WAVE[trim]``
+    rows for each wave of blocks. Set from both plans timed on an H100 at
+    149 shapes, trims 0-8 (PERF.md §6): the star of 4096 devices on (32, 80)
+    payloads streams (19× faster at trim 1), the har width and many short
+    clusters take the per-element plan (2-26× faster)."""
+    if trim > ROBUST_REG_TRIM:
+        return False
+    waves = -(-(-(-elems // SEG_SLICE) * n_clusters) // sms)
+    return longest > ROBUST_ROWS_A_WAVE[trim] * waves
+
 
 def _check(x: torch.Tensor, mask: torch.Tensor, scale: torch.Tensor, trim: int) -> None:
     if x.ndim != 3:
@@ -92,18 +139,19 @@ def robust_segment_sum_mix(
         return robust_segment_sum_mix_plain(x, cluster_ids, mask, scale, n_clusters, trim)
     x, mask, scale = _lib.operands("robust_segment_sum_mix", x=x, mask=mask.to(torch.float32),
                                    scale=scale.to(torch.float32))
-    starts, _ = _device_starts(cluster_ids, x.shape[0], n_clusters, "robust_segment_sum_mix",
-                               x.device)
+    starts, longest = _device_starts(cluster_ids, x.shape[0], n_clusters,
+                                     "robust_segment_sum_mix", x.device)
     shape = (n_clusters,) + tuple(x.shape[1:])
     tot, lo, hi = (torch.empty(shape, dtype=torch.float32, device=x.device) for _ in range(3))
     elems = x[0].numel() if x.shape[0] else 0
+    streamed = int(robust_streamed(n_clusters, elems, longest, trim, _sm_count(x.device)))
     lib = _lib.library()
     # chains too long for one block's shared memory live in a workspace
     ws = _lib.workspace(lib.repro_robust_ws(trim, n_clusters, elems), x.device)
     status = lib.repro_robust_segment_sum(
         x.data_ptr(), starts.data_ptr(), mask.data_ptr(), scale.data_ptr(),
         tot.data_ptr(), lo.data_ptr(), hi.data_ptr(), n_clusters, elems, trim,
-        _lib.ptr(ws), _lib.stream(),
+        _lib.ptr(ws), streamed, _lib.stream(),
     )
     _lib.check(status, "robust_segment_sum_mix")
     _lib.count_launch("robust_segment_sum_mix")

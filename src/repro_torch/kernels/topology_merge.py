@@ -109,7 +109,7 @@ def _device_starts(cluster_ids, n_devices: int, n_clusters: int, kernel: str,
 # 32 elements of a cluster that stream its rows through shared memory and
 # add each column in device order. Both add in the same order, so the plan
 # moves no bit.
-SEG_SLICE = 32         # elements a block of the streamed plan (kSegSlice)
+SEG_SLICE = 32         # elements a block of the streamed plans (kRingSlice)
 SEG_ROWS_A_WAVE = 64   # rows a streamed block must get for each wave
 
 

@@ -455,9 +455,10 @@ def test_quantize_pack_kernel_matches_plain(cuda, d, n, m, with_residual):
 
 # (13, 10, 37): ragged clusters, one of them empty; (256, 128, 689): the
 # har width on 32 clusters, as a hierarchical fleet merges; trims in
-# registers (0–4) and past them (5, 8: chains in shared memory)
+# registers (0–8) and past them (9: chains in shared memory), on the plan
+# the wrapper picks (per-element at both shapes)
 @pytest.mark.parametrize("d,r,c,n_clusters", [(13, 10, 37, 4), (256, 128, 689, 32)])
-@pytest.mark.parametrize("trim", [0, 1, 2, 4, 5, 8])
+@pytest.mark.parametrize("trim", [0, 1, 2, 4, 5, 8, 9])
 def test_robust_segment_sum_kernel_matches_plain(cuda, d, r, c, n_clusters, trim):
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((d, r, c)).astype(np.float32)).to(cuda)
@@ -491,6 +492,136 @@ def test_robust_segment_sum_kernel_with_long_chains(cuda, trim):
                     lambda: robust_segment_sum_mix(x, cids, mask, scale, 1, trim))
     for g, w in zip(got, robust_segment_sum_mix_plain(x, cids, mask, scale, 1, trim)):
         assert torch.equal(g, w)
+
+
+# The robust sum's two plans (kernels/robust_merge.py::robust_streamed),
+# each forced and as the wrapper picks it, one launch a call, bit for bit
+# with the plain version: "star" one cluster of 4096 devices on (32, 80)
+# payloads (the streamed plan's shape); "ragged" clusters of 1000 devices
+# (three stages of 256 rows and one of 232), none, 200, 3 and 1 (shorter
+# than 2·trim); "odd" a star of 700 on 3 × 853 elements (E % 4 ≠ 0: 4-byte
+# copies, a last slice of 21 elements); "view" a star of 600 on (8, 16)
+# payloads 4 bytes into their storage (4-byte copies); trims 0–9 across the
+# register edge (the streamed plan takes up to 8 and refuses 9, which the
+# rule never gives it).
+ROBUST_CLUSTERS = {
+    "star": (4096, (32, 80), [4096], 0),
+    "ragged": (1204, (4, 20), [1000, 0, 200, 3, 1], 0),
+    "odd": (700, (3, 853), [700], 0),
+    "view": (600, (8, 16), [600], 1),
+}
+
+
+def _robust_case(cuda, name, seed):
+    d, rc, runs, offset = ROBUST_CLUSTERS[name]
+    cids = np.repeat(np.arange(len(runs), dtype=np.int32), runs)
+    flat = _randn(cuda, (d * rc[0] * rc[1] + offset,), seed=seed)
+    x = flat[offset:].view(d, *rc)
+    rng = np.random.default_rng(seed + 1)
+    mask = torch.from_numpy((rng.random(d) < 0.8).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy(rng.uniform(0.2, 1.0, d).astype(np.float32)).to(cuda)
+    return x, cids, mask, scale, len(runs)
+
+
+def _bits_equal(got, want):
+    """tot, lo, hi equal bit for bit, NaN where the plain version has NaN
+    (the card's NaN is canonical in both)."""
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        nan = torch.isnan(w)
+        assert torch.equal(torch.isnan(g), nan)
+        assert torch.equal(g.view(torch.int32)[~nan], w.view(torch.int32)[~nan])
+
+
+def _on_plan(monkeypatch, plan, fn):
+    """fn() with the wrapper's rule forced to ``plan`` ("element",
+    "streamed") or as it is ("picked")."""
+    from repro_torch.kernels import robust_merge
+
+    if plan != "picked":
+        monkeypatch.setattr(robust_merge, "robust_streamed", lambda *_: plan == "streamed")
+    try:
+        return _launched("robust_segment_sum_mix", fn)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("name", sorted(ROBUST_CLUSTERS))
+@pytest.mark.parametrize("trim", range(10))
+def test_robust_segment_sum_plans_are_the_plain_version(cuda, monkeypatch, name, trim):
+    from repro_torch.kernels.robust_merge import ROBUST_REG_TRIM
+
+    x, cids, mask, scale, n_cl = _robust_case(cuda, name, seed=70 + trim)
+    if name == "view":
+        assert x.data_ptr() % 16 != 0
+    args = (x, cids, mask, scale, n_cl, trim)
+    want = robust_segment_sum_mix_plain(*args)
+    plans = ("element", "streamed", "picked") if trim <= ROBUST_REG_TRIM else ("element",
+                                                                                "picked")
+    for plan in plans:
+        _bits_equal(_on_plan(monkeypatch, plan, lambda: robust_segment_sum_mix(*args)), want)
+    if n_cl > 1:
+        assert not want[0][1].any() and not want[1][1].any() and not want[2][1].any()
+    if trim > ROBUST_REG_TRIM:
+        with pytest.raises(RuntimeError, match="robust_segment_sum_mix"):
+            _on_plan(monkeypatch, "streamed", lambda: robust_segment_sum_mix(*args))
+
+
+# ±0, ±inf and NaN at the streamed plan's split points: the rows where one
+# sorter's group of four rows ends and the next one's starts (3 | 4,
+# 35 | 36 | 39 | 40: sorters 0, 8 and 0 again), a stage's last and next
+# rows (255 | 256) and the last row, live and masked, in columns of their
+# own beside columns of many exact ties (-1, -0, +0, 1): a live NaN fills
+# every register of its chains (lo and hi sum to 0), a masked one, or a
+# masked inf (inf·0), reaches only tot.
+SPLIT_ROWS = (3, 4, 35, 36, 39, 40, 255, 256, 259, 260, 599)
+
+
+def _special_payload(cuda):
+    d, e = 600, 64
+    rng = np.random.default_rng(80)
+    x = rng.standard_normal((d, e)).astype(np.float32)
+    mask = np.ones(d, np.float32)
+    mask[[4, 36, 256, 300]] = 0.0
+    live = [r for r in SPLIT_ROWS if mask[r] > 0]
+    x[list(SPLIT_ROWS), 1] = [0.0, -0.0] * 5 + [-0.0]                       # ±0
+    x[live[::2], 2] = np.inf                                            # +inf, live
+    x[live[1::2], 3] = -np.inf                                          # -inf, live
+    x[[3, 255], 4] = np.inf
+    x[[35, 599], 4] = -np.inf                                           # both infinities
+    x[39, 5] = np.nan                                                   # NaN, live
+    x[[4, 36], 6] = np.nan                                              # NaN, masked
+    x[[256, 300], 7] = np.inf                                           # inf, masked
+    x[:, 8:40] = rng.choice(np.float32([-1.0, -0.0, 0.0, 1.0]), (d, 32))  # ties
+    x[:, 40] = -0.0
+    x[:, 41] = np.nan
+    scale = rng.uniform(0.2, 1.0, d).astype(np.float32)
+    scale[list(SPLIT_ROWS[:4])] = 1.0
+    return (torch.from_numpy(x.reshape(d, 4, 16)).to(cuda), np.zeros(d, np.int32),
+            torch.from_numpy(mask).to(cuda), torch.from_numpy(scale).to(cuda), 1)
+
+
+@pytest.mark.parametrize("trim", [1, 2, 5, 8, 9])
+def test_robust_segment_sum_specials_at_the_chain_splits(cuda, monkeypatch, trim):
+    x, cids, mask, scale, n_cl = _special_payload(cuda)
+    args = (x, cids, mask, scale, n_cl, trim)
+    want = robust_segment_sum_mix_plain(*args)
+    tot, lo, hi = (w.reshape(-1) for w in want)
+    assert torch.isnan(tot[[4, 5, 6, 7, 41]]).all() and not torch.isnan(tot[[0, 1, 2, 3, 40]]).any()
+    assert not lo[[5, 41]].any() and not hi[[5, 41]].any()
+    for plan in ("element", "streamed", "picked") if trim <= 8 else ("element",):
+        _bits_equal(_on_plan(monkeypatch, plan, lambda: robust_segment_sum_mix(*args)), want)
+
+
+def test_robust_segment_sum_shapes_take_both_plans(cuda):
+    """The rule sends the star of 4096 on (32, 80) payloads to the streamed
+    plan and the har width to the per-element one, on this card's SMs."""
+    from repro_torch.kernels.robust_merge import robust_streamed
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert robust_streamed(1, 32 * 80, 4096, 1, sms)
+    assert not robust_streamed(1, 128 * 689, 256, 1, sms)
+    assert not robust_streamed(32, 128 * 689, 8, 1, sms)
 
 
 # (13, 10, 37): everything odd; (256, 128, 689): the har width; then the

@@ -65,6 +65,7 @@ from repro_torch.kernels import (
     robust_segment_sum_mix,
     robust_segment_sum_mix_plain,
 )
+from repro_torch.kernels.robust_merge import robust_streamed
 from repro_torch.runtime import GovernorConfig, MergeGovernor
 
 torch.set_num_threads(2)
@@ -169,6 +170,151 @@ def test_robust_segment_sum_keeps_the_extremes():
         np.testing.assert_allclose(lo[0].numpy(), srt[:k].sum(0), rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(hi[0].numpy(), srt[len(live) - k:].sum(0), rtol=1e-6,
                                    atol=1e-6)
+
+
+def _specials(d, shape, seed):
+    """Payloads, mask and scale with ±0, ±inf and NaN on live and masked
+    devices in columns of their own (flat element 1: ±0; 2: +inf; 3: -inf;
+    4: both infinities; 5: a live NaN; 6: a masked NaN; 7: a masked inf),
+    then columns of exact ties (-1, -0, +0, 1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(d,) + shape).astype(np.float32)
+    flat = x.reshape(d, -1)
+    mask = (rng.random(d) < 0.75).astype(np.float32)
+    mask[[0, 1]] = 1.0, 0.0
+    live, dead = np.flatnonzero(mask > 0), np.flatnonzero(mask == 0)
+    flat[::2, 1], flat[1::2, 1] = 0.0, -0.0
+    flat[live[::3], 2] = np.inf
+    flat[live[1::3], 3] = -np.inf
+    flat[live[:2], 4] = np.inf, -np.inf
+    flat[live[len(live) // 2], 5] = np.nan
+    flat[dead[0], 6] = np.nan
+    flat[dead[:2], 7] = np.inf
+    flat[:, 8:] = rng.choice(np.float32([-1.0, -0.0, 0.0, 1.0]), (d, flat.shape[1] - 8))
+    scale = rng.uniform(0.2, 1.0, size=d).astype(np.float32)
+    return x, mask, scale
+
+
+# the card splits a cluster's devices among several chains and merges them
+# (csrc/robust_merge.cu): lo and hi must not depend on the order the
+# devices come in, ±0, ±inf and NaN included; tot does
+@pytest.mark.parametrize("trim", [1, 3, 9])
+def test_robust_lo_hi_are_free_of_device_order(trim):
+    d = 64
+    x, mask, scale = _specials(d, (3, 16), seed=40 + trim)
+    cids = np.zeros(d, np.int32)
+    xt, mt, st = _port(x, mask, scale)
+    tot, lo, hi = robust_segment_sum_mix_plain(xt, cids, mt, st, 1, trim)
+    for seed in range(3):
+        perm = np.random.default_rng(seed).permutation(d)
+        _, plo, phi = robust_segment_sum_mix_plain(xt[perm], cids, mt[perm], st[perm], 1, trim)
+        assert torch.equal(plo.view(torch.int32), lo.view(torch.int32))
+        assert torch.equal(phi.view(torch.int32), hi.view(torch.int32))
+    assert torch.isnan(tot.reshape(-1)[[4, 5, 6, 7]]).all()
+    assert not lo.reshape(-1)[5].item() and not hi.reshape(-1)[5].item()
+
+
+def _hold_to_references(x, cids, mask, scale, n_clusters, trim, interpret=True):
+    """The plain version against the reference's Pallas kernel in interpret
+    mode (every column of every cluster the reference writes, that is one
+    with a device, at 1e-6: the same chains) and its sort-based XLA
+    oracle: tot within twice the recursive-summation bound, (D−1)·2⁻²⁴·Σ|v|,
+    each (a sum of D terms in two orders); lo and hi at 1e-5 on the
+    columns free of a live NaN. On a column with one the chains' registers
+    all turn NaN and sum as 0, the kernel's rule, while the oracle's sort
+    puts the NaN last and sums the finite extremes."""
+    xt, mt, st = _port(x, mask, scale)
+    got = robust_segment_sum_mix(xt, cids, mt, st, n_clusters, trim)
+    if interpret:
+        want = ref_robust_segment_sum_mix(jnp.asarray(x), cids, jnp.asarray(mask),
+                                          jnp.asarray(scale), n_clusters, trim, interpret=True)
+        held = np.unique(cids)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy()[held], np.asarray(w)[held], rtol=0, atol=1e-6)
+    oracle = [np.asarray(o) for o in ref_robust_segment_sum_xla(
+        jnp.asarray(x), cids, jnp.asarray(mask), jnp.asarray(scale), n_clusters, trim)]
+    col = (-1,) + (1,) * (x.ndim - 1)
+    v = x * scale.reshape(col)
+    with np.errstate(invalid="ignore"):
+        budget = np.stack([np.nan_to_num(np.abs(v * mask.reshape(col))[cids == c], posinf=0.0)
+                           .sum(0) for c in range(n_clusters)])
+    d_c = np.bincount(cids, minlength=n_clusters).reshape(col)
+    np.testing.assert_allclose(got[0].numpy(), oracle[0], rtol=0,
+                               atol=float((2 * np.maximum(d_c - 1, 0) * 2.0 ** -24
+                                           * budget).max()) + 1e-7)
+    v_live = np.where((mask > 0).reshape(col), v, 0.0)
+    nan_col = np.stack([np.isnan(v_live[cids == c]).any(0) for c in range(n_clusters)])
+    for g, o in zip(got[1:], oracle[1:]):
+        g = g.numpy()
+        np.testing.assert_allclose(g[~nan_col], o[~nan_col], rtol=0, atol=1e-5)
+        if trim:
+            assert not g[nan_col].any()
+
+
+@pytest.mark.parametrize("trim", [0, 1, 2, 5])
+def test_robust_plain_matches_references_on_zeros_infinities_and_nan(trim):
+    d = 40
+    x, mask, scale = _specials(d, (3, 16), seed=50 + trim)
+    cids = np.repeat(np.arange(3, dtype=np.int32), [25, 0, 15])
+    _hold_to_references(x, cids, mask, scale, 3, trim)
+
+
+# one cluster of 4096 devices, the fleet benchmarks' star, at a narrow
+# width: against the oracle only (the interpret kernel takes a grid step a
+# device)
+@pytest.mark.parametrize("trim", [1, 3])
+def test_robust_plain_matches_the_oracle_on_a_4096_device_star(trim):
+    d = 4096
+    rng = np.random.default_rng(60 + trim)
+    x = rng.normal(size=(d, 2, 8)).astype(np.float32)
+    mask = (rng.random(d) < 0.9).astype(np.float32)
+    scale = rng.uniform(0.5, 1.0, size=d).astype(np.float32)
+    _hold_to_references(x, np.zeros(d, np.int32), mask, scale, 1, trim, interpret=False)
+
+
+H100_SMS = 132  # an H100 SXM's
+
+# (clusters, elements, longest cluster, trim) → streamed on an H100? Both
+# plans timed there at 149 shapes (PERF.md §6); (32, 80) payloads are 2560
+# elements, 80 streamed blocks a cluster, so 13 clusters are 8 waves
+ROBUST_PLANS = [
+    ((1, 2560, 4096, 1), True),      # the merge bench's star at D = 4096
+    ((1, 2560, 1024, 1), True),      # ... and at D = 1024
+    ((1, 2560, 4096, 8), True),      # ... at trim 8
+    ((1, 2560, 4096, 9), False),     # past the registers: the per-element plan
+    ((1, 128 * 689, 256, 1), False),  # the har width's star: 21 waves of 12 rows
+    ((1, 128 * 689, 256, 5), False),
+    ((1, 128 * 689, 256, 8), False),
+    ((32, 128 * 689, 8, 1), False),  # its hierarchy
+    ((512, 2560, 8, 1), False),      # D = 4096 in clusters of 8
+    ((13, 2560, 288, 0), False),     # 8 waves of 36 rows at trim 0...
+    ((13, 2560, 384, 0), True),      # ... and of 48
+    ((13, 2560, 256, 6), False),     # 32 rows at trim 6...
+    ((13, 2560, 384, 6), True),      # ... and 48
+    ((13, 2560, 384, 7), False),     # 48 rows at trim 7...
+    ((13, 2560, 512, 7), True),      # ... and 64
+    ((13, 2560, 1024, 8), False),    # 128 rows at trim 8, where the chains gain
+    ((4, 2560, 1024, 8), True),      # 3 waves of 341 rows at trim 8
+    ((1, 128 * 495, 1024, 1), True),  # a star of 1024 in 15 waves at trim 1...
+    ((1, 128 * 495, 1024, 8), False),  # ... and at trim 8
+    ((1, 2560, 40, 2), False),       # a star of 40 at trim 2...
+    ((1, 2560, 48, 2), True),        # ... and of 48
+    ((1, 2560, 128, 8), False),      # a star of 128 at trim 8...
+    ((1, 2560, 256, 8), True),       # ... and of 256
+]
+
+
+@pytest.mark.parametrize("shape,streamed", ROBUST_PLANS)
+def test_robust_plan_follows_the_shape_and_trim(shape, streamed):
+    assert robust_streamed(*shape, H100_SMS) is streamed
+
+
+# the rule reads the card's SMs: 13 clusters of 384 devices on (32, 80)
+# payloads are 1040 streamed blocks, 48 rows a wave on an H100's 132 SMs
+# and on 116, 38.4 on 115 or an H100 PCIe's 114
+@pytest.mark.parametrize("sms,streamed", [(132, True), (116, True), (115, False), (114, False)])
+def test_robust_plan_follows_the_card_s_sm_count(sms, streamed):
+    assert robust_streamed(13, 2560, 384, 1, sms) is streamed
 
 
 # --------------------------------------------------- clip, guard, scores
