@@ -106,3 +106,21 @@ def train_edge_device(
         device=device,
     )
     return ae_train_stream(st, torch.as_tensor(xs[n_init:], device=st.device))
+
+
+def routed_launches(device: torch.device, expected: dict[str, int]) -> dict[str, int]:
+    """The port's counterpart of the reference's compile-once check (the
+    port runs eagerly: there is no jit cache to count). On the card the
+    kernel library was built and loaded once, and each kernel in
+    ``expected`` launched exactly that often since the counts were last
+    set to 0. Returns the counts of those kernels; on the CPU the plain
+    versions stand in, nothing is counted and nothing is asserted."""
+    from repro_torch.kernels import _lib, launch_counts
+
+    counts = launch_counts()
+    got = {name: counts[name] for name in expected}
+    if device.type == "cuda":
+        loads = _lib.library.cache_info().misses
+        assert loads == 1, f"the kernel library was loaded {loads} times, not once"
+        assert got == expected, f"launches {got}, expected the routed ticks and rounds {expected}"
+    return got

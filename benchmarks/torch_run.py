@@ -14,10 +14,9 @@ benchmark seeds its baseline).
     python benchmarks/torch_run.py [--only NAME] [--check-regression] [--device cpu]
 
 The reference benchmarks not yet ported, and the ROADMAP queue 1 item
-that ports each: ``mesh_merge`` (item 8, multi-process merges),
-``serve_runtime`` and ``serve_ingress`` (item 6, serving),
-``fleet_cohort`` (item 7, the cohort-paged arena) and
-``roofline_report`` (item 10, the model zoo's dry run and roofline).
+that ports each: ``fleet_cohort`` (item 7, the cohort-paged arena),
+``mesh_merge`` (item 8, multi-process merges) and ``roofline_report``
+(item 10, the model zoo's dry run and roofline).
 """
 from __future__ import annotations
 
@@ -45,6 +44,8 @@ BENCHES = [
     ("torch_kernel_bench", "ours — CUDA kernel micro-bench against library calls"),
     ("torch_ablation_hidden", "ours — detector width ablation (accuracy vs payload)"),
     ("torch_robust_fleet", "ours — Byzantine-robust merges + fault-injection chaos soak"),
+    ("torch_serve_runtime", "ours — resident serve-runtime soak: drift gating, SLO, int8"),
+    ("torch_serve_ingress", "ours — async ingress front-end: load, flood, crash, degraded"),
 ]
 
 

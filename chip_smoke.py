@@ -132,10 +132,13 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     ``torch_merge_loss.py``, ``torch_ablation_hidden.py``,
     ``torch_rocauc_grid.py`` (quick), ``torch_fleet_scale.py`` (D = 64 and
     256, then ``--merge-bench`` at D = 256, 1024 and 4096) and
-    ``torch_fleet_ingest.py`` (D = 256, 1024 and 4096), each main at its
-    full grid with every claim asserted (sparse mixing and the fused
-    ingest faster than their baselines at D ≥ 1024) and every line passed
-    on, each benchmark's routed kernels launched; (b) ``segment_sum_mix``
+    ``torch_fleet_ingest.py`` (D = 256, 1024 and 4096), and
+    ``torch_serve_runtime.py`` (D = 256, Ñ = 16, 220 ticks) and
+    ``torch_serve_ingress.py`` (steady D = 256, Ñ = 8; the crash leg's
+    child at D = 64), each main at its full grid with every claim asserted
+    (sparse mixing and the fused ingest faster than their baselines at
+    D ≥ 1024; ≥ 1k requests a second under the request p99 SLO) and every
+    line passed on, each benchmark's routed kernels launched; (b) ``segment_sum_mix``
     (C = 1 and D/8) and ``banded_mix`` (hops 2) at D = 4096 on (32, 80)
     payloads and ``from_uv_solve`` at Ñ = 32, m = 48, S = 4096 with no
     element differing from their plain versions, ``fleet_ingest`` at
@@ -149,7 +152,23 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
 15. strided and mixed-type operands through ``hidden_proj``,
     ``segment_sum_mix`` and ``flash_attention``, each against its plain
     version on the same operands;
-16. the kernel list, one JSON object per kernel, then the result line.
+16. the async serving front-end (``repro_torch.serve``) at the har width:
+    (a) ``ServeFrontend`` before a ``FleetRuntime`` at D = 256 (ring hops
+    2, B = 2, merges every 16 ticks, telemetry on), warmed up on its tick
+    worker; 16 pipelined clients submit 4 096 one-row requests, every one
+    acked ``ok`` once, the front-end never failed, ``fleet_ingest``
+    launched once a tick and ``banded_merge_solve`` once a merge, no
+    kernel load after the warm-up; requests a second, request and tick
+    p50/p99, the first live tick against the median, and the device's
+    busy share over 16 one-window waves (``torch.profiler``); (b) the
+    crash leg at D = 64: a child serves durable traffic (snapshots every 8
+    ticks, a WAL) and SIGKILLs itself after tick 28, the parent recovers
+    and replays bit for bit against the child's digests, telemetry
+    continuous, fresh traffic ok; snapshot bytes, restore seconds,
+    replayed windows; (c) a steady leg at D = 16 on the card with a WAL,
+    the WAL replayed on the CPU runtime from the same initial fleet: flags,
+    decisions and participants equal, losses within phase 4's bounds;
+17. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -2822,6 +2841,10 @@ BENCH_ROUTES = {
         "segment_sum_mix", "banded_merge_solve", "from_uv_solve"),
     "torch_fleet_scale --merge-bench": ("segment_sum_mix", "banded_mix", "from_uv_solve"),
     "torch_fleet_ingest": DEVICE_PATH_ROUTES,
+    # the ring's soaks: one ingest a tick, one fused merge+solve a round,
+    # and the int8 probe's quantize_pack a round
+    "torch_serve_runtime": ("fleet_ingest", "banded_merge_solve", "quantize_pack"),
+    "torch_serve_ingress": ("fleet_ingest", "banded_merge_solve"),
 }
 BENCH_D = 4096            # the merge and ingest benches' largest fleet
 BENCH_NH, BENCH_M = 32, 48  # the merge bench's payloads: (32, 80)
@@ -2988,22 +3011,24 @@ def fleet_scale_card_vs_cpu():
 
 
 def phase_benchmarks():
-    """Phase 14: (a) the six port benchmarks' mains on the card at their
-    full grids, every claim asserted and every line passed on, each
-    benchmark's routed kernels launched (the counts set to 0 before each);
+    """Phase 14: (a) the port benchmarks' mains on the card at their full
+    grids (the serve soaks at their acceptance settings), every claim
+    asserted and every line passed on, each benchmark's routed kernels
+    launched (the counts set to 0 before each; the serve benches also hold
+    every leg's launches to its ticks and rounds themselves);
     (b) the kernels at the benches' new shapes; (c) fleet_scale's D = 8
     rows card against CPU."""
     import torch
 
     from benchmarks import (
         torch_ablation_hidden, torch_fleet_ingest, torch_fleet_scale, torch_kernel_bench,
-        torch_merge_loss, torch_rocauc_grid,
+        torch_merge_loss, torch_rocauc_grid, torch_serve_ingress, torch_serve_runtime,
     )
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     merge_out = str(ROOT / "BENCH_torch_fleet_merge.json")
-    ingest_args = ["--out", str(ROOT / "BENCH_torch_fleet_ingest.json"),
-                   "--history", str(ROOT / "BENCH_torch_history.jsonl")]
+    history = str(ROOT / "BENCH_torch_history.jsonl")
+    ingest_args = ["--out", str(ROOT / "BENCH_torch_fleet_ingest.json"), "--history", history]
     runs = {
         "torch_kernel_bench": lambda: torch_kernel_bench.main([]),
         "torch_merge_loss": lambda: torch_merge_loss.main([]),
@@ -3013,6 +3038,11 @@ def phase_benchmarks():
         "torch_fleet_scale --merge-bench": lambda: torch_fleet_scale.main(
             ["--merge-bench", "--merge-out", merge_out]),
         "torch_fleet_ingest": lambda: torch_fleet_ingest.main(ingest_args),
+        "torch_serve_runtime": lambda: torch_serve_runtime.main(
+            True, str(ROOT / "BENCH_torch_serve_runtime.json"), history),
+        "torch_serve_ingress": lambda: torch_serve_ingress.main(
+            True, str(ROOT / "BENCH_torch_serve_ingress.json"), history,
+            crash_dir=str(ROOT / "BENCH_torch_crash_leg")),
     }
     assert runs.keys() == BENCH_ROUTES.keys()
     for name, fn in runs.items():
@@ -3112,6 +3142,287 @@ def phase_operands():
                        ("k, v f16 (p rounded to f16)", (qc, kc.half(), vc.half()))):
         held("flash_attention", what, lambda a=args: flash_attention(*a),
              lambda a=args: flash_attention_plain(*a), row_rel, 1e-5)
+
+
+# ------------------------------ phase 16: the async serving front-end
+
+FRONTEND_B = 2                    # samples a device a window
+FRONTEND_MERGE_EVERY = 16
+FRONTEND_CLIENTS, FRONTEND_OUTSTANDING, FRONTEND_WAVES = 16, 32, 8   # 4 096 requests
+FRONTEND_PROFILE_TICKS = 16
+FRONTEND_CPU_MERGE_EVERY = 4      # (c): more rounds in a short leg
+FRONTEND_CPU_WAVES = 24           # (c): one window a wave
+
+
+def frontend_runtime(fleet, *, merge_every=FRONTEND_MERGE_EVERY, detector=None, device="cuda"):
+    """The serving fleet: ring hops 2 at the fleet's width, telemetry on
+    (the front-end's counters and its p99 signal live in the sink)."""
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.runtime import DetectorConfig, FleetRuntime, GovernorConfig, RuntimeConfig
+
+    return FleetRuntime(fleet, RuntimeConfig(
+        topology=topologies(fleet.beta.shape[0])["ring"], ridge=RIDGE,
+        detector=detector or DetectorConfig(),
+        governor=GovernorConfig(merge_every=merge_every),
+        telemetry=TelemetryConfig(trace=False),
+    ), device=device)
+
+
+def frontend_requests(ticks_np, d: int, seed: int):
+    """A factory of one-row requests: a uniform device, a row of its own
+    stream (the har-width windows of phase 3)."""
+    import numpy as np
+
+    from repro_torch.serve import SampleRequest
+
+    rng = np.random.default_rng(seed)
+
+    def make(client: str):
+        dev = int(rng.integers(d))
+        row = ticks_np[int(rng.integers(ticks_np.shape[0])), dev, int(rng.integers(T))]
+        return SampleRequest(device=dev, x=row, client=client)
+
+    return make
+
+
+def record_ticks(rt, reports, seconds):
+    """Wrap ``rt.tick``: keep each report and its host seconds (the
+    worker's own clock, from the call to the return of its losses)."""
+    orig = rt.tick
+
+    def tick(batch, **kw):
+        t0 = time.perf_counter()
+        rep = orig(batch, **kw)
+        seconds.append(time.perf_counter() - t0)
+        reports.append(rep)
+        return rep
+
+    rt.tick = tick
+
+
+def frontend_steady(fleet, ticks_np):
+    """(a) ServeFrontend at the har width (D = 256): 16 pipelined clients,
+    4 096 one-row requests, then 16 one-window waves under torch.profiler."""
+    import asyncio
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _lib, launch_counts, reset_launch_counts
+    from repro_torch.serve import AdmissionConfig, SampleRequest, ServeConfig, ServeFrontend
+
+    d = fleet.beta.shape[0]
+    rt = frontend_runtime(fleet)
+    reports, tick_s = [], []
+    record_ticks(rt, reports, tick_s)
+    fe = ServeFrontend(rt, ServeConfig(
+        batch=FRONTEND_B, max_delay_s=0.004,
+        admission=AdmissionConfig(max_queue_per_device=8, client_cap=128), seed=SEED))
+    make = frontend_requests(ticks_np, d, SEED + 1)
+    loads = _lib.library.cache_info().misses
+    out = {}
+
+    async def drive():
+        await fe.start()
+        out["loads_ready"] = _lib.library.cache_info().misses
+        torch.cuda.synchronize()
+        reset_launch_counts()
+
+        async def client(c):
+            acks = []
+            for _ in range(FRONTEND_WAVES):
+                acks += await asyncio.gather(*[fe.submit_with_retries(make(f"client-{c}"))
+                                               for _ in range(FRONTEND_OUTSTANDING)])
+            return acks
+
+        t0 = time.perf_counter()
+        nested = await asyncio.gather(*[client(c) for c in range(FRONTEND_CLIENTS)])
+        out["wall"] = time.perf_counter() - t0
+        out["acks"] = [a for acks in nested for a in acks]
+        out["counts"] = launch_counts()
+        out["ticks"], out["merges"] = rt.tick_no, rt.governor.state.merges
+        tel = rt.telemetry
+        out["tick_p50"], out["tick_p99"] = (tel.tick_seconds.quantile(0.5),
+                                            tel.tick_seconds.quantile(0.99))
+        out["ingress"] = tel.summary()["ingress"]
+        # the busy share: one request a device a wave fills one window
+        rng = np.random.default_rng(SEED + 2)
+        waves = [[SampleRequest(device=dev, x=ticks_np[w % TICKS, dev, w % T],
+                                client=f"p{dev % 4}")
+                  for dev in range(d)] for w in range(FRONTEND_PROFILE_TICKS)]
+        torch.cuda.synchronize()
+        first = rt.tick_no
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for wave in waves:
+                rng.shuffle(wave)
+                out["acks"] += await asyncio.gather(*[fe.submit(r) for r in wave])
+            torch.cuda.synchronize()
+            out["prof_wall"] = time.perf_counter() - t1
+        out["prof_ticks"] = rt.tick_no - first
+        out["prof"] = prof
+        await fe.stop()
+
+    asyncio.run(drive())
+    acks, counts = out["acks"], out["counts"]
+    n_req = FRONTEND_CLIENTS * FRONTEND_OUTSTANDING * FRONTEND_WAVES
+    statuses = {}
+    for a in acks:
+        statuses[a.status] = statuses.get(a.status, 0) + 1
+    ing = rt.telemetry.summary()["ingress"]
+    total = n_req + FRONTEND_PROFILE_TICKS * d
+    assert fe.failed is None, f"the front-end stopped: {fe.failed}"
+    assert statuses == {"ok": total}, statuses
+    assert len({a.request_id for a in acks}) == total, "a request was acked twice"
+    assert ing["accepted"] == ing["acked"] == total, ing
+    assert fe.warmup_thread == "serve-tick-worker", fe.warmup_thread
+    assert loads == out["loads_ready"] == _lib.library.cache_info().misses == 1, (
+        "a kernel build or load after the warm-up")
+    routed = {"fleet_ingest": counts["fleet_ingest"],
+              "banded_merge_solve": counts["banded_merge_solve"]}
+    assert routed == {"fleet_ingest": out["ticks"], "banded_merge_solve": out["merges"]}, (
+        routed, out["ticks"], out["merges"])
+    assert out["merges"] > 0, "no merge round in the steady leg"
+    assert out["prof_ticks"] == FRONTEND_PROFILE_TICKS, out["prof_ticks"]
+    steady = tick_s[:out["ticks"]]
+    med = float(np.median(steady))
+    lat = out["ingress"]["request_latency"]
+    events = [e for e in out["prof"].key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    assert dev_ms > 0, "the profiler saw no device time"
+    wall_ms = out["prof_wall"] * 1e3
+    log(f"  steady: {n_req} requests by {FRONTEND_CLIENTS} clients in {out['wall']:.3f} s:"
+        f" {n_req / out['wall']:.1f} requests/s; request p50 {lat['p50_s'] * 1e3:.3f} ms,"
+        f" p99 {lat['p99_s'] * 1e3:.3f} ms; {out['ticks']} ticks"
+        f" ({n_req / out['ticks']:.1f} requests a tick), tick p50"
+        f" {out['tick_p50'] * 1e3:.3f} ms, p99 {out['tick_p99'] * 1e3:.3f} ms (the sink);"
+        f" {out['merges']} merges; retried {out['ingress']['retried']},"
+        f" deferred {out['ingress']['deferred']}")
+    log(f"  first live tick {tick_s[0] * 1e3:.3f} ms on the worker against the median"
+        f" {med * 1e3:.3f} ms ({tick_s[0] / med:.2f}x); warm-up on"
+        f" {fe.warmup_thread}; library loads {loads} (none after the warm-up)")
+    log(f"  launches {routed}: one ingest a tick, one fused merge+solve a round;"
+        f" every ack ok, once ({total} with the profiled waves)")
+    log(f"  profile: {FRONTEND_PROFILE_TICKS} one-window waves ({d} requests each), wall"
+        f" {wall_ms:.2f} ms, device {dev_ms:.2f} ms, busy share {dev_ms / wall_ms:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return routed
+
+
+def frontend_crash():
+    """(b) the crash leg at the har width: a child serves durable traffic
+    at D = 64 (snapshots every 8 ticks, a WAL) and SIGKILLs itself after
+    tick 28; the parent recovers in process and replays bit for bit."""
+    import tempfile
+
+    import torch
+
+    from benchmarks import torch_serve_ingress as si
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        c = si.run_crash(Path(tmp) / "crash", device=torch.device("cuda"),
+                         n_features=N_FEAT, n_hidden=N_HID)
+    log(f"  crash at D={c['n_devices']}, n=m={N_FEAT}, Ñ={N_HID}: the child served"
+        f" {c['child_ticks']} ticks in {c['child_seconds']:.1f} s (its start, CUDA and the"
+        f" warm-up included), SIGKILL; snapshot {c['snapshot_bytes']} bytes, restored"
+        f" tick {c['restored_tick']} in {c['restore_seconds']:.3f} s, replayed"
+        f" {c['replayed_windows']} windows ({c['replayed_compared']} digests bit for bit"
+        f" against the child's; recover {c['recover_seconds']:.3f} s), launches"
+        f" {c['replay_launches']}; telemetry ticks {c['telemetry_ticks_after_replay']};"
+        f" {c['fresh_requests_ok']} fresh requests ok")
+    return c["replay_launches"]
+
+
+def frontend_card_vs_cpu(fleet, ticks_np):
+    """(c) a steady leg at D = 16 on the card with a WAL; the same WAL
+    replayed on the CPU runtime from the same initial fleet. Each wave is
+    one full window (a two-row request a device, ``close_at_requests`` =
+    D, no deadline and no stall threshold in reach): the comparison is of
+    numbers, and no timing decides a window."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import DetectorConfig
+    from repro_torch.serve import SampleRequest, ServeConfig, ServeFrontend, WriteAheadLog
+
+    small = fleet.replace(beta=fleet.beta[:D_CPU].contiguous(), p=fleet.p[:D_CPU].contiguous())
+    small_cpu = small.replace(params=type(small.params)(*(x.cpu() for x in small.params)),
+                              beta=small.beta.cpu(), p=small.p.cpu())
+    det = DetectorConfig(warmup=5, warmup_skip=1, rel_sigma=0.05)
+    card = frontend_runtime(small, merge_every=FRONTEND_CPU_MERGE_EVERY, detector=det)
+    cpu = frontend_runtime(small_cpu, merge_every=FRONTEND_CPU_MERGE_EVERY, detector=det,
+                        device="cpu")
+    card_reports, card_seconds = [], []
+    record_ticks(card, card_reports, card_seconds)
+    waves = [[SampleRequest(device=dev, client=f"c{dev}", x=ticks_np[
+        w % TICKS, dev, FRONTEND_B * (w // TICKS):FRONTEND_B * (w // TICKS + 1)])
+        for dev in range(D_CPU)] for w in range(FRONTEND_CPU_WAVES)]
+    with tempfile.TemporaryDirectory() as wal_dir:
+        fe = ServeFrontend(card, ServeConfig(
+            batch=FRONTEND_B, close_at_requests=D_CPU, max_delay_s=600.0,
+            tick_deadline_s=600.0, wal_dir=wal_dir, seed=SEED))
+
+        async def drive():
+            await fe.start()
+            reset_launch_counts()
+            acks = []
+            for wave in waves:
+                acks += await asyncio.gather(*[fe.submit(r) for r in wave])
+            await fe.stop()
+            return acks
+
+        acks = asyncio.run(drive())
+        counts = launch_counts()
+        assert fe.failed is None and all(a.ok for a in acks), {a.status for a in acks}
+        wal = WriteAheadLog(wal_dir)
+        seqs = wal.replayable(0)
+        assert len(seqs) == card.tick_no == len(card_reports) == FRONTEND_CPU_WAVES, (
+            len(seqs), card.tick_no)
+        worst, merges, flags = 0.0, 0, 0
+        for seq, a in zip(seqs, card_reports, strict=True):
+            batch, served, allow = wal.load(seq)
+            b = cpu.tick(batch, served=served, allow_merge=allow)
+            np.testing.assert_allclose(a.losses, b.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+            assert np.array_equal(a.drifted, b.drifted), f"tick {seq}: drifted differs"
+            assert np.array_equal(a.fresh_detections, b.fresh_detections)
+            assert (a.decision.merge, a.decision.reason, a.decision.participants) == (
+                b.decision.merge, b.decision.reason, b.decision.participants), seq
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+            merges += a.decision.merge
+            flags += int(a.fresh_detections.sum())
+    assert merges >= 2, merges
+    assert counts["fleet_ingest"] == card.tick_no and counts["banded_merge_solve"] == merges
+    log(f"  card against CPU at D={D_CPU}: {len(acks)} requests, {card.tick_no} windows from"
+        f" the WAL replayed on the CPU, losses max rel diff {worst:.3e} (rtol"
+        f" {LOSS_RTOL:.0e}), flags {flags}, merges {merges}: flags, decisions and"
+        f" participants equal")
+
+
+def phase_serving_frontend(fleet, ticks_np):
+    """Phase 16: the async serving front-end (repro_torch.serve) at the har
+    width: (a) the steady leg, (b) the crash leg, (c) card against CPU."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"  on {smi}")
+    t0 = time.perf_counter()
+    launches = frontend_steady(fleet, ticks_np)
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frontend_crash()
+    log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frontend_card_vs_cpu(fleet, ticks_np)
+    log(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -3228,7 +3539,14 @@ def main() -> int:
     phase_operands()
     log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 16: kernels (phases 1-15 took {time.perf_counter() - start:.1f} s)")
+    log("phase 16: the async serving front-end at the har width (the steady leg, the"
+        " crash leg, card against CPU)")
+    t0 = time.perf_counter()
+    for k, v in phase_serving_frontend(fleet, ticks_np).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 17: kernels (phases 1-16 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

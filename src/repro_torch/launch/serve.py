@@ -25,6 +25,11 @@ seeded with ``seed + 7``. ``--reduced`` is always on, as in the reference
 (its flag is ``store_true`` with ``default=True``); ``serve`` itself runs
 any config it is given.
 
+``--fleet`` hands over to the async fleet-ingress driver
+(``repro_torch.launch.serve_fleet``): concurrent synthetic clients
+streaming per-device samples through a ``ServeFrontend`` in front of a
+resident ``FleetRuntime``, on the card unless ``--device cpu``.
+
 ``--telemetry-dir DIR`` (``serve(..., telemetry=sink)``) books each round
 into a ``repro_torch.obs.TelemetrySink``: the serve counters (rounds,
 tokens, drift flags), the round-time histogram, the drift-score gauge and
@@ -37,6 +42,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import sys
 import time
 from typing import NamedTuple
 
@@ -183,7 +189,14 @@ def serve(
     return out
 
 
-def main(argv: list[str] | None = None) -> list[ServeRound]:
+def main(argv: list[str] | None = None) -> list[ServeRound] | dict:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--fleet" in argv:
+        # the async fleet-ingress driver owns its own arg surface
+        from repro_torch.launch.serve_fleet import main as fleet_main
+
+        argv.remove("--fleet")
+        return fleet_main(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -198,12 +211,10 @@ def main(argv: list[str] | None = None) -> list[ServeRound]:
     ap.add_argument("--telemetry-dir", default=None,
                     help="emit trace.jsonl/exposition.txt into this directory")
     ap.add_argument("--fleet", action="store_true",
-                    help="not ported yet (ROADMAP queue 1, item 6: serving)")
+                    help="hand over to the async fleet-ingress driver "
+                         "(repro_torch.launch.serve_fleet), which takes its own flags")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.fleet:
-        raise NotImplementedError("--fleet (the async fleet-ingress driver) is not ported yet: "
-                                  "ROADMAP queue 1, item 6 (serving)")
     if args.rounds < 1:
         ap.error(f"--rounds must be >= 1 (got {args.rounds}): a zero-round serving loop does "
                  "nothing")

@@ -136,6 +136,15 @@ class MergeGovernor:
         fp_part = min(rb, int(self._full_round_bytes * fp / d))
         return {"f32": fp_part, self.payload_precision: rb - fp_part}
 
+    def budget_utilization(self) -> float:
+        """The share of the comm budget spent so far: bytes a tick over
+        ``budget_bytes_per_tick``, 0.0 when the budget is unlimited. The
+        serving front-end's admission controller defers traffic when it
+        nears 1.0, since the next merge round is then at risk of deferral."""
+        if self.cfg.budget_bytes_per_tick is None:
+            return 0.0
+        return self.state.bytes_per_tick / self.cfg.budget_bytes_per_tick
+
     def decide(
         self,
         tick: int,

@@ -42,7 +42,12 @@ bounds; a snapshot written on the card restores on the CPU bit for bit,
 and the reverse, and ticks on at ``chip_smoke.py`` phase 4's bounds. The
 fleet-scale benchmarks' shapes (D = 4096 fleets of (32, 80) payloads,
 4096 systems at Ñ = 32, the ingest at n = m = 64) are held at the same
-bounds.
+bounds. The serving front-end (``repro_torch.serve``) serves twelve
+one-window waves at D = 16 on the card: every ack ok, the acks those of
+the same waves through the CPU front-end (scores at phase 4's bounds),
+the warm-up on the tick worker's thread with no library load after it,
+and one ``fleet_ingest`` launch a tick and one ``banded_merge_solve`` a
+merge round.
 """
 import functools
 
@@ -1539,3 +1544,89 @@ def test_snapshot_crosses_between_card_and_cpu(cuda, tmp_path, source, target, h
         assert np.array_equal(a.drifted, b.drifted)
         assert a.decision == b.decision
         assert a.nonfinite_payloads == b.nonfinite_payloads
+
+
+# ---------------------------------------------------- the serving front-end
+
+
+def _serving(device, d=16, n=16, nh=8, seed=0):
+    """A ring-hops-2 fleet behind a ServeFrontend, one basis from a CPU
+    generator: the same initial fleet on either device."""
+    from repro_torch.fleet import init_fleet
+    from repro_torch.obs import TelemetryConfig
+    from repro_torch.runtime import FleetRuntime, GovernorConfig, RuntimeConfig
+
+    x_init = np.random.default_rng(seed).normal(size=(d, 2 * nh, n)).astype(np.float32)
+    fleet = init_fleet(torch.Generator().manual_seed(seed), d, n, nh, x_init,
+                       activation="identity", ridge=1e-3, device=device)
+    return FleetRuntime(fleet, RuntimeConfig(
+        topology=ring(d, hops=2), governor=GovernorConfig(merge_every=4),
+        telemetry=TelemetryConfig(trace=False)), device=device)
+
+
+def _serve_waves(runtime, waves=12, d=16, n=16, seed=1):
+    """One full window a wave (a request a device, ``close_at_requests`` =
+    D): the acks, with no deadline or stall threshold in reach."""
+    import asyncio
+
+    from repro_torch.serve import SampleRequest, ServeConfig, ServeFrontend
+
+    fe = ServeFrontend(runtime, ServeConfig(batch=2, close_at_requests=d, max_delay_s=600.0,
+                                            tick_deadline_s=600.0))
+    rng = np.random.default_rng(seed)
+    reqs = [[SampleRequest(device=dev, x=rng.normal(size=(2, n)).astype(np.float32))
+             for dev in range(d)] for _ in range(waves)]
+
+    async def drive():
+        await fe.start()
+        _lib.reset_launch_counts()
+        acks = []
+        for wave in reqs:
+            acks.append(await asyncio.gather(*[fe.submit(r) for r in wave]))
+        await fe.stop()
+        return acks
+
+    return fe, asyncio.run(drive())
+
+
+@pytest.fixture(scope="module")
+def served_on_card():
+    """The steady leg at D = 16 on the card, once for the tests below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rt = _serving(torch.device("cuda"))
+    _lib.library()
+    loads = _lib.library.cache_info().misses
+    fe, acks = _serve_waves(rt)
+    return rt, fe, acks, launch_counts(), loads
+
+
+def test_frontend_serves_on_the_card_every_ack_ok(served_on_card):
+    """Every ack ok, and the acks' scores, ticks and flags those of the same
+    waves through the CPU front-end (scores at phase 4's bounds)."""
+    rt, fe, acks, _, _ = served_on_card
+    assert fe.failed is None
+    assert all(a.ok for wave in acks for a in wave)
+    _, cpu_acks = _serve_waves(_serving("cpu"))
+    for got, want in zip(acks, cpu_acks, strict=True):
+        assert [(a.status, a.tick, a.drifted) for a in got] == [
+            (a.status, a.tick, a.drifted) for a in want]
+        np.testing.assert_allclose([a.score for a in got], [a.score for a in want],
+                                   rtol=2e-4, atol=1e-6)
+
+
+def test_frontend_warms_up_on_its_worker_with_no_build_after(served_on_card):
+    """The tick worker ran the warm-up on its own thread; the kernel
+    library was loaded once, before the first live tick."""
+    _, fe, _, _, loads = served_on_card
+    assert fe.warmup_thread == "serve-tick-worker"
+    assert _lib.library.cache_info().misses == loads == 1
+
+
+def test_frontend_launches_equal_ticks_and_merges(served_on_card):
+    """One ingest launch a tick and one fused merge+solve a merge round,
+    counted from after the warm-up."""
+    rt, _, _, counts, _ = served_on_card
+    assert rt.tick_no == 12 and rt.governor.state.merges == 3
+    assert counts["fleet_ingest"] == rt.tick_no
+    assert counts["banded_merge_solve"] == rt.governor.state.merges

@@ -285,10 +285,20 @@ def test_main_runs_the_reduced_loop(capsys):
     assert "<< DRIFT" in lines[1] and "2 reqs × 2 tok" in lines[0]
 
 
-@pytest.mark.parametrize("argv,match", [(["--fleet"], "item 6")])
+# --fleet hands over to the fleet driver (tests/test_torch_bench_serve.py
+# drives it); the zoo's other kinds are still item 10
+@pytest.mark.parametrize("argv,match", [(["--arch", "xlstm-1.3b"], "item 10")])
 def test_unported_routes_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         main(argv + ["--device", "cpu"])
+
+
+def test_fleet_route_hands_over_to_the_fleet_driver(capsys):
+    out = main(["--fleet", "--device", "cpu", "--devices", "8", "--requests", "40",
+                "--clients", "4"])
+    assert sorted(out) == ["acks", "ingress", "merges", "ticks"]
+    assert out["acks"] == {"ok": 40} and out["ticks"] > 0
+    assert '"acks"' in capsys.readouterr().out
 
 
 def test_serve_refuses_an_empty_loop():
