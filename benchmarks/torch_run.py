@@ -14,9 +14,8 @@ benchmark seeds its baseline).
     python benchmarks/torch_run.py [--only NAME] [--check-regression] [--device cpu]
 
 The reference benchmarks not yet ported, and the ROADMAP queue 1 item
-that ports each: ``fleet_cohort`` (item 7, the cohort-paged arena),
-``mesh_merge`` (item 8, multi-process merges) and ``roofline_report``
-(item 10, the model zoo's dry run and roofline).
+that ports each: ``mesh_merge`` (item 8, multi-process merges) and
+``roofline_report`` (item 10, the model zoo's dry run and roofline).
 """
 from __future__ import annotations
 
@@ -41,6 +40,7 @@ BENCHES = [
     ("torch_fleet_scale", "ours — fleet simulator: devices × topology grid"),
     ("torch_paper_eval", "paper §5 — scenario grid vs BP-NN / FedAvg at matched rounds"),
     ("torch_fleet_ingest", "ours — fused tick ingest vs per-sample baseline"),
+    ("torch_fleet_cohort", "ours — cohort-paged arena runtime at 10^5-10^6 devices"),
     ("torch_kernel_bench", "ours — CUDA kernel micro-bench against library calls"),
     ("torch_ablation_hidden", "ours — detector width ablation (accuracy vs payload)"),
     ("torch_robust_fleet", "ours — Byzantine-robust merges + fault-injection chaos soak"),

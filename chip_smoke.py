@@ -83,12 +83,12 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    2 layers, card against CPU: prefill logits, features and caches and 8
    decode steps; (d) a profile of one prefill and 16 decode steps;
 10. wide layers and the other sizes past the cluster paths: (a) the
-    port's ``FleetRuntime`` at D = 16, Ñ = 256 and at D = 8, Ñ = 384 (past
-    the cluster solve and P chain), the har width otherwise, on f32 star,
-    f32 ring, int8 star and the stale ring (lags up to 3), six ticks, the
-    shifted device flagged at the last, merges every 3 ticks (the second
-    without it), card against CPU (flags and decisions equal, losses within
-    phase 4's bounds) and each route's kernels launched; (b) at Ñ = 320
+    port's ``FleetRuntime`` at D = 8, Ñ = 256 and Ñ = 384 (past the cluster
+    solve and P chain), the har width otherwise, on f32 star, f32 ring,
+    int8 star and the stale ring (lags up to 3), five ticks, the shifted
+    device flagged at the last, one merge at the third, card against CPU
+    (flags and decisions equal, losses within phase 4's bounds) and each
+    route's kernels launched; (b) at Ñ = 320
     (m = 561), 768 and 1024 (m = 784, the mnist_like width),
     ``from_uv_solve`` (S = 1 and 16) and ``banded_merge_solve`` (hops 2)
     with no element differing from their plain versions, ``quantize_pack``
@@ -168,7 +168,26 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     replayed windows; (c) a steady leg at D = 16 on the card with a WAL,
     the WAL replayed on the CPU runtime from the same initial fleet: flags,
     decisions and participants equal, losses within phase 4's bounds;
-17. the kernel list, one JSON object per kernel, then the result line.
+17. the cohort-paged arena (``repro_torch.fleet.arena``,
+    ``repro_torch.runtime.cohort``): (a) at the har width, D = 2048 in
+    pages of 512, ``CohortFleetRuntime`` on the card against the resident
+    ``FleetRuntime`` on the card over 12 ticks (merges every 4, the shift
+    from tick 8) on star, 50 isolated clusters (two straddle a page) and the
+    ring (hops 2), and a leg serving two of the four cohorts a tick: flags,
+    detections and decisions equal, losses within 1e-5 up to the first merge
+    and after it within phase 4's bound or twice the resident runtime's own
+    spread against itself on the reversed device axis; each runtime's
+    launches (``fleet_ingest`` once a page a tick, the merge kernels once a
+    page or round); a full-mask two-tier round against the flat merge
+    within twice the card's own spread (the flat merge in reversed order,
+    its f32 solve against f64); ``init_arena`` against ``init_fleet``; the
+    tick, merge, devices a second and page in/out times by events; (b) D =
+    64 in cohorts of 16 at Ñ = 4, card against CPU; (c) the page shapes of
+    the cohort bench (``fleet_ingest`` on 16 384 devices at Ñ = 4, the
+    masked sum on one cluster of 16 384, ``from_uv_solve`` at S = 1, Ñ = 4)
+    against their plain versions and ``benchmarks/torch_fleet_cohort.py
+    --full`` (D = 131 072 and 1 048 576, its claims and launches);
+18. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -2153,7 +2172,7 @@ def phase_serving():
 
 # ------------------------------------------------ phase 10: a wide hidden layer
 
-D_WIDE = 16                # devices of the wide phase
+D_WIDE = 16                # devices of the wide kernels' rows
 N_WIDE, N_WIDEST = 256, 320  # Ñ end to end; the widest the cluster solve and P chain take
 # past the cluster paths: the runtime at Ñ = 384 on D_WIDER devices (the
 # CPU's plain solves at Ñ = 384 and m = 561 take seconds a merge), and the
@@ -2161,7 +2180,14 @@ N_WIDE, N_WIDEST = 256, 320  # Ñ end to end; the widest the cluster solve and P
 # Ñ < n), and at 1024
 D_WIDER, N_WIDER = 8, 384
 N_MNIST = 784
-WIDE_TICKS = range(3, 9)   # six ticks of make_streams', the shift (flagged) at the last
+# the runtimes run D_WIDER devices at both widths over five ticks of
+# make_streams', the shift (flagged) at the last, with one merge at the third
+# and two ticks after it: the CPU side's plain ingest and solves are most of
+# the phase's time, so its depth is cut there (fleet size, ticks, merges)
+WIDE_TICKS = range(4, 9)
+WIDE_MERGE_EVERY = 3
+WIDE_DETECTOR = dict(warmup=4, warmup_skip=1, rel_sigma=0.05)   # calibrated by the fifth tick
+WIDE_REPS = 3              # timed calls of each wide kernel
 # the kernels each route launches (each one at least once)
 WIDE_ROUTES = {
     ("f32", "star"): ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve"),
@@ -2173,15 +2199,17 @@ WIDE_ROUTES = {
 
 def wide_runtimes(d: int, nh: int):
     """FleetRuntime at D = d, Ñ = nh on f32 star, f32 ring, int8 star and
-    the stale ring (lags up to 3), merges every 3 ticks, card against CPU:
-    flags and decisions equal, losses within phase 4's bounds, and each
-    route's kernels launched."""
+    the stale ring (lags up to 3), one merge (at the third tick), card
+    against CPU: flags and decisions equal, losses within phase 4's bounds
+    (two ticks after the merge), and each route's kernels launched."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.fleet import init_fleet
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.runtime import FleetRuntime
+    from repro_torch.runtime import DetectorConfig, FleetRuntime
 
     x_init, ticks_np, _ = make_streams(np.random.default_rng(SEED + 1), d, 2 * nh)
     fleet = init_fleet(torch.Generator().manual_seed(SEED), d, N_FEAT, nh, x_init,
@@ -2191,8 +2219,10 @@ def wide_runtimes(d: int, nh: int):
     sched = async_schedule(d)
     for (kind, name), kernels in WIDE_ROUTES.items():
         extra = dict(staleness=sched) if kind == "stale" else {}
-        cfg = runtime_config(topologies(d)[name], "int8" if kind == "int8" else "f32",
-                             merge_every=3, **extra)
+        cfg = dataclasses.replace(
+            runtime_config(topologies(d)[name], "int8" if kind == "int8" else "f32",
+                           merge_every=WIDE_MERGE_EVERY, **extra),
+            detector=DetectorConfig(**WIDE_DETECTOR))
         card = FleetRuntime(fleet, cfg, device="cuda")
         cpu = FleetRuntime(fleet_cpu, cfg, device="cpu")
         reset_launch_counts()
@@ -2219,7 +2249,7 @@ def wide_runtimes(d: int, nh: int):
             f" diff {worst:.3e}, flags {flags}, merges {merges}: equal; card"
             f" {card_s * 1e3 / len(WIDE_TICKS):.1f} ms a tick, both"
             f" {time.perf_counter() - t0:.1f} s; launches {({k: v for k, v in counts.items() if v})}")
-        assert merges >= 2 and flags > 0, f"wide {kind} {name}: {merges} merges, {flags} flags"
+        assert merges >= 1 and flags > 0, f"wide {kind} {name}: {merges} merges, {flags} flags"
         assert bool(torch.isfinite(card.states.p).all() and torch.isfinite(card.states.beta).all())
         for k in kernels:
             assert counts[k] > 0, f"wide {kind} {name}: {k} was never launched"
@@ -2258,11 +2288,12 @@ def wide_kernel_rows(n: int, m: int, windows: tuple[int, ...]):
         got, ref = from_uv_solve(u, v, ridge=RIDGE), from_uv_solve_plain(u, v, ridge=RIDGE)
         differ = sum(mismatches(g, r) for g, r in zip(got, ref))
         a1, rhs = u + RIDGE * eye, torch.cat([eye.expand(s, n, n), v], dim=2)
-        lib = f", torch.linalg.solve ms={cuda_ms(lambda: torch.linalg.solve(a1, rhs), 10):.4f}" \
-              f" ({library_device(lambda: torch.linalg.solve(a1, rhs), 10)})"
+        lib_ms = cuda_ms(lambda: torch.linalg.solve(a1, rhs), WIDE_REPS)
+        lib = f", torch.linalg.solve ms={lib_ms:.4f}" \
+              f" ({library_device(lambda: torch.linalg.solve(a1, rhs), WIDE_REPS)})"
         log(f"  from_uv_solve S={s} Ñ={n} m={m}: {differ} of {s * n * (n + m)} elements differ")
         timed(f"from_uv_solve S={s}", lambda: from_uv_solve(u, v, ridge=RIDGE),
-              solves, solve_flops(s, n, m), 4 * s * 2 * (n * n + n * m), 10, lib)
+              solves, solve_flops(s, n, m), 4 * s * 2 * (n * n + n * m), WIDE_REPS, lib)
         assert differ == 0, f"from_uv_solve S={s} Ñ={n}: {differ} elements differ"
         del a1, rhs, got, ref
     u, v = payloads(D_WIDE)
@@ -2273,7 +2304,7 @@ def wide_kernel_rows(n: int, m: int, windows: tuple[int, ...]):
         " elements differ")
     timed("banded_merge_solve", lambda: banded_merge_solve(w, HOPS, ridge=RIDGE),
           solves, D_WIDE * 2 * HOPS * n * (n + m) + solve_flops(D_WIDE, n, m),
-          4 * D_WIDE * (n * (n + m) + n * n + n * m), 10)
+          4 * D_WIDE * (n * (n + m) + n * n + n * m), WIDE_REPS)
     assert differ == 0, f"banded_merge_solve Ñ={n}: {differ} elements differ"
     del got, ref
 
@@ -2302,16 +2333,18 @@ def wide_kernel_rows(n: int, m: int, windows: tuple[int, ...]):
         log(f"  fleet_ingest D={D_WIDE} T={t} Ñ={n}: max_rel P={rels[0]:.3e} beta={rels[1]:.3e}"
             f" loss={rels[2]:.3e} (tol {TOL['fleet_ingest']:.0e})")
         timed(f"fleet_ingest T={t}", lambda: fleet_ingest(fleet, window), kernels,
-              *ingest_work(D_WIDE, t, m, n, m), 10)
+              *ingest_work(D_WIDE, t, m, n, m), WIDE_REPS)
         assert max(rels) <= TOL["fleet_ingest"], f"fleet_ingest T={t} Ñ={n}: {rels}"
 
 
 def phase_wide():
     """Phase 10."""
-    log(f"  (a) FleetRuntime at Ñ={N_WIDE} (D={D_WIDE}) and Ñ={N_WIDER} (D={D_WIDER}) on four"
-        " routes, card against CPU")
-    wide_runtimes(D_WIDE, N_WIDE)
+    log(f"  (a) FleetRuntime at Ñ={N_WIDE} and Ñ={N_WIDER} (D={D_WIDER}) on four routes, card"
+        " against CPU")
+    t0 = time.perf_counter()
+    wide_runtimes(D_WIDER, N_WIDE)
     wide_runtimes(D_WIDER, N_WIDER)
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
     log(f"  (b) the kernels at Ñ={N_WIDEST} (m={N_FEAT}), 768 and 1024 (m={N_MNIST}) against"
         " their plain versions")
     wide_kernel_rows(N_WIDEST, N_FEAT, (T, 2 * T))
@@ -3425,6 +3458,515 @@ def phase_serving_frontend(fleet, ticks_np):
     return launches
 
 
+# ------------------------------------------- phase 17: the cohort-paged arena
+
+COHORT_D, COHORT_C = 2048, 512    # (a): the har width, four pages of 512
+# isolated clusters of 40-41 devices: with 48 every page boundary (a multiple
+# of D/4) would fall between two clusters; with 50 the first and the third
+# fall inside one, so two clusters take a partial from two pages
+COHORT_CLUSTERS = 50
+COHORT_TICKS = 12                 # merges at ticks 3, 7 and 11; the shift from SHIFT_TICK
+COHORT_ACTIVE = 2                 # (a): a leg with two of the four cohorts a tick
+COHORT_CPU_D, COHORT_CPU_C = 64, 16   # (b): the cohort bench's parity size and width
+COHORT_CPU_NH, COHORT_CPU_N, COHORT_CPU_B = 4, 8, 4
+# (a) the page shapes the paged path puts through the kernels at Ñ = 4 (the
+# cohort bench's width): pages of 16 384 devices
+PAGE_C, PAGE_NH, PAGE_N, PAGE_T = 16384, 4, 8, 4
+
+
+def cohort_topologies(d: int, n_clusters: int):
+    from repro_torch.fleet import hierarchical, ring, star
+
+    return {"star": star(d),
+            "hierarchical_isolated": hierarchical(d, n_clusters, head_exchange=False),
+            "ring": ring(d, HOPS)}
+
+
+def reversed_topology(topo):
+    """The topology of the fleet with its device axis reversed: an isolated
+    hierarchy's clusters relabelled so that their ids stay sorted."""
+    import dataclasses
+
+    import numpy as np
+
+    if topo.kind != "segment" or topo.head_exchange:
+        return topo
+    cids = (topo.n_clusters - 1 - np.asarray(topo.cluster_ids)[::-1]).astype(np.int32)
+    return dataclasses.replace(topo, cluster_ids=cids)
+
+
+def cohort_batches(d: int, shifted_every: int = SHIFT_EVERY):
+    """make_streams' har-like data at D = d, drawn on the card from SEED:
+    (the boot chunks (d, 2Ñ, n), tick t's window (d, T, n))."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    bases = torch.randn((2, RANK, N_FEAT), generator=g, device="cuda") / RANK ** 0.5
+    shifted = torch.arange(d, device="cuda") % shifted_every == 0
+
+    def draw(pattern, rows, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        z = torch.randn((d, rows, RANK), generator=gen, device="cuda")
+        x = torch.bmm(z, bases[pattern])
+        return x + NOISE * torch.randn(x.shape, generator=gen, device="cuda")
+
+    boot = draw(torch.zeros(d, dtype=torch.long, device="cuda"), 2 * N_HID, SEED + 1000)
+
+    def tick(t):
+        pattern = (shifted & (t >= SHIFT_TICK)).long()
+        return draw(pattern, T, SEED + 2000 + t)
+
+    return boot, tick
+
+
+def fresh_arena(base):
+    """A copy of ``base`` that shares no memory with it."""
+    from repro_torch.fleet import FleetArena
+
+    return FleetArena(alpha=base.alpha.clone(), bias=base.bias.clone(), p=base.p.clone(),
+                      beta=base.beta.clone(), activation=base.activation, forget=base.forget)
+
+
+def paged_ticks(base, cfg, tick, cohort, batch, *, active=None, device="cuda"):
+    """A CohortFleetRuntime in cohorts of ``cohort`` over COHORT_TICKS ticks
+    of ``tick(t)`` (host windows of ``batch`` samples, as a deployment hands
+    them over) on a copy of ``base``, warmed up first, the launch counts set
+    to 0 just before the first tick and read just after the last."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import CohortFleetRuntime
+
+    rt = CohortFleetRuntime(fresh_arena(base), cfg, cohort_size=cohort, active_per_tick=active,
+                            device=device)
+    if device == "cuda":  # the leaves and the pages the copies read are pinned
+        assert rt.arena.p.is_pinned() and rt.arena.beta[-cohort:].is_pinned()
+    rt.warmup(batch)
+    reports, tick_s, paging = [], [], []
+    reset_launch_counts()
+    for t in range(COHORT_TICKS):
+        batch = tick(t)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports.append(rt.tick(batch))
+        tick_s.append(time.perf_counter() - t0)
+        paging.append(rt.last_paging)
+    counts = launch_counts()
+    return rt, reports, tick_s, paging, counts
+
+
+def compare_reports(what, got, want, *, after=LOSS_RTOL, served_only=False):
+    """Flags, fresh detections and decisions equal on every tick; losses
+    within 1e-5 up to the first merge (its tick included) and ``after``
+    from then on. Returns the largest relative loss difference."""
+    import numpy as np
+
+    merged, worst = False, 0.0
+    for t, (a, b) in enumerate(zip(got, want, strict=True)):
+        keep = a.served if served_only and a.served is not None else np.ones(len(a.losses), bool)
+        rtol = after if merged else 1e-5
+        np.testing.assert_allclose(a.losses[keep], b.losses[keep], rtol=rtol, atol=LOSS_ATOL,
+                                   err_msg=f"{what} tick {t}")
+        assert np.array_equal(a.drifted, b.drifted), f"{what} tick {t}: drifted"
+        assert np.array_equal(a.fresh_detections, b.fresh_detections), f"{what} tick {t}"
+        da, db = a.decision, b.decision
+        assert (da.merge, da.reason, da.participants, da.round_bytes) == (
+            db.merge, db.reason, db.participants, db.round_bytes), f"{what} tick {t}: {da} {db}"
+        worst = max(worst, float(np.max(np.abs(a.losses[keep] - b.losses[keep])
+                                        / np.abs(b.losses[keep]))))
+        merged |= da.merge
+    return worst
+
+
+def order_spread(a_reports, b_reports) -> float:
+    """The largest relative loss difference from the first tick after a
+    merge on: the spread of one runtime against itself in another order of
+    adds."""
+    import numpy as np
+
+    merged, worst = False, 0.0
+    for a, b in zip(a_reports, b_reports, strict=True):
+        if merged:
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+        merged |= b.decision.merge
+    return worst
+
+
+def resident_ticks(fleet, cfg, tick, *, reverse=False):
+    """The resident FleetRuntime on the card over COHORT_TICKS ticks; with
+    ``reverse`` on the fleet with its device axis reversed (each window's
+    rows and the topology with it), its reports put back in device order:
+    the same merges summed in the other order."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.runtime import FleetRuntime
+
+    d = fleet.p.shape[0]
+    perm = torch.arange(d - 1, -1, -1, device="cuda")
+    if reverse:
+        fleet = fleet.replace(p=fleet.p[perm].contiguous(), beta=fleet.beta[perm].contiguous())
+        cfg = dataclasses.replace(cfg, topology=reversed_topology(cfg.topology))
+    rt = FleetRuntime(fleet, cfg, device="cuda")
+    rt.warmup(T)
+    reports, secs = [], []
+    back = perm.cpu().numpy()
+    for t in range(COHORT_TICKS):
+        batch = tick(t)
+        if reverse:
+            batch = batch[perm]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = rt.tick(batch)
+        secs.append(time.perf_counter() - t0)
+        if reverse:
+            r = dataclasses.replace(r, losses=r.losses[back], drifted=r.drifted[back],
+                                    fresh_detections=r.fresh_detections[back])
+        reports.append(r)
+    return reports, secs
+
+
+def full_round_spread(rt, topo):
+    """After the run: one full-mask two-tier round on a copy of the arena
+    against the flat merge of the same fleet on the card, relative to max
+    |β|, beside the card's own spreads at that state: the flat merge with
+    the device axis reversed (another order of adds), and its Gauss-Jordan
+    solve of its own sums against an f64 solve of them (the elimination's
+    pivot-row update carries |w_kk| times a row's rounding)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import CohortMerger, fleet_merge_masked_kernel, fleet_to_uv
+    from repro_torch.kernels import banded_mix, from_uv_solve, masked_segment_sum_mix
+
+    d = rt.n_devices
+    st = rt.arena.to_fleet(device="cuda")
+    ones = torch.ones(d, device="cuda")
+    flat = fleet_merge_masked_kernel(st, topo, ones, ridge=RIDGE)
+    perm = torch.arange(d - 1, -1, -1, device="cuda")
+    st_rev = st.replace(p=st.p[perm].contiguous(), beta=st.beta[perm].contiguous())
+    rev = fleet_merge_masked_kernel(st_rev, reversed_topology(topo), ones, ridge=RIDGE)
+    two = fresh_arena(rt.arena)
+    CohortMerger(topo, rt.schedule, ridge=RIDGE, device="cuda").merge(two, np.ones(d, bool))
+    scale = float(flat.beta.abs().max())
+    gap = float((two.beta.cuda() - flat.beta).abs().max()) / scale
+    order = float((rev.beta[perm] - flat.beta).abs().max()) / scale
+    # the flat round's distinct systems and their sums, solved in f32 and f64
+    uv = fleet_to_uv(st, ridge=RIDGE)
+    w = torch.cat([uv.u, uv.v], dim=2)
+    nh = st.p.shape[-1]
+    if topo.kind == "banded":
+        sums = banded_mix(w, topo.hops)
+    elif topo.head_exchange:
+        sums = masked_segment_sum_mix(w, np.zeros(d, np.int32), ones, 1)
+    else:
+        sums = masked_segment_sum_mix(w, topo.cluster_ids, ones, topo.n_clusters)
+    _, beta32 = from_uv_solve(sums[:, :, :nh], sums[:, :, nh:], ridge=RIDGE)
+    a = sums[:, :, :nh].double() + RIDGE * torch.eye(nh, dtype=torch.float64, device="cuda")
+    beta64 = torch.linalg.solve(a, sums[:, :, nh:].double())
+    solve = float((beta32.double() - beta64).abs().max()) / scale
+    del st, st_rev, flat, rev, uv, w, sums, a, beta64
+    return gap, order, solve
+
+
+def paging_text(paging, ticks_s):
+    """The median tick's paging times (events on the card's copy and
+    compute streams) and how much of the copies the overlap hid."""
+    import numpy as np
+
+    i = int(np.argsort(ticks_s)[len(ticks_s) // 2])
+    p = paging[i]
+    copies = p["in_s"] + p["out_s"]
+    hidden = (copies + p["compute_s"] - p["span_s"]) / copies
+    return (f"page in {p['in_s'] * 1e3:.2f} ms, out {p['out_s'] * 1e3:.2f} ms, ingest"
+            f" {p['compute_s'] * 1e3:.2f} ms, span {p['span_s'] * 1e3:.2f} ms a tick: the overlap"
+            f" hid {hidden:.2f} of the copies")
+
+
+def cohort_full_width(smi):
+    """(a) The har width: CohortFleetRuntime on the card against the
+    resident FleetRuntime on the card, tick by tick, on star, isolated
+    hierarchical (48 clusters, some straddling a page) and the ring (hops
+    2), then a leg serving two of the four cohorts a tick."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import CohortSchedule, cohort_round_cost, init_arena, init_fleet
+    from repro_torch.runtime import FleetRuntime
+
+    d, c = COHORT_D, COHORT_C
+    boot, tick = cohort_batches(d)
+    t0 = time.perf_counter()
+    base = init_arena(torch.Generator().manual_seed(SEED), d, N_FEAT, N_HID,
+                      lambda lo, hi: boot[lo:hi], cohort_size=c, activation="identity",
+                      ridge=RIDGE, device="cuda")
+    init_s = time.perf_counter() - t0
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), d, N_FEAT, N_HID,
+                       boot.cpu().numpy(), activation="identity", ridge=RIDGE, device="cuda")
+    del boot
+    # the boot's κ(U₀ + εI) ~ 1e6 at this width: the pages' products sum in
+    # other orders than the whole fleet's, so P and β are held by what they
+    # predict, the first window's scores (its pre-train losses)
+    p_rel = float((base.p.cuda() - fleet.p).abs().max() / fleet.p.abs().max())
+    b_rel = float((base.beta.cuda() - fleet.beta).abs().max() / fleet.beta.abs().max())
+    x = tick(0)
+
+    def scores(beta):
+        y = torch.bmm(x @ fleet.params.alpha + fleet.params.bias, beta)
+        return ((x - y) ** 2).mean(dim=(1, 2))
+
+    s_rel = float(((scores(base.beta.cuda()) - scores(fleet.beta)).abs()
+                   / scores(fleet.beta).abs()).max())
+    log(f"  init_arena D={d} in pages of {c} on the card ({init_s:.2f} s, {base.nbytes / 2**20:.0f}"
+        f" MB of arena) against init_fleet: first-window scores max_rel {s_rel:.3e} (tol 1e-4);"
+        f" P {p_rel:.3e}, beta {b_rel:.3e} of their largest")
+    assert s_rel <= 1e-4, (s_rel, p_rel, b_rel)
+    fleet = base.to_fleet(device="cuda")   # both runtimes start from one state
+    host_tick = lambda t: tick(t).cpu().numpy()  # noqa: E731
+    launches, spreads = {}, {}
+    for name, topo in cohort_topologies(d, COHORT_CLUSTERS).items():
+        if name == "hierarchical_isolated":
+            cost = cohort_round_cost(topo, CohortSchedule(d, c), N_HID, N_FEAT)
+            assert cost.tier2_payloads > 0, "no cluster straddles a page boundary"
+        cfg = runtime_config(topo)
+        rt, reports, tick_s, paging, counts = paged_ticks(base, cfg, host_tick, c, T)
+        merges = sum(r.decision.merge for r in reports)
+        route = rt.merger.launches_per_round()
+        want = {"fleet_ingest": rt.schedule.n_cohorts * COHORT_TICKS}
+        for k, v in route.items():
+            want[k] = want.get(k, 0) + v * merges
+        got = {k: v for k, v in counts.items() if v}
+        assert got == want, f"paged {name}: launches {got}, expected {want}"
+        rt.assert_compile_once()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        res_reports, res_s = resident_ticks(fleet, cfg, tick)
+        rev_reports, _ = resident_ticks(fleet, cfg, tick, reverse=True)
+        spread = order_spread(rev_reports, res_reports)
+        after = max(LOSS_RTOL, 2 * spread)
+        worst = compare_reports(f"paged {name}", reports, res_reports, after=after)
+        flags = sum(int(r.fresh_detections.sum()) for r in reports)
+        assert merges >= 2 and flags > 0, (name, merges, flags)
+        spreads[name] = spread
+        text = paging_text(paging, tick_s)
+        merge_ms = [r.merge_seconds * 1e3 for r in reports if r.merge_seconds is not None]
+        tick_p50 = float(np.median(tick_s))
+        log(f"  {name}: {COHORT_TICKS} ticks at D={d} in {rt.schedule.n_cohorts} pages, flags"
+            f" {flags}, merges {merges}: flags, detections and decisions equal to the resident"
+            f" runtime's, losses max rel diff {worst:.3e} (after the first merge rtol"
+            f" {after:.3e}: phase 4's, or twice the resident runtime's own spread against itself"
+            f" on the reversed device axis, {spread:.3e}); launches {got}")
+        log(f"    paged tick p50 {tick_p50 * 1e3:.2f} ms ({d / tick_p50:.0f} devices/s), merge"
+            f" p50 {np.median(merge_ms):.2f} ms; resident tick p50 {np.median(res_s) * 1e3:.2f}"
+            f" ms; {text}; on {smi}")
+        merge_ticks = [x for x in paging if "merge_in_s" in x]
+        if merge_ticks:
+            m = merge_ticks[-1]
+            log(f"    a merge's pages: in {m['merge_in_s'] * 1e3:.2f} ms, out"
+                f" {m['merge_out_s'] * 1e3:.2f} ms, compute {m['merge_compute_s'] * 1e3:.2f} ms"
+                f" (events)")
+        gap, order, solve = full_round_spread(rt, topo)
+        tol = max(1e-5, 2 * max(order, solve))
+        log(f"    a full-mask round after the run: two-tier against flat max|Δβ|/max|β|"
+            f" {gap:.3e}; the card's own spreads: reversed order {order:.3e}, f32 solve against"
+            f" f64 {solve:.3e}; bound {tol:.3e}")
+        assert gap <= tol, f"paged {name}: two-tier round {gap:.3e} past {tol:.3e}"
+        del rt
+    # two of the four cohorts a tick: the resident runtime serves the same devices
+    cfg = runtime_config(cohort_topologies(d, COHORT_CLUSTERS)["star"])
+    rt, reports, tick_s, paging, counts = paged_ticks(base, cfg, host_tick, c, T,
+                                                      active=COHORT_ACTIVE)
+    res = FleetRuntime(fleet, cfg, device="cuda")
+    res_reports = [res.tick(tick(t), served=reports[t].served) for t in range(COHORT_TICKS)]
+    worst = compare_reports("paged star, two cohorts a tick", reports, res_reports,
+                            after=max(LOSS_RTOL, 2 * spreads["star"]), served_only=True)
+    merges = sum(r.decision.merge for r in reports)
+    assert counts["fleet_ingest"] == COHORT_ACTIVE * COHORT_TICKS, counts
+    rt.assert_compile_once()
+    text = paging_text(paging, tick_s)
+    log(f"  star, {COHORT_ACTIVE} of {rt.schedule.n_cohorts} cohorts a tick: {COHORT_TICKS} ticks,"
+        f" merges {merges}, served losses max rel diff {worst:.3e}, equal flags and decisions;"
+        f" tick p50 {np.median(tick_s) * 1e3:.2f} ms; {text}; on {smi}")
+    for k, v in counts.items():
+        if v:
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def cohort_card_vs_cpu():
+    """(b) D = 64 in cohorts of 16 at the cohort bench's width: the card's
+    paged ticks against the port's paged ticks on the CPU, on star,
+    isolated hierarchy (6 clusters, straddling) and ring: flags and
+    decisions equal, losses at phase 4's bound, after the first merge at
+    the larger of that and twice the CPU's own spread between its paged and
+    its resident runtime on the same ticks (the same merges in another order
+    of adds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import FleetArena, init_fleet
+    from repro_torch.runtime import FleetRuntime
+
+    d = COHORT_CPU_D
+    rng = np.random.default_rng(SEED + 3)
+    x0 = (rng.standard_normal((d, 16, COHORT_CPU_N)) * 0.5).astype(np.float32)
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), d, COHORT_CPU_N, COHORT_CPU_NH, x0,
+                       ridge=1e-2, device="cpu")
+    base = FleetArena.from_fleet(fleet)
+    batches = [(rng.normal(scale=0.5, size=(d, COHORT_CPU_B, COHORT_CPU_N))
+                + 2.0 * ((np.arange(d) == 3) & (t >= SHIFT_TICK))[:, None, None]).astype(np.float32)
+               for t in range(COHORT_TICKS)]
+    for name, topo in cohort_topologies(d, 6).items():
+        cfg = runtime_config(topo)
+        card = paged_ticks(base, cfg, lambda t: batches[t], COHORT_CPU_C, COHORT_CPU_B)
+        cpu = paged_ticks(base, cfg, lambda t: batches[t], COHORT_CPU_C, COHORT_CPU_B,
+                          device="cpu")
+        card[0].assert_compile_once()
+        res = FleetRuntime(fleet, cfg, device="cpu")
+        spread = order_spread(cpu[1], [res.tick(batches[t]) for t in range(COHORT_TICKS)])
+        after = max(LOSS_RTOL, 2 * spread)
+        merged, worst = False, 0.0
+        for t, (a, b) in enumerate(zip(card[1], cpu[1])):
+            np.testing.assert_allclose(a.losses, b.losses, rtol=after if merged else LOSS_RTOL,
+                                       atol=LOSS_ATOL,
+                                       err_msg=f"card against CPU, paged {name}, tick {t}")
+            assert np.array_equal(a.drifted, b.drifted) and np.array_equal(
+                a.fresh_detections, b.fresh_detections), (name, t)
+            assert (a.decision.merge, a.decision.participants) == (
+                b.decision.merge, b.decision.participants), (name, t)
+            worst = max(worst, float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses))))
+            merged |= b.decision.merge
+        beta = float((card[0].arena.beta - cpu[0].arena.beta).abs().max()
+                     / cpu[0].arena.beta.abs().max())
+        log(f"  {name}: D={d} in cohorts of {COHORT_CPU_C}, {COHORT_TICKS} ticks, merges"
+            f" {sum(r.decision.merge for r in card[1])}: flags and decisions equal, losses max"
+            f" rel diff {worst:.3e} (after the first merge rtol {after:.3e}; the CPU's paged"
+            f" against resident spread {spread:.3e}), β after {beta:.3e} of max |β|")
+
+
+def cohort_page_kernels():
+    """The three kernels the paged path runs, at the page shapes of the
+    cohort bench (Ñ = 4, n = m = 8, T = 4, pages of 16 384 devices): each
+    against its plain version, its time by events and alone, its bound and
+    the library call where one computes the same."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SLFNParams, init_oselm, invert_u
+    from repro_torch.kernels import (fleet_ingest_paged, from_uv_solve, from_uv_solve_plain,
+                                     masked_segment_sum_mix, masked_segment_sum_mix_plain)
+    from repro_torch.kernels.fleet_ingest import fleet_ingest_plain
+
+    c, nh, n, t = PAGE_C, PAGE_NH, PAGE_N, PAGE_T
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    alpha = torch.rand((n, nh), generator=g, device="cuda") * 2 - 1
+    bias = torch.rand((nh,), generator=g, device="cuda") * 2 - 1
+    x0 = torch.randn((c, 16, n), generator=g, device="cuda") * 0.5
+    st = init_oselm(SLFNParams(alpha, bias), x0, x0, ridge=1e-2)
+    window = torch.randn((c, t, n), generator=g, device="cuda") * 0.5
+    got = fleet_ingest_paged(st.p, st.beta, alpha, bias, window, activation=st.activation)
+    ref_st, ref_l = fleet_ingest_plain(st, window)
+    _, rels = rel_err(got, (ref_st.p, ref_st.beta, ref_l))
+    flops, nbytes = ingest_work(c, t, n, nh, n)
+    b = bound(flops, nbytes)
+    ms = cuda_ms(lambda: fleet_ingest_paged(st.p, st.beta, alpha, bias, window), 20)
+    alone = {k: device_ms(lambda: fleet_ingest_paged(st.p, st.beta, alpha, bias, window), 20,
+                          (k,)) for k in INGEST_KERNELS}
+    total = None if None in alone.values() else sum(alone.values())
+    plain = cuda_ms(lambda: fleet_ingest_plain(st, window), 3)
+    log(f"  fleet_ingest_paged C={c} Ñ={nh} n=m={n} T={t}: max_rel P={rels[0]:.3e}"
+        f" beta={rels[1]:.3e} loss={rels[2]:.3e} (tol {TOL['fleet_ingest']:.0e}); ms={ms:.4f}"
+        f" (kernels alone {ms_text(total)}: "
+        + ", ".join(f"{k} {ms_text(v)}" for k, v in alone.items())
+        + f") plain_ms={plain:.4f} bound_ms={b[0]:.5f} ({b[1]})")
+    assert max(rels) <= TOL["fleet_ingest"], rels
+    p2, b2 = got[0], got[1]
+    u = invert_u(p2, ridge=1e-2)
+    u = 0.5 * (u + u.transpose(1, 2))
+    w = torch.cat([u, u @ b2], dim=2).contiguous()
+    mask = (torch.rand(c, generator=g, device="cuda") < 0.9).float()
+    ids = np.zeros(c, np.int32)
+    s = masked_segment_sum_mix(w, ids, mask, 1)
+    ref = masked_segment_sum_mix_plain(w, ids, mask, 1)
+    _, rels = rel_err((s,), (ref,))
+    e = nh * (nh + n)
+    b = bound(2 * c * e, 4 * (c * e + e + 2 * c))
+    chain = c * 4 / 1.98e9 * 1e3
+    wf = w.view(c, -1)
+    ms = cuda_ms(lambda: masked_segment_sum_mix(w, ids, mask, 1), 50)
+    alone = device_ms(lambda: masked_segment_sum_mix(w, ids, mask, 1), 20, ("segsum",))
+    lib = cuda_ms(lambda: torch.mv(wf.t(), mask), 50)
+    log(f"  masked_segment_sum_mix one cluster of {c} rows of ({nh}, {nh + n}): max_rel"
+        f" {rels[0]:.3e} (tol {TOL['masked_segment_sum_mix']:.0e}); ms={ms:.4f} (kernel alone"
+        f" {ms_text(alone)}) library_ms={lib:.4f} (torch.mv by the mask,"
+        f" {library_device(lambda: torch.mv(wf.t(), mask), 20)}) bound_ms={b[0]:.5f} ({b[1]};"
+        f" chain {chain:.5f})")
+    assert rels[0] <= TOL["masked_segment_sum_mix"], rels
+    u1, v1 = s[:, :, :nh], s[:, :, nh:]
+    sol = from_uv_solve(u1, v1, ridge=1e-2)
+    ref = from_uv_solve_plain(u1, v1, ridge=1e-2)
+    differ = sum(mismatches(a, r) for a, r in zip(sol, ref))
+    a1 = u1 + 1e-2 * torch.eye(nh, device="cuda")
+    rhs = torch.cat([torch.eye(nh, device="cuda")[None], v1], dim=2)
+    b = bound(solve_flops(1, nh, n), 4 * 2 * (nh * nh + nh * n))
+    ms = cuda_ms(lambda: from_uv_solve(u1, v1, ridge=1e-2), 50)
+    alone = device_ms(lambda: from_uv_solve(u1, v1, ridge=1e-2), 20, ("uv_solve_cluster_kernel",))
+    lib = cuda_ms(lambda: torch.linalg.solve(a1, rhs), 50)
+    log(f"  from_uv_solve S=1 Ñ={nh} m={n}: {differ} of {nh * (nh + n)} elements differ;"
+        f" ms={ms:.4f} (kernel alone {ms_text(alone)}) library_ms={lib:.4f} (torch.linalg.solve,"
+        f" {library_device(lambda: torch.linalg.solve(a1, rhs), 20)}) bound_ms={b[0]:.7f}"
+        f" ({b[1]})")
+    assert differ == 0, f"from_uv_solve at Ñ={nh}: {differ} elements differ"
+
+
+def cohort_scale(smi):
+    """(c) benchmarks/torch_fleet_cohort.py --full: D = 131 072 and
+    1 048 576 in cohorts of 16 384, its claims and launches asserted."""
+    from benchmarks import torch_fleet_cohort
+
+    lines = torch_fleet_cohort.main([
+        "--full", "--out", str(ROOT / "BENCH_torch_fleet_cohort.json"),
+        "--history", str(ROOT / "BENCH_torch_history.jsonl")])
+    for line in lines:
+        log(f"  {line}")
+    rows = json.loads((ROOT / "BENCH_torch_fleet_cohort.json").read_text())["rows"]
+    for r in rows:
+        log(f"  D={r['n_devices']}: launches {r['launches']}, arena {r['arena_mb']:.0f} MB,"
+            f" init {r['init_seconds']:.2f} s, build and warm-up {r['build_seconds']:.2f} s,"
+            f" merge pages in {r['merge_page_in_ms']:.2f} ms, out {r['merge_page_out_ms']:.2f} ms;"
+            f" the point took {r['seconds']:.1f} s, its device-time sessions"
+            f" {r['profile_seconds']:.1f} s; on {smi}")
+
+
+def phase_cohort():
+    """Phase 17: the cohort-paged arena on the card: (a) the har width
+    against the resident runtime, (b) card against CPU, (c) the scale
+    bench; the page shapes of the scale bench through the three kernels."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"  on {smi}")
+    t0 = time.perf_counter()
+    launches = cohort_full_width(smi)
+    torch.cuda.empty_cache()
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cohort_card_vs_cpu()
+    log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cohort_page_kernels()
+    log(f"  the page kernels took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cohort_scale(smi)
+    log(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3546,7 +4088,14 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 17: kernels (phases 1-16 took {time.perf_counter() - start:.1f} s)")
+    log("phase 17: the cohort-paged arena (CohortFleetRuntime against the resident runtime at"
+        " the har width, card against CPU, the page kernels, torch_fleet_cohort --full)")
+    t0 = time.perf_counter()
+    for k, v in phase_cohort().items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 18: kernels (phases 1-17 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

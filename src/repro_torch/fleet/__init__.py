@@ -1,4 +1,12 @@
 """Fleet-scale OS-ELM federation on stacked tensors (port of ``repro.fleet``)."""
+from repro_torch.fleet.arena import (
+    CohortMerger,
+    CohortSchedule,
+    FleetArena,
+    TierCost,
+    cohort_round_cost,
+    init_arena,
+)
 from repro_torch.fleet.comm import (
     RoundCost,
     fedavg_total_cost,
@@ -44,6 +52,7 @@ from repro_torch.fleet.robust import (
     payload_outlier_scores,
     robust_merge_from_w,
 )
+from repro_torch.fleet.sharded import cohort_tree_reduce
 from repro_torch.fleet.staleness import StalenessSchedule, fleet_train_async
 from repro_torch.fleet.topology import (
     Topology,
@@ -55,6 +64,8 @@ from repro_torch.fleet.topology import (
 )
 
 __all__ = [
+    "CohortMerger", "CohortSchedule", "FleetArena", "TierCost", "cohort_round_cost",
+    "cohort_tree_reduce", "init_arena",
     "RoundCost", "fedavg_total_cost", "model_nbytes", "payload_nbytes",
     "topology_round_cost",
     "FAULT_KINDS", "FaultInjector", "FaultSpec",

@@ -4,6 +4,7 @@ single-device core and model-zoo attention kernels of ``repro.kernels``)."""
 from repro_torch.kernels._lib import KERNELS, launch_counts, reset_launch_counts
 from repro_torch.kernels.fleet_ingest import (
     fleet_ingest,
+    fleet_ingest_paged,
     fleet_ingest_plain,
     validate_shared_basis,
 )
@@ -45,7 +46,7 @@ from repro_torch.kernels.topology_merge import (
 
 __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts",
-    "fleet_ingest", "fleet_ingest_plain", "validate_shared_basis",
+    "fleet_ingest", "fleet_ingest_paged", "fleet_ingest_plain", "validate_shared_basis",
     "banded_merge_solve", "banded_merge_solve_plain",
     "dense_mix", "dense_mix_plain",
     "from_uv_solve", "from_uv_solve_plain",

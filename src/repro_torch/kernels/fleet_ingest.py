@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.activations import ACTIVATION_CODES, get_activation, kernel_code
+from repro_torch.core.elm import SLFNParams
 from repro_torch.core.oselm import OSELMState
 from repro_torch.kernels import _lib
 from repro_torch.kernels.topology_merge import _fma
@@ -39,6 +40,7 @@ __all__ = [
     "INGEST_WIDE_N",
     "fleet_ingest",
     "fleet_ingest_cuda",
+    "fleet_ingest_paged",
     "fleet_ingest_plain",
     "ingest_chunk",
     "ingest_chunks",
@@ -187,3 +189,25 @@ def fleet_ingest(
     if window.device.type == "cpu":
         return fleet_ingest_plain(states, window, targets)
     return fleet_ingest_cuda(states, window, targets)
+
+
+def fleet_ingest_paged(
+    p: torch.Tensor,
+    beta: torch.Tensor,
+    alpha: torch.Tensor,
+    bias: torch.Tensor,
+    window: torch.Tensor,
+    *,
+    activation: str = "sigmoid",
+    forget: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused ingest over one arena page's raw leaves: P (C, Ñ, Ñ) and
+    β (C, Ñ, m) against the shared basis α (n, Ñ), b (Ñ,), as the
+    cohort-paged runtime holds them. It rebuilds the page as an
+    ``OSELMState`` over the one (n, Ñ) basis (no per-device copy of it is
+    made) and runs ``fleet_ingest``; returns (P′, β′, the (C,) pre-train
+    losses)."""
+    states = OSELMState(params=SLFNParams(alpha=alpha, bias=bias), beta=beta, p=p,
+                        activation=activation, forget=forget)
+    trained, losses = fleet_ingest(states, window)
+    return trained.p, trained.beta, losses

@@ -1,7 +1,10 @@
-"""Resident fleet runtime (port of ``repro.runtime``): detector, governor, tick loop."""
+"""Fleet runtimes (port of ``repro.runtime``): detector, governor, the resident
+tick loop and the cohort-paged one."""
+from repro_torch.runtime.cohort import CohortFleetRuntime
 from repro_torch.runtime.detector import (
     DetectorConfig,
     DetectorState,
+    common_mode_ratio,
     detector_update,
     init_detector,
     quarantine_risk,
@@ -16,7 +19,8 @@ from repro_torch.runtime.governor import (
 from repro_torch.runtime.runtime import FleetRuntime, RuntimeConfig, TickReport
 
 __all__ = [
-    "DetectorConfig", "DetectorState", "detector_update", "init_detector",
+    "CohortFleetRuntime",
+    "DetectorConfig", "DetectorState", "common_mode_ratio", "detector_update", "init_detector",
     "quarantine_risk", "TickFeed",
     "GovernorConfig", "GovernorState", "MergeDecision", "MergeGovernor",
     "FleetRuntime", "RuntimeConfig", "TickReport",

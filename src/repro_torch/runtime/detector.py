@@ -1,6 +1,7 @@
 """Online sequential drift detection over per-tick losses; port of
 ``repro.runtime.detector`` (``DetectorConfig``, ``DetectorState``,
-``init_detector``, ``detector_update``, ``quarantine_risk``).
+``init_detector``, ``detector_update``, ``common_mode_ratio``,
+``quarantine_risk``).
 
 Per device: ewma_t = (1−α)·ewma_{t−1} + α·loss_t, and drift ⇔
 ewma_t > μ_base + k·σ_base, with a Welford calibration window, slow
@@ -94,10 +95,14 @@ def detector_update(
     *,
     rebase: bool = False,
     participants: torch.Tensor | None = None,
+    common: torch.Tensor | float | None = None,
 ) -> tuple[DetectorState, torch.Tensor, torch.Tensor]:
     """One detection step; returns ``(state', drifted, fresh)``. See the
     reference's docstring for the semantics of ``rebase`` (first tick
-    after a merge) and ``participants`` (that merge's mask)."""
+    after a merge) and ``participants`` (that merge's mask). ``common``
+    replaces the fleet median of loss / baseline mean with a scalar taken
+    beforehand (``common_mode_ratio``, as the cohort-paged runtime does on
+    its rebase ticks); None computes the median here."""
     losses = losses.to(torch.float32)
     if participants is None:
         participants = torch.ones_like(losses, dtype=torch.bool)
@@ -105,8 +110,11 @@ def detector_update(
 
     calibrated = state.count >= cfg.warmup
     valid = participants & ~state.drifted & calibrated
-    ratio = losses / torch.clamp_min(state.mean, cfg.min_sigma)
-    common = _nanmedian_midpoint(ratio, valid)
+    if common is None:
+        ratio = losses / torch.clamp_min(state.mean, cfg.min_sigma)
+        common = _nanmedian_midpoint(ratio, valid)
+    else:
+        common = torch.as_tensor(common, dtype=torch.float32, device=losses.device)
     common = torch.where(torch.isfinite(common) & (common > 0), common, 1.0)
     do_rebase = valid & bool(rebase)
     state = state.replace(
@@ -168,6 +176,25 @@ def detector_update(
         drifted=drifted, recovery=recovery,
     )
     return new, drifted, fresh
+
+
+def common_mode_ratio(
+    state: DetectorState,
+    losses: torch.Tensor,
+    cfg: DetectorConfig,
+    *,
+    participants: torch.Tensor,
+) -> torch.Tensor:
+    """The fleet median of loss / baseline mean over calibrated, undrifted
+    participants: the scalar ``detector_update`` computes for its
+    post-merge rebase, from the same pre-update bank and in the same f32
+    arithmetic (``jnp.nanmedian``'s midpoint), so that a rebase fed with it
+    (``common=``) equals one that computes it."""
+    losses = losses.to(torch.float32)
+    participants = participants.to(torch.bool)
+    valid = participants & ~state.drifted & (state.count >= cfg.warmup)
+    ratio = losses / torch.clamp_min(state.mean, cfg.min_sigma)
+    return _nanmedian_midpoint(ratio, valid)
 
 
 def quarantine_risk(state: DetectorState, cfg: DetectorConfig) -> torch.Tensor:

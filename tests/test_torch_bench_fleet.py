@@ -40,7 +40,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from benchmarks import fleet_ingest as ref_fleet_ingest  # noqa: E402
 from benchmarks import fleet_scale as ref_fleet_scale  # noqa: E402
-from benchmarks import torch_fleet_ingest, torch_fleet_scale, torch_history  # noqa: E402
+from benchmarks import fleet_cohort as ref_fleet_cohort  # noqa: E402
+from benchmarks import torch_fleet_cohort, torch_fleet_ingest, torch_fleet_scale  # noqa: E402
+from benchmarks import torch_history, torch_run  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -217,3 +219,53 @@ def test_kernel_offsets_are_kept_by_content():
     with pytest.raises(ValueError, match=r"\(7,\)"):
         tm._device_starts(ids, 7, 4, "segment_sum_mix", cpu)
     assert tm._broadcast_on(*tm._ids_key(ids), 4, cpu).tolist() == ids.tolist()
+
+
+def test_cohort_bench_rehearses_on_the_cpu(tmp_path):
+    """``torch_fleet_cohort --device cpu``: the parity check at D = 64, the
+    D = 4096 point in cohorts of 1024, its artifact and its history keys
+    (host-clock keys no gate reads, and the tier-2 reduction)."""
+    out, history = tmp_path / "cohort.json", tmp_path / "history.jsonl"
+    lines = torch_fleet_cohort.main(["--device", "cpu", "--out", str(out),
+                                     "--history", str(history)], gate=True)
+    assert lines[0].startswith("fleet_cohort/parity_d64,nan,")
+    assert lines[1].startswith(f"fleet_cohort/d{torch_fleet_cohort.CPU_D},")
+    report = json.loads(out.read_text())
+    assert report["backend"] == "cpu"
+    parity = report["parity"]
+    assert parity["beta_gap"] <= parity["bound"] and parity["sums_rel"] <= 1e-5
+    (row,) = report["rows"]
+    assert row["n_cohorts"] == torch_fleet_cohort.CPU_D // torch_fleet_cohort.CPU_COHORT
+    assert row["tier2_bytes_per_round"] * 100 < row["flat_bytes_per_round"]
+    assert row["copy_hidden_share"] is None and row["tick_device_us"] is None
+    d = torch_fleet_cohort.CPU_D
+    entry = json.loads(history.read_text())
+    assert entry["bench"] == "torch_fleet_cohort" and set(entry["metrics"]) == {
+        f"paged_tick_d{d}_host_ms", f"two_tier_merge_d{d}_host_ms", f"tier2_reduction_d{d}_ratio"}
+
+
+@pytest.mark.parametrize("d", [ref_fleet_cohort.SMOKE_D, ref_fleet_cohort.FULL_D])
+def test_cohort_bench_grid_and_tiers_are_the_references(d):
+    """The same grid and the same tier accounting as the reference's bench
+    at both scale points, without running either."""
+    assert (torch_fleet_cohort.N_HIDDEN, torch_fleet_cohort.N_FEATURES, torch_fleet_cohort.BATCH,
+            torch_fleet_cohort.COHORT, torch_fleet_cohort.SMOKE_D, torch_fleet_cohort.FULL_D,
+            torch_fleet_cohort.PARITY_D, torch_fleet_cohort.PARITY_C) == (
+        ref_fleet_cohort.N_HIDDEN, ref_fleet_cohort.N_FEATURES, ref_fleet_cohort.BATCH,
+        ref_fleet_cohort.COHORT, ref_fleet_cohort.SMOKE_D, ref_fleet_cohort.FULL_D,
+        ref_fleet_cohort.PARITY_D, ref_fleet_cohort.PARITY_C)
+    from repro.fleet import CohortSchedule as RefCohortSchedule
+    from repro.fleet import cohort_round_cost as ref_cost
+    from repro_torch.fleet import CohortSchedule, cohort_round_cost
+
+    got = cohort_round_cost(star(d), CohortSchedule(d, torch_fleet_cohort.COHORT), 4, 8)
+    want = ref_cost(ref_star(d), RefCohortSchedule(d, ref_fleet_cohort.COHORT), 4, 8)
+    assert (got.tier1_payloads, got.tier2_payloads, got.payload_bytes) == (
+        want.tier1_payloads, want.tier2_payloads, want.payload_bytes)
+    assert got.tier2_payloads * 100 < star(d).payloads_per_round
+
+
+def test_cohort_bench_is_registered_in_the_harness():
+    names = [name for name, _ in torch_run.BENCHES]
+    assert "torch_fleet_cohort" in names
+    assert "fleet_cohort" not in torch_run.__doc__.split("not yet ported")[1]

@@ -1630,3 +1630,133 @@ def test_frontend_launches_equal_ticks_and_merges(served_on_card):
     assert rt.tick_no == 12 and rt.governor.state.merges == 3
     assert counts["fleet_ingest"] == rt.tick_no
     assert counts["banded_merge_solve"] == rt.governor.state.merges
+
+
+# ----------------------------------------------------- the cohort-paged arena
+
+@pytest.mark.parametrize("c,nh,n,t", [(16384, 4, 8, 4), (13, 10, 37, 17), (64, 128, 561, 32)])
+def test_paged_ingest_kernel_matches_plain(cuda, c, nh, n, t):
+    """``fleet_ingest_paged`` on a page's raw leaves against the plain
+    ingest of the same page (the ingest's 1e-4), one launch a call; the
+    cohort bench's page (16 384 devices at Ñ = 4) among the shapes."""
+    from repro_torch.kernels import fleet_ingest_paged
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    alpha = torch.rand((n, nh), generator=g, device=cuda) * 2 - 1
+    bias = torch.rand((nh,), generator=g, device=cuda) * 2 - 1
+    x0 = torch.randn((c, 2 * nh + 8, n), generator=g, device=cuda) * 0.5
+    st = init_oselm(SLFNParams(alpha, bias), x0, x0, activation="identity", ridge=1e-2)
+    window = torch.randn((c, t, n), generator=g, device=cuda) * 0.5
+    _lib.reset_launch_counts()
+    got = fleet_ingest_paged(st.p, st.beta, alpha, bias, window, activation="identity")
+    assert launch_counts()["fleet_ingest"] == 1
+    ref_st, ref_l = fleet_ingest_plain(st, window)
+    for g_, w_ in zip(got, (ref_st.p, ref_st.beta, ref_l)):
+        assert _rel(g_, w_) <= 1e-4
+
+
+def _cohort_fleet(d=64, nh=4, n=8, seed=0):
+    from repro_torch.fleet import FleetArena, init_fleet
+
+    rng = np.random.default_rng(seed)
+    x0 = (rng.standard_normal((d, 16, n)) * 0.5).astype(np.float32)
+    fleet = init_fleet(torch.Generator().manual_seed(seed), d, n, nh, x0, ridge=1e-2,
+                       device="cpu")
+    return FleetArena.from_fleet(fleet)
+
+
+def _arena_copy(arena):
+    from repro_torch.fleet import FleetArena
+
+    return FleetArena(alpha=arena.alpha.clone(), bias=arena.bias.clone(), p=arena.p.clone(),
+                      beta=arena.beta.clone())
+
+
+COHORT_TOPOS = {
+    "star": lambda d: star(d),
+    "all_to_all": lambda d: all_to_all(d),
+    "ring_closed": lambda d: ring(d, hops=d // 2),
+    "hierarchical_isolated": lambda d: hierarchical(d, 6, head_exchange=False),
+    "ring": lambda d: ring(d, hops=2),
+}
+
+
+@pytest.mark.parametrize("topo", sorted(COHORT_TOPOS))
+def test_cohort_merge_pages_on_the_card_match_the_cpu(cuda, topo):
+    """One masked two-tier round on the card, its pages through the copy
+    streams and the merge kernels, against the same round on the CPU (the
+    plain versions): P and β at phase 4's 2e-4 of their largest,
+    non-participants bit for bit, the segment sum once a page and the solve
+    once a round (``global``, ``clusters``) or once a page (``ring``)."""
+    from repro_torch.fleet import CohortMerger, CohortSchedule
+
+    base = _cohort_fleet()
+    d, c = base.n_devices, 16
+    mask = np.random.default_rng(1).random(d) > 0.25
+    mask[:2] = True
+    sched = CohortSchedule(d, c)
+    card, cpu = _arena_copy(base), _arena_copy(base)
+    merger = CohortMerger(COHORT_TOPOS[topo](d), sched, ridge=1e-2, device=cuda)
+    _lib.reset_launch_counts()
+    merger.merge(card, mask)
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == merger.launches_per_round(), counts
+    assert card.p.is_pinned() and card.beta.is_pinned()
+    CohortMerger(COHORT_TOPOS[topo](d), sched, ridge=1e-2, device="cpu").merge(cpu, mask)
+    assert _rel(card.p, cpu.p) <= 2e-4 and _rel(card.beta, cpu.beta) <= 2e-4
+    skip = torch.as_tensor(~mask)
+    assert torch.equal(card.p[skip], base.p[skip]) and torch.equal(card.beta[skip], base.beta[skip])
+
+
+@pytest.mark.parametrize("topo", ["star", "hierarchical_isolated", "ring"])
+@pytest.mark.parametrize("active", [None, 3])
+def test_paged_runtime_on_the_card_matches_the_cpu(cuda, topo, active):
+    """CohortFleetRuntime at D = 64 in cohorts of 16 on the card against the
+    same runtime on the CPU over 12 ticks: flags, detections and decisions
+    equal, losses at phase 4's rtol 2e-4, after the first merge at the
+    larger of that and twice the CPU's own spread between the paged and the
+    resident runtime on the same ticks (the same merges summed in another
+    order, amplified by the Gauss-Jordan solves); the arena pinned; after
+    the warm-up no library load, and the runtime's launch check holds."""
+    from repro_torch.runtime import (CohortFleetRuntime, DetectorConfig, FleetRuntime,
+                                     GovernorConfig, RuntimeConfig)
+
+    base = _cohort_fleet()
+    d = base.n_devices
+    cfg = RuntimeConfig(topology=COHORT_TOPOS[topo](d), ridge=1e-2,
+                        detector=DetectorConfig(warmup=4, warmup_skip=1),
+                        governor=GovernorConfig(merge_every=3))
+    card = CohortFleetRuntime(_arena_copy(base), cfg, cohort_size=16, active_per_tick=active,
+                              device=cuda)
+    cpu = CohortFleetRuntime(_arena_copy(base), cfg, cohort_size=16, active_per_tick=active,
+                             device="cpu")
+    resident = FleetRuntime(_arena_copy(base).to_fleet(device="cpu"), cfg, device="cpu")
+    assert card.arena.p.is_pinned() and card.arena.beta.is_pinned()
+    card.warmup(4)
+    loads = _lib.library.cache_info().misses
+    rng = np.random.default_rng(2)
+    got, want, spread, merged = [], [], 0.0, False
+    for t in range(12):
+        batch = rng.normal(scale=0.5, size=(d, 4, 8)).astype(np.float32)
+        batch[3] += 2.0 * (t >= 8)
+        a, b = card.tick(batch), cpu.tick(batch)
+        r = resident.tick(batch, served=b.served)
+        keep = np.ones(d, bool) if b.served is None else b.served
+        assert np.array_equal(a.drifted, b.drifted) and np.array_equal(
+            a.fresh_detections, b.fresh_detections)
+        assert (a.decision.merge, a.decision.participants) == (
+            b.decision.merge, b.decision.participants)
+        if merged:
+            spread = max(spread, float(np.max(np.abs(b.losses[keep] - r.losses[keep])
+                                              / np.abs(r.losses[keep]))))
+            got.append(a.losses[keep])
+            want.append(b.losses[keep])
+        else:
+            np.testing.assert_allclose(a.losses, b.losses, rtol=2e-4, atol=1e-6)
+        merged |= a.decision.merge
+    np.testing.assert_allclose(np.concatenate(got), np.concatenate(want),
+                               rtol=max(2e-4, 2 * spread), atol=1e-6)
+    assert card.merge_round >= 2 and _lib.library.cache_info().misses == loads == 1
+    card.assert_compile_once()
+    paging = card.last_paging
+    assert paging["in_s"] > 0 and paging["out_s"] > 0 and paging["compute_s"] > 0
