@@ -13,9 +13,9 @@ benchmark seeds its baseline).
 
     python benchmarks/torch_run.py [--only NAME] [--check-regression] [--device cpu]
 
-The reference benchmarks not yet ported, and the ROADMAP queue 1 item
-that ports each: ``mesh_merge`` (item 8, multi-process merges) and
-``roofline_report`` (item 10, the model zoo's dry run and roofline).
+The reference benchmark not yet ported, and the ROADMAP queue 1 item
+that ports it: ``roofline_report`` (item 10, the model zoo's dry run and
+roofline).
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ BENCHES = [
     ("torch_robust_fleet", "ours — Byzantine-robust merges + fault-injection chaos soak"),
     ("torch_serve_runtime", "ours — resident serve-runtime soak: drift gating, SLO, int8"),
     ("torch_serve_ingress", "ours — async ingress front-end: load, flood, crash, degraded"),
+    ("torch_mesh_merge", "ours — cooperative update as one all-reduce pair across ranks"),
 ]
 
 

@@ -17,8 +17,10 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    1) and ``dense_mix`` (a seeded symmetric 0/1 mask, and the edges of its
    tile), bit for bit; ``from_uv_solve`` at S = 1, 32 and 256 (the stale
    round's per-device solves) and ``torch.linalg.solve`` each alone
-   (``torch.profiler``), with the count of elements that differ from the
-   plain version and a second call bit-identical; ``banded_merge_solve``
+   (``torch.profiler``), no element differing from the plain version and
+   a second call bit-identical, each β against an f64 solve beside
+   ``torch.linalg.solve``'s distance (the star's within ``SOLVE_F64_RATIO``
+   times it); ``banded_merge_solve``
    (ring, hops = 2) with no element differing from its plain version and
    its kernel alone; ``masked_segment_sum_mix`` and its library product
    alone; ``fleet_ingest`` alone, the sum of its four kernels;
@@ -112,8 +114,9 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     (b) ``benchmarks/torch_paper_eval.py``'s smoke grid (driving, har,
     mnist_like on ring and star) in f32 and int8: its claims asserted,
     every routed kernel launched, one row per (scenario, topology);
-12. durability at the har width: (a) the hardened star with telemetry
-    (phase 3's faults) snapshotting every 16 ticks, killed at tick 40, its
+12. durability at the har width: (a) the hardened star of the fleet's
+    first 32 devices with telemetry (phase 3's faults) snapshotting every
+    16 ticks, killed at tick 40, its
     newest snapshot cut to 128 bytes, a new runtime restored from the one
     before and replayed to tick 64: the tail bit for bit equal to an
     uninterrupted card run's, telemetry continuous, each kernel launched as
@@ -178,16 +181,42 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     and after it within phase 4's bound or twice the resident runtime's own
     spread against itself on the reversed device axis; each runtime's
     launches (``fleet_ingest`` once a page a tick, the merge kernels once a
-    page or round); a full-mask two-tier round against the flat merge
-    within twice the card's own spread (the flat merge in reversed order,
-    its f32 solve against f64); ``init_arena`` against ``init_fleet``; the
+    page or round); a full-mask two-tier round against the solve of the
+    flat sums taken in f64 within ``TWO_TIER_EXACT_TOL``, and against the
+    flat merge within twice the card's own spread (the flat merge in
+    reversed order, with its sums in f64, its f32 solve against f64);
+    ``init_arena`` against ``init_fleet``; the
     tick, merge, devices a second and page in/out times by events; (b) D =
     64 in cohorts of 16 at Ñ = 4, card against CPU; (c) the page shapes of
     the cohort bench (``fleet_ingest`` on 16 384 devices at Ñ = 4, the
     masked sum on one cluster of 16 384, ``from_uv_solve`` at S = 1, Ñ = 4)
     against their plain versions and ``benchmarks/torch_fleet_cohort.py
-    --full`` (D = 131 072 and 1 048 576, its claims and launches);
-18. the kernel list, one JSON object per kernel, then the result line.
+    --full`` (D = 131 072 and 1 048 576, its claims and launches); each
+    full round's f32 solve against an f64 solve of the same sums beside
+    ``torch.linalg.solve``'s (the star's within ``SOLVE_F64_RATIO`` times
+    it);
+18. multi-process merges (``repro_torch.launch.mesh``,
+    ``repro_torch.fleet.sharded``, ``repro_torch.federated.mesh_federation``):
+    four ranks on card 0 over gloo through pinned host memory (``spawn``),
+    at the har width, D = 256, 64 devices a rank: (a) ``fleet_train_sharded``
+    over two windows equal to the single-process ``fleet_train`` bit for
+    bit; (b) ``fleet_merge_sharded`` on star, hierarchical (32 clusters,
+    with and without the head exchange) and all_to_all, one all-reduce of
+    the partials, and (c) the open ring's halo at hops 2 and 64 (hops 65
+    refused), each against the single-process merge at the larger of 1e-4
+    and twice that merge's own spread on the reversed device axis, one
+    model on every rank; the sharded merge's p50, its collective's ms and
+    bytes beside the single-process merge's; (d) ``mesh_federated_train``,
+    one device a rank, a merge after every window, against the
+    single-process chain at twice its spread over the orders of the sum;
+    (e) ``CohortMerger(mesh=)`` on an arena of 2048 in pages of 512, one
+    page a rank, against ``mesh=None``, and ``cohort_tree_reduce`` over the
+    mesh; each rank's launches (``fleet_ingest`` a window, ``segment_sum_mix``
+    and ``from_uv_solve`` a psum merge, ``banded_merge_solve`` a halo merge);
+    (f) a one-rank nccl mesh's star merge equal to the single-process merge
+    bit for bit (skipped, and said so, only where torch has no nccl; a
+    rank that fails fails the phase);
+19. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -236,6 +265,21 @@ TOL = {
     # 32-step RLS chain amplifies f32 rounding by up to κ(P)
     "fleet_ingest": 1e-4,
 }
+# a merged star system's f32 Gauss-Jordan β against an f64 solve of the same
+# sums, at most this many times torch.linalg.solve's (LU with partial
+# pivoting) distance: 1.2-2.9x on the GPU tests' and phase 2's systems,
+# 4.43x on phase 17's star of 2048 after 12 ticks, whose U is diagonal to
+# 3e-7 of its pivots: there each β row takes 127 updates of a few ulps,
+# each rounded once, where the library's substitution rounds fewer times.
+# Dividing by the pivot in place of the reciprocal's product left that
+# figure as it was; an update of the pivot row as the other rows was 8e5x
+# there
+SOLVE_F64_RATIO = 5
+# phase 17: a full-mask two-tier round against the solve of the flat sums
+# taken in f64, relative to max |β|. A sequential f32 sum of n nearly equal
+# payloads drifts by about n·2^-24/4 of the sum: 3.1e-5 for the flat 2048,
+# 7.7e-6 for a page of 512, whose four partials the tree then adds
+TWO_TIER_EXACT_TOL = 1e-5
 # card against CPU, per tick: the same reasons as tests/test_torch_runtime.py
 LOSS_RTOL, LOSS_ATOL = 2e-4, 1e-6
 # int8 payloads after the first merge: a code that flips at a .5 boundary
@@ -490,6 +534,16 @@ def phase_kernels(fleet, window, topo_hier):
         log(f"  from_uv_solve {shape}: {differ} of {s * nh * (nh + m)} elements differ from the"
             f" plain version; library solve against the plain version: "
             f"P max_rel={lib_rels[0]:.3e}, beta max_rel={lib_rels[1]:.3e}")
+        assert differ == 0, f"from_uv_solve {shape}: {differ} elements differ from the plain version"
+        # the pivot row kept out of its own step: β about as close to an
+        # f64 solve of the same sums as the library's f32 solve
+        b64 = torch.linalg.solve(a1.double(), v1.double())
+        off = float((got[1].double() - b64).abs().max() / b64.abs().max())
+        lib_off = float((lib[:, :, nh:].double() - b64).abs().max() / b64.abs().max())
+        log(f"  from_uv_solve {shape}: beta off an f64 solve {off:.3e} of max|beta|,"
+            f" torch.linalg.solve {lib_off:.3e}")
+        if s == 1:
+            assert off <= SOLVE_F64_RATIO * lib_off, f"from_uv_solve {shape}: {off:.3e} off f64"
         solve_rows[shape] = r = dict(
             abs=abs_e, rels=dict(zip(("P", "beta"), rels)), flops=solve_flops(s, nh, m),
             nbytes=4 * s * (nh * nh + nh * m + nh * nh + nh * m),
@@ -2582,6 +2636,7 @@ def phase_telemetry(fleet, ticks_dev):
 # ---------------------------------------------- phase 12: durability
 
 CHAOS_TICKS, CHAOS_EVERY, CHAOS_KILL = 64, 16, 40
+CHAOS_D = 32   # the chaos fleet: the first 32 devices (a snapshot of 29 MB at the har width)
 
 
 def phase_durability(fleet, ticks_dev, ticks_np):
@@ -2607,14 +2662,16 @@ def phase_durability(fleet, ticks_dev, ticks_np):
     from repro_torch.obs import TelemetryConfig
     from repro_torch.runtime import FleetRuntime
 
-    base = runtime_config(topologies(D)["star"], robust=RobustConfig(trim=1),
-                          faults=fault_injector(D), telemetry=TelemetryConfig())
+    base = runtime_config(topologies(CHAOS_D)["star"], robust=RobustConfig(trim=1),
+                          faults=fault_injector(CHAOS_D), telemetry=TelemetryConfig())
+    whole_fleet, fleet = fleet, fleet.replace(beta=fleet.beta[:CHAOS_D].contiguous(),
+                                              p=fleet.p[:CHAOS_D].contiguous())
 
     def timed_ticks(rt, t0, t1, counts=None):
         reports, ms = [], []
         for t in range(t0, t1):
             start = time.perf_counter()
-            reports.append(rt.tick(ticks_dev[t % TICKS]))  # the stream's ticks, cycled
+            reports.append(rt.tick(ticks_dev[t % TICKS, :CHAOS_D]))  # the ticks, cycled
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - start) * 1e3)
             if counts is not None:
@@ -2672,7 +2729,7 @@ def phase_durability(fleet, ticks_dev, ticks_np):
     assert rounds >= 2 and nonfinite > 0
     snap_ticks = [t for t in range(CHAOS_KILL) if (t + 1) % CHAOS_EVERY == 0]
     other = [t for t in range(CHAOS_KILL) if (t + 1) % CHAOS_EVERY]
-    log(f"  chaos at D={D}, n={N_FEAT}, Ñ={N_HID} (hardened star, telemetry): snapshots every"
+    log(f"  chaos at D={CHAOS_D}, n={N_FEAT}, Ñ={N_HID} (hardened star, telemetry): snapshots every"
         f" {CHAOS_EVERY}, killed at {CHAOS_KILL}, newest torn, restored tick {restored}, replayed"
         f" to {CHAOS_TICKS}: {len(got)} reports equal bit for bit ({rounds} merges, {nonfinite}"
         f" non-finite payloads), final P and β equal, telemetry continuous, launches equal to the"
@@ -2688,7 +2745,8 @@ def phase_durability(fleet, ticks_dev, ticks_np):
         f" {save_s['mean_s'] * 1e3 / CHAOS_EVERY:.3f} ms a tick")
 
     # (b) a card snapshot on the CPU at D_CPU
-    small = fleet.replace(beta=fleet.beta[:D_CPU].contiguous(), p=fleet.p[:D_CPU].contiguous())
+    small = whole_fleet.replace(beta=whole_fleet.beta[:D_CPU].contiguous(),
+                                p=whole_fleet.p[:D_CPU].contiguous())
     for label, extra, after_rtol in (
             ("f32", {}, LOSS_RTOL),
             ("hardened", dict(robust=RobustConfig(trim=2), faults=fault_injector(D_CPU)),
@@ -3632,9 +3690,15 @@ def full_round_spread(rt, topo):
     """After the run: one full-mask two-tier round on a copy of the arena
     against the flat merge of the same fleet on the card, relative to max
     |β|, beside the card's own spreads at that state: the flat merge with
-    the device axis reversed (another order of adds), and its Gauss-Jordan
-    solve of its own sums against an f64 solve of them (the elimination's
-    pivot-row update carries |w_kk| times a row's rounding)."""
+    the device axis reversed (another order of adds); the flat round with
+    its sums taken in f64 (after a star merge the devices' payloads are
+    nearly equal, and adding equal terms in any sequential order rounds
+    alike, so the reversed order hides the sums' own error, which the
+    two-tier tree's blocks do not share); and its Gauss-Jordan solve of its
+    own sums against an f64 solve of them, with ``torch.linalg.solve``'s
+    beside. The two-tier round itself is held against the solve of the
+    flat sums taken in f64 (``exact``), where only its own sums' and its
+    solve's rounding can show."""
     import numpy as np
     import torch
 
@@ -3653,22 +3717,47 @@ def full_round_spread(rt, topo):
     scale = float(flat.beta.abs().max())
     gap = float((two.beta.cuda() - flat.beta).abs().max()) / scale
     order = float((rev.beta[perm] - flat.beta).abs().max()) / scale
-    # the flat round's distinct systems and their sums, solved in f32 and f64
+    nh = st.p.shape[-1]
+
+    # the flat round's distinct systems and their sums, in f32 and in f64
     uv = fleet_to_uv(st, ridge=RIDGE)
     w = torch.cat([uv.u, uv.v], dim=2)
-    nh = st.p.shape[-1]
+    w64 = w.double()
     if topo.kind == "banded":
         sums = banded_mix(w, topo.hops)
+        sums64 = sum(torch.roll(w64, -o, dims=0) for o in range(-topo.hops, topo.hops + 1))
     elif topo.head_exchange:
         sums = masked_segment_sum_mix(w, np.zeros(d, np.int32), ones, 1)
+        sums64 = w64.sum(0, keepdim=True)
     else:
         sums = masked_segment_sum_mix(w, topo.cluster_ids, ones, topo.n_clusters)
+        cids = torch.as_tensor(topo.cluster_ids, dtype=torch.long, device="cuda")
+        sums64 = torch.zeros((topo.n_clusters,) + tuple(w.shape[1:]), dtype=torch.float64,
+                             device="cuda").index_add_(0, cids, w64)
+    del w64
+    sums64 = sums64.float()
     _, beta32 = from_uv_solve(sums[:, :, :nh], sums[:, :, nh:], ridge=RIDGE)
+    _, beta_sums64 = from_uv_solve(sums64[:, :, :nh], sums64[:, :, nh:], ridge=RIDGE)
+    adds = float((beta_sums64 - beta32).abs().max()) / scale
+    if topo.kind == "banded":
+        per_device = beta_sums64
+    elif topo.head_exchange:
+        per_device = beta_sums64.expand(d, -1, -1)
+    else:
+        per_device = beta_sums64[cids]
+    exact = float((two.beta.cuda() - per_device).abs().max()) / scale
+    del per_device
     a = sums[:, :, :nh].double() + RIDGE * torch.eye(nh, dtype=torch.float64, device="cuda")
     beta64 = torch.linalg.solve(a, sums[:, :, nh:].double())
     solve = float((beta32.double() - beta64).abs().max()) / scale
-    del st, st_rev, flat, rev, uv, w, sums, a, beta64
-    return gap, order, solve
+    lib = torch.linalg.solve(a.float(), sums[:, :, nh:])
+    lib_solve = float((lib.double() - beta64).abs().max()) / scale
+    chol = torch.cholesky_solve(sums[:, :, nh:], torch.linalg.cholesky(a.float()))
+    chol_solve = float((chol.double() - beta64).abs().max()) / scale
+    diag = a.diagonal(dim1=1, dim2=2)
+    off_diag = float((a - torch.diag_embed(diag)).abs().max() / diag.min())
+    del st, st_rev, flat, rev, uv, w, sums, sums64, a, beta64, lib, chol
+    return gap, exact, order, adds, solve, lib_solve, chol_solve, off_diag
 
 
 def paging_text(paging, ticks_s):
@@ -3767,12 +3856,21 @@ def cohort_full_width(smi):
             log(f"    a merge's pages: in {m['merge_in_s'] * 1e3:.2f} ms, out"
                 f" {m['merge_out_s'] * 1e3:.2f} ms, compute {m['merge_compute_s'] * 1e3:.2f} ms"
                 f" (events)")
-        gap, order, solve = full_round_spread(rt, topo)
-        tol = max(1e-5, 2 * max(order, solve))
-        log(f"    a full-mask round after the run: two-tier against flat max|Δβ|/max|β|"
-            f" {gap:.3e}; the card's own spreads: reversed order {order:.3e}, f32 solve against"
-            f" f64 {solve:.3e}; bound {tol:.3e}")
+        (gap, exact, order, adds, solve, lib_solve, chol_solve,
+         off_diag) = full_round_spread(rt, topo)
+        tol = max(1e-5, 2 * max(order, adds, solve))
+        log(f"    a full-mask round after the run: two-tier against the solve of the flat sums"
+            f" taken in f64 max|Δβ|/max|β| {exact:.3e} (bound {TWO_TIER_EXACT_TOL:.0e});"
+            f" against the flat merge {gap:.3e} (bound {tol:.3e}); the card's own spreads:"
+            f" reversed order {order:.3e}, the flat sums in f64 {adds:.3e}, f32 solve against"
+            f" f64 {solve:.3e} (torch.linalg.solve {lib_solve:.3e}, {solve / lib_solve:.2f}x;"
+            f" an f32 Cholesky solve {chol_solve:.3e}; the largest off-diagonal of U + εI"
+            f" {off_diag:.3e} of its smallest pivot; a solve that updates the pivot row as the"
+            f" other rows was off by 8.4e-2 on star here)")
+        assert exact <= TWO_TIER_EXACT_TOL, f"paged {name}: two-tier round {exact:.3e} off exact"
         assert gap <= tol, f"paged {name}: two-tier round {gap:.3e} past {tol:.3e}"
+        if name == "star":
+            assert solve <= SOLVE_F64_RATIO * lib_solve, f"star: the solve is {solve:.3e} off f64"
         del rt
     # two of the four cohorts a tick: the resident runtime serves the same devices
     cfg = runtime_config(cohort_topologies(d, COHORT_CLUSTERS)["star"])
@@ -3967,6 +4065,362 @@ def phase_cohort():
     return launches
 
 
+# --------------------------------- phase 18: multi-process merges (mesh)
+
+MESH_RANKS, MESH_D, MESH_TICKS = 4, 256, 2   # 64 devices a rank, two windows of T samples
+MESH_CLUSTERS = 32                          # the hierarchy: 32 clusters of 8
+MESH_HOPS = (2, 64)                         # the halo: two devices, and a whole shard
+MESH_MERGE_EVERY = T                        # the federation: a merge after every window
+MESH_COHORT_D, MESH_COHORT_C = 2048, 512    # the cohort tier 2: one cohort a rank
+MESH_TIMED = 5                              # timed merges (after one untimed)
+MESH_WHERE = "4 ranks on one H100 over gloo through host memory"
+
+
+def mesh_fleet(d: int):
+    """The phase's fleet on the card and its windows ``tick(t)`` (D, T, n),
+    made from SEED on the card the same way in every process."""
+    import torch
+
+    from repro_torch.fleet import init_fleet
+
+    boot, tick = cohort_batches(d)
+    fleet = init_fleet(torch.Generator().manual_seed(SEED), d, N_FEAT, N_HID,
+                       boot.cpu().numpy(), activation="identity", ridge=RIDGE, device="cuda")
+    return fleet, tick
+
+
+def mesh_topologies(d: int):
+    from repro_torch.fleet import all_to_all, hierarchical, star
+
+    return {"star": star(d), "hierarchical": hierarchical(d, MESH_CLUSTERS),
+            "hierarchical_isolated": hierarchical(d, MESH_CLUSTERS, head_exchange=False),
+            "all_to_all": all_to_all(d)}
+
+
+def mesh_federation_inputs(fleet, tick):
+    """One device a rank (the first of each rank's block) and its stream:
+    the device's rows of every window, one after the other."""
+    import torch
+
+    rows = torch.arange(MESH_RANKS, device="cuda") * (MESH_D // MESH_RANKS)
+    devices = [fleet.replace(beta=fleet.beta[r], p=fleet.p[r]) for r in rows.tolist()]
+    streams = torch.cat([tick(t)[rows] for t in range(MESH_TICKS)], dim=1).contiguous()
+    return devices, streams
+
+
+def mesh_rank(rank: int) -> dict:
+    """One of the phase's four ranks, on card 0 over gloo: (a) training its
+    block, (b) the psum merges, (c) the halo, timed merges, (d) the mesh
+    federation, (e) the cohort tier 2. Returns its blocks, the merged
+    models and each step's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.federated import mesh_federated_train
+    from repro_torch.fleet import (
+        CohortMerger, CohortSchedule, cohort_tree_reduce, fleet_merge_masked_kernel,
+        fleet_merge_sharded, fleet_train_sharded, init_arena, ring, star,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import shard_fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = make_host_mesh()
+    fleet, tick = mesh_fleet(MESH_D)
+    devices, streams = mesh_federation_inputs(fleet, tick)
+    local = shard_fleet(fleet, mesh)
+    del fleet
+    out = {"index": mesh.index("data"), "backend": mesh.backend, "device": str(mesh.device),
+           "launches": {}, "merged": {}, "timed": {}}
+
+    def counted(what, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        out["launches"][what] = {k: v for k, v in launch_counts().items() if v}
+        return result
+
+    def host(st):
+        return {"p": st.p.cpu().numpy(), "beta": st.beta.cpu().numpy()}
+
+    def train():
+        st = local
+        for t in range(MESH_TICKS):
+            st = fleet_train_sharded(st, tick(t), mesh)
+        return st
+
+    local = counted("train", train)
+    out["trained"] = host(local)
+    merges = dict(mesh_topologies(MESH_D))
+    merges.update({f"ring hops={h}": ring(MESH_D, h) for h in MESH_HOPS})
+    for name, topo in merges.items():
+        merged = counted(name, lambda: fleet_merge_sharded(local, topo, mesh, ridge=RIDGE))
+        out["merged"][name] = host(merged)
+    try:
+        fleet_merge_sharded(local, ring(MESH_D, MESH_D // MESH_RANKS + 1), mesh, ridge=RIDGE)
+    except ValueError as e:
+        out["halo_error"] = str(e)
+    for name in ("star", "hierarchical", f"ring hops={MESH_HOPS[0]}"):
+        mesh.reset_stats()
+        ms = []
+        for i in range(MESH_TIMED + 1):
+            mesh.barrier()
+            t0 = time.perf_counter()
+            fleet_merge_sharded(local, merges[name], mesh, ridge=RIDGE)
+            torch.cuda.synchronize()
+            mesh.barrier()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        s = mesh.stats
+        out["timed"][name] = {"ms": float(np.median(ms)),
+                              "collective_ms": s.seconds * 1e3 / s.calls,
+                              "bytes": s.bytes // s.calls, "staged": s.staged_bytes // s.calls}
+    del local
+
+    fed = counted("federation", lambda: mesh_federated_train(
+        devices[rank], streams, mesh, merge_every=MESH_MERGE_EVERY, ridge=RIDGE))
+    out["federation"] = host(fed)
+
+    # (e) the cohort tier 2 on an arena of MESH_COHORT_D, one cohort a rank
+    boot, _ = cohort_batches(MESH_COHORT_D)
+    arena = init_arena(torch.Generator().manual_seed(SEED), MESH_COHORT_D, N_FEAT, N_HID,
+                       lambda lo, hi: boot[lo:hi], cohort_size=MESH_COHORT_C,
+                       activation="identity", ridge=RIDGE, device="cuda")
+    del boot
+    mask = (torch.rand(MESH_COHORT_D, generator=torch.Generator().manual_seed(SEED)) < 0.9).numpy()
+    first = int(np.flatnonzero(mask)[0])
+    topo, sched = star(MESH_COHORT_D), CohortSchedule(MESH_COHORT_D, MESH_COHORT_C)
+    if rank == 0:  # the flat merge of the same fleet, for the spread of the paged one
+        flat = fleet_merge_masked_kernel(arena.to_fleet(device="cuda"), topo,
+                                         torch.from_numpy(mask.astype(np.float32)).cuda(),
+                                         ridge=RIDGE)
+        out["flat"] = host(flat.replace(p=flat.p[first], beta=flat.beta[first]))
+        del flat
+    alone = fresh_arena(arena)
+    counted("cohort", lambda: CohortMerger(topo, sched, ridge=RIDGE, mesh=mesh,
+                                           device="cuda").merge(arena, mask))
+    CohortMerger(topo, sched, ridge=RIDGE, device="cuda").merge(alone, mask)
+    scale = float(alone.beta.abs().max())
+    out["cohort"] = {"p": arena.p[first].numpy(), "beta": arena.beta[first].numpy(),
+                     "alone_beta": alone.beta[first].numpy(),
+                     "alone": float((arena.beta - alone.beta).abs().max()) / scale,
+                     "alone_p": float((arena.p - alone.p).abs().max() / alone.p.abs().max()),
+                     "untouched": bool(torch.equal(arena.beta[~mask], alone.beta[~mask])),
+                     "scale": scale}
+    del arena, alone
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    parts = torch.randn((MESH_RANKS, N_HID, N_HID + N_FEAT), generator=g, device="cuda")
+    tree = cohort_tree_reduce(parts, mesh)
+    out["tree"] = tree.cpu().numpy()
+    out["tree_rel"] = float((tree - cohort_tree_reduce(parts)).abs().max() / tree.abs().max())
+    return out
+
+
+def mesh_nccl_rank(rank: int) -> dict:
+    """(f) One rank on its own card over nccl: the star's psum path against
+    the single-process merge."""
+    import torch
+
+    from repro_torch.fleet import fleet_merge, fleet_merge_sharded, star
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import shard_fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = make_host_mesh()
+    fleet, _ = mesh_fleet(MESH_D)
+    want = fleet_merge(fleet, star(MESH_D), ridge=RIDGE)
+    reset_launch_counts()
+    got = fleet_merge_sharded(shard_fleet(fleet, mesh), star(MESH_D), mesh, ridge=RIDGE)
+    torch.cuda.synchronize()
+    return {"backend": mesh.backend, "launches": {k: v for k, v in launch_counts().items() if v},
+            "equal": bool(torch.equal(got.p, want.p) and torch.equal(got.beta, want.beta)),
+            "max_abs": float((got.beta - want.beta).abs().max())}
+
+
+def phase_mesh(smi: str) -> dict[str, int]:
+    """Phase 18: the multi-process merges, four ranks on card 0 over gloo
+    (``repro_torch.launch.mesh.spawn``), against the single-process paths on
+    the card, which run first, alone on the card; a one-rank nccl mesh;
+    each rank's launches. Returns the launches summed over the ranks."""
+    import concurrent.futures
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import UV, from_uv, oselm_train_sequential, to_uv
+    from repro_torch.fleet import fleet_merge, fleet_train, ring
+    from repro_torch.launch.mesh import spawn
+
+    # the single-process paths: training, each merge and its own spread on
+    # the reversed device axis, the merges' times, the federation's chain
+    fleet, tick = mesh_fleet(MESH_D)
+    trained = fleet
+    for t in range(MESH_TICKS):
+        trained = fleet_train(trained, tick(t))
+    perm = torch.arange(MESH_D - 1, -1, -1, device="cuda")
+    rev = trained.replace(p=trained.p[perm].contiguous(), beta=trained.beta[perm].contiguous())
+    topos = dict(mesh_topologies(MESH_D))
+    topos.update({f"ring hops={h}": ring(MESH_D, h) for h in MESH_HOPS})
+    single, spreads, single_ms = {}, {}, {}
+    for name, topo in topos.items():
+        want = fleet_merge(trained, topo, ridge=RIDGE)
+        other = fleet_merge(rev, reversed_topology(topo), ridge=RIDGE)
+        single[name] = {k: getattr(want, k).cpu().numpy() for k in ("p", "beta")}
+        spreads[name] = {k: float((getattr(other, k)[perm] - getattr(want, k)).abs().max())
+                         for k in ("p", "beta")}
+        del want, other
+        if name in ("star", "hierarchical", f"ring hops={MESH_HOPS[0]}"):
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(MESH_TIMED + 1):
+                t0 = time.perf_counter()
+                fleet_merge(trained, topo, ridge=RIDGE)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            single_ms[name] = float(np.median(ms[1:]))
+    trained_np = {k: getattr(trained, k).cpu().numpy() for k in ("p", "beta")}
+    devices, streams = mesh_federation_inputs(fleet, tick)
+
+    def chain(order):
+        states = list(devices)
+        for c in range(streams.shape[1] // MESH_MERGE_EVERY):
+            xs = streams[:, c * MESH_MERGE_EVERY : (c + 1) * MESH_MERGE_EVERY].contiguous()
+            states = [oselm_train_sequential(s, xs[i], xs[i]) for i, s in enumerate(states)]
+            uvs = [to_uv(s, ridge=RIDGE) for s in states]
+            u, v = uvs[order[0]].u, uvs[order[0]].v
+            for i in order[1:]:
+                u, v = u + uvs[i].u, v + uvs[i].v
+            states = [from_uv(s, UV(u=u, v=v), ridge=RIDGE) for s in states]
+        return states[0].beta.cpu().numpy()
+
+    orders = [list(np.roll(np.arange(MESH_RANKS), k)) for k in range(MESH_RANKS)]
+    chains = [chain(o) for o in [*orders, orders[0][::-1]]]
+    fed_spread = max(float(np.abs(c - chains[0]).max()) for c in chains[1:])
+    del fleet, trained, rev, devices, streams
+    torch.cuda.empty_cache()
+
+    # the nccl leg is skipped only where this torch has no nccl backend,
+    # decided before any rank starts; any failure of a rank fails the phase
+    nccl_skip = None if torch.distributed.is_nccl_available() else "torch has no nccl backend"
+    t0 = time.perf_counter()
+    with (tempfile.TemporaryDirectory(dir=ROOT / "build") as rdv,
+          concurrent.futures.ThreadPoolExecutor(1) as pool):
+        # the one-rank nccl world starts beside the four gloo ranks
+        nccl_job = (None if nccl_skip else
+                    pool.submit(spawn, mesh_nccl_rank, 1, rdv, device="cuda", timeout=600))
+        ranks = spawn(mesh_rank, MESH_RANKS, rdv, device="cuda", timeout=600)
+        nccl = None if nccl_job is None else nccl_job.result()[0]
+        spawn_s = time.perf_counter() - t0
+    ranks = sorted(ranks, key=lambda r: r["index"])
+    assert all(r["backend"] == "gloo" and r["device"] == "cuda:0" for r in ranks), ranks[0]
+    per = MESH_D // MESH_RANKS
+    totals: dict[str, int] = {}
+    for r in ranks:
+        for counts in r["launches"].values():
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+
+    def stacked(*path):
+        blocks = [functools.reduce(dict.__getitem__, path, r) for r in ranks]
+        return {k: np.concatenate([b[k] for b in blocks]) for k in ("p", "beta")}
+
+    # (a) training: each rank's block against the single-process fleet_train
+    got = stacked("trained")
+    for k in ("p", "beta"):
+        assert np.array_equal(got[k], trained_np[k]), f"sharded training differs ({k})"
+    for r in ranks:
+        assert r["launches"]["train"] == {"fleet_ingest": MESH_TICKS}, r["launches"]["train"]
+    log(f"  (a) fleet_train_sharded, {MESH_RANKS} ranks of {per} devices, {MESH_TICKS} windows of"
+        f" {T}: equal to the single-process fleet_train bit for bit; one fleet_ingest a rank a"
+        " window")
+
+    # (b), (c): each merge against the single-process one on the card at the
+    # larger of 1e-4 and twice the single-process merge's own spread against
+    # itself on the reversed device axis
+    for name in topos:
+        want, spread = single[name], spreads[name]
+        got = stacked("merged", name)
+        err = {k: float(np.abs(got[k] - want[k]).max()) for k in ("p", "beta")}
+        tol = {k: max(1e-4, 2 * spread[k]) for k in ("p", "beta")}
+        same = all(np.array_equal(got[k], want[k]) for k in ("p", "beta"))
+        halo = name.startswith("ring")
+        expect = {"banded_merge_solve": 1} if halo else {"segment_sum_mix": 1, "from_uv_solve": 1}
+        for r in ranks:
+            assert r["launches"][name] == expect, (name, r["launches"][name])
+        if not halo and name != "hierarchical_isolated":  # one model, alike on every rank
+            for k in ("p", "beta"):
+                assert all(np.array_equal(got[k][0], row) for row in got[k]), (name, k)
+        log(f"  ({'c' if halo else 'b'}) {name}: sharded against single-process max|Δβ|"
+            f" {err['beta']:.3e}, max|ΔP| {err['p']:.3e}{' (bit for bit)' if same else ''};"
+            f" the single-process merge on the reversed axis {spread['beta']:.3e},"
+            f" {spread['p']:.3e}; bounds {tol['beta']:.3e}, {tol['p']:.3e}; launches a rank"
+            f" {expect}")
+        assert err["beta"] <= tol["beta"] and err["p"] <= tol["p"], f"{name}: sharded merge off"
+    for r in ranks:
+        assert f"halo exchange needs hops={per + 1}" in r["halo_error"], r.get("halo_error")
+    log(f"  (c) hops {per + 1} (past a shard of {per}) refused: {ranks[0]['halo_error'][:60]}...")
+    for name, ms in single_ms.items():
+        t = ranks[0]["timed"][name]
+        log(f"  {name}: sharded merge p50 {t['ms']:.3f} ms (host clock to a synchronize and a"
+            f" barrier, {MESH_TIMED} runs), its collective {t['collective_ms']:.3f} ms a call"
+            f" (CUDA events around it, staging included), {t['bytes']} bytes a call,"
+            f" {t['staged']} bytes staged a"
+            f" call; the single-process merge {ms:.3f} ms alone on the card; {MESH_WHERE},"
+            f" {smi}")
+
+    # (d) the mesh federation against the single-process chain over the
+    # orders of its sum
+    fed = ranks[0]["federation"]
+    for r in ranks:
+        assert np.array_equal(r["federation"]["beta"], fed["beta"]), "ranks' models differ"
+        assert r["launches"]["federation"] == {"fleet_ingest": MESH_TICKS}, r["launches"]
+    err = float(np.abs(fed["beta"] - chains[0]).max())
+    log(f"  (d) mesh_federated_train, one device a rank, a merge every {MESH_MERGE_EVERY}"
+        f" samples: against the single-process chain max|Δβ| {err:.3e} (bound twice its spread"
+        f" over the orders of the sum, {fed_spread:.3e}); the same model on every rank")
+    assert err <= 2 * fed_spread, (err, fed_spread)
+
+    # (e) the cohort tier 2
+    first = ranks[0]["cohort"]
+    spread = float(np.abs(ranks[0]["flat"]["beta"] - first["alone_beta"]).max()) / first["scale"]
+    for r in ranks:
+        c = r["cohort"]
+        assert np.array_equal(c["beta"], first["beta"]) and np.array_equal(c["p"], first["p"])
+        assert c["untouched"], "a device outside the mask was written"
+        assert r["launches"]["cohort"] == {"masked_segment_sum_mix": 1, "from_uv_solve": 1}
+        assert np.array_equal(r["tree"], ranks[0]["tree"]) and r["tree_rel"] <= 1e-6
+    tol = max(1e-5, 2 * spread)
+    log(f"  (e) CohortMerger(mesh=) on star at D={MESH_COHORT_D} in pages of {MESH_COHORT_C}, one"
+        f" a rank: against mesh=None max|Δβ|/max|β| {first['alone']:.3e}, P {first['alone_p']:.3e}"
+        f" (bound {tol:.3e}: twice the paged merge's distance from the flat one, {spread:.3e});"
+        f" the same model on every rank; cohort_tree_reduce over the mesh against the tree"
+        f" {ranks[0]['tree_rel']:.3e}")
+    assert first["alone"] <= tol, (first["alone"], tol)
+
+    # (f) the nccl branch
+    if nccl is None:
+        log(f"  (f) a one-rank nccl mesh did not run: {nccl_skip}")
+    else:
+        assert nccl["backend"] == "nccl", nccl
+        assert nccl["launches"] == {"segment_sum_mix": 1, "from_uv_solve": 1}, nccl["launches"]
+        assert nccl["equal"], f"nccl: the star's psum path is off by {nccl['max_abs']:.3e}"
+        log("  (f) a one-rank nccl mesh: the star's psum path equal to the single-process"
+            f" merge bit for bit; launches {nccl['launches']}")
+        for k, v in nccl["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    log(f"  the ranks took {spawn_s:.1f} s (spawn, import, the data and every leg; the nccl"
+        f" rank beside them); launches"
+        f" over the ranks {totals}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4095,7 +4549,15 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 18: kernels (phases 1-17 took {time.perf_counter() - start:.1f} s)")
+    log("phase 18: multi-process merges, four ranks on card 0 over gloo (fleet_train_sharded,"
+        " fleet_merge_sharded and its halo, the mesh federation, the cohort tier 2) against the"
+        " single-process paths, and a one-rank nccl mesh")
+    t0 = time.perf_counter()
+    for k, v in phase_mesh(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 19: kernels (phases 1-18 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

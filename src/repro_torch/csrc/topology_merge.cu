@@ -70,9 +70,17 @@
 // * from_uv_solve (pallas_call :411, _solve_kernel :371, _gj_sweep :356):
 //     Gauss-Jordan without pivoting on [U+εI | I | V] per system, giving
 //     P = (U+εI)⁻¹ and β = PV (U+εI is SPD, so no pivoting, as in the
-//     reference). Bound: the n elimination steps are sequential, so at one
-//     system (star, all_to_all: 27 MFLOP at the har width, 0.4 µs at 67
-//     TFLOP/s) latency sets the time; at S = 256 (the stale runtime's
+//     reference). Step k divides row k by its pivot into row_k and updates
+//     every other row by it; row k itself is left as it is, scaled by its
+//     pivot, and every row is multiplied by its pivot's reciprocal once,
+//     at the end. The reference's sweep updates the pivot row too, as
+//     w[k,:] − (pivot − 1)·row_k, which brings row_k's rounding back times
+//     the pivot (off an f64 solve by ~1e-1 of max |β| on a star of 2048 har
+//     devices); writing row_k into it every step would cost a register
+//     write a slot a step (12-19 % of the solve on an H100). Bound: the n
+//     elimination steps are sequential, so at one system (star,
+//     all_to_all: 27 MFLOP at the har width, 0.4 µs at 67 TFLOP/s)
+//     latency sets the time; at S = 256 (the stale runtime's
 //     per-device solves, ~7 GFLOP) f32 operations do. The augmented system
 //     at the har width is 128 × 817 × 4 B = 418 KB, more than one SM holds,
 //     so uv_solve_cluster_kernel keeps one system in a cluster of blocks
@@ -94,12 +102,15 @@
 //         barrier a step suffices. Each warp takes row k of its slots from
 //         the lane that holds it, divides it by the pivot once a slot (IEEE
 //         division, one lane a slot) and updates its registers,
-//         w = __fmaf_rn(−(col − δ), row, w); the owner of slot k+1 updates
-//         that slot first and publishes it before the rest of its work.
-//     Per element the operations are the reference's and the plain
-//     version's (row_k = w[k,:]/pivot, col = w[:,k] − δ, one fused
-//     multiply-add, which the plain version also rounds once), so the two
-//     agree bit for bit. The C entry sizes the cluster from S, n and m: 8 blocks while
+//         w = __fmaf_rn(−col, row, w), with 0 for the column value of row k
+//         (whose lane keeps the pivot for the end); the owner of slot k+1
+//         updates that slot first and publishes it before the rest of its
+//         work; at the end each register is multiplied by its row's
+//         reciprocal pivot (__frcp_rn, __fmul_rn) as it is stored.
+//     Per element the operations are the plain version's (row_k =
+//     w[k,:]/pivot, one fused multiply-add, which the plain version also
+//     rounds once, the reciprocal and the product), so the two agree bit
+//     for bit. The C entry sizes the cluster from S, n and m: 8 blocks while
 //     the systems fit one wave (two blocks an SM), else the fewest that
 //     hold a system; a system wider than 8 blocks' registers splits its V
 //     columns across clusters, each eliminating A itself. Q ≤ 10 row
@@ -116,15 +127,16 @@
 //         on its own, the blocks of the column panel take one row each
 //         through the 32 steps (the slot of step k published, replaced by
 //         e_k and updated like the others), writing the row's final panel
-//         values and its 32 column values −(w[i,k] − δ); the blocks of the
-//         row panel take one slot outside the panel each through the same
-//         steps on the panel's rows, writing its 32 row factors
-//         w[k,j]/pivot_k;
+//         values and its 32 column values −w[i,k] (0 at the pivot row); the
+//         blocks of the row panel take one slot outside the panel each
+//         through the same steps on the panel's rows, writing its 32 row
+//         factors w[k,j]/pivot_k; block 0 keeps the panel's pivots;
 //       - uv_wide_update_kernel: each 64 × 64 tile of [P | β] takes the
-//         panel's 32 updates in step order, w = __fmaf_rn(−(col − δ), row,
-//         w), from the column values and row factors in shared memory (the
-//         panel's rows included: their column values carry the −δ); the
-//         panel's own slots take the column panel's values.
+//         panel's 32 updates in step order, w = __fmaf_rn(−col, row, w),
+//         from the column values and row factors in shared memory (the
+//         panel's rows included: a pivot row's column value is 0); the
+//         panel's own slots take the column panel's values; after the last
+//         panel every element is multiplied by its row's reciprocal pivot.
 //     Each element meets the same operations in the same order as in the
 //     unblocked sweep, so this path too is the plain version's bit for bit.
 //
@@ -515,6 +527,9 @@ uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u
   }
   int nrank = 0, nj = 0;  // the owner of slot k+1: block and local slot, kept without division
   if (++nj == cb) nj = 0, ++nrank;
+  float piv[Q];  // the pivot of each of this lane's rows, kept when the row is the pivot row
+#pragma unroll
+  for (int q = 0; q < Q; ++q) piv[q] = 1.0f;
   cluster_arrive();
 #pragma unroll
   for (int q0 = 0; q0 < Q; ++q0) {
@@ -524,11 +539,11 @@ uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u
       const float* cur = colbuf + (k & 1) * 32 * Q;
       cluster_wait();  // column k is in cur; every block is done with the other buffer
       const float pivot = cur[k];
-      float ncol[Q];  // −(w[:, k] − δ_k) at this lane's rows
+      float ncol[Q];  // −w[:, k] at this lane's rows, 0 at the pivot row
 #pragma unroll
       for (int q = 0; q < Q; ++q) {
         const int row = lane + 32 * q;
-        ncol[q] = row < n ? -__fsub_rn(cur[row], row == k ? 1.0f : 0.0f) : 0.0f;
+        ncol[q] = row < n && row != k ? -cur[row] : 0.0f;
       }
       if (lane == kl) {  // row k of this warp's slots lives in register q0 of lane kl
 #pragma unroll
@@ -536,6 +551,7 @@ uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u
           *reinterpret_cast<float4*>(xw + c) =
               make_float4(w[q0][min(c, CW - 1)], w[q0][min(c + 1, CW - 1)],
                           w[q0][min(c + 2, CW - 1)], w[q0][min(c + 3, CW - 1)]);
+        piv[q0] = pivot;
       }
       __syncwarp();
       for (int c = lane; c < cntw; c += 32) xw[c] = xw[c] / pivot;
@@ -575,14 +591,17 @@ uv_solve_cluster_kernel(const float* __restrict__ u, long long u_ss, long long u
   }
   cluster_wait();
 
-  // registers → shared memory → row segments of P (group 0) and β
+  // registers, each row times its reciprocal pivot → shared memory → row
+  // segments of P (group 0) and β
 #pragma unroll
-  for (int q = 0; q < Q; ++q)
+  for (int q = 0; q < Q; ++q) {
+    const float rp = __frcp_rn(piv[q]);
 #pragma unroll
     for (int c = 0; c < CW; ++c) {
       const int row = lane + 32 * q;
-      if (row < n && c < cntw) stage[row * ld + warp + 8 * c] = w[q][c];
+      if (row < n && c < cntw) stage[row * ld + warp + 8 * c] = __fmul_rn(w[q][c], rp);
     }
+  }
   __syncthreads();
   float* ps = p + (size_t)sys * n * n;
   float* bs = beta + (size_t)sys * n * m;
@@ -650,15 +669,15 @@ uv_wide_load_kernel(const float* __restrict__ u, long long u_ss, long long u_rs,
 // The panel of pivots k0 .. k0 + kb − 1 (kb = min(32, n − k0)) of system
 // blockIdx.y. Blocks [0, row_blocks) take the column panel, a row a thread;
 // the rest the row panel, a slot outside the panel a thread. Writes, per
-// system: nc (kPanel × n) the column values −(w[i,k] − δ_ik), pan (kPanel ×
-// n) the panel slots' values after the panel, rf (kPanel × (n+m)) the row
-// factors w[k,j]/pivot_k.
+// system: nc (kPanel × n) the column values −w[i,k] (0 at the pivot row),
+// pan (kPanel × n) the panel slots' values after the panel, rf (kPanel ×
+// (n+m)) the row factors w[k,j]/pivot_k, and gpiv (n) the pivots.
 __global__ void __launch_bounds__(kPanelThreads)
 uv_wide_panel_kernel(const float* __restrict__ p, const float* __restrict__ beta,
                      float* __restrict__ nc, float* __restrict__ pan, float* __restrict__ rf,
-                     int n, int m, int k0, int row_blocks) {
+                     float* __restrict__ gpiv, int n, int m, int k0, int row_blocks) {
   __shared__ float piv[kPanel];
-  __shared__ float dnc[kPanel][kPanel];              // −(w[k0+r, k] − δ) of the diagonal block
+  __shared__ float dnc[kPanel][kPanel];              // −w[k0+r, k] of the diagonal block, 0 at r = k
   __shared__ float drf[kPanel][kPanel];              // row factors on the panel's slots
   __shared__ float tile[kPanelThreads][kPanel + 1];  // the column panel's rows, as loaded
   const int sys = blockIdx.y, nm = n + m, kb = min(kPanel, n - k0);
@@ -676,7 +695,7 @@ uv_wide_panel_kernel(const float* __restrict__ p, const float* __restrict__ beta
       if (k >= kb) break;
       if (lane == k) {  // publish slot k's column, then it holds e_k
 #pragma unroll
-        for (int r = 0; r < kPanel; ++r) dnc[k][r] = -(r == k ? __fsub_rn(x[r], 1.0f) : x[r]);
+        for (int r = 0; r < kPanel; ++r) dnc[k][r] = r == k ? 0.0f : -x[r];
         piv[k] = x[k];
 #pragma unroll
         for (int r = 0; r < kPanel; ++r) x[r] = r == k ? 1.0f : 0.0f;
@@ -698,6 +717,9 @@ uv_wide_panel_kernel(const float* __restrict__ p, const float* __restrict__ beta
       tile[r][j] = i0 + r < n && j < kb ? ps[(size_t)(i0 + r) * n + k0 + j] : 0.0f;
     }
     __syncthreads();  // the tile, and the diagonal block's results
+    // the panel's pivots, kept for the end (a store in the diagonal block's
+    // steps would wait at each __syncwarp for its write to land)
+    if (blockIdx.x == 0 && tid < kb) gpiv[(size_t)sys * n + k0 + tid] = piv[tid];
     const int i = i0 + tid;
     if (i >= n) return;
     float y[kPanel];
@@ -706,7 +728,7 @@ uv_wide_panel_kernel(const float* __restrict__ p, const float* __restrict__ beta
 #pragma unroll
     for (int k = 0; k < kPanel; ++k) {
       if (k >= kb) break;
-      const float c = -(i == k0 + k ? __fsub_rn(y[k], 1.0f) : y[k]);
+      const float c = i == k0 + k ? 0.0f : -y[k];
       ncs[(size_t)k * n + i] = c;
       y[k] = i == k0 + k ? 1.0f : 0.0f;
 #pragma unroll
@@ -743,7 +765,8 @@ uv_wide_panel_kernel(const float* __restrict__ p, const float* __restrict__ beta
 __global__ void __launch_bounds__(kThreads)
 uv_wide_update_kernel(float* __restrict__ p, float* __restrict__ beta,
                       const float* __restrict__ nc, const float* __restrict__ pan,
-                      const float* __restrict__ rf, int n, int m, int k0, int col_tiles) {
+                      const float* __restrict__ rf, const float* __restrict__ gpiv, int n, int m,
+                      int k0, int col_tiles) {
   __shared__ __align__(16) float snc[kPanel][kTileW];  // [k][row]
   __shared__ float srf[kPanel][kTileW];                // [k][slot]
   const int sys = blockIdx.y, nm = n + m, kb = min(kPanel, n - k0);
@@ -780,22 +803,28 @@ uv_wide_update_kernel(float* __restrict__ p, float* __restrict__ beta,
       for (int c = 0; c < 4; ++c) w[r][c] = __fmaf_rn(cv[r], rv[c], w[r][c]);
   }
   const float* pans = pan + (size_t)sys * kPanel * n;
+  const bool last = k0 + kb == n;  // after the last panel: each row times its reciprocal pivot
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 4 * ty + r;
+    if (i >= n) continue;
+    const float rp = last ? __frcp_rn(gpiv[(size_t)sys * n + i]) : 1.0f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int i = i0 + 4 * ty + r, j = j0 + tx + 16 * c;
-      if (i >= n || j >= nm) continue;
+      const int j = j0 + tx + 16 * c;
+      if (j >= nm) continue;
       const bool in_panel = j >= k0 && j < k0 + kb;
-      *wide_at(ps, bs, n, m, i, j) = in_panel ? pans[(size_t)(j - k0) * n + i] : w[r][c];
+      const float x = in_panel ? pans[(size_t)(j - k0) * n + i] : w[r][c];
+      *wide_at(ps, bs, n, m, i, j) = last ? __fmul_rn(x, rp) : x;
     }
+  }
 }
 
 // Workspace floats of the wide solve for S systems (0 where the cluster
 // solve takes them): the column values, the panel's values and the row
-// factors of one panel.
+// factors of one panel, and every row's pivot.
 long long uv_wide_ws(int S, int n, int m) {
-  return n <= 32 * kSolveMaxQ ? 0 : (long long)S * kPanel * (2LL * n + n + m);
+  return n <= 32 * kSolveMaxQ ? 0 : (long long)S * (kPanel * (2LL * n + n + m) + n);
 }
 
 cudaError_t launch_uv_wide(const float* u, long long u_ss, long long u_rs, const float* v,
@@ -805,6 +834,7 @@ cudaError_t launch_uv_wide(const float* u, long long u_ss, long long u_rs, const
   float* nc = ws;
   float* pan = nc + (size_t)S * kPanel * n;
   float* rf = pan + (size_t)S * kPanel * n;
+  float* gpiv = rf + (size_t)S * kPanel * (n + m);
   uv_wide_load_kernel<<<dim3((unsigned)(((long long)n * nm + kThreads - 1) / kThreads), S),
                         kThreads, 0, st>>>(u, u_ss, u_rs, v, v_ss, v_rs, p, beta, n, m, ridge,
                                            hops);
@@ -816,9 +846,9 @@ cudaError_t launch_uv_wide(const float* u, long long u_ss, long long u_rs, const
     const int kb = n - k0 < kPanel ? n - k0 : kPanel;
     const int col_blocks = (nm - kb + kPanelThreads - 1) / kPanelThreads;
     uv_wide_panel_kernel<<<dim3(row_blocks + col_blocks, S), kPanelThreads, 0, st>>>(
-        p, beta, nc, pan, rf, n, m, k0, row_blocks);
+        p, beta, nc, pan, rf, gpiv, n, m, k0, row_blocks);
     uv_wide_update_kernel<<<dim3(row_tiles * col_tiles, S), kThreads, 0, st>>>(
-        p, beta, nc, pan, rf, n, m, k0, col_tiles);
+        p, beta, nc, pan, rf, gpiv, n, m, k0, col_tiles);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }

@@ -1,11 +1,12 @@
-"""Dataset preparation; numpy copy of the parts of ``repro.data.pipeline``
-that the scenarios and the device path use (normalisation, class subsets,
-the stratified split, one device's pattern stream and the §5.3.1 eval
-arrays). The same seed gives the same arrays, bit for bit.
+"""Dataset preparation; numpy copy of ``repro.data.pipeline``
+(normalisation, class subsets, the stratified split, one device's pattern
+stream, the §5.3.1 eval arrays, and the mesh federation's per-shard
+streams and batches). The same seed gives the same arrays, bit for bit.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from collections.abc import Iterator, Sequence
+from typing import NamedTuple
 
 import numpy as np
 
@@ -101,3 +102,32 @@ def anomaly_eval_arrays(
     x = np.concatenate([x_norm, x_anom])
     y = np.concatenate([np.zeros(len(x_norm)), np.ones(len(x_anom))]).astype(np.int32)
     return x, y
+
+
+class ShardedStream(NamedTuple):
+    """Per-shard non-IID streams for the mesh federation: shard i trains
+    on pattern (i mod n_classes). Shapes: (shards, steps, features)."""
+
+    xs: np.ndarray
+    pattern_of_shard: np.ndarray  # (shards,)
+
+
+def make_sharded_streams(
+    ds: AnomalyDataset, n_shards: int, steps: int, *, seed: int = 0
+) -> ShardedStream:
+    rng = np.random.default_rng(seed)
+    xs = np.empty((n_shards, steps, ds.n_features), dtype=np.float32)
+    pats = np.empty(n_shards, dtype=np.int32)
+    for s in range(n_shards):
+        pat = s % ds.n_classes
+        pool = ds.pattern(pat)
+        idx = rng.integers(0, len(pool), size=steps)
+        xs[s] = pool[idx]
+        pats[s] = pat
+    return ShardedStream(xs=xs, pattern_of_shard=pats)
+
+
+def batched(x: np.ndarray, batch: int) -> Iterator[np.ndarray]:
+    """Consecutive full batches of ``x``; a short tail is dropped."""
+    for i in range(0, len(x) - batch + 1, batch):
+        yield x[i : i + batch]

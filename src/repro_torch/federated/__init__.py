@@ -1,5 +1,6 @@
-"""The paper's client/server cooperative update and client selection
-(port of ``repro.federated``'s protocol and selection)."""
+"""The paper's client/server cooperative update, client selection and the
+cooperative update as a collective across processes (port of
+``repro.federated``)."""
 from repro_torch.federated.protocol import (
     CommLog,
     EdgeDevice,
@@ -7,6 +8,7 @@ from repro_torch.federated.protocol import (
     Payload,
     cooperative_round,
 )
+from repro_torch.federated.mesh_federation import mesh_cooperative_update, mesh_federated_train
 from repro_torch.federated.selection import (
     all_clients,
     loss_threshold_selection,
@@ -15,5 +17,6 @@ from repro_torch.federated.selection import (
 
 __all__ = [
     "CommLog", "EdgeDevice", "FederationServer", "Payload", "cooperative_round",
+    "mesh_cooperative_update", "mesh_federated_train",
     "all_clients", "loss_threshold_selection", "resource_constrained_selection",
 ]

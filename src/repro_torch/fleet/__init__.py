@@ -52,7 +52,7 @@ from repro_torch.fleet.robust import (
     payload_outlier_scores,
     robust_merge_from_w,
 )
-from repro_torch.fleet.sharded import cohort_tree_reduce
+from repro_torch.fleet.sharded import cohort_tree_reduce, fleet_merge_sharded, fleet_train_sharded
 from repro_torch.fleet.staleness import StalenessSchedule, fleet_train_async
 from repro_torch.fleet.topology import (
     Topology,
@@ -71,7 +71,8 @@ __all__ = [
     "FAULT_KINDS", "FaultInjector", "FaultSpec",
     "device_state", "fleet_from_uv", "fleet_merge", "fleet_merge_kernel",
     "fleet_merge_masked_kernel", "fleet_merge_quantized",
-    "fleet_score", "fleet_to_uv", "fleet_train", "fleet_train_rounds", "init_fleet",
+    "fleet_merge_sharded", "fleet_score", "fleet_to_uv", "fleet_train", "fleet_train_rounds",
+    "fleet_train_sharded", "init_fleet",
     "DriftEvent", "FleetStreams", "make_fleet_streams", "random_drift_schedule",
     "PRECISIONS", "apply_codec", "dequantize_tiles", "init_residual",
     "payload_precision_nbytes", "quantize_roundtrip", "quantize_tiles",

@@ -14,8 +14,9 @@ D at the card's memory. This module lifts that cap:
 - ``CohortMerger`` runs Eq. 8 as a two-tier tree, one page on the card at a
   time. Tier 1 is the page's masked segment sums of its (U, V) payloads
   (``masked_segment_sum_mix``); tier 2 folds the O(cohorts) partials
-  (``repro_torch.fleet.sharded.cohort_tree_reduce``), or, on the open ring,
-  takes each page's ±hops halo from its neighbours. Every solve is
+  (``repro_torch.fleet.sharded.cohort_tree_reduce``; over a mesh each rank
+  reduces its own block of cohorts and one all-reduce joins them), or, on
+  the open ring, takes each page's ±hops halo from its neighbours. Every solve is
   ``from_uv_solve``. Eq. 8 is a sum, so the tree reorders the adds and
   changes nothing else.
 - ``cohort_round_cost`` splits a round's payloads by tier: tier 1 stays in
@@ -40,7 +41,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.elm import SLFNParams, init_slfn, invert_u
 from repro_torch.core.oselm import OSELMState, init_oselm
 from repro_torch.fleet.comm import payload_nbytes
-from repro_torch.fleet.sharded import cohort_tree_reduce, require_no_mesh
+from repro_torch.fleet.sharded import cohort_tree_reduce, mesh_tree_reduce
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels.topology_merge import from_uv_solve, masked_segment_sum_mix
 
@@ -552,8 +553,14 @@ class CohortMerger:
 
     The payload is the resident merge's: P⁻¹ by Cholesky (``invert_u``),
     symmetrised, then U·β. Devices outside the mask neither contribute
-    nor receive: their arena rows are not touched. ``mesh`` must be None
-    (the mesh branch waits for ROADMAP queue 1, item 8)."""
+    nor receive: their arena rows are not touched.
+
+    With a ``mesh`` (``repro_torch.launch.mesh.Mesh``) every rank holds the
+    whole arena; in ``global`` mode each rank reduces its own contiguous
+    block of cohorts, one all-reduce over ``mesh_axes`` completes tier 2,
+    and every rank writes the merged model to every participant's rows.
+    The ``clusters`` and ``ring`` modes do not use the mesh, as in the
+    reference."""
 
     def __init__(
         self,
@@ -565,7 +572,6 @@ class CohortMerger:
         mesh_axes=("data",),
         device: str | torch.device | None = None,
     ) -> None:
-        require_no_mesh(mesh)
         if topology.n_devices != schedule.n_devices:
             raise ValueError(f"topology D={topology.n_devices} vs schedule D={schedule.n_devices}")
         self.topology = topology
@@ -603,6 +609,8 @@ class CohortMerger:
                 raise ValueError("open band wider than the fleet")
         elif topology.is_fully_connected or topology.kind == "segment":
             self.mode = "global"
+            if mesh is not None:
+                mesh.block(schedule.n_cohorts, self.mesh_axes, "n_cohorts")
         else:
             raise NotImplementedError(
                 f"two-tier merge needs a cluster-wise-constant topology or an open ring; "
@@ -616,7 +624,16 @@ class CohortMerger:
         nc = self.schedule.n_cohorts
         if self.mode == "ring":
             return {"from_uv_solve": nc}
-        return {"masked_segment_sum_mix": nc, "from_uv_solve": 1}
+        return {"masked_segment_sum_mix": len(self._own_bounds()), "from_uv_solve": 1}
+
+    def _own_bounds(self) -> list[tuple[int, int]]:
+        """The cohorts whose tier-1 partials this rank computes: all of
+        them, or in ``global`` mode over a mesh its contiguous block."""
+        bounds = self.schedule.bounds()
+        if self.mesh is None or self.mode != "global":
+            return bounds
+        lo, hi = self.mesh.block(len(bounds), self.mesh_axes, "n_cohorts")
+        return bounds[lo:hi]
 
     def _w_of(self, p: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
         """The page's packed payloads [U | V], as ``fleet_to_uv`` forms them."""
@@ -671,8 +688,11 @@ class CohortMerger:
             w = self._w_of(p, b)
             parts.append(masked_segment_sum_mix(w, zeros, m.to(torch.float32), 1)[0])
 
-        self._pager.loop(self.schedule.bounds(), self._pages_of(arena, mask), partial)
-        total = cohort_tree_reduce(torch.stack(parts), self.mesh, self.mesh_axes)
+        self._pager.loop(self._own_bounds(), self._pages_of(arena, mask), partial)
+        if self.mesh is None:
+            total = cohort_tree_reduce(torch.stack(parts))
+        else:
+            total = mesh_tree_reduce(torch.stack(parts), self.mesh, self.mesh_axes).to(self.device)
         p1, b1 = self._solve(total[None], arena.n_hidden)
         self._write_back(arena, mask, lambda lo, hi: (p1[0], b1[0]))
 

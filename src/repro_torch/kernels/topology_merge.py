@@ -19,12 +19,14 @@
 
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 the CUDA kernel of ``csrc/topology_merge.cu`` for CUDA tensors, or raises.
-The plain versions keep the reference's arithmetic (the elimination step
-of ``_gj_sweep``, the neighbour order of ``_banded_solve_kernel`` and the
-accumulation order of ``_segsum_kernel`` and ``_banded_kernel``: from zero,
-members in ascending device order, neighbours from −hops to +hops);
-``dense_mix_plain`` keeps the kernel's: one fused multiply-add per
-device k, in increasing k.
+The plain versions keep the reference's arithmetic (the neighbour order of
+``_banded_solve_kernel`` and the accumulation order of ``_segsum_kernel``
+and ``_banded_kernel``: from zero, members in ascending device order,
+neighbours from −hops to +hops), but for the elimination step: the
+reference's ``_gj_sweep`` updates the pivot row too, the port leaves it
+scaled by its pivot and scales every row once at the end
+(``_gj_solve_plain``). ``dense_mix_plain`` keeps the
+kernel's order: one fused multiply-add per device k, in increasing k.
 """
 from __future__ import annotations
 
@@ -239,17 +241,25 @@ def segment_broadcast(sums: torch.Tensor, cluster_ids) -> torch.Tensor:
 
 
 def _gj_solve_plain(a: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[A | I | V] → [I | A⁻¹ | A⁻¹V] by the reference's elimination
-    (``_gj_sweep``): row_k = w[k]/w[k,k]; w ← w − (w[:,k] − e_k)·row_k.
-    The update is one fused multiply-add, rounded once (``_fma``), as XLA
-    and nvcc both contract it."""
+    """[A | I | V] → [I | A⁻¹ | A⁻¹V] by Gauss-Jordan elimination without
+    pivoting: step k divides row k by its pivot, row_k = w[k]/w[k,k], and
+    updates every other row, w[i] ← w[i] − w[i,k]·row_k, one fused
+    multiply-add rounded once (``_fma``), as nvcc contracts it; row k is
+    left as it is, scaled by its pivot, and each row is multiplied by its
+    pivot's reciprocal at the end. (The reference's ``_gj_sweep`` updates
+    the pivot row too, as w[k] − (w[k,k] − 1)·row_k, which brings row_k's
+    rounding back times w[k,k].)"""
     s, n, _ = a.shape
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     w = torch.cat([a, eye.expand(s, n, n), v], dim=2)
+    piv = torch.empty((s, n, 1), dtype=a.dtype, device=a.device)
     for k in range(n):
-        row_k = w[:, k : k + 1, :] / w[:, k : k + 1, k : k + 1]
-        col_k = w[:, :, k : k + 1] - eye[:, k : k + 1]
-        w = _fma(-col_k, row_k, w)
+        piv[:, k] = w[:, k, k : k + 1]
+        row_k = w[:, k : k + 1, :] / piv[:, k : k + 1]
+        col = -w[:, :, k : k + 1]
+        col[:, k] = 0.0  # the pivot row stays as it is
+        w = _fma(col, row_k, w)
+    w = w * (1.0 / piv)
     return w[:, :, n : 2 * n], w[:, :, 2 * n :]
 
 

@@ -64,6 +64,7 @@ from repro_torch.fleet import (
 from repro_torch.fleet.sharded import _tree_fold
 from repro_torch.fleet.topology import Topology
 from repro_torch.kernels import fleet_ingest, fleet_ingest_paged
+from repro_torch.launch.mesh import Mesh
 from repro_torch.runtime import (
     CohortFleetRuntime,
     DetectorConfig,
@@ -316,11 +317,45 @@ def test_merger_warmup_changes_nothing(fleet):
         assert torch.equal(arena.p, fleet.p) and torch.equal(arena.beta, fleet.beta)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cohort_tree_reduce(torch.zeros((2, NH, NH + F)), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CohortMerger(star(D), CohortSchedule(D, C), mesh=object(), device="cpu")
+class _Shards:
+    """A mesh of ``n`` shards seen from shard 0 of one process: its
+    all-reduce is the identity, as one rank's is (the multi-process runs are
+    ``tests/test_torch_sharded.py``'s)."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, axes):
+        return self.n
+
+    def index(self, axes):
+        return 0
+
+    block = Mesh.block
+
+    def all_reduce(self, t, axes):
+        return t.clone()
+
+
+def test_mesh_is_not_ported(fleet):
+    """The mesh branch (ported since the multi-process merges): one shard
+    reduces as the tree does and merges as ``mesh=None`` does, bit for bit;
+    cohorts that do not divide over the shards are refused."""
+    stack = torch.from_numpy(np.random.default_rng(3).normal(size=(4, NH, NH + F))
+                             .astype(np.float32))
+    assert torch.equal(cohort_tree_reduce(stack, mesh=_Shards(1)), _tree_fold(stack))
+    with pytest.raises(ValueError, match="not divisible by 3 mesh shards"):
+        cohort_tree_reduce(stack, mesh=_Shards(3))
+    with pytest.raises(ValueError, match="not divisible by 3 mesh shards"):
+        CohortMerger(star(D), CohortSchedule(D, C), mesh=_Shards(3), device="cpu")
+    mask = np.random.default_rng(4).random(D) < 0.7
+    arenas = [_arena(fleet) for _ in range(2)]
+    for arena, mesh in zip(arenas, (None, _Shards(1))):
+        CohortMerger(star(D), CohortSchedule(D, C), ridge=RIDGE, mesh=mesh,
+                     device="cpu").merge(arena, mask)
+    assert torch.equal(arenas[0].p, arenas[1].p) and torch.equal(arenas[0].beta, arenas[1].beta)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 8])

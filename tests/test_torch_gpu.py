@@ -9,6 +9,8 @@ on its own, with the reasons of ``chip_smoke.py``: 1e-6 for the
 fixed-order masked segment sum, 1e-5 for the Gauss-Jordan solves (the
 same fused elimination in both), 1e-4 for the ingest (other summation
 orders in the GEMM and dot products, amplified along the RLS chain).
+Both solves keep the pivot row out of its own step and stay within 4× of
+``torch.linalg.solve``'s distance from an f64 solve at the har width.
 ``quantize_pack``, ``robust_segment_sum_mix``, ``dense_mix``,
 ``segment_sum_mix``, ``segment_broadcast`` and ``banded_mix`` are held
 bit for bit: their plain versions repeat the kernels' operations in the
@@ -301,7 +303,9 @@ def _double_rounding_uv(rng, s, n, m):
 
 
 # the kernel's fused multiply-add rounds once, and so does the plain
-# version's: no element differs, where an update rounded twice moves most of β
+# version's: no element differs, where an update rounded twice moves a large
+# share of β (more than a quarter: 125 of 256 elements at (1, 16, 16) with
+# the pivot row left out of its own step, more than half before)
 @pytest.mark.parametrize("s,n,m", [(32, 128, 561), (1, 16, 16)])
 def test_from_uv_solve_is_exact_where_a_double_rounding_would_show(cuda, s, n, m):
     u, v = _double_rounding_uv(np.random.default_rng(4), s, n, m)
@@ -312,11 +316,46 @@ def test_from_uv_solve_is_exact_where_a_double_rounding_would_show(cuda, s, n, m
     a = u.to(cuda) + 1e-3 * torch.eye(n, device=cuda)
     eye = torch.eye(n, device=cuda)
     x = torch.cat([a, eye.expand(s, n, n), v.to(cuda)], dim=2)
+    piv = torch.empty((s, n, 1), device=cuda)
     for k in range(n):  # the same elimination, each update rounded twice
-        row = x[:, k : k + 1] / x[:, k : k + 1, k : k + 1]
-        col = x[:, :, k : k + 1] - eye[:, k : k + 1]
-        x = (x.double() - col.double() * row.double()).float()
-    assert int((x[:, :, 2 * n :] != rb).sum()) > rb.numel() // 2
+        piv[:, k] = x[:, k, k : k + 1]
+        row = x[:, k : k + 1] / piv[:, k : k + 1]
+        upd = (x.double() - x[:, :, k : k + 1].double() * row.double()).float()
+        upd[:, k : k + 1] = x[:, k : k + 1]
+        x = upd
+    x = x * (1.0 / piv)
+    assert int((x[:, :, 2 * n :] != rb).sum()) > rb.numel() // 4
+
+
+# the shapes of chip_smoke.py's phase 2 (the har width, Ñ = 128, m = 561:
+# one star system, the 32 cluster sums of a hierarchy, 256 per-device
+# solves, the ring of 256 at hops 2) on pivots of ~1e4, where the pivot row
+# kept out of its own step matters: no element differs from the plain
+# version, and β is as close to an f64 solve as torch.linalg.solve's
+@pytest.mark.parametrize("what", ["S=1", "S=32", "S=256", "banded D=256 hops=2"])
+def test_pivot_row_solves_are_bit_exact_and_near_f64_at_the_har_width(cuda, what):
+    n, m = 128, 561
+    s = 256 if what.startswith("banded") else int(what[2:])
+    rng = np.random.default_rng(80 + s)
+    u = _spd(rng, s, n, cuda) * 1e4
+    v = torch.from_numpy(rng.standard_normal((s, n, m)).astype(np.float32)).to(cuda) * 1e4
+    w = torch.cat([u, v], dim=2).contiguous()
+    if what.startswith("banded"):
+        p, b = _launched("banded_merge_solve", lambda: banded_merge_solve(w, 2, ridge=1e-3))
+        rp, rb = banded_merge_solve_plain(w, 2, ridge=1e-3)
+        acc = sum(torch.roll(w, -o, dims=0) for o in range(-2, 3))
+    else:
+        p, b = _launched("from_uv_solve", lambda: from_uv_solve(w[:, :, :n], w[:, :, n:],
+                                                                ridge=1e-3))
+        rp, rb = from_uv_solve_plain(u, v, ridge=1e-3)
+        acc = w
+    assert int((p != rp).sum()) == 0 and int((b != rb).sum()) == 0
+    a = acc[:, :, :n] + 1e-3 * torch.eye(n, device=cuda)
+    b64 = torch.linalg.solve(a.double(), acc[:, :, n:].double())
+    lib = torch.linalg.solve(a, acc[:, :, n:])
+    err, lib_err = _rel(b.double(), b64), _rel(lib.double(), b64)
+    print(f"{what}: beta off an f64 solve {err:.3e}, torch.linalg.solve {lib_err:.3e}")
+    assert err <= 4 * lib_err
 
 
 # the wide layer: Ñ = 256 (Q = 8, V over 3 clusters) and 320 (Q = 10, V

@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert res.stdout.strip() == "", f"loaded: {res.stdout.strip()}"
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", *[
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/torch_mesh_ranks.py", *[
     str(f.relative_to(ROOT)) for f in sorted(PKG.rglob("*.py"))
 ], *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "benchmarks").glob("torch_*.py"))],
    *[str(f.relative_to(ROOT)) for f in sorted((ROOT / "examples").glob("torch_*.py"))]])
@@ -205,3 +205,18 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                          cwd=tmp_path, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_mesh_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The multi-process helper and the mesh bench start their ranks on the
+    card unless asked for the CPU."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_mesh_merge
+    from repro_torch.launch.mesh import rank_device, spawn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn(print, 2, tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_mesh_merge.run(2)
+    assert rank_device("cpu", 1, 2) == torch.device("cpu")

@@ -9,7 +9,10 @@ here to itself on the operands cast to f32 and made contiguous, bit for
 bit (a widening to f32 is exact). And each is held, on the same mixed and
 strided operands, to the reference's Pallas kernel in interpret mode,
 which takes them too, at the f32 bound (1e-6 of the output's largest
-value; 0 for the integer codes).
+value; 0 for the integer codes). The two Gauss-Jordan solves are held to
+the jnp sweep of ``tests/test_torch_topology_merge.py`` instead, since the
+port leaves the pivot row out of its own step where the reference's kernel
+updates it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,10 +21,8 @@ import torch
 
 import repro.kernels as ref
 from repro.kernels.topology_merge import (
-    banded_merge_solve as ref_banded_merge_solve,
     banded_mix as ref_banded_mix,
     dense_mix as ref_dense_mix,
-    from_uv_solve as ref_from_uv_solve,
     masked_segment_sum_mix as ref_masked_segment_sum_mix,
     segment_broadcast as ref_segment_broadcast,
     segment_sum_mix as ref_segment_sum_mix,
@@ -46,6 +47,8 @@ from repro_torch.kernels import (
     segment_sum_mix_plain,
 )
 from repro_torch.kernels.flash_attn import KV_TILE
+
+from test_torch_topology_merge import jnp_banded_merge_solve, jnp_gj_solve
 
 torch.set_num_threads(2)
 
@@ -211,9 +214,9 @@ REF = {
     "gla_forward": lambda q, k, v, la: (ref.gla_forward(q, k, v, la, interpret=True),),
     "quantize_pack": lambda u, v, r: ref.quantize_pack(u, v, r, interpret=True),
     "banded_mix": lambda x: ref_banded_mix(x, 1, interpret=True),
-    "banded_merge_solve": lambda w: ref_banded_merge_solve(w, 1, ridge=1e-3, interpret=True),
+    "banded_merge_solve": lambda w: jnp_banded_merge_solve(w, 1, ridge=1e-3),
     "dense_mix": lambda x: ref_dense_mix(x, jnp.ones((4, 4)), interpret=True),
-    "from_uv_solve": lambda u, v: ref_from_uv_solve(u, v, ridge=1e-3, interpret=True),
+    "from_uv_solve": lambda u, v: jnp_gj_solve(u, v, ridge=1e-3),
     "segment_sum_mix": lambda w: ref_segment_sum_mix(w, CIDS, 3, interpret=True),
     "masked_segment_sum_mix": lambda w, m: ref_masked_segment_sum_mix(w, CIDS, m, 3,
                                                                       interpret=True),

@@ -1,7 +1,20 @@
 """The port's masked merge against the reference on the CPU.
 
-- The three plain merge kernels (what the wrappers run for CPU tensors)
-  against the reference's Pallas kernels in interpret mode, at 1e-5.
+- The masked segment sum's plain version against the reference's Pallas
+  kernel in interpret mode, at 1e-5.
+- The two Gauss-Jordan solves' plain versions (``from_uv_solve``,
+  ``banded_merge_solve``) update every row but the pivot row by row_k =
+  w[k]/w[k,k], leave the pivot row scaled by its pivot and multiply each
+  row by its pivot's reciprocal at the end, where the reference's
+  ``_gj_sweep`` also updates the pivot row, as w[k] − (w[k,k] − 1)·row_k,
+  and so brings row_k's rounding back times w[k,k]. They are held bit for
+  bit to a jnp sweep written here (``jnp_gj_solve``: the reference's sweep
+  with the pivot row left out of the update), and each test also prints how far the
+  reference's interpret-mode kernel, the port's solve and
+  ``torch.linalg.solve`` are from an f64 solve of the same system. After
+  two star merges of 64 devices at Ñ = 4 (pivots of ~6 100) and on a
+  star sum at the har width the port's f32 solve is within 4× of
+  ``torch.linalg.solve``'s error against f64.
 - ``fleet_merge_masked_kernel``, the port's one merge, on the plain
   versions of its kernels, against the reference's ``fleet_merge_masked``
   (the XLA Cholesky form) on every topology the runtime routes, at
@@ -21,6 +34,7 @@
   that lie just off an f32 midpoint, where rounding an f64 sum to f32
   would round twice, it gives the exact sum rounded to nearest.
 """
+import functools
 from fractions import Fraction
 
 import jax
@@ -97,6 +111,84 @@ def _spd(rng, s, n):
     return (a @ a.transpose(0, 2, 1) / (3 * n)).astype(np.float32)
 
 
+def _gj_sweep(w, n):
+    """n elimination steps on one [A | I | V] block: the reference's
+    ``_gj_sweep`` with the pivot row left as it is (scaled by its pivot),
+    then each row times its pivot's reciprocal."""
+    rows = jax.lax.broadcasted_iota(jnp.int32, (w.shape[0], 1), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (1, w.shape[1]), 1)
+
+    def body(k, carry):
+        w, piv = carry
+        row_k = jnp.sum(jnp.where(rows == k, w, 0.0), axis=0, keepdims=True)
+        pivot = jnp.sum(jnp.where(cols == k, row_k, 0.0))
+        col_k = jnp.sum(jnp.where(cols == k, w, 0.0), axis=1, keepdims=True)
+        w = jnp.where(rows == k, w, w - col_k * (row_k / pivot))
+        return w, jnp.where(rows == k, pivot, piv)
+
+    w, piv = jax.lax.fori_loop(0, n, body, (w, jnp.ones((w.shape[0], 1), w.dtype)))
+    return w * (1.0 / piv)
+
+
+@functools.partial(jax.jit, static_argnums=2)
+def _jnp_gj_solve(u, v, ridge):
+    s, n, _ = u.shape
+    a = u + ridge * jnp.eye(n, dtype=jnp.float32)
+    eye = jnp.broadcast_to(jnp.eye(n, dtype=jnp.float32), (s, n, n))
+    w = jax.vmap(lambda x: _gj_sweep(x, n))(jnp.concatenate([a, eye, v], axis=2))
+    return w[:, :, n : 2 * n], w[:, :, 2 * n :]
+
+
+def jnp_gj_solve(u, v, ridge=0.0):
+    """P = (U+εI)⁻¹ and β = PV per system by the sweep above, jitted on
+    the CPU (XLA contracts its update into one fused multiply-add, as the
+    port's plain version rounds it), as numpy arrays."""
+    p, b = _jnp_gj_solve(jnp.asarray(u, jnp.float32), jnp.asarray(v, jnp.float32), float(ridge))
+    return np.asarray(p), np.asarray(b)
+
+
+def jnp_banded_merge_solve(w, hops, ridge=0.0):
+    """The open ring's merge by the sweep above: device d solves the sum of
+    the payloads of devices (d − hops .. d + hops) mod D, added in that
+    order from the first."""
+    w = jnp.asarray(w, jnp.float32)
+    n = w.shape[1]
+    acc = jnp.roll(w, hops, axis=0)
+    for o in range(-hops + 1, hops + 1):
+        acc = acc + jnp.roll(w, -o, axis=0)
+    return jnp_gj_solve(acc[:, :, :n], acc[:, :, n:], ridge)
+
+
+def _f64_solve(u, v, ridge):
+    """The f32 system U + εI (ridge added in f32) solved in f64."""
+    n = u.shape[-1]
+    a = (np.asarray(u, np.float32) + np.float32(ridge) * np.eye(n, dtype=np.float32))
+    a = a.astype(np.float64)
+    return np.linalg.inv(a), np.linalg.solve(a, np.asarray(v, np.float64))
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _solve_errors(what, u, v, ridge, **solves) -> dict[str, float]:
+    """Each solve's β (and P) against the f64 solve of the same f32 system,
+    relative to the largest f64 value, printed."""
+    p64, b64 = _f64_solve(u, v, ridge)
+    errs = {k: max(_rel(p, p64), _rel(b, b64)) for k, (p, b) in solves.items()}
+    print(f"{what}: off an f64 solve " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    return errs
+
+
+def _linalg_solve(u, v, ridge):
+    ut, vt = torch.as_tensor(np.asarray(u, np.float32)), torch.as_tensor(np.asarray(v, np.float32))
+    n = ut.shape[-1]
+    a = ut + ridge * torch.eye(n)
+    x = torch.linalg.solve(a, torch.cat([torch.eye(n).expand(a.shape), vt], dim=-1))
+    return x[..., :n].numpy(), x[..., n:].numpy()
+
+
 def test_masked_segment_sum_plain_matches_interpret():
     rng = np.random.default_rng(1)
     w = rng.standard_normal((D_ODD, R_ODD, C_ODD)).astype(np.float32)
@@ -114,6 +206,16 @@ def test_masked_segment_sum_plain_matches_interpret():
                                      torch.from_numpy(mask), 4)
 
 
+def _hold_solve(what, u, v, p, b, ref_p, ref_b, want_p, want_b):
+    """The port's plain solve bit for bit against the jnp sweep; the
+    reference's interpret-mode kernel and the port's solve each against an
+    f64 solve, printed (the kernel's pivot row carries its rounding times
+    the pivot, so it is no oracle for the port's bits)."""
+    assert np.array_equal(p.numpy(), want_p) and np.array_equal(b.numpy(), want_b), what
+    errs = _solve_errors(what, u, v, RIDGE, interpret_kernel=(ref_p, ref_b), port=(p, b))
+    assert max(errs.values()) < 1e-3, errs
+
+
 @pytest.mark.parametrize("s", [1, 3])
 def test_from_uv_solve_plain_matches_interpret(s):
     rng = np.random.default_rng(2)
@@ -121,8 +223,14 @@ def test_from_uv_solve_plain_matches_interpret(s):
     v = rng.standard_normal((s, R_ODD, 23)).astype(np.float32)
     ref_p, ref_b = ref_from_uv_solve(jnp.asarray(u), jnp.asarray(v), ridge=RIDGE, interpret=True)
     p, b = from_uv_solve_plain(torch.from_numpy(u), torch.from_numpy(v), ridge=RIDGE)
-    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(b.numpy(), np.asarray(ref_b), rtol=1e-5, atol=1e-5)
+    _hold_solve(f"from_uv_solve S={s}", u, v, p, b, ref_p, ref_b, *jnp_gj_solve(u, v, RIDGE))
+
+
+def _band_sum(w, hops):
+    acc = np.roll(w, hops, axis=0)
+    for o in range(-hops + 1, hops + 1):
+        acc = acc + np.roll(w, -o, axis=0)
+    return acc
 
 
 @pytest.mark.parametrize("hops", [1, 2])
@@ -133,8 +241,9 @@ def test_banded_merge_solve_plain_matches_interpret(hops):
     w = np.concatenate([u, v], axis=2) * MASKS["random"][:, None, None]
     ref_p, ref_b = ref_banded_merge_solve(jnp.asarray(w), hops, ridge=RIDGE, interpret=True)
     p, b = banded_merge_solve_plain(torch.from_numpy(w), hops, ridge=RIDGE)
-    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(b.numpy(), np.asarray(ref_b), rtol=1e-5, atol=1e-5)
+    acc = _band_sum(w, hops)
+    _hold_solve(f"banded_merge_solve hops={hops}", acc[:, :, :R_ODD], acc[:, :, R_ODD:], p, b,
+                ref_p, ref_b, *jnp_banded_merge_solve(w, hops, RIDGE))
     with pytest.raises(ValueError, match="band"):
         banded_merge_solve_plain(torch.from_numpy(w[:4]), 2, ridge=RIDGE)
 
@@ -148,8 +257,8 @@ def test_from_uv_solve_plain_matches_interpret_on_a_wide_layer(s):
     v = rng.standard_normal((s, 256, 23)).astype(np.float32)
     ref_p, ref_b = ref_from_uv_solve(jnp.asarray(u), jnp.asarray(v), ridge=RIDGE, interpret=True)
     p, b = from_uv_solve_plain(torch.from_numpy(u), torch.from_numpy(v), ridge=RIDGE)
-    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(b.numpy(), np.asarray(ref_b), rtol=1e-5, atol=1e-5)
+    _hold_solve(f"from_uv_solve Ñ=256 S={s}", u, v, p, b, ref_p, ref_b,
+                *jnp_gj_solve(u, v, RIDGE))
 
 
 @pytest.mark.parametrize("hops", [1, 2])
@@ -160,8 +269,9 @@ def test_banded_merge_solve_plain_matches_interpret_on_a_wide_layer(hops):
     w = np.concatenate([u, v], axis=2)
     ref_p, ref_b = ref_banded_merge_solve(jnp.asarray(w), hops, ridge=RIDGE, interpret=True)
     p, b = banded_merge_solve_plain(torch.from_numpy(w), hops, ridge=RIDGE)
-    np.testing.assert_allclose(p.numpy(), np.asarray(ref_p), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(b.numpy(), np.asarray(ref_b), rtol=1e-5, atol=1e-5)
+    acc = _band_sum(w, hops)
+    _hold_solve(f"banded_merge_solve Ñ=256 hops={hops}", acc[:, :, :256], acc[:, :, 256:], p, b,
+                ref_p, ref_b, *jnp_banded_merge_solve(w, hops, RIDGE))
 
 
 @pytest.fixture(scope="module")
@@ -350,7 +460,8 @@ def test_plain_solve_matches_an_elimination_rounded_once():
     """A 3 × 3 system whose first update of V's row 1 is (1 + 2^-23) +
     2^-24·(1 − 2^-46): its f64 sum lies on an f32 midpoint. The plain solve
     equals the elimination done in exact arithmetic, each division and each
-    update rounded once to f32."""
+    update rounded once to f32, the pivot row left out of the update and
+    each row times its pivot's reciprocal at the end."""
     from repro_torch.kernels.topology_merge import from_uv_solve_plain
 
     r = np.float32(1e-3)
@@ -368,18 +479,21 @@ def test_plain_solve_matches_an_elimination_rounded_once():
          for i in range(n)]
     w = [a[i] + [Fraction(int(i == j)) for j in range(n)] + [Fraction(float(x)) for x in v[i]]
          for i in range(n)]
+    piv = []
     for k in range(n):
+        piv.append(w[k][k])
         row = [rn(x / w[k][k]) for x in w[k]]
-        col = [rn(w[i][k] - (i == k)) for i in range(n)]
-        w = [[rn(w[i][j] - col[i] * row[j]) for j in range(len(row))] for i in range(n)]
+        w = [w[i] if i == k else [rn(w[i][j] - w[i][k] * row[j]) for j in range(len(row))]
+             for i in range(n)]
+    w = [[rn(x * rn(1 / piv[i])) for x in w[i]] for i in range(n)]
     want = np.array([[float(x) for x in wi] for wi in w], np.float32)
     assert np.array_equal(p[0].numpy(), want[:, n : 2 * n])
     assert np.array_equal(b[0].numpy(), want[:, 2 * n :])
 
 
 # past the card's cluster solve (Ñ > 320, the blocked wide solve on the
-# card): the plain version is the reference's elimination step for step, so
-# no element differs from the interpret-mode kernel (m and S kept small)
+# card): the plain version is the jnp sweep step for step, so no element
+# differs from it (m and S kept small)
 @pytest.mark.parametrize("n", [384, 544])
 def test_from_uv_solve_plain_is_the_interpret_kernel_past_the_cluster_solve(n):
     rng = np.random.default_rng(50 + n)
@@ -387,8 +501,7 @@ def test_from_uv_solve_plain_is_the_interpret_kernel_past_the_cluster_solve(n):
     v = rng.standard_normal((2, n, 16)).astype(np.float32)
     ref_p, ref_b = ref_from_uv_solve(jnp.asarray(u), jnp.asarray(v), ridge=RIDGE, interpret=True)
     p, b = from_uv_solve_plain(torch.from_numpy(u), torch.from_numpy(v), ridge=RIDGE)
-    assert np.array_equal(p.numpy(), np.asarray(ref_p))
-    assert np.array_equal(b.numpy(), np.asarray(ref_b))
+    _hold_solve(f"from_uv_solve Ñ={n}", u, v, p, b, ref_p, ref_b, *jnp_gj_solve(u, v, RIDGE))
 
 
 @pytest.mark.parametrize("n", [384, 544])
@@ -399,5 +512,34 @@ def test_banded_merge_solve_plain_is_the_interpret_kernel_past_the_cluster_solve
     w = np.concatenate([u, v], axis=2)
     ref_p, ref_b = ref_banded_merge_solve(jnp.asarray(w), 1, ridge=RIDGE, interpret=True)
     p, b = banded_merge_solve_plain(torch.from_numpy(w), 1, ridge=RIDGE)
-    assert np.array_equal(p.numpy(), np.asarray(ref_p))
-    assert np.array_equal(b.numpy(), np.asarray(ref_b))
+    acc = _band_sum(w, 1)
+    _hold_solve(f"banded_merge_solve Ñ={n}", acc[:, :, :n], acc[:, :, n:], p, b, ref_p, ref_b,
+                *jnp_banded_merge_solve(w, 1, RIDGE))
+
+
+# the pivots' size sets the error of the reference's sweep, whose pivot row
+# brings its rounding back times the pivot: a star sum of 64 devices at
+# Ñ = 4 after one star merge (pivots of ~4e4) and a star sum of 16 devices
+# at the har width (n = 561, Ñ = 128; pivots of ~1e4)
+@pytest.mark.parametrize("d,feat,nh,merges", [(64, 24, 4, 1), (16, 561, 128, 0)],
+                         ids=["d64_second_star_merge", "har_star_sum"])
+def test_plain_solve_is_as_close_to_f64_as_the_library_solve(d, feat, nh, merges):
+    from repro_torch.fleet import fleet_merge, fleet_train, init_fleet
+
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(0, 1, (d, 2 * nh, feat)).astype(np.float32)
+    fleet = init_fleet(torch.Generator().manual_seed(0), d, feat, nh, x0,
+                       activation="identity", ridge=RIDGE, device="cpu")
+    fleet = fleet_train(fleet, torch.from_numpy(rng.uniform(0, 1, (d, 16, feat)).astype(np.float32)))
+    for _ in range(merges):
+        fleet = fleet_merge(fleet, star(d), ridge=RIDGE)
+    uv = fleet_to_uv(fleet, ridge=RIDGE)
+    u, v = uv.u.sum(0, keepdim=True).numpy(), uv.v.sum(0, keepdim=True).numpy()
+    p, b = from_uv_solve_plain(torch.from_numpy(u), torch.from_numpy(v), ridge=RIDGE)
+    ref_p, ref_b = ref_from_uv_solve(jnp.asarray(u), jnp.asarray(v), ridge=RIDGE, interpret=True)
+    print(f"D={d} Ñ={nh}: mean pivot of the summed U {float(np.diag(u[0]).mean()):.1f}")
+    errs = _solve_errors(f"star sum D={d} Ñ={nh}", u, v, RIDGE, port=(p, b),
+                         linalg=_linalg_solve(u, v, RIDGE), interpret_kernel=(ref_p, ref_b))
+    assert errs["port"] <= 4 * errs["linalg"], errs
+    want_p, want_b = jnp_gj_solve(u, v, RIDGE)
+    assert np.array_equal(p.numpy(), want_p) and np.array_equal(b.numpy(), want_b)

@@ -7,8 +7,12 @@ print how long it took. Run from the root of a checkout:
 ``--tree`` is the root of the tree whose ``chip_smoke.py`` and ``src`` run
 (by default this checkout), so that two trees unpacked side by side are
 timed by one script, in turns, one process each; ``--phase`` names a
-function of that ``chip_smoke.py`` that takes no argument (``phase_wide``
-is phase 10, ``phase_cohort`` phase 17). The kernels build into this
+function of that ``chip_smoke.py`` (``phase_wide`` is phase 10,
+``phase_durability`` phase 12, ``phase_cohort`` phase 17, ``phase_mesh``
+phase 18). A phase that takes arguments gets them as that script's
+``main`` makes them, by name: ``fleet``, ``ticks_dev``, ``ticks_np`` and
+``shifted`` from ``make_streams`` and ``init_fleet`` at ``D`` from
+``SEED``, and ``smi``; their making is not timed. The kernels build into this
 checkout's ``build/kernels`` (the library is keyed by a hash of the
 sources, so trees with the same sources share one build). The line
 printed, and appended to ``--out``, is one JSON object: the label, the
@@ -39,6 +43,8 @@ def main() -> int:
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(tree))
 
+    import inspect
+
     import torch
 
     if not torch.cuda.is_available():
@@ -58,8 +64,28 @@ def main() -> int:
     _lib.build()
     _lib.library()
     build_s = time.perf_counter() - t0
+    phase = getattr(chip_smoke, args.phase)
+    kwargs = {}
+    wanted = inspect.signature(phase).parameters
+    if {"fleet", "ticks_dev", "ticks_np", "shifted"} & wanted.keys():
+        import numpy as np
+
+        from repro_torch.fleet import init_fleet
+
+        rng = np.random.default_rng(chip_smoke.SEED)
+        x_init, ticks_np, shifted = chip_smoke.make_streams(rng, chip_smoke.D,
+                                                            2 * chip_smoke.N_HID)
+        fleet = init_fleet(torch.Generator().manual_seed(chip_smoke.SEED), chip_smoke.D,
+                           chip_smoke.N_FEAT, chip_smoke.N_HID, x_init, activation="identity",
+                           ridge=chip_smoke.RIDGE, device="cuda")
+        made = {"fleet": fleet, "ticks_dev": torch.from_numpy(ticks_np).cuda(),
+                "ticks_np": ticks_np, "shifted": shifted}
+        kwargs.update({k: v for k, v in made.items() if k in wanted})
+    if "smi" in wanted:
+        kwargs["smi"] = smi
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    getattr(chip_smoke, args.phase)()
+    phase(**kwargs)
     line = json.dumps({"label": args.label, "card": smi, "phase": args.phase,
                        "build_s": build_s, "phase_s": time.perf_counter() - t0})
     print(line, flush=True)
