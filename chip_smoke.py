@@ -216,7 +216,23 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     (f) a one-rank nccl mesh's star merge equal to the single-process merge
     bit for bit (skipped, and said so, only where torch has no nccl; a
     rank that fails fails the phase);
-19. the kernel list, one JSON object per kernel, then the result line.
+19. the rest of the model zoo (``xlstm-1.3b``, ``granite-moe-3b-a800m``,
+    ``seamless-m4t-medium``, ``llama-3.2-vision-11b`` at their published
+    widths and depths, ``arctic-480b`` at its widths and one layer): (d)
+    ``flash_attention`` on the new shapes (cross attention from 512 queries
+    and from one to 1024 frames and to 1601 patches, the encoder's
+    bidirectional 1024, granite-moe's and arctic's causal prefills) and
+    ``gla_forward`` at the mLSTM's dk 512, dv 513, bf16, against their
+    plain versions, SDPA alone beside flash; (a) each model drawn on the
+    card from a CUDA generator (parameters, seconds, memory), (b) served
+    through ``serve`` with phase 9's settings (stub frontend embeddings
+    drawn on the card), scores finite, tokens shaped, ``flash_attention``
+    and ``gla_forward`` launched exactly as the layer pattern says, prefill
+    ms, decode ms a token and peak memory beside a decode step's floor (its
+    weights read once at 3.35 TB/s); (c) an xlstm-1.3b prefill at S = 2048,
+    B = 1, with its sLSTM loop's share; (e) each config reduced (f32) card
+    against CPU on the same weights, and a float8 KV cache on the card;
+20. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -2015,6 +2031,34 @@ def gla_work(b, s, h, dk, dv, itemsize, chunk=128):
     return flops, nbytes
 
 
+def measure_attention(name, label, dtype, fn, plain, library, kernels, work):
+    """flash_attention or gla_forward against its plain version on the card,
+    row by row at ``ATTN_TOL``, timed by CUDA events (the library call's
+    beside), the kernels alone by the profiler; returns the kernel list's
+    row."""
+    import torch
+
+    got, want = fn(), plain()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    rels = [row_rel_err(g, w) for g, w in zip(got, want)]
+    tol = ATTN_TOL[(name, str(dtype).split(".")[-1])]
+    rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    b = bound(*work, rate)
+    r = dict(abs=abs_err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
+             library_ms=cuda_ms(library, 20) if library is not None else None,
+             bound_ms=b[0], bound_by=b[1])
+    alone = device_ms(fn, 10, kernels)
+    log(f"  {name} {label}: max rel in a row {', '.join(f'{x:.2e}' for x in rels)}"
+        f" (tol {tol:.1e})"
+        f"  ms={r['ms']:.4f} (kernel alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
+        + " library_ms=" + (f"{r['library_ms']:.4f} ({library_device(library, 10)})"
+                            if library is not None else "None")
+        + f"  bound_ms={b[0]:.4f} ({b[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB)")
+    assert all(x <= tol for x in rels), f"{name} {label}: kernel != plain"
+    return r
+
+
 def attention_kernel_rows():
     """(a) flash_attention and gla_forward against their plain versions on
     the card at the serving shapes, the 2048-token prompt's included;
@@ -2031,24 +2075,7 @@ def attention_kernel_rows():
     rows = {}
 
     def measure(name, label, dtype, fn, plain, library, kernels, work, main):
-        got, want = fn(), plain()
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-        rels = [row_rel_err(g, w) for g, w in zip(got, want)]
-        tol = ATTN_TOL[(name, str(dtype).split(".")[-1])]
-        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-        b = bound(*work, rate)
-        r = dict(abs=abs_err, ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3),
-                 library_ms=cuda_ms(library, 20) if library is not None else None,
-                 bound_ms=b[0], bound_by=b[1])
-        alone = device_ms(fn, 10, kernels)
-        log(f"  {name} {label}: max rel in a row {', '.join(f'{x:.2e}' for x in rels)}"
-            f" (tol {tol:.1e})"
-            f"  ms={r['ms']:.4f} (kernel alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
-            + " library_ms=" + (f"{r['library_ms']:.4f} ({library_device(library, 10)})"
-                                if library is not None else "None")
-            + f"  bound_ms={b[0]:.4f} ({b[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB)")
-        assert all(x <= tol for x in rels), f"{name} {label}: kernel != plain"
+        r = measure_attention(name, label, dtype, fn, plain, library, kernels, work)
         if main:
             rows[name] = r
 
@@ -2080,10 +2107,10 @@ def attention_kernel_rows():
     return rows
 
 
-def serve_counted(cfg, params, what, prefills, flash_layers, **kw):
+def serve_counted(cfg, params, what, prefills, flash_layers, want=None, **kw):
     """serve() with the launch counts set to 0 just before and read just
     after; each prefill must launch flash_attention once per layer that
-    takes it and gla_forward once per layer."""
+    takes it and gla_forward once per layer, or the counts ``want`` says."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2094,7 +2121,9 @@ def serve_counted(cfg, params, what, prefills, flash_layers, **kw):
     out = serve(cfg, seed=SEED, device="cuda", params=params, **kw)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = {"flash_attention": prefills * flash_layers, "gla_forward": prefills * cfg.n_layers}
+    if want is None:
+        want = {"flash_attention": prefills * flash_layers,
+                "gla_forward": prefills * cfg.n_layers}
     got = {k: counts[k] for k in want}
     log(f"  {what}: launches {got} over {prefills} prefills (expected {want})")
     assert got == want, f"{what}: launches {got}, expected {want}"
@@ -2107,45 +2136,61 @@ def serve_counted(cfg, params, what, prefills, flash_layers, **kw):
     return out, got
 
 
+def to_card(tree):
+    return {k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
+
+
 def serve_card_vs_cpu():
     """(c) full width in f32, depth cut to 2 layers (global layer 0 and one
     hymba_swa), card against CPU on the same weights and prompts."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import init_params
 
     cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=2, param_dtype="float32")
     assert cfg.layer_pattern() == ("hymba", "hymba_swa")
     cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    model_card_vs_cpu(cfg, cpu, "(c)")
 
-    def to_card(tree):
-        return {k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cuda()
+
+def model_card_vs_cpu(cfg, cpu, label, frontend=None):
+    """Prefill logits, features and every cache leaf, then SERVE_CPU_STEPS
+    greedy decode steps (both continuing the CPU's text), card against CPU
+    on the same weights, prompts and stub embeddings, at SERVE_CPU_REL; a
+    greedy token may differ only off a near-tie."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode_step, encoder_forward, prefill
 
     card = to_card(cpu)
     b, s, n = SERVE_CPU_B, SERVE_CPU_S, SERVE_CPU_STEPS
     tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, cfg.vocab, (b, s)))
-    lg_c, c_c, f_c = prefill(cpu, cfg, tokens, cache_len=s + n)
-    lg_g, c_g, f_g = prefill(card, cfg, tokens.cuda(), cache_len=s + n)
+    fe_g = None if frontend is None else frontend.cuda()
+    lg_c, c_c, f_c = prefill(cpu, cfg, tokens, frontend=frontend, cache_len=s + n)
+    lg_g, c_g, f_g = prefill(card, cfg, tokens.cuda(), frontend=fe_g, cache_len=s + n)
     pairs = [("logits", lg_g, lg_c), ("features", f_g, f_c)] + [
         (f"{kind}.{leaf}", c_g[kind][leaf], c_c[kind][leaf]) for kind in c_c for leaf in c_c[kind]]
     rels = {name: rel_err((g.cpu().float(),), (c.float(),))[1][0] for name, g, c in pairs}
-    log("  (c) prefill card - CPU, max rel: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    log(f"  {label} prefill card - CPU, max rel: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
     assert all(v <= SERVE_CPU_REL for v in rels.values()), "prefill: card != CPU"
+    enc_c = None if frontend is None else encoder_forward(cpu, cfg, frontend)
+    enc_g = None if frontend is None else encoder_forward(card, cfg, fe_g)
     tok, worst, ties = lg_c.argmax(-1), 0.0, []
     for i in range(n):
-        lg_g, c_g = decode_step(card, cfg, tok.cuda(), c_g, s + i, max_seq=s + n)
-        lg_c, c_c = decode_step(cpu, cfg, tok, c_c, s + i, max_seq=s + n)
+        lg_g, c_g = decode_step(card, cfg, tok.cuda(), c_g, s + i, enc_out=enc_g, max_seq=s + n)
+        lg_c, c_c = decode_step(cpu, cfg, tok, c_c, s + i, enc_out=enc_c, max_seq=s + n)
         worst = max(worst, rel_err((lg_g.cpu(),), (lg_c,))[1][0])
         mine, want = lg_g.argmax(-1).cpu(), lg_c.argmax(-1)
         for row in torch.nonzero(mine != want).flatten().tolist():
             top = torch.topk(lg_c[row], 2).values
             ties.append((i, row, float((top[0] - top[1]) / lg_c[row].abs().max())))
         tok = want  # both continue the CPU's text
-    log(f"  (c) {n} decode steps card - CPU: logits max rel {worst:.2e}; greedy tokens that"
+    log(f"  {label} {n} decode steps card - CPU: logits max rel {worst:.2e}; greedy tokens that"
         f" differ (step, row, top-two gap / max |logit|): {ties or 'none'}")
     assert worst <= SERVE_CPU_REL, "decode: card != CPU"
     assert all(gap <= NEAR_TIE for _, _, gap in ties), "a greedy token differs off a near-tie"
@@ -4421,6 +4466,321 @@ def phase_mesh(smi: str) -> dict[str, int]:
     return totals
 
 
+# ------------------------------------------------ phase 19: the rest of the model zoo
+
+ZOO = ("xlstm-1.3b", "granite-moe-3b-a800m", "seamless-m4t-medium", "llama-3.2-vision-11b",
+       "arctic-480b")
+# arctic's 35 layers hold 13.8 B parameters each (25.8 GiB in bf16): one
+# layer at its published widths fits the card
+ZOO_DEPTH = {"arctic-480b": 1}
+ZOO_PREFILLS = 2 + SERVE["rounds"]      # serve()'s two warm-up prefills, then one a round
+ZOO_STEPS = SERVE["rounds"] * SERVE["new_tokens"]
+ZOO_LONG = 2048                         # xLSTM's long prompt, B = 1
+# flash_attention's new shapes on this path (B, Sq, Sk, H, hd, causal), bf16:
+# seamless's cross attention from 512 text queries and from one decode query
+# to 1024 frames and its encoder over them (H 16, hd 64); the VLM's from 512
+# and from one query to 1601 patches (H 32, hd 128, kv 8 repeated);
+# granite-moe's (H 24, hd 64) and arctic's (H 56, hd 128) causal prefills
+ZOO_FLASH = ((4, 512, 1024, 16, 64, False), (4, 1, 1024, 16, 64, False),
+             (4, 1024, 1024, 16, 64, False), (4, 512, 1601, 32, 128, False),
+             (4, 1, 1601, 32, 128, False), (4, 512, 512, 24, 64, True),
+             (4, 512, 512, 56, 128, True))
+ZOO_GLA = (4, 512, 4, 512, 513)         # the mLSTM's prefill: B, S, H, dk = dh, dv = dh + 1
+# decode logits on a float8 cache, card against CPU on the same caches: the
+# attention upcasts the cache to bf16 and, as the reference does, rounds p to
+# bf16 and sums p·v into bf16, where the card's and the CPU's orders of the
+# sum may round an output to the other neighbour, 2^-8 of it (measured
+# 8.6e-4 on reduced granite-moe; 1e-4 holds only where no such output flips)
+F8_DECODE_REL = 2 ** -8
+
+
+def zoo_launches(cfg, prefills: int, steps: int) -> dict[str, int]:
+    """flash_attention and gla_forward launches of one serve(): a prefill
+    runs the encoder (a launch a layer), every self-attention layer and
+    every cross-attention layer (a dec layer both), and an mLSTM layer's
+    GLA; serve() runs the encoder once more for the decode steps, and each
+    step launches flash in each cross-attention layer."""
+    pat = cfg.layer_pattern()
+    assert "swa" not in pat and "hymba" not in pat and "hymba_swa" not in pat
+    self_attn = sum(k in ("dense", "moe", "arctic", "dec") for k in pat)
+    cross = pat.count("dec") + pat.count("xattn")
+    enc = cfg.encoder_layers
+    return {"flash_attention": prefills * (enc + self_attn + cross) + enc + steps * cross,
+            "gla_forward": prefills * pat.count("mlstm")}
+
+
+def zoo_kernel_rows():
+    """(d) flash_attention on the zoo's new shapes and gla_forward at the
+    mLSTM's, against their plain versions, SDPA alone beside flash."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_plain, gla_forward, gla_forward_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    dtype = torch.bfloat16
+    for b, sq, sk, h, hd, causal in ZOO_FLASH:
+        q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, sk, h, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        measure_attention(
+            "flash_attention", f"B={b} Sq={sq} Sk={sk} H={h} hd={hd}"
+            f" {'causal' if causal else 'full'} {dtype}", dtype,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: flash_attention_plain(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+            ("flash_fwd_kernel",), flash_work(b, sq, sk, h, hd, causal, q.element_size()))
+    b, s, h, dk, dv = ZOO_GLA
+    q, k = (torch.randn((b, s, h, dk), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dtype)
+    la = -F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    measure_attention("gla_forward", f"B={b} S={s} H={h} dk={dk} dv={dv} {dtype}", dtype,
+                      lambda: gla_forward(q, k, v, la), lambda: gla_forward_plain(q, k, v, la),
+                      None, WIDE_GLA_KERNELS, gla_work(b, s, h, dk, dv, q.element_size()))
+
+
+def _bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def xlstm_long_prefill(cfg, params):
+    """(c) one xlstm-1.3b prefill at S = ZOO_LONG, B = 1 (host clock to a
+    synchronize), its sLSTM layers' token loops timed inside it (each call
+    between two synchronizes): that loop's share of the prefill."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.blocks as blocks
+    from repro_torch.models import prefill
+
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 5).integers(0, cfg.vocab, (1, ZOO_LONG)),
+                             device="cuda")
+    prefill(params, cfg, tokens[:, :128], cache_len=128)      # warm the kernels and the caches
+    loop = []
+    plain_slstm = blocks.slstm_mix
+
+    def timed_slstm(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_slstm(*args, **kw)
+        torch.cuda.synchronize()
+        loop.append(time.perf_counter() - t0)
+        return out
+
+    blocks.slstm_mix = timed_slstm
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _ = prefill(params, cfg, tokens, cache_len=ZOO_LONG)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        blocks.slstm_mix = plain_slstm
+    assert bool(torch.isfinite(logits).all()) and len(loop) == cfg.layer_pattern().count("slstm")
+    log(f"  (c) xlstm-1.3b prefill at S={ZOO_LONG}, B=1: {total * 1e3:.1f} ms; its {len(loop)}"
+        f" sLSTM layers' token loops {sum(loop) * 1e3:.1f} ms of it ({sum(loop) / total:.3f})")
+
+
+def serve_features(cfg, params, batches: int):
+    """The features serve() scores (the warm-up rows, then each round's) for
+    its first ``batches`` prefills, on the same prompts and stub embeddings,
+    and each prefill's logits' finiteness."""
+    import torch
+
+    from repro_torch.launch.serve import serve_prompts, stub_frontend
+    from repro_torch.models import prefill
+
+    b, s, n = SERVE["batch"], SERVE["prompt_len"], SERVE["new_tokens"]
+    warm, prompts = serve_prompts(cfg.vocab, rounds=SERVE["rounds"], batch=b, prompt_len=s,
+                                  drift_round=SERVE["drift_round"], seed=SEED)
+    fe = stub_frontend(cfg, None, b, SEED, torch.device("cuda"))
+    feats, finite = [], True
+    for p in (warm + prompts)[:batches]:
+        logits, _, f = prefill(params, cfg, torch.as_tensor(p, device="cuda"), frontend=fe,
+                               cache_len=s + n)
+        finite &= bool(torch.isfinite(logits).all()) and bool(torch.isfinite(f).all())
+        feats.append(f.cpu().double().numpy())
+    return feats, finite
+
+
+def exact_monitor_scores(feats, d_model: int, n_hidden: int):
+    """serve()'s monitor chain in f64 (numpy) on its features: the Eq. 13 init
+    on the tiled warm-up rows (ridge 1e-2), k=1 steps over them, then per
+    round the score and a batch step, with serve()'s basis
+    (tests/test_torch_serve.py::_exact_scores)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.elm import init_slfn
+    from repro_torch.launch.serve import MONITOR_SEED_OFFSET
+
+    basis = init_slfn(torch.Generator().manual_seed(SEED + MONITOR_SEED_OFFSET), d_model,
+                      n_hidden, device="cpu")
+    alpha, bias = basis.alpha.double().numpy(), basis.bias.double().numpy()
+    warm = np.concatenate(feats[:2])
+    x0 = np.tile(warm, (2 * n_hidden // warm.shape[0] + 1, 1))
+    h0 = x0 @ alpha + bias
+    a = h0.T @ h0 + 1e-2 * np.eye(n_hidden)
+    p, beta = np.linalg.inv(a), np.linalg.solve(a, h0.T @ x0)
+    for x in warm:
+        h = x @ alpha + bias
+        ph = p @ h
+        p = p - np.outer(ph, ph) / (1.0 + h @ ph)
+        beta = beta + np.outer(p @ h, x - h @ beta)
+    scores = []
+    for x in feats[2:]:
+        h = x @ alpha + bias
+        scores.append(float(np.mean((x - h @ beta) ** 2)))
+        ph = p @ h.T
+        p = p - ph @ np.linalg.inv(np.eye(len(x)) + h @ ph) @ ph.T
+        beta = beta + p @ h.T @ (x - h @ beta)
+    return scores
+
+
+def zoo_serve(name, smi) -> dict[str, int]:
+    """(a), (b) one config at its published widths: draw on the card, serve
+    3 rounds, launches held to the layer pattern; returns them."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import active_param_count, init_params, param_count
+
+    cfg = get_config(name)
+    if name in ZOO_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=ZOO_DEPTH[name])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n, active = param_count(params), active_param_count(params, cfg)
+    # a decode step reads every weight but the encoder's and the frontend's
+    # once; an MoE step's experts are read whole by the einsum dispatch,
+    # the active share of them is the floor of a dispatch that reads only
+    # the routed experts
+    step_bytes = _bytes({k: v for k, v in params.items()
+                         if k not in ("enc_layers", "enc_norm", "frontend_proj")})
+    active_bytes = step_bytes - (n - active) * params["embed"].element_size()
+    log(f"  (a) {name}: {cfg.n_layers} layers{' (depth cut)' if name in ZOO_DEPTH else ''},"
+        f" d_model {cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}, hd {cfg.head_dim}),"
+        f" pattern {dict((k, cfg.layer_pattern().count(k)) for k in set(cfg.layer_pattern()))},"
+        f" encoder {cfg.encoder_layers}, frontend {cfg.frontend}: {n / 1e9:.3f} B parameters"
+        f" ({active / 1e9:.3f} B active a token), drawn in {draw_s:.2f} s,"
+        f" {(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB,"
+        f" draw peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    want = zoo_launches(cfg, ZOO_PREFILLS, ZOO_STEPS)
+    out, got = serve_counted(cfg, params, f"(b) {name} serve {SERVE}", ZOO_PREFILLS, 0,
+                             want=want, **SERVE)
+    assert all(r.tokens.shape == (SERVE["batch"], SERVE["new_tokens"] + 1) for r in out)
+    scores = [r.score for r in out]
+    if all(np.isfinite(scores)):
+        _, finite = serve_features(cfg, params, 3)   # the warm-up and round 0
+        assert finite, f"{name}: non-finite logits or features"
+    else:
+        # the monitor's Eq. 13 init sees 2·B distinct warm-up rows for Ñ
+        # hidden units; where 2·B < Ñ, U₀ + εI has Ñ − 2·B eigenvalues at
+        # ε against ~1e5, and its f32 inverse may lose definiteness (the
+        # reference's own f32 monitor gives NaN there too). The model is
+        # held instead: finite logits and features, and finite scores from
+        # the same monitor chain in f64 on those features
+        feats, finite = serve_features(cfg, params, ZOO_PREFILLS)
+        exact = exact_monitor_scores(feats, cfg.d_model, cfg.detector_hidden)
+        log(f"    {name}: the f32 monitor's scores {scores} at {2 * SERVE['batch']} warm-up rows"
+            f" for Ñ = {cfg.detector_hidden}; the f64 chain on the same features {exact}")
+        assert 2 * SERVE["batch"] < cfg.detector_hidden, f"{name}: a well-posed monitor gave NaN"
+        assert finite and all(np.isfinite(exact)), f"{name}: non-finite features or exact scores"
+    prefill_ms = sorted(r.prefill_seconds * 1e3 for r in out)
+    decode_ms = sorted(r.decode_seconds * 1e3 / SERVE["new_tokens"] for r in out)
+    log(f"    {name}: prefill {prefill_ms[1]:.2f} ms (median of {len(out)}; {prefill_ms}),"
+        f" decode {decode_ms[1]:.3f} ms a token (median; {[round(x, 3) for x in decode_ms]}),"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; a decode step's"
+        f" floor, its weights read once at 3.35 TB/s: {step_bytes / H100_BYTES_PER_S * 1e3:.3f} ms"
+        f" ({step_bytes / 2**30:.2f} GiB)"
+        + (f", the routed experts' only {active_bytes / H100_BYTES_PER_S * 1e3:.3f} ms"
+           if cfg.n_experts else "") + f"; {smi}")
+    if name == "xlstm-1.3b":
+        xlstm_long_prefill(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def zoo_card_vs_cpu():
+    """(e) each config reduced (f32), card against CPU on the same weights and
+    stub embeddings; then a float8 KV cache: the card's prefill cache is its
+    f32 cache rounded by to_f8, bit for bit, and each decode step's logits
+    are the CPU's (1e-4) on the card's float8 caches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.blocks import F8, to_f8
+
+    for name in ZOO:
+        cfg = get_config(name).reduced()
+        cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+        fe = None
+        if cfg.frontend is not None:
+            fe = torch.from_numpy(np.random.default_rng(SEED + 6).standard_normal(
+                (SERVE_CPU_B, cfg.n_frontend_tokens, cfg.d_frontend), dtype=np.float32))
+        model_card_vs_cpu(cfg, cpu, f"(e) {name} reduced", frontend=fe)
+
+    base = get_config("granite-3-2b").reduced()
+    cfg = dataclasses.replace(base, kv_cache_dtype="float8_e4m3fn")
+    cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    card = to_card(cpu)
+    b, s, n = SERVE_CPU_B, SERVE_CPU_S, SERVE_CPU_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 7).integers(0, cfg.vocab, (b, s))).cuda()
+    _, c8, _ = prefill(card, cfg, tokens, cache_len=s + n)
+    _, c32, _ = prefill(card, base, tokens, cache_len=s + n)
+    for leaf in ("k", "v"):
+        assert c8["dense"][leaf].dtype == F8
+        assert torch.equal(c8["dense"][leaf].view(torch.uint8),
+                           to_f8(c32["dense"][leaf]).view(torch.uint8)), leaf
+    tok, worst = tokens[:, -1], 0.0
+    for i in range(n):
+        c_cpu = {"dense": {leaf: t.cpu() for leaf, t in c8["dense"].items()}}
+        lg_g, c8 = decode_step(card, cfg, tok, c8, s + i, max_seq=s + n)
+        lg_c, _ = decode_step(cpu, cfg, tok.cpu(), c_cpu, s + i, max_seq=s + n)
+        worst = max(worst, rel_err((lg_g.cpu(),), (lg_c,))[1][0])
+        tok = lg_g.argmax(-1)
+    log(f"  (e) granite-3-2b reduced, float8 KV cache: the prefill's cache is to_f8 of its f32"
+        f" cache bit for bit on the card; {n} decode steps card - CPU on the card's float8"
+        f" caches: logits max rel {worst:.2e} (tol {F8_DECODE_REL:.1e})")
+    assert worst <= F8_DECODE_REL, "float8 decode: card != CPU"
+
+
+def phase_zoo(smi: str) -> dict[str, int]:
+    """Phase 19; returns the launches of (b)'s serving runs."""
+    log("  (d) flash_attention on the zoo's shapes and gla_forward at the mLSTM's, against"
+        " their plain versions")
+    zoo_kernel_rows()
+    totals: dict[str, int] = {}
+    for name in ZOO:
+        for k, v in zoo_serve(name, smi).items():
+            totals[k] = totals.get(k, 0) + v
+    zoo_card_vs_cpu()
+    log(f"  launches over (b): {totals}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4557,7 +4917,15 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 19: kernels (phases 1-18 took {time.perf_counter() - start:.1f} s)")
+    log("phase 19: the rest of the model zoo at full width (xlstm-1.3b, granite-moe-3b-a800m,"
+        " seamless-m4t-medium, llama-3.2-vision-11b, arctic-480b at one layer): serving,"
+        " launches, the new attention shapes, card against CPU")
+    t0 = time.perf_counter()
+    for k, v in phase_zoo(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 20: kernels (phases 1-19 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),

@@ -78,7 +78,11 @@ def oselm_step(state: OSELMState, x: torch.Tensor, t: torch.Tensor) -> OSELMStat
     p = state.p / state.forget
     ph = p @ h.T                                        # (Ñ, k)
     s = torch.eye(h.shape[0], dtype=p.dtype, device=p.device) + h @ ph
-    gain = ph @ torch.linalg.inv(s)                     # (Ñ, k), the Kalman gain
+    # the Kalman gain (Ñ, k). inv_ex, as jnp.linalg.inv, neither raises nor
+    # waits for the card on a singular s: an ill-posed state (a detector
+    # whose P lost its definiteness in f32) gives non-finite values, not an
+    # exception in the middle of a serving loop
+    gain = ph @ torch.linalg.inv_ex(s).inverse
     p_new = p - gain @ ph.T
     beta_new = state.beta + p_new @ h.T @ (t - h @ state.beta)
     return state.replace(beta=beta_new, p=p_new)

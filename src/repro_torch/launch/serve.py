@@ -25,6 +25,14 @@ seeded with ``seed + 7``. ``--reduced`` is always on, as in the reference
 (its flag is ``store_true`` with ``default=True``); ``serve`` itself runs
 any config it is given.
 
+A config with a frontend (the encoder-decoder's speech frames, the VLM's
+image patches) is served on stub embeddings, as in the reference: drawn
+once, (B, n_frontend_tokens, d_frontend), from a torch generator on the
+serving device seeded with ``seed + FRONTEND_SEED_OFFSET`` (or handed
+over as ``serve(..., frontend=)``), run through ``encoder_forward`` once
+for the decode steps' cross attention, and passed to every prefill, which
+runs the encoder again as the reference's does.
+
 ``--fleet`` hands over to the async fleet-ingress driver
 (``repro_torch.launch.serve_fleet``): concurrent synthetic clients
 streaming per-device samples through a ``ServeFrontend`` in front of a
@@ -52,13 +60,14 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import ae_score, ae_train_stream, init_autoencoder, oselm_step
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import decode_step, encoder_forward, init_params, prefill
 from repro_torch.models.config import ArchConfig
 from repro_torch.obs import TelemetryConfig, TelemetrySink
 from repro_torch.runtime import DetectorConfig, detector_update, init_detector
 
 MONITOR = DetectorConfig(alpha=0.7, k_sigma=4.0, warmup=2, patience=1)
 MONITOR_SEED_OFFSET = 7   # the monitor's basis: torch.Generator().manual_seed(seed + 7)
+FRONTEND_SEED_OFFSET = 11  # the stub embeddings: torch.Generator(device).manual_seed(seed + 11)
 WARM_PREFILLS = 2
 DRIFT_VOCAB = 128         # the drift round's tokens come from this many ids
 
@@ -109,11 +118,14 @@ def serve(
     device: str | torch.device | None = None,
     params: dict | None = None,
     telemetry: TelemetrySink | None = None,
+    frontend: torch.Tensor | np.ndarray | None = None,
 ) -> list[ServeRound]:
     """Run the serving loop on ``device`` (the card unless ``device="cpu"``)
     and print the reference's line per round. ``drift_round`` < 0 means the
     last round. ``params`` defaults to weights drawn from ``seed``.
-    ``telemetry`` books every round into that sink."""
+    ``telemetry`` books every round into that sink. ``frontend``: the stub
+    embeddings (B, n_frontend_tokens, d_frontend) of a config with a
+    frontend, drawn from ``seed`` when not given."""
     if rounds < 1 or batch < 1:
         raise ValueError(f"need rounds >= 1 and batch >= 1, got {rounds} and {batch}")
     device = resolve_device(device)
@@ -128,7 +140,10 @@ def serve(
     def ids(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.long, device=device)
 
-    warm_feats = torch.cat([prefill(params, cfg, ids(w), cache_len=max_seq)[2] for w in warm])
+    frontend = stub_frontend(cfg, frontend, b, seed, device)
+    enc_out = None if frontend is None else encoder_forward(params, cfg, frontend)
+    warm_feats = torch.cat([prefill(params, cfg, ids(w), frontend=frontend, cache_len=max_seq)[2]
+                            for w in warm])
     reps = 2 * cfg.detector_hidden // warm_feats.shape[0] + 1
     detector = init_autoencoder(
         torch.Generator().manual_seed(seed + MONITOR_SEED_OFFSET), cfg.d_model,
@@ -153,13 +168,15 @@ def serve(
                 else telemetry.span("serve_round", round=rnd))
         with span:
             t0 = time.perf_counter()
-            logits, caches, features = prefill(params, cfg, tokens, cache_len=max_seq)
+            logits, caches, features = prefill(params, cfg, tokens, frontend=frontend,
+                                               cache_len=max_seq)
             tok = logits.argmax(-1)
             _sync(device)
             t1 = time.perf_counter()
             generated = [tok]
             for i in range(new_tokens):
-                logits, caches = decode_step(params, cfg, tok, caches, s + i, max_seq=max_seq)
+                logits, caches = decode_step(params, cfg, tok, caches, s + i, enc_out=enc_out,
+                                             max_seq=max_seq)
                 tok = logits.argmax(-1)
                 generated.append(tok)
             _sync(device)
@@ -187,6 +204,25 @@ def serve(
         out.append(ServeRound(dt, torch.stack(generated, 1).cpu().numpy(), score, flagged,
                               t1 - t0, t2 - t1))
     return out
+
+
+def stub_frontend(cfg: ArchConfig, frontend, batch: int, seed: int,
+              device: torch.device) -> torch.Tensor | None:
+    """The stub embeddings on ``device``: the given ones, or a draw."""
+    if cfg.frontend is None:
+        if frontend is not None:
+            raise ValueError(f"{cfg.name} has no frontend; frontend= must be None")
+        return None
+    shape = (batch, cfg.n_frontend_tokens, cfg.d_frontend)
+    if frontend is None:
+        gen = torch.Generator(device=device).manual_seed(seed + FRONTEND_SEED_OFFSET)
+        return torch.randn(shape, generator=gen, device=device)
+    if isinstance(frontend, np.ndarray):
+        frontend = torch.from_numpy(np.array(frontend, np.float32))
+    frontend = frontend.to(device=device, dtype=torch.float32)
+    if tuple(frontend.shape) != shape:
+        raise ValueError(f"{cfg.name}: frontend must be {shape}, got {tuple(frontend.shape)}")
+    return frontend
 
 
 def main(argv: list[str] | None = None) -> list[ServeRound] | dict:

@@ -1,15 +1,21 @@
 """The model zoo's serving path (port of ``repro.models``): configs,
-dense, sliding-window and hymba blocks, prefill and decode."""
+every block kind (dense, sliding-window, hymba, xLSTM, MoE and arctic,
+encoder-decoder and VLM cross attention), the encoder and the frontend
+stubs, prefill and decode."""
 from repro_torch.models.config import INPUT_SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.model import (
+    active_param_count,
     decode_step,
+    encoder_forward,
     forward,
     init_params,
     param_count,
     prefill,
 )
+from repro_torch.models.moe import moe_ffn
 
 __all__ = [
     "INPUT_SHAPES", "ArchConfig", "ShapeConfig",
-    "decode_step", "forward", "init_params", "param_count", "prefill",
+    "active_param_count", "decode_step", "encoder_forward", "forward", "init_params",
+    "moe_ffn", "param_count", "prefill",
 ]

@@ -3,7 +3,9 @@
 
 ``blockwise_attention`` is the fused attention of the prefill: it goes
 through ``repro_torch.kernels.flash_attention`` (the CUDA kernel on a
-card, its plain version on the CPU). ``blockwise_attention_fwd_only`` is
+card, its plain version on the CPU), and so is ``cross_attention_blockwise``
+(full attention from the decoder's queries to an encoder's output, Sq ≠
+Sk, one query row in a decode step). ``blockwise_attention_fwd_only`` is
 the reference's chunked online-softmax oracle in plain PyTorch, for
 tests. ``local_attention`` (exact sliding window, O(S·2w)) and
 ``decode_attention`` (one token against a cache) are plain PyTorch here,
@@ -17,8 +19,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attn import NEG_INF, flash_attention
 
 __all__ = [
-    "apply_rope", "blockwise_attention", "blockwise_attention_fwd_only", "decode_attention",
-    "gelu_mlp", "local_attention", "rmsnorm", "rope_tables", "swiglu",
+    "apply_rope", "blockwise_attention", "blockwise_attention_fwd_only",
+    "cross_attention_blockwise", "decode_attention", "gelu_mlp", "local_attention", "rmsnorm",
+    "rope_tables", "swiglu",
 ]
 
 
@@ -98,6 +101,12 @@ def blockwise_attention(
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
 
 
+def cross_attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full (non-causal) attention for the encoder-decoder and the VLM's
+    image layers: q (B, Sq, H, hd) against k, v (B, Sk, H, hd)."""
+    return blockwise_attention(q, k, v, causal=False)
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int) -> torch.Tensor:
     """Exact causal sliding-window attention, O(S · 2w): queries chunked at
     the window size, each chunk attending its own and the previous chunk
@@ -138,7 +147,9 @@ def decode_attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
-    """Single-token decode attention over a (possibly windowed) KV cache."""
+    """Single-token decode attention over a (possibly windowed) KV cache.
+    Types as jnp promotes them: the scores in the wider of q's and k's
+    types, p rounded to v's type, p·v in v's type, the output in q's."""
     b, s, kv, hd = cache_k.shape
     groups = q1.shape[2] // kv
     k = _expand_kv(cache_k, groups)
@@ -148,7 +159,8 @@ def decode_attention(
     valid = s_pos < pos
     if window:
         valid = valid & (s_pos >= pos - window)
-    scores = torch.einsum("bqhd,bshd->bhqs", q1, k).float() * scale
+    ct = torch.promote_types(q1.dtype, k.dtype)
+    scores = torch.einsum("bqhd,bshd->bhqs", q1.to(ct), k.to(ct)).float() * scale
     scores = torch.where(valid, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqs,bshd->bqhd", p, v).to(q1.dtype)

@@ -2,13 +2,17 @@
 port of the serving half of ``repro.models.model``.
 
 Parameters are a nested dict of tensors with the reference's layout:
-``{"embed", "final_norm", "layers": {kind: {...}}}``, each leaf of
-``layers[kind]`` stacked over that kind's layers in pattern order, so
-that ``repro_torch.convert.model_params_from_numpy`` carries the
-reference's pytree over as it is. The layers run as a plain Python loop
-(the port runs eagerly; nothing is traced or rematerialised).
-``lm_loss``, ``encoder_forward``, ``input_specs`` and
-``cache_shape_structs`` are not ported yet (ROADMAP queue 1, item 10).
+``{"embed", "final_norm", "layers": {kind: {...}}}``, plus ``enc_layers``
+and ``enc_norm`` for an encoder-decoder and ``frontend_proj`` for a
+config with a frontend; each leaf of ``layers[kind]`` is stacked over
+that kind's layers in pattern order, so that
+``repro_torch.convert.model_params_from_numpy`` carries the reference's
+pytree over as it is. The layers run as a plain Python loop (the port
+runs eagerly; nothing is traced or rematerialised). The frontends are
+stubs, as in the reference: precomputed embeddings (B, T, d_frontend)
+stand in for the speech encoder's frames and the ViT's patches.
+``lm_loss`` (ROADMAP queue 1, item 10d), ``input_specs`` and
+``cache_shape_structs`` (item 10e) are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,20 +21,14 @@ from typing import Any
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models.blocks import (
-    BlockCtx,
-    block_decode,
-    block_fwd,
-    init_block,
-    require_ported,
-)
+from repro_torch.models.blocks import BlockCtx, block_decode, block_fwd, init_block
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import rmsnorm, rope_tables
 
 PyTree = Any
 
-__all__ = ["decode_step", "forward", "group_runs", "init_params", "param_count", "param_dtype",
-           "prefill"]
+__all__ = ["active_param_count", "decode_step", "encoder_forward", "forward", "group_runs",
+           "init_params", "param_count", "param_dtype", "prefill"]
 
 
 def group_runs(pattern: tuple[str, ...]) -> list[tuple[str, int]]:
@@ -61,18 +59,45 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _stack_layers(gen, kinds: tuple[str, ...], cfg: ArchConfig, dtype, device) -> dict:
+    """Draw each layer in pattern order into its kind's stack. A kind of one
+    layer keeps its leaves (a view with the stacked axis); a kind of more
+    is copied into its stack a layer at a time, so that drawing holds the
+    stack and one layer, never every layer twice."""
+    n = {kind: kinds.count(kind) for kind in kinds}
+    stacks: dict[str, dict] = {}
+    filled: dict[str, int] = {}
+    for kind in kinds:
+        layer = init_block(gen, kind, cfg, dtype, device)
+        if kind not in stacks:
+            stacks[kind] = _map(lambda t, m=n[kind]: t.unsqueeze(0) if m == 1
+                                else t.new_empty((m, *t.shape)), layer)
+            filled[kind] = 0
+        if n[kind] > 1:
+            _put(stacks[kind], layer, filled[kind])
+        filled[kind] += 1
+    return stacks
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _put(stack, layer, i: int) -> None:
+    """stack[i] = layer, leaf by leaf."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _put(stack[k], v, i)
+        else:
+            stack[k][i] = v
+
+
 def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
-
-
-def _stack_layers(gen, kinds: tuple[str, ...], cfg: ArchConfig, dtype, device) -> dict:
-    """Draw each layer in pattern order, then stack per kind."""
-    per_kind: dict[str, list] = {}
-    for kind in kinds:
-        per_kind.setdefault(kind, []).append(init_block(gen, kind, cfg, dtype, device))
-    return {kind: _stack(layers) for kind, layers in per_kind.items()}
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -83,25 +108,28 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                 device: str | torch.device | None = None) -> dict:
     """Random weights from ``generator`` (drawn on the generator's device, so
     a CUDA generator draws a full-width model on the card) on ``device``
-    (the card unless ``device="cpu"``). The reference draws with
-    ``jax.random``, whose streams torch cannot reproduce: to run both
-    packages on one set of weights, convert the reference's
-    (``repro_torch.convert.model_params_from_numpy``)."""
+    (the card unless ``device="cpu"``), in the reference's order: the
+    embedding, the layers, the encoder's layers, the frontend's
+    projection. The reference draws with ``jax.random``, whose streams
+    torch cannot reproduce: to run both packages on one set of weights,
+    convert the reference's (``repro_torch.convert.model_params_from_numpy``)."""
     device = resolve_device(device)
-    pattern = cfg.layer_pattern()
-    for kind in dict.fromkeys(pattern):
-        require_ported(kind)
-    if cfg.is_encdec or cfg.frontend is not None or cfg.kv_cache_dtype != "param":
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, frontends and float8 caches are not ported yet "
-            "(ROADMAP queue 1, item 10: the model zoo)")
     dtype = param_dtype(cfg)
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator, device=generator.device)
-    return {
+    params = {
         "embed": (embed * 0.02).to(device=device, dtype=dtype),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=device),
-        "layers": _stack_layers(generator, pattern, cfg, dtype, device),
     }
+    del embed
+    params["layers"] = _stack_layers(generator, cfg.layer_pattern(), cfg, dtype, device)
+    if cfg.is_encdec:
+        params["enc_layers"] = _stack_layers(generator, cfg.encoder_pattern(), cfg, dtype, device)
+        params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
+    if cfg.frontend is not None:
+        proj = torch.randn((cfg.d_frontend, cfg.d_model), generator=generator,
+                           device=generator.device)
+        params["frontend_proj"] = (proj * cfg.d_frontend ** -0.5).to(device=device, dtype=dtype)
+    return params
 
 
 def param_count(params: PyTree) -> int:
@@ -110,38 +138,73 @@ def param_count(params: PyTree) -> int:
     return params.numel()
 
 
+def active_param_count(params: dict, cfg: ArchConfig) -> int:
+    """MoE-aware: the parameters a token runs through (top-k of E
+    experts)."""
+    total = param_count(params)
+    if not cfg.n_experts:
+        return total
+    expert_leaves = 0
+    for kind in ("moe", "arctic"):
+        stack = params["layers"].get(kind)
+        if stack is not None and "moe" in stack:
+            expert_leaves += sum(stack["moe"][w].numel() for w in ("w_gate", "w_up", "w_down"))
+    active_frac = cfg.experts_per_token / cfg.n_experts
+    return int(total - expert_leaves * (1.0 - active_frac))
+
+
 def _run_layers(layers: dict, pattern: tuple[str, ...], x: torch.Tensor, ctx: BlockCtx):
-    """Every layer in pattern order; returns (x, caches stacked per kind, or
-    None)."""
+    """Every layer in pattern order; returns (x, the aux vectors summed, the
+    caches stacked per kind or None)."""
+    aux_total = torch.zeros(3, dtype=torch.float32, device=x.device)
     caches: dict[str, list] = {}
     for kind, i in _layer_slots(pattern):
-        x, cache = block_fwd(kind, _index(layers[kind], i), x, ctx)
+        x, aux, cache = block_fwd(kind, _index(layers[kind], i), x, ctx)
+        aux_total = aux_total + aux
         if ctx.collect_cache:
             caches.setdefault(kind, []).append(cache)
     if not ctx.collect_cache:
-        return x, None
-    return x, {kind: _stack(parts) for kind, parts in caches.items()}
+        return x, aux_total, None
+    return x, aux_total, {kind: _stack(parts) for kind, parts in caches.items()}
+
+
+def encoder_forward(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The frontend stub's embeddings (B, T, d_frontend) → the projection →
+    the bidirectional encoder and its norm (an encoder-decoder), or the
+    projection alone (a VLM): (B, T, D) in the parameters' type."""
+    x = frames.to(param_dtype(cfg)) @ params["frontend_proj"]
+    if cfg.is_encdec:
+        cos, sin = rope_tables(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
+        ctx = BlockCtx(cfg=cfg, rope_cos=cos, rope_sin=sin, causal=False)
+        x, _, _ = _run_layers(params["enc_layers"], cfg.encoder_pattern(), x, ctx)
+        x = rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    return x
 
 
 def forward(
     params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
-    collect_cache: bool = False, cache_len: int = 0,
-) -> tuple[torch.Tensor, PyTree]:
-    """tokens (B, S) → (hidden (B, S, D), caches or None)."""
+    frontend: torch.Tensor | None = None, collect_cache: bool = False, cache_len: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, PyTree]:
+    """tokens (B, S) → (hidden (B, S, D), aux[3] f32, caches or None).
+    ``frontend``: the stub embeddings (B, T, d_frontend), run through
+    ``encoder_forward`` for the cross-attention layers."""
     s = tokens.shape[1]
     x = params["embed"][tokens]
+    enc_out = None if frontend is None else encoder_forward(params, cfg, frontend)
     cos, sin = rope_tables(s, cfg.head_dim, cfg.rope_theta, device=x.device)
-    ctx = BlockCtx(cfg=cfg, rope_cos=cos, rope_sin=sin, collect_cache=collect_cache,
-                   cache_len=max(cache_len, s))
-    x, caches = _run_layers(params["layers"], cfg.layer_pattern(), x, ctx)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps), caches
+    ctx = BlockCtx(cfg=cfg, rope_cos=cos, rope_sin=sin, enc_out=enc_out,
+                   collect_cache=collect_cache, cache_len=max(cache_len, s))
+    x, aux, caches = _run_layers(params["layers"], cfg.layer_pattern(), x, ctx)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
 
 
 def prefill(
-    params: dict, cfg: ArchConfig, tokens: torch.Tensor, *, cache_len: int = 0,
+    params: dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+    frontend: torch.Tensor | None = None, cache_len: int = 0,
 ) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """→ (last-token logits (B, V) f32, caches, features (B, D) f32)."""
-    hidden, caches = forward(params, cfg, tokens, collect_cache=True, cache_len=cache_len)
+    hidden, _, caches = forward(params, cfg, tokens, frontend=frontend, collect_cache=True,
+                                cache_len=cache_len)
     logits = (hidden[:, -1] @ params["embed"].T).float()
     features = hidden.mean(dim=1).float()
     return logits, caches, features
@@ -149,17 +212,18 @@ def prefill(
 
 def decode_step(
     params: dict, cfg: ArchConfig, token: torch.Tensor, caches: dict, pos: int, *,
-    max_seq: int = 0,
+    enc_out: torch.Tensor | None = None, max_seq: int = 0,
 ) -> tuple[torch.Tensor, dict]:
     """One serve step: logits (B, V) f32 for the token after ``token`` (B,)
-    at position ``pos``. The caches are updated in place and returned:
-    the reference returns new arrays, which here would copy every layer's
-    cache for every token."""
+    at position ``pos``; ``enc_out`` is ``encoder_forward``'s output for
+    the cross-attention layers. The caches are updated in place and
+    returned: the reference returns new arrays, which here would copy
+    every layer's cache for every token."""
     if max_seq <= 0:
         raise ValueError("decode_step needs max_seq for the RoPE table")
     x = params["embed"][token]
     cos, sin = rope_tables(max_seq + 1, cfg.head_dim, cfg.rope_theta, device=x.device)
-    ctx = BlockCtx(cfg=cfg, rope_cos=cos, rope_sin=sin, pos=int(pos))
+    ctx = BlockCtx(cfg=cfg, rope_cos=cos, rope_sin=sin, enc_out=enc_out, pos=int(pos))
     for kind, i in _layer_slots(cfg.layer_pattern()):
         cache = _index(caches[kind], i)
         x, new = block_decode(kind, _index(params["layers"][kind], i), x, cache, ctx)

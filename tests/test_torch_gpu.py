@@ -1474,6 +1474,159 @@ def test_model_on_the_card_is_the_cpu_model(cuda):
         tok = lg_c.argmax(-1)
 
 
+# the rest of the model zoo's attention at full width: cross attention
+# (seamless, 512 text queries or one decode query against 1024 frames, H 16,
+# hd 64; the VLM, against 1601 patches, H 32, hd 128), the seamless
+# encoder's bidirectional self attention (1024 frames), and granite-moe's
+# (H 24, hd 64) and arctic's (H 56, hd 128) causal prefills
+ZOO_FLASH = [(4, 512, 1024, 16, 64, False), (4, 1, 1024, 16, 64, False),
+             (4, 1024, 1024, 16, 64, False), (4, 512, 1601, 32, 128, False),
+             (4, 1, 1601, 32, 128, False), (4, 512, 512, 24, 64, True),
+             (4, 512, 512, 56, 128, True)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hd,causal", ZOO_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_the_zoo_shapes(cuda, b, sq, sk, h, hd, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + hd)
+    q = _draw(cuda, (b, sq, h, hd), dtype, gen)
+    k, v = (_draw(cuda, (b, sk, h, hd), dtype, gen) for _ in range(2))
+    got = _launched("flash_attention", lambda: flash_attention(q, k, v, causal=causal))
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _row_rel(got, want) <= (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gla_kernel_at_the_mlstm_shape(cuda, dtype):
+    """xlstm-1.3b's prefill: dk 512, dv 513 (v with its ones column), H 4,
+    B 4, S 512, on the wide path."""
+    gen = torch.Generator(device=cuda).manual_seed(513)
+    b, s, h, dk, dv = 4, 512, 4, 512, 513
+    q, k = (_draw(cuda, (b, s, h, dk), dtype, gen) for _ in range(2))
+    v = _draw(cuda, (b, s, h, dv), dtype, gen)
+    log_a = -torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=cuda))
+    y, state = _launched("gla_forward", lambda: gla_forward(q, k, v, log_a))
+    want_y, want_state = gla_forward_plain(q, k, v, log_a)
+    if dtype == torch.float32:
+        assert _gla_terms_rel(y, want_y, q, k, v, log_a) <= 1e-5
+    else:
+        assert _row_rel(y, want_y) <= 2 ** -8
+    assert _row_rel(state, want_state) <= 1e-5
+
+
+ZOO = ["xlstm-1.3b", "granite-moe-3b-a800m", "arctic-480b", "seamless-m4t-medium",
+       "llama-3.2-vision-11b"]
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_model_on_the_card_is_the_cpu_model(cuda, name):
+    """Each of the rest of the zoo, reduced (f32): prefill logits, features
+    and caches, forward's aux vector and 3 decode steps, card against CPU on
+    the same weights, tokens and stub embeddings, at 1e-4 (the aux's
+    dropped fraction exactly); the prefill launches flash_attention once a
+    layer that attends (encoder, self and cross) and gla_forward once an
+    mLSTM layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, encoder_forward, forward, init_params, prefill
+
+    cfg = get_config(name).reduced()
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda)
+
+    card = to_card(cpu)
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 100)))
+    fe = None
+    if cfg.frontend is not None:
+        fe = torch.from_numpy(rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_frontend),
+                                                  dtype=np.float32))
+    fe_g = None if fe is None else fe.to(cuda)
+    pattern = cfg.layer_pattern()
+    flash = (sum(k in ("dense", "swa", "moe", "arctic", "dec", "xattn") for k in pattern)
+             + pattern.count("dec") + cfg.encoder_layers)
+    before = launch_counts()
+    lg_g, c_g, f_g = prefill(card, cfg, tokens.to(cuda), frontend=fe_g, cache_len=104)
+    after = launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == flash
+    assert after["gla_forward"] - before["gla_forward"] == pattern.count("mlstm")
+    lg_c, c_c, f_c = prefill(cpu, cfg, tokens, frontend=fe, cache_len=104)
+    assert _rel(lg_g.cpu(), lg_c) <= 1e-4 and _rel(f_g.cpu(), f_c) <= 1e-4
+    for kind in c_c:
+        for leaf in c_c[kind]:
+            assert _rel(c_g[kind][leaf].cpu(), c_c[kind][leaf]) <= 1e-4, (kind, leaf)
+    aux_g = forward(card, cfg, tokens.to(cuda), frontend=fe_g)[1].cpu()
+    aux_c = forward(cpu, cfg, tokens, frontend=fe)[1]
+    assert float(aux_g[2]) == float(aux_c[2])
+    assert torch.allclose(aux_g[:2], aux_c[:2], rtol=1e-4, atol=1e-7)
+    enc_g = None if fe is None else encoder_forward(card, cfg, fe_g)
+    enc_c = None if fe is None else encoder_forward(cpu, cfg, fe)
+    tok = lg_c.argmax(-1)
+    for i in range(3):
+        lg_g, c_g = decode_step(card, cfg, tok.to(cuda), c_g, 100 + i, enc_out=enc_g, max_seq=104)
+        lg_c, c_c = decode_step(cpu, cfg, tok, c_c, 100 + i, enc_out=enc_c, max_seq=104)
+        assert _rel(lg_g.cpu(), lg_c) <= 1e-4, i
+        tok = lg_c.argmax(-1)
+
+
+def test_to_f8_on_the_card_is_the_cpus(cuda):
+    """The float8 cache's rounding (``to_f8``: ties to even, NaN past ±464)
+    gives the same bits on the card as on the CPU, f32 and bf16."""
+    from repro_torch.models.blocks import to_f8
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.standard_normal(1 << 16) * s for s in (1e-3, 1.0, 30.0, 300.0)]
+                       + [[448.0, 456.0, 464.0, 464.01, 480.0, -1e4, np.inf, np.nan]])
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x.astype(np.float32)).to(dtype)
+        got = to_f8(xt.to(cuda)).view(torch.uint8).cpu()
+        assert torch.equal(got, to_f8(xt).view(torch.uint8)), dtype
+
+
+def test_f8_cache_on_the_card(cuda):
+    """Reduced granite-3-2b with a float8 KV cache: on the card the prefill's
+    cache is its f32 cache rounded by ``to_f8``, bit for bit, and a decode
+    step writes its slot through the uint8 view and attends over the bf16
+    upcast: logits at 2^-8 of the CPU's on the same float8 caches (the
+    card's, copied to the CPU before each step). That attention rounds p
+    and p·v to bf16, as the reference's does, and the two devices' orders of
+    the sum may round an output to the other bf16 neighbour (``chip_smoke.py``'s
+    ``F8_DECODE_REL``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.blocks import to_f8
+
+    base = get_config("granite-3-2b").reduced()
+    cfg = dataclasses.replace(base, kv_cache_dtype="float8_e4m3fn")
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda)
+
+    card = to_card(cpu)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (2, 60))).to(cuda)
+    _, c8, _ = prefill(card, cfg, tokens, cache_len=64)
+    _, c32, _ = prefill(card, base, tokens, cache_len=64)
+    for leaf in ("k", "v"):
+        assert c8["dense"][leaf].dtype == torch.float8_e4m3fn
+        assert torch.equal(c8["dense"][leaf].view(torch.uint8),
+                           to_f8(c32["dense"][leaf]).view(torch.uint8)), leaf
+    tok = tokens[:, -1]
+    for i in range(3):
+        c_cpu = {"dense": {leaf: t.cpu() for leaf, t in c8["dense"].items()}}
+        lg_g, c8 = decode_step(card, cfg, tok, c8, 60 + i, max_seq=64)
+        lg_c, c_cpu = decode_step(cpu, cfg, tok.cpu(), c_cpu, 60 + i, max_seq=64)
+        assert _rel(lg_g.cpu(), lg_c) <= 2 ** -8, i
+        tok = lg_g.argmax(-1)
+
+
 # ------------------------------------------------- registered activations
 
 # a new name, and a built-in name registered again with another function:

@@ -1,18 +1,26 @@
 """The port's model zoo serving path against the reference's, on the CPU.
 
-Reduced ``hymba-1.5b`` (one global ``hymba`` and one ``hymba_swa``
-layer: attention and the mamba head in parallel) and reduced
-``gemma3-1b`` (``swa`` then ``dense``), f32, 2 layers, as
-``ArchConfig.reduced()`` makes them. The reference draws the weights;
-``convert.model_params_from_numpy`` carries them over leaf for leaf.
-``prefill``'s logits, features and every cache leaf (k, v and the mamba
-state), then 4 greedy ``decode_step``s, are held at 1e-4 of each
-tensor's largest magnitude: the port's attention and GLA run their CUDA
-kernels' plain versions, the reference its jnp oracles at chunk 512 and
-128; measured, they agree to 3.4e-6 at most (logits, features, caches
-and decode logits alike).
+Every config at ``ArchConfig.reduced()`` (f32, 2 layers): reduced
+``hymba-1.5b`` (one global ``hymba`` and one ``hymba_swa`` layer),
+``gemma3-1b`` (``swa`` then ``dense``), ``xlstm-1.3b`` (``slstm`` then
+``mlstm``) and ``granite-moe-3b-a800m`` (two ``moe`` layers, 4 experts, top
+2, the einsum dispatch) here; ``arctic-480b``, ``seamless-m4t-medium``
+(two ``enc`` and two ``dec`` layers, 16 stub frames) and
+``llama-3.2-vision-11b`` (``dense`` then ``xattn``, 16 stub patches) in
+``tests/test_torch_models_zoo.py``, through this file's checks. The
+reference draws the weights and the stub embeddings;
+``convert.model_params_from_numpy`` carries the weights over leaf for
+leaf. ``prefill``'s logits, features and every cache leaf (k, v, the
+mamba state, the mLSTM memory, the sLSTM's h, c, n, m), then 4 greedy
+``decode_step``s, are held at 1e-4 of each tensor's largest magnitude:
+the port's attention and GLA run their CUDA kernels' plain versions, the
+reference its jnp oracles at chunk 512 and 128; measured, they agree to
+3.4e-6 at most (``-s`` prints each spread). ``forward``'s aux vector (the
+MoE losses and the dropped fraction) is held to the reference's:
+``dropped_frac`` exactly, the losses at 1e-5.
 The prefill → decode continuation is held as ``tests/test_archs.py``
-holds the reference's (1e-3). The configs are plain data copied from the
+holds the reference's (1e-3; not for MoE, whose capacity routing
+differs per grouping). The configs are plain data copied from the
 reference and are checked field for field.
 """
 import dataclasses
@@ -27,11 +35,18 @@ import repro.models as rm
 from repro.configs import ARCHS as REF_ARCHS
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import model_params_from_numpy
-from repro_torch.models import decode_step, init_params, param_count, prefill
+from repro_torch.models import (
+    decode_step,
+    encoder_forward,
+    forward,
+    init_params,
+    param_count,
+    prefill,
+)
 
 torch.set_num_threads(2)
 
-MODELS = ("hymba-1.5b", "gemma3-1b")
+MODELS = ("hymba-1.5b", "gemma3-1b", "xlstm-1.3b", "granite-moe-3b-a800m")
 REL = 1e-4
 B, S, STEPS = 2, 33, 4
 
@@ -41,71 +56,134 @@ def _rel(got: torch.Tensor, want) -> float:
     return float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
 
 
-@pytest.fixture(scope="module", params=MODELS)
-def pair(request):
+def _t(a) -> torch.Tensor | None:
+    return None if a is None else torch.from_numpy(np.array(a, np.float32))
+
+
+def make_pair(name: str, *, s: int = S, seed: int = 1):
     """(name, config, reference params, port params, tokens, reference run)
-    with the reference's prefill and decode chain computed once."""
-    name = request.param
+    with the reference's stub embeddings, prefill, aux and decode chain
+    computed once."""
     cfg = get_config(name).reduced()
     rcfg = REF_ARCHS[name].reduced()
     rparams = rm.init_params(jax.random.PRNGKey(0), rcfg)
     params = model_params_from_numpy(jax.tree.map(np.asarray, rparams), device="cpu")
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    logits, caches, feats = rm.prefill(rparams, rcfg, jnp.asarray(tokens[:, :S - 1]),
-                                       cache_len=S + STEPS)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (B, s)).astype(np.int32)
+    fe = enc_out = None
+    if rcfg.frontend is not None:
+        fe = rng.standard_normal((B, rcfg.n_frontend_tokens, rcfg.d_frontend)).astype(np.float32)
+        enc_out = rm.encoder_forward(rparams, rcfg, jnp.asarray(fe))
+    # the reference's prefill and aux from one jitted forward (as its serving
+    # loop jits it), logits and features taken as its prefill takes them
+    fwd = jax.jit(lambda p, t, f: rm.forward(p, rcfg, t, frontend=f, collect_cache=True,
+                                             cache_len=s + STEPS))
+    hidden, aux, caches = fwd(rparams, jnp.asarray(tokens[:, :s - 1]),
+                              None if fe is None else jnp.asarray(fe))
+    logits = (hidden[:, -1] @ rparams["embed"].T).astype(jnp.float32)
+    feats = hidden.mean(axis=1).astype(jnp.float32)
     ref = {"prefill": (np.asarray(logits), jax.tree.map(np.asarray, caches), np.asarray(feats)),
-           "decode": []}
-    tok = tokens[:, S - 1]
+           "aux": np.asarray(aux), "fe": fe,
+           "enc_out": None if enc_out is None else np.asarray(enc_out), "decode": []}
+    dec = jax.jit(lambda p, t, c, pos, e: rm.decode_step(p, rcfg, t, c, pos, enc_out=e,
+                                                         max_seq=s + STEPS))
+    tok = tokens[:, s - 1]
     for i in range(STEPS):
-        logits, caches = rm.decode_step(rparams, rcfg, jnp.asarray(tok), caches,
-                                        jnp.asarray(S - 1 + i, jnp.int32), max_seq=S + STEPS)
+        logits, caches = dec(rparams, jnp.asarray(tok), caches, jnp.asarray(s - 1 + i, jnp.int32),
+                             enc_out)
         ref["decode"].append((tok, np.asarray(logits)))
         tok = np.asarray(logits).argmax(-1).astype(np.int32)
     return name, cfg, rparams, params, tokens, ref
 
 
-def _port_prefill(cfg, params, tokens):
-    return prefill(params, cfg, torch.from_numpy(tokens[:, :S - 1]).long(), cache_len=S + STEPS)
+@pytest.fixture(scope="module", params=MODELS)
+def pair(request):
+    return make_pair(request.param)
 
 
-def test_prefill_matches_reference(pair):
-    _, cfg, _, params, tokens, ref = pair
-    logits, caches, feats = _port_prefill(cfg, params, tokens)
+def _port_prefill(cfg, params, tokens, ref):
+    s = tokens.shape[1]
+    return prefill(params, cfg, torch.from_numpy(tokens[:, :s - 1]).long(),
+                   frontend=_t(ref["fe"]), cache_len=s + STEPS)
+
+
+def _enc_out(cfg, params, ref):
+    return None if ref["fe"] is None else encoder_forward(params, cfg, _t(ref["fe"]))
+
+
+def check_prefill(pair):
+    name, cfg, _, params, tokens, ref = pair
+    logits, caches, feats = _port_prefill(cfg, params, tokens, ref)
     want_logits, want_caches, want_feats = ref["prefill"]
-    assert _rel(logits, want_logits) <= REL
-    assert _rel(feats, want_feats) <= REL
+    spreads = {"logits": _rel(logits, want_logits), "features": _rel(feats, want_feats)}
     assert set(caches) == set(want_caches)
     for kind, leaves in want_caches.items():
         assert set(caches[kind]) == set(leaves)
         for leaf, want in leaves.items():
             assert caches[kind][leaf].shape == want.shape, (kind, leaf)
-            assert _rel(caches[kind][leaf], want) <= REL, (kind, leaf)
+            spreads[f"{kind}.{leaf}"] = _rel(caches[kind][leaf], want)
+    print(f"{name} S={tokens.shape[1]} prefill, max |port − ref| / max |ref|:",
+          ", ".join(f"{k} {v:.1e}" for k, v in spreads.items()))
+    assert all(v <= REL for v in spreads.values()), spreads
 
 
-def test_greedy_decode_matches_reference(pair):
+def check_decode(pair):
     """4 steps from the prefill's caches, each fed the reference's greedy
     token, logits at 1e-4; the port's greedy tokens are the reference's."""
-    _, cfg, _, params, tokens, ref = pair
-    _, caches, _ = _port_prefill(cfg, params, tokens)
+    name, cfg, _, params, tokens, ref = pair
+    s = tokens.shape[1]
+    _, caches, _ = _port_prefill(cfg, params, tokens, ref)
+    enc_out = _enc_out(cfg, params, ref)
     for i, (tok, want) in enumerate(ref["decode"]):
         logits, caches = decode_step(params, cfg, torch.from_numpy(tok).long(), caches,
-                                     S - 1 + i, max_seq=S + STEPS)
-        assert _rel(logits, want) <= REL, i
+                                     s - 1 + i, enc_out=enc_out, max_seq=s + STEPS)
+        assert _rel(logits, want) <= REL, (name, i, _rel(logits, want))
         assert np.array_equal(logits.argmax(-1).numpy(), want.argmax(-1))
 
 
-def test_decode_continues_prefill(pair):
+def check_aux(pair):
+    """forward's aux vector: the summed MoE losses at 1e-5, the dropped
+    fraction exactly; zeros for the kinds without one."""
+    _, cfg, _, params, tokens, ref = pair
+    _, aux, caches = forward(params, cfg, torch.from_numpy(tokens[:, :-1]).long(),
+                             frontend=_t(ref["fe"]))
+    assert caches is None and aux.dtype == torch.float32 and aux.shape == (3,)
+    want = ref["aux"]
+    np.testing.assert_allclose(aux[:2].numpy(), want[:2], rtol=1e-5, atol=1e-7)
+    assert float(aux[2]) == float(want[2])
+
+
+def check_continues_prefill(pair):
     """Prefill S − 1 tokens, decode the last: the logits of a prefill of all
     S (``tests/test_archs.py::test_prefill_decode_smoke``'s check)."""
-    _, cfg, _, params, tokens, _ = pair
-    _, caches, _ = _port_prefill(cfg, params, tokens)
-    lg, _ = decode_step(params, cfg, torch.from_numpy(tokens[:, S - 1]).long(), caches, S - 1,
-                        max_seq=S + 4)
-    full, _, _ = prefill(params, cfg, torch.from_numpy(tokens).long())
-    np.testing.assert_allclose(lg.numpy(), full.numpy(), rtol=1e-3, atol=1e-3)
+    _, cfg, _, params, tokens, ref = pair
+    s = tokens.shape[1]
+    _, caches, _ = _port_prefill(cfg, params, tokens, ref)
+    lg, _ = decode_step(params, cfg, torch.from_numpy(tokens[:, s - 1]).long(), caches, s - 1,
+                        enc_out=_enc_out(cfg, params, ref), max_seq=s + 4)
+    assert lg.shape == (B, cfg.vocab) and bool(torch.isfinite(lg).all())
+    if not cfg.n_experts:  # capacity-based MoE routing differs per grouping
+        full, _, _ = prefill(params, cfg, torch.from_numpy(tokens).long(), frontend=_t(ref["fe"]))
+        np.testing.assert_allclose(lg.numpy(), full.numpy(), rtol=1e-3, atol=1e-3)
 
 
-def test_init_params_layout_matches_reference(pair):
+def test_prefill_matches_reference(pair):
+    check_prefill(pair)
+
+
+def test_greedy_decode_matches_reference(pair):
+    check_decode(pair)
+
+
+def test_forward_aux_matches_reference(pair):
+    check_aux(pair)
+
+
+def test_decode_continues_prefill(pair):
+    check_continues_prefill(pair)
+
+
+def check_layout(pair):
     """The port draws its own weights with the reference's tree, shapes and
     types, each leaf on the reference's scale."""
     name, cfg, rparams, params, _, _ = pair
@@ -124,14 +202,14 @@ def test_init_params_layout_matches_reference(pair):
             assert torch.equal(got.float(), torch.from_numpy(w)), path
 
 
-def test_cache_spec_matches_reference_and_prefill(pair):
+def check_cache_spec(pair):
     """``cache_spec`` gives the reference's shapes, and one layer of the
     prefill's stacked caches has them (types: the model's)."""
     from repro.models.blocks import cache_spec as ref_cache_spec
     from repro_torch.models.blocks import cache_spec
 
-    name, cfg, _, params, tokens, _ = pair
-    _, caches, _ = _port_prefill(cfg, params, tokens)
+    name, cfg, _, params, tokens, ref = pair
+    _, caches, _ = _port_prefill(cfg, params, tokens, ref)
     rcfg = REF_ARCHS[name].reduced()
     for kind, stacked in caches.items():
         spec = cache_spec(kind, cfg, B, S + STEPS)
@@ -139,6 +217,14 @@ def test_cache_spec_matches_reference_and_prefill(pair):
         assert {k: v[0] for k, v in spec.items()} == {k: v[0] for k, v in want.items()}
         for leaf, (shape, dtype) in spec.items():
             assert tuple(stacked[leaf].shape[1:]) == shape and stacked[leaf].dtype == dtype
+
+
+def test_init_params_layout_matches_reference(pair):
+    check_layout(pair)
+
+
+def test_cache_spec_matches_reference_and_prefill(pair):
+    check_cache_spec(pair)
 
 
 @pytest.mark.parametrize("name", ["granite-34b", "granite-3-2b", "llama3-405b"])
@@ -175,11 +261,13 @@ def test_configs_are_the_reference_configs(name):
     assert mine.reduced().layer_pattern() == want.reduced().layer_pattern()
 
 
-@pytest.mark.parametrize("name", ["xlstm-1.3b", "granite-moe-3b-a800m", "seamless-m4t-medium",
-                                  "llama-3.2-vision-11b"])
-def test_unported_block_kinds_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        init_params(torch.Generator(), get_config(name).reduced(), device="cpu")
+def test_xlstm_crosses_a_chunk():
+    """Reduced xlstm-1.3b at S = 200, past the engine's 128-token chunk:
+    prefill (the mLSTM memory carried across the chunk's edge) and 4 decode
+    steps against the reference."""
+    run = make_pair("xlstm-1.3b", s=200, seed=5)
+    check_prefill(run)
+    check_decode(run)
 
 
 def test_full_width_hymba_pattern():

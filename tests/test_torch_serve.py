@@ -59,7 +59,7 @@ TIE = 1e-4
 
 
 def _reference_loop(rcfg, rparams, *, rounds, batch, prompt_len, new_tokens, drift_round, seed,
-                    kernels=False):
+                    kernels=False, fe=None):
     """The reference's serving loop, on the port's prompts and monitor basis:
     per round (score, flag, greedy tokens, each step's logits), and the
     features it scored (warm-up rows first). With ``kernels`` the loop
@@ -70,8 +70,10 @@ def _reference_loop(rcfg, rparams, *, rounds, batch, prompt_len, new_tokens, dri
     max_seq = prompt_len + new_tokens
     warm, prompts = serve_prompts(rcfg.vocab, rounds=rounds, batch=batch, prompt_len=prompt_len,
                                   drift_round=drift_round, seed=seed)
-    prefill_fn = jax.jit(lambda p, t: rm.prefill(p, rcfg, t, cache_len=max_seq))
-    decode_fn = jax.jit(lambda p, t, c, pos: rm.decode_step(p, rcfg, t, c, pos, max_seq=max_seq))
+    enc_out = None if fe is None else rm.encoder_forward(rparams, rcfg, fe)
+    prefill_fn = jax.jit(lambda p, t: rm.prefill(p, rcfg, t, frontend=fe, cache_len=max_seq))
+    decode_fn = jax.jit(lambda p, t, c, pos: rm.decode_step(p, rcfg, t, c, pos, enc_out=enc_out,
+                                                            max_seq=max_seq))
     feats = [np.concatenate([np.asarray(prefill_fn(rparams, jnp.asarray(w, jnp.int32))[2])
                              for w in warm])]
     tokens, logits_per_round = [], []
@@ -277,6 +279,48 @@ def test_serve_prompts_permute_the_drift_round():
     assert np.array_equal(rounds[1], (plain[1] % DRIFT_VOCAB * 31 + 17) % 512)
 
 
+def test_frontend_config_serves_as_the_reference():
+    """Reduced seamless-m4t-medium (a bidirectional encoder over 16 stub
+    frames, decoder layers with cross attention) at B = 12, where the
+    monitor is well posed: ``serve`` on the reference's weights and the
+    reference's stub embeddings (``jax.random.normal`` of its seed, as its
+    loop draws them), handed over as ``frontend=``, against the reference's
+    loop on the same: f32 scores at 1e-4, the drift flags equal, the greedy
+    tokens equal up to near ties."""
+    name = "seamless-m4t-medium"
+    rcfg = ref_get_config(name).reduced()
+    key = jax.random.PRNGKey(WELL_POSED["seed"])
+    rparams = rm.init_params(key, rcfg)
+    fe = jax.random.normal(key, (WELL_POSED["batch"], rcfg.n_frontend_tokens, rcfg.d_frontend))
+    params = model_params_from_numpy(jax.tree.map(np.asarray, rparams), device="cpu")
+    port = serve(get_config(name).reduced(), device="cpu", params=params,
+                 frontend=np.asarray(fe), **WELL_POSED)
+    ref, _ = _reference_loop(rcfg, rparams, fe=fe, **WELL_POSED)
+    got = _rel([r.score for r in port], [r[0] for r in ref]).max()
+    print(f"{name}: f32 scores at B = {WELL_POSED['batch']}, port - reference {got:.2e}")
+    assert got <= 1e-4
+    assert [r.flagged for r in port] == [r[1] for r in ref]
+    for mine, (_, _, want, steps) in zip(port, ref, strict=True):
+        for row in range(want.shape[0]):
+            differ = np.flatnonzero(mine.tokens[row] != want[row])
+            if differ.size:
+                lg = np.sort(steps[differ[0]][row])
+                assert lg[-1] - lg[-2] <= TIE * np.abs(lg).max(), (row, differ[0])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "granite-moe-3b-a800m", "arctic-480b",
+                                  "seamless-m4t-medium", "llama-3.2-vision-11b"])
+def test_main_serves_the_rest_of_the_zoo(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch <arch> --device cpu``
+    (reduced, as the flag's default has it), the stub embeddings drawn
+    from the seed where the config has a frontend."""
+    out = main(["--arch", arch, "--rounds", "2", "--batch", "2", "--prompt-len", "16",
+                "--new-tokens", "2", "--device", "cpu"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("round ")]
+    assert len(out) == len(lines) == 2 and "<< DRIFT" in lines[1]
+    assert all(np.isfinite(r.score) and r.tokens.shape == (2, 3) for r in out)
+
+
 def test_main_runs_the_reduced_loop(capsys):
     out = main(["--arch", ARCH, "--rounds", "2", "--batch", "2", "--prompt-len", "16",
                 "--new-tokens", "2", "--device", "cpu"])
@@ -286,11 +330,17 @@ def test_main_runs_the_reduced_loop(capsys):
 
 
 # --fleet hands over to the fleet driver (tests/test_torch_bench_serve.py
-# drives it); the zoo's other kinds are still item 10
-@pytest.mark.parametrize("argv,match", [(["--arch", "xlstm-1.3b"], "item 10")])
+# drives it); every config of the zoo is served, so the one route left to
+# refuse is an arch the registry does not have
+@pytest.mark.parametrize("argv,match", [(["--arch", "no-such-arch"], "unknown arch")])
 def test_unported_routes_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         main(argv + ["--device", "cpu"])
+
+
+def test_serve_refuses_a_frontend_the_config_has_not():
+    with pytest.raises(ValueError, match="no frontend"):
+        serve(get_config(ARCH).reduced(), device="cpu", frontend=np.zeros((4, 16, 64)))
 
 
 def test_fleet_route_hands_over_to_the_fleet_driver(capsys):
