@@ -232,7 +232,24 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     weights read once at 3.35 TB/s); (c) an xlstm-1.3b prefill at S = 2048,
     B = 1, with its sLSTM loop's share; (e) each config reduced (f32) card
     against CPU on the same weights, and a float8 KV cache on the card;
-20. the kernel list, one JSON object per kernel, then the result line.
+20. training: (a) ``flash_attention_bwd`` (the attention's backward, two
+    launches, no atomics) against its plain version at gemma3-1b's global
+    layer (B 8, S 128 and B 2, S 2048, H 4, hd 256, causal, bf16),
+    granite-3-2b's (B 8, S 512, H 32, hd 64), hd 128 (B 4, S 512, H 32),
+    the VLM's cross attention (512 → 1601, non-causal), one f32 case and Sq,
+    Sk off the tiles, each with CUDA-event, profiler, plain and SDPA-backward
+    times and the bound, the forward with its row statistics bit for bit
+    the forward without; (b) ``repro_torch.launch.train`` for gemma3-1b at
+    full width (26 layers, d 1152, vocab 262 144), B 8, S 128, one nccl rank,
+    merges every 5 steps: the loss falling, step ms p50 and max, peak
+    memory, ``flash_attention`` and ``flash_attention_bwd`` launches equal to
+    the flash layers × steps × (2, 1), then one step profiled for the
+    device's busy share; (c) reduced gemma3-1b and granite-moe-3b-a800m
+    (f32) card against CPU: ``lm_loss`` and its gradients, two
+    ``make_train_step`` steps with ``sgd`` and with ``make_optimizer``, one
+    with two micro-batches; (d) ``gla_forward`` refuses a CUDA input that
+    requires a gradient;
+21. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits
@@ -4781,6 +4798,322 @@ def phase_zoo(smi: str) -> dict[str, int]:
     return totals
 
 
+# ------------------------------------------------ phase 20: training
+
+TRAIN_ARCH = "gemma3-1b"       # the reference's train.py default
+TRAIN_B, TRAIN_S, TRAIN_MERGE_EVERY = 8, 128, 5
+TRAIN_STEPS = 20               # about 30 s of steps on the H100
+# the flash backward alone, (B, Sq, Sk, H, hd, causal, dtype): gemma3-1b's
+# global layer at the training run's shape and at S 2048 (H 4, its one kv head
+# repeated), granite-3-2b's (H 32, hd 64), hd 128 (B 4, S 512, H 32), the
+# VLM's cross attention (512 → 1601 patches, non-causal), one f32 case, and
+# Sq, Sk off the 64-row tiles (hd 96, masked in the 128 instance)
+TRAIN_BWD = ((8, 128, 128, 4, 256, True, "bfloat16"), (2, 2048, 2048, 4, 256, True, "bfloat16"),
+             (8, 512, 512, 32, 64, True, "bfloat16"), (4, 512, 512, 32, 128, True, "bfloat16"),
+             (4, 512, 1601, 32, 128, False, "bfloat16"), (2, 512, 512, 8, 256, True, "float32"),
+             (3, 200, 333, 5, 96, False, "bfloat16"))
+# max |kernel − plain| / max |plain| of each of dq, dk, dv on the card: f32
+# sums in other orders (measured up to 3.1e-7); bf16 results rounded once
+# from f32 values that differ in their last bits, so an entry may land on the
+# other bf16 neighbour, at most one bf16 step of the largest entry's binade
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+# card against CPU on the reduced configs (f32): the loss within 1e-5, each
+# gradient leaf within 1e-4 of its largest |g| (tests/test_torch_train.py's
+# bounds against the reference); the sgd moves past two f32 roundings of
+# p − lr·g at 1e-4 of each leaf's largest move; Adam's loss and grad norm
+TRAIN_CPU = ("gemma3-1b", "granite-moe-3b-a800m")
+TRAIN_CPU_S = 96               # past the reduced window of 64: a local and a global layer
+TRAIN_LOSS_ABS, TRAIN_GRAD_REL = 1e-5, 1e-4
+
+
+def flash_bwd_work(b, sq, sk, h, hd, causal, itemsize):
+    """(operations, bytes): 10·hd a kept pair (q·k again, dout·v, pᵀ·dout,
+    ds·k, dsᵀ·q, 2·hd each); q, k, v, out, dout read and dq, dk, dv written
+    once (the f32 row statistics beside them)."""
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    return 10 * hd * pairs, itemsize * b * h * hd * (4 * sq + 4 * sk) + 8 * b * h * sq
+
+
+def split_device_ms(fn, library, reps: int, kernels: tuple[str, ...]):
+    """(ms of one call of ``fn``'s kernels, ms of one ``library`` call, the
+    library's longest kernel) from one torch.profiler session over ``reps``
+    calls of each (``benchmarks/torch_device_time.py``): ``fn`` launches each
+    kernel whose name holds one of ``kernels`` once a call, every other
+    kernel of the session is the library's. (None, None, "") when no
+    session saw ``kernels``."""
+    from benchmarks.torch_device_time import per_call_us, profile_sessions
+
+    def mine(name):
+        return any(k in name for k in kernels)
+
+    try:
+        ((by, _),) = profile_sessions(lambda: (fn(), library()), calls=reps, needs=kernels)
+    except RuntimeError:
+        return None, None, ""
+    own = sum(mean for name, (mean, _) in by.items() if mine(name)) / 1e3
+    lib = {k: v for k, v in per_call_us(by, reps).items() if not mine(k)}
+    return own, sum(lib.values()) / 1e3, max(lib, key=lib.get, default="")[:72]
+
+
+def flash_bwd_rows():
+    """(a) flash_attention_bwd against its plain version at TRAIN_BWD, the
+    forward with statistics bit for bit the forward without; returns the
+    kernel line's row (the training run's shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    row = None
+    for b, sq, sk, h, hd, causal, dname in TRAIN_BWD:
+        dtype = getattr(torch, dname)
+        q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, sk, h, hd), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        dout = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(dtype)
+        out, m, l = flash_attention_fwd(q, k, v, causal=causal)
+        assert torch.equal(out, flash_attention(q, k, v, causal=causal)), \
+            "the forward's output moved with its statistics"
+        fn = lambda: flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal)  # noqa: E731
+        plain = lambda: flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)  # noqa: E731
+        got, want = fn(), plain()
+        rels = [float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for g, w in zip(got, want)]
+        assert all(bool(torch.isfinite(g).all()) for g in got), "non-finite gradient"
+        abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        # SDPA's backward alone: its graph kept, the gradient taken again and again
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        do_lib = dout.transpose(1, 2)
+        library = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_lib,  # noqa: E731
+                                              retain_graph=True)
+        work = flash_bwd_work(b, sq, sk, h, hd, causal, q.element_size())
+        bnd = bound(*work, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
+        r = dict(abs=abs_err, ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2),
+                 library_ms=cuda_ms(library, 10), bound_ms=bnd[0], bound_by=bnd[1])
+        alone, lib_alone, lib_kernel = split_device_ms(fn, library, 5, BWD_KERNELS)
+        log(f"  (a) flash_attention_bwd B={b} Sq={sq} Sk={sk} H={h} hd={hd}"
+            f" {'causal' if causal else 'full'} {dname}: max rel dq, dk, dv"
+            f" {', '.join(f'{x:.2e}' for x in rels)} (tol {BWD_TOL[dname]:.1e})"
+            f"  ms={r['ms']:.4f} (kernels alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f}"
+            f" library_ms={r['library_ms']:.4f} (SDPA's backward; alone {ms_text(lib_alone)}:"
+            f" {lib_kernel})"
+            f"  bound_ms={bnd[0]:.4f} ({bnd[1]}: {work[0] / 1e9:.2f} GFLOP,"
+            f" {work[1] / 1e6:.1f} MB)")
+        assert all(x <= BWD_TOL[dname] for x in rels), "flash_attention_bwd: kernel != plain"
+        if row is None:
+            row = r
+        del q, k, v, dout, out, m, l, got, want, qt, kt, vt, o_lib
+    return row
+
+
+def train_flash_layers(cfg, seq: int) -> int:
+    """The layers whose attention a forward at ``seq`` tokens sends to
+    flash_attention: every global layer, and a sliding-window layer where
+    the sequence fits its window (local_attention takes it past the window)."""
+    pat = cfg.layer_pattern()
+    return pat.count("dense") + (pat.count("swa") if seq <= cfg.sliding_window else 0)
+
+
+def train_launches(cfg, seq: int, steps: int) -> dict[str, int]:
+    """The training run's launches: a step runs each flash layer's forward twice
+    (the forward, then its recompute under the checkpoint in the backward)
+    and its backward once; the detector's init_oselm one hidden_proj and two
+    matmul_atb."""
+    n = train_flash_layers(cfg, seq) * steps
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n, "hidden_proj": 1,
+            "matmul_atb": 2}
+
+
+def train_run(smi: str) -> dict[str, int]:
+    """(b) repro_torch.launch.train at full width, one nccl rank; returns its
+    launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    rec = train.main(["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                      "--steps", str(TRAIN_STEPS), "--merge-every", str(TRAIN_MERGE_EVERY)])
+    wall = time.perf_counter() - t0
+    step_ms = np.asarray(rec["step_s"]) * 1e3
+    losses = rec["losses"]
+    want = train_launches(cfg, TRAIN_S, TRAIN_STEPS)
+    got = {k: v for k, v in rec["launches"].items() if v}
+    log(f"  (b) {TRAIN_ARCH} at full width ({cfg.n_layers} layers, d {cfg.d_model}, vocab"
+        f" {cfg.vocab}, hd {cfg.head_dim}, {cfg.layer_pattern().count('dense')} global layers),"
+        f" B {TRAIN_B}, S {TRAIN_S}, one rank ({rec['device']}), {TRAIN_STEPS} steps in"
+        f" {wall:.1f} s (spawn and set-up included) on {smi}: loss {losses[0]:.4f} ->"
+        f" {losses[-1]:.4f}; step ms p50 {np.median(step_ms):.2f}, max {step_ms.max():.2f}"
+        f" (host clock to the loss on the host); peak memory"
+        f" {rec['peak_bytes'] / 2**30:.2f} GiB; drift scores {rec['drifts'][0]:.4f} ->"
+        f" {rec['drifts'][-1]:.4f}")
+    log(f"    launches {got}, expected {want}: {train_flash_layers(cfg, TRAIN_S)} layers take"
+        f" flash at S {TRAIN_S} (the sliding window is {cfg.sliding_window}), twice forward"
+        " (remat) and once backward a step")
+    assert losses[-1] < losses[0] and all(np.isfinite(losses)), losses
+    assert got == want, f"train launches {got}, expected {want}"
+    return got
+
+
+def train_profile():
+    """(b) the device's busy share of one full-width step: its kernels' time
+    (torch.profiler) over the wall time of the step before it, in this
+    process, after a step that warms it up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import init_params
+
+    cfg = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda")
+    params = init_params(gen.manual_seed(0), cfg, device="cuda")
+    opt = make_optimizer(cfg, lr=1e-3)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    batch = synthetic_batch(gen, cfg.vocab, TRAIN_B, TRAIN_S, 0, device="cuda")
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batch)
+    float(met["loss"])
+    torch.cuda.synchronize()
+    log(f"  (b) a first step in this process (after phase (a)): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batch)
+    float(met["loss"])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not dev_ms:
+        log(f"  (b) one step profiled: wall {wall_ms:.2f} ms, device time not measured")
+        return
+    log(f"  (b) one step: wall {plain_ms:.2f} ms, then {wall_ms:.2f} ms under the profiler;"
+        f" device {dev_ms:.2f} ms (the kernels' sum): busy share {dev_ms / plain_ms:.3f} of the"
+        f" step ({dev_ms / wall_ms:.3f} of the profiled one)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def _train_rel(got, want) -> float:
+    scale = float(want.abs().max())
+    return float((got.cpu() - want).abs().max()) / (scale if scale else 1.0)
+
+
+def train_card_vs_cpu():
+    """(c) the reduced configs in f32 on the same weights and tokens, card
+    against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads, make_optimizer, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import sgd, tree_leaves
+
+    for name in TRAIN_CPU:
+        cfg = get_config(name).reduced()
+        cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+        card = to_card(cpu)
+        rng = np.random.default_rng(SEED + 20)
+        batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, TRAIN_CPU_S)))
+                    for k in ("tokens", "labels")} for _ in range(2)]
+        on = [{k: v.cuda() for k, v in b.items()} for b in batches]
+
+        def grads(params, b):
+            loss, _, g = loss_and_grads(cfg, params, b["tokens"], b["labels"])
+            return loss, tree_leaves(g)
+
+        (lc, gc), (lg, gg) = grads(cpu, batches[0]), grads(card, on[0])
+        worst = max(_train_rel(g, c) for g, c in zip(gg, gc))
+        dl = abs(float(lg) - float(lc))
+        log(f"  (c) {name} reduced: lm_loss card {float(lg):.6f} CPU {float(lc):.6f} (|Δ| {dl:.2e},"
+            f" bound {TRAIN_LOSS_ABS}); the worst gradient leaf {worst:.2e} of its max |g|"
+            f" (bound {TRAIN_GRAD_REL})")
+        assert dl <= TRAIN_LOSS_ABS and worst <= TRAIN_GRAD_REL
+
+        def run(c, params, opt, bs):
+            fn, st, out = make_train_step(c, opt), opt.init(params), []
+            for b in bs:
+                params, st, met = fn(params, st, b)
+                out.append((params, float(met["loss"]), float(met["grad_norm"])))
+            return out
+
+        for label, micro, make in (("sgd", 1, lambda c: sgd(0.5)),
+                                   ("make_optimizer", 1, lambda c: make_optimizer(c, 1e-3)),
+                                   ("sgd, 2 micro-batches", 2, lambda c: sgd(0.5))):
+            c = dataclasses.replace(cfg, num_microbatches=micro)
+            steps = 2 if micro == 1 else 1
+            want = run(c, cpu, make(c), batches[:steps])
+            got = run(c, card, make(c), on[:steps])
+            dls = [abs(g[1] - w[1]) for g, w in zip(got, want)]
+            dns = [abs(g[2] - w[2]) / w[2] for g, w in zip(got, want)]
+            text = (f"  (c) {name} {label}: {steps} steps, loss |Δ| {max(dls):.2e},"
+                    f" grad norm {max(dns):.2e}")
+            assert max(dls) <= TRAIN_LOSS_ABS and max(dns) <= TRAIN_GRAD_REL, text
+            if label.startswith("sgd"):
+                worst = 0.0
+                for g, w, p0 in zip(tree_leaves(got[-1][0]), tree_leaves(want[-1][0]),
+                                    tree_leaves(cpu)):
+                    move = float((w - p0).abs().max())
+                    rounding = 2 * float(np.spacing(np.float32(w.abs().max())))
+                    if move > 0:
+                        worst = max(worst, (float((g.cpu() - w).abs().max()) - rounding) / move)
+                text += f"; the worst leaf's move off by {worst:.2e} of it past f32 rounding"
+                assert worst <= TRAIN_GRAD_REL, text
+            log(text + f" (bounds {TRAIN_LOSS_ABS}, {TRAIN_GRAD_REL})")
+
+
+def train_gla_refusal():
+    """(d) gla_forward on a CUDA input that requires a gradient."""
+    import torch
+
+    from repro_torch.kernels import gla_forward
+
+    q = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
+    k, v, la = torch.zeros_like(q), torch.zeros_like(q), torch.zeros((1, 8, 2), device="cuda")
+    try:
+        gla_forward(q, k, v, la)
+    except NotImplementedError as e:
+        log(f"  (d) gla_forward refuses a CUDA input that requires a gradient: {e}")
+    else:
+        raise AssertionError("gla_forward took a CUDA input that requires a gradient")
+
+
+def phase_train(smi: str) -> tuple[dict, dict[str, int]]:
+    """Phase 20; returns the kernel line's flash_attention_bwd row and the
+    training run's launches."""
+    t0 = time.perf_counter()
+    log("  (a) the flash backward alone against its plain version, SDPA's backward beside it")
+    row = flash_bwd_rows()
+    t1 = time.perf_counter()
+    launches = train_run(smi)
+    t2 = time.perf_counter()
+    train_profile()
+    t3 = time.perf_counter()
+    train_card_vs_cpu()
+    train_gla_refusal()
+    log(f"  phase 20's parts: (a) {t1 - t0:.1f} s, (b) the training run {t2 - t1:.1f} s, the profiled"
+        f" step {t3 - t2:.1f} s, (c) and (d) {time.perf_counter() - t3:.1f} s")
+    return row, launches
+
+
 def main() -> int:
     import torch
 
@@ -4925,7 +5258,15 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 20: kernels (phases 1-19 took {time.perf_counter() - start:.1f} s)")
+    log(f"phase 20: training {TRAIN_ARCH} at full width (the flash backward, the training run, a"
+        " profiled step, card against CPU, the GLA refusal)")
+    t0 = time.perf_counter()
+    rows["flash_attention_bwd"], train_counts = phase_train(smi)
+    for k, v in train_counts.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 21: kernels (phases 1-20 took {time.perf_counter() - start:.1f} s)")
     sources = {
         "fleet_ingest": ("src/repro_torch/csrc/fleet_ingest.cu",
                          "src/repro/kernels/fleet_ingest.py:284"),
@@ -4957,6 +5298,9 @@ def main() -> int:
                             "src/repro/kernels/flash_attn.py:105"),
         "gla_forward": ("src/repro_torch/csrc/gla_scan.cu",
                         "src/repro/kernels/gla_scan.py:106"),
+        # no pallas_call: the reference's custom VJP, _fa_backward_impl
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                                "src/repro/models/layers.py:192"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
     kernels = []
@@ -4968,7 +5312,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    assert len(kernels) == len(sources) == 15, f"{len(kernels)} kernels in the list"
+    assert len(kernels) == len(sources) == 16, f"{len(kernels)} kernels in the list"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ from repro_torch.core.e2lm import UV
 from repro_torch.core.elm import SLFNParams
 from repro_torch.core.oselm import OSELMState
 from repro_torch.kernels.fleet_ingest import validate_shared_basis
+from repro_torch.optim import OptState
 from repro_torch.runtime.detector import DetectorState
 
 
@@ -71,6 +72,26 @@ def model_params_from_numpy(tree, *, device: str | torch.device | None = None) -
     if isinstance(tree, dict):
         return {k: model_params_from_numpy(v, device=device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def _tree_from_numpy(tree, device):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_from_numpy(v, device) for v in tree)
+    return _tensor(tree, device)
+
+
+def opt_state_from_numpy(step, mu, nu, *, device: str | torch.device | None = None) -> OptState:
+    """An optimizer's state (``repro.optim.OptState``: the step count and the
+    moment trees, each leaf as ``np.asarray``, or None where the optimizer
+    keeps none) as the port's ``OptState``, leaf for leaf in the same
+    structure and type, so that a step can start from a reference state."""
+    device = resolve_device(device)
+    return OptState(step=int(np.asarray(step)), mu=_tree_from_numpy(mu, device),
+                    nu=_tree_from_numpy(nu, device))
 
 
 def detector_state_from_numpy(

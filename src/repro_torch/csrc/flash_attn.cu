@@ -52,6 +52,14 @@
 //   then rounds p to the type the caller's v had (p_round), as the
 //   reference does.
 //
+// Row statistics for the backward (csrc/flash_attn_bwd.cu): where the
+// caller passes m_out and l_out (each (B, H, SQ) f32), every kernel also
+// writes each query row's final running max m, in the units of s = q·k·hd^−½
+// (the tensor-core kernel keeps m in log2 units and converts it once), and
+// its sum l of the unrounded p relative to that m, so that exp(s − m) / l is
+// the row's softmax. Null pointers write nothing: the serving path's
+// arithmetic and results are those of a call without them.
+//
 // Other head widths and views take the same kernels or a third:
 //
 // * hd ≤ 256 and not an instance: the next larger instance, masked at hd
@@ -172,8 +180,8 @@ struct Tile {
 template <typename T, int HD, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int H, int SQ, int SK, int hd, int causal, float scale,
-                 int p_round) {
+                 T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out, int H,
+                 int SQ, int SK, int hd, int causal, float scale, int p_round) {
   using Tl = Tile<HD>;
   constexpr int BQ = Tl::BQ, QS = Tl::QS, PS = Tl::PS;
   constexpr int RM = BQ / 8;    // query rows a thread holds
@@ -265,6 +273,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < RM; ++i) {
     const int s = q0 + ty + 8 * i;
     if (s >= SQ) continue;
+    if (m_out != nullptr && tx == 0) {  // the 16 threads of a row hold the same m and l
+      m_out[(long long)bh * SQ + s] = m[i];
+      l_out[(long long)bh * SQ + s] = l[i];
+    }
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DN; ++j)
@@ -283,8 +295,8 @@ constexpr int kWideBQ = 16;  // query rows a block
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ out, int H, int SQ, int SK, int HD, int causal,
-                      float scale, int p_round) {
+                      T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                      int H, int SQ, int SK, int HD, int causal, float scale, int p_round) {
   constexpr int BQ = kWideBQ, QS = kSlice + 1, PS = kBK + 1;
   constexpr int RM = BQ / 8, CN = kBK / 16, DN = kSlice / 16;
   __shared__ float sq[BQ * QS];
@@ -371,6 +383,10 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int i = 0; i < RM; ++i) {
     const int s = q0 + ty + 8 * i;
     if (s >= SQ) continue;
+    if (m_out != nullptr && tx == 0 && blockIdx.z == 0) {  // every column slice has them
+      m_out[(long long)bh * SQ + s] = m[i];
+      l_out[(long long)bh * SQ + s] = l[i];
+    }
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
@@ -430,7 +446,8 @@ template <int HD, bool kMasked>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                     int H, int SQ, int SK, int hd, int causal, float scale) {
+                     float* __restrict__ m_out, float* __restrict__ l_out, int H, int SQ, int SK,
+                     int hd, int causal, float scale) {
   using Tl = MmaTile<HD>;
   constexpr int LD = Tl::LD, TILE = kBK * LD;
   constexpr int CH = HD / 8;               // 16-byte chunks a row
@@ -615,6 +632,11 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float denom = fmaxf(sum, 1e-30f);
+    const int s = w0 + g + 8 * r;
+    if (m_out != nullptr && tq == 0 && s < SQ) {  // m back from log2 units
+      m_out[(long long)bh * SQ + s] = m[r] / kLog2e;
+      l_out[(long long)bh * SQ + s] = sum;
+    }
 #pragma unroll
     for (int j = 0; j < DT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * LD + 8 * j + 2 * tq) =
@@ -634,8 +656,9 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 // The dynamic shared memory above 48 KB is allowed once per kernel instance
 // (a function-local static), not at every launch.
 template <int HD, bool kMasked>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-               int SK, int hd, int causal, float scale, cudaStream_t st) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* m_out,
+               float* l_out, int B, int H, int SQ, int SK, int hd, int causal, float scale,
+               cudaStream_t st) {
   constexpr int smem = MmaTile<HD>::smem_bytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel_mma<HD, kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -644,13 +667,14 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(B * H, (SQ + kMmaRows - 1) / kMmaRows);
   flash_fwd_kernel_mma<HD, kMasked><<<grid, kMmaThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, SQ, SK, hd, causal, scale);
+      static_cast<T*>(out), m_out, l_out, H, SQ, SK, hd, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HD, bool kMasked>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-                int SK, int hd, int causal, float scale, int p_round, cudaStream_t st) {
+int launch_simt(const void* q, const void* k, const void* v, void* out, float* m_out,
+                float* l_out, int B, int H, int SQ, int SK, int hd, int causal, float scale,
+                int p_round, cudaStream_t st) {
   using Tl = Tile<HD>;
   constexpr int smem = Tl::smem_floats * (int)sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -659,18 +683,19 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int B, i
   const dim3 grid(B * H, (SQ + Tl::BQ - 1) / Tl::BQ);
   flash_fwd_kernel<T, HD, kMasked><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, SQ, SK, hd, causal, scale, p_round);
+      static_cast<T*>(out), m_out, l_out, H, SQ, SK, hd, causal, scale, p_round);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch_wide(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-                int SK, int hd, int causal, float scale, int p_round, cudaStream_t st) {
+int launch_wide(const void* q, const void* k, const void* v, void* out, float* m_out,
+                float* l_out, int B, int H, int SQ, int SK, int hd, int causal, float scale,
+                int p_round, cudaStream_t st) {
   const dim3 grid(B * H, (SQ + kWideBQ - 1) / kWideBQ, (hd + kSlice - 1) / kSlice);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   flash_fwd_wide_kernel<T><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, SQ, SK, hd, causal, scale, p_round);
+      static_cast<T*>(out), m_out, l_out, H, SQ, SK, hd, causal, scale, p_round);
   return cudaGetLastError();
 }
 
@@ -680,36 +705,45 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 // equal); bf16 on the tensor cores where its 16-byte copies go, else on
 // the CUDA cores; past 256 the wide kernel.
 template <int HD>
-int dispatch_width(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-                   int SK, int hd, int causal, float scale, int bf16, int p_round,
-                   cudaStream_t st) {
+int dispatch_width(const void* q, const void* k, const void* v, void* out, float* m_out,
+                   float* l_out, int B, int H, int SQ, int SK, int hd, int causal, float scale,
+                   int bf16, int p_round, cudaStream_t st) {
   using B16 = __nv_bfloat16;
   if (bf16) {
     const bool vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
-    if (vec && hd == HD) return launch_mma<HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
-    if (vec) return launch_mma<HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, st);
-    return launch_simt<B16, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, kRoundNone,
-                                      st);
+    if (vec && hd == HD)
+      return launch_mma<HD, false>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale, st);
+    if (vec)
+      return launch_mma<HD, true>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale, st);
+    return launch_simt<B16, HD, true>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale,
+                                      kRoundNone, st);
   }
   if (hd == HD)
-    return launch_simt<float, HD, false>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, p_round, st);
-  return launch_simt<float, HD, true>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, p_round, st);
+    return launch_simt<float, HD, false>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal,
+                                         scale, p_round, st);
+  return launch_simt<float, HD, true>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale,
+                                      p_round, st);
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int SQ,
-             int SK, int hd, int causal, float scale, int bf16, int p_round, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* out, float* m_out, float* l_out,
+             int B, int H, int SQ, int SK, int hd, int causal, float scale, int bf16, int p_round,
+             cudaStream_t st) {
   if (hd < 1) return cudaErrorInvalidValue;
   if (bf16) p_round = kRoundNone;  // bf16 kernels round p to bf16 already
   if (hd <= 64)
-    return dispatch_width<64>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, p_round, st);
+    return dispatch_width<64>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale, bf16,
+                              p_round, st);
   if (hd <= 128)
-    return dispatch_width<128>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, p_round, st);
+    return dispatch_width<128>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale, bf16,
+                               p_round, st);
   if (hd <= 256)
-    return dispatch_width<256>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, bf16, p_round, st);
+    return dispatch_width<256>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale, bf16,
+                               p_round, st);
   if (bf16)
-    return launch_wide<__nv_bfloat16>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, kRoundNone,
-                                      st);
-  return launch_wide<float>(q, k, v, out, B, H, SQ, SK, hd, causal, scale, p_round, st);
+    return launch_wide<__nv_bfloat16>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale,
+                                      kRoundNone, st);
+  return launch_wide<float>(q, k, v, out, m_out, l_out, B, H, SQ, SK, hd, causal, scale, p_round,
+                            st);
 }
 
 }  // namespace
@@ -719,16 +753,19 @@ extern "C" {
 // q (B, SQ, H, HD), k and v (B, SK, H, HD), out (B, SQ, H, HD): device
 // pointers to contiguous arrays of one type (f32, or bf16 when bf16 is 1).
 // Any HD ≥ 1 and any alignment; causal masks the keys after the query's row.
+// m and l: null, or each (B, H, SQ) f32 for the rows' final max and sum.
 // p_round (f32 only): p rounded to bf16 (1) or f16 (2) before p·v, as the
 // reference rounds it to v's type where the caller's v was that type, or
 // not (0). Returns the launch's CUDA error, or 0.
-int repro_flash_attention(const void* q, const void* k, const void* v, void* out, int B, int H,
-                          int SQ, int SK, int HD, int causal, float scale, int bf16,
-                          int p_round, void* stream) {
+int repro_flash_attention(const void* q, const void* k, const void* v, void* out, void* m,
+                          void* l, int B, int H, int SQ, int SK, int HD, int causal, float scale,
+                          int bf16, int p_round, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (SQ == 0 || B * H == 0) return cudaSuccess;
   if (p_round < kRoundNone || p_round > kRoundF16) return cudaErrorInvalidValue;
-  return dispatch(q, k, v, out, B, H, SQ, SK, HD, causal, scale, bf16, p_round, st);
+  if ((m == nullptr) != (l == nullptr)) return cudaErrorInvalidValue;
+  return dispatch(q, k, v, out, static_cast<float*>(m), static_cast<float*>(l), B, H, SQ, SK, HD,
+                  causal, scale, bf16, p_round, st);
 }
 
 }  // extern "C"

@@ -12,6 +12,13 @@ compiler.
 Every wrapper adds one to its entry of the launch counts each time it
 launches its kernel on a CUDA tensor; ``reset_launch_counts`` and
 ``launch_counts`` let a run show that its path went through the kernels.
+
+No kernel here writes a result that autograd can follow. So a CUDA
+operand that requires a gradient, with grad mode on, is refused
+(``refuse_grad``, from ``operands``, which every wrapper's CUDA branch
+calls) unless the wrapper is a ``torch.autograd.Function`` whose backward
+is a kernel too (``flash_attention``): the card never hands back a result
+without a ``grad_fn`` where the CPU's plain version would have one.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_me
            "quantize_pack", "robust_segment_sum_mix", "dense_mix",
            "hidden_proj", "matmul_atb", "rank1_add",
            "segment_sum_mix", "segment_broadcast", "banded_mix",
-           "flash_attention", "gla_forward")
+           "flash_attention", "gla_forward", "flash_attention_bwd")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -129,7 +136,8 @@ _SIGNATURES = {
     "repro_matmul_atb": [_P] * 4 + [_I] * 7 + [_P],
     "repro_rank1_add": [_P] * 4 + [_F, _P, _I, _I, _I, _P],
     "repro_k1_update": [_P] * 7 + [_I, _I, _P],
-    "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    "repro_flash_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+    "repro_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _I, _P],
     "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
     "repro_gla_smem": [_I] * 2,
     "repro_ingest_beta_tile": [],
@@ -185,6 +193,30 @@ F32 = (torch.float32,)
 F32_BF16 = (torch.float32, torch.bfloat16)
 
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version for ``t``: a CPU tensor. The
+    attention and GLA wrappers dispatch through it, so a CPU test can send
+    a CPU tensor down their CUDA branch up to the checks before a launch."""
+    return t.device.type == "cpu"
+
+
+# where the backward of a kernel that has none yet is planned
+NO_BACKWARD = {
+    "gla_forward": "ROADMAP queue 1, 'the GLA backward' (so the mLSTM and Mamba, hymba and "
+                   "xlstm, train on the card)",
+}
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` where grad mode is on and one of
+    ``tensors`` requires a gradient: ``kernel`` has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        where = NO_BACKWARD.get(kernel, "no backward is planned")
+        raise NotImplementedError(
+            f"{kernel}: an operand requires a gradient, and the kernel has no backward on the "
+            f"card ({where}); call it under torch.no_grad() or on the CPU")
+
+
 def operands(kernel: str, dtypes: tuple[torch.dtype, ...] = F32, *, unit_last: bool = False,
              **tensors: torch.Tensor) -> list[torch.Tensor]:
     """The ``tensors`` as ``kernel`` reads them, in the order given.
@@ -198,8 +230,11 @@ def operands(kernel: str, dtypes: tuple[torch.dtype, ...] = F32, *, unit_last: b
     - A strided operand is copied contiguous; with ``unit_last`` only one
       whose last axis is strided (the kernel takes the other strides).
 
-    A tensor that needs neither cast nor copy is returned as it is.
+    A tensor that needs neither cast nor copy is returned as it is. An
+    operand that requires a gradient, with grad mode on, is refused
+    (``refuse_grad``).
     """
+    refuse_grad(kernel, *tensors.values())
     first = next(iter(tensors.values()))
     device, dtype = first.device, first.dtype
     for name, t in tensors.items():

@@ -1,5 +1,6 @@
-"""Fused attention forward with an online softmax; port of
-``repro.kernels.flash_attn``.
+"""Fused attention with an online softmax, forward and backward; port of
+``repro.kernels.flash_attn`` and of the custom VJP around the reference's
+``models/layers.py::blockwise_attention`` (``_fa_backward_impl``).
 
 ``flash_attention`` takes ``flash_attention_plain`` for CPU tensors and
 launches a kernel of ``csrc/flash_attn.cu`` for CUDA tensors, or raises:
@@ -16,6 +17,19 @@ hd in slices. The plain version walks the KV axis in the kernel's tiles of
 for masked scores, p rounded to v's type before p·v, out = acc / max(l,
 1e-30)); its dot products are PyTorch's, so the two agree to f32 rounding,
 not bit for bit.
+
+Where grad mode is on and q, k or v requires a gradient, ``flash_attention``
+is a ``torch.autograd.Function`` (``FlashAttention``): its forward also
+writes each query row's running max m and sum l (B, H, Sq) in f32, and its
+backward is ``flash_attention_bwd``, the kernels of
+``csrc/flash_attn_bwd.cu`` on the card (``flash_attention_bwd_plain`` on
+the CPU). The backward follows ``_fa_backward_inner``: δ = rowsum(dout ∘
+out), p = exp(s − m) / max(l, 1e-30) with s masked to −1e30, dv = pᵀ·dout,
+dp = dout·vᵀ, ds = p ∘ (dp − δ)·hd^−½, dq = ds·k, dk = dsᵀ·q, all in f32,
+the results in q's, k's and v's types. It takes head widths up to 256.
+Without a gradient to take, the forward runs as before, with no statistics.
+The plain versions compute in f64 where every operand is f64 (so that
+``torch.autograd.gradcheck`` can hold the Function), else in f32.
 """
 from __future__ import annotations
 
@@ -23,10 +37,12 @@ import torch
 
 from repro_torch.kernels import _lib
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_plain"]
 
 NEG_INF = -1e30
 KV_TILE = 64               # keys per tile, the kernel's kBK
+BWD_MAX_HD = 256           # the backward kernel's widest instance
 # the C entry's p_round: where v came as bf16 or f16 and the kernel runs in
 # f32 (a mix of types, or f16), p is rounded to v's type before p·v
 P_ROUND = {torch.bfloat16: 1, torch.float16: 2}
@@ -41,20 +57,28 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "in batch, heads or head width")
 
 
+def _compute_type(*tensors: torch.Tensor) -> torch.dtype:
+    """The plain versions' type: f64 where every operand is f64, else f32."""
+    return torch.float64 if all(t.dtype == torch.float64 for t in tensors) else torch.float32
+
+
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
-) -> torch.Tensor:
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    stats: bool = False,
+):
+    """The output, or with ``stats`` (output, m, l), m and l (B, H, Sq)."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     scale = hd ** -0.5
-    qf = q.transpose(1, 2).float()                      # (B, H, Sq, hd)
-    kf = k.transpose(1, 2).float()
+    ct = _compute_type(q, k, v)
+    qf = q.transpose(1, 2).to(ct)                        # (B, H, Sq, hd)
+    kf = k.transpose(1, 2).to(ct)
     vt = v.transpose(1, 2)
     qpos = torch.arange(sq, device=q.device)[:, None]
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=ct, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=ct, device=q.device)
     for k0 in range(0, sk, KV_TILE):
         k1 = min(k0 + KV_TILE, sk)
         s = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * scale
@@ -65,28 +89,137 @@ def flash_attention_plain(
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + p.to(v.dtype).float() @ vt[:, :, k0:k1].float()
+        acc = acc * alpha[..., None] + p.to(v.dtype).to(ct) @ vt[:, :, k0:k1].to(ct)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2).to(q.dtype)
+    return (out, m, l) if stats else out
+
+
+def _forward(q, k, v, causal: bool, stats: bool):
+    """The forward on q's device: (out, m, l) with ``stats``, else out."""
+    if _lib.on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal, stats=stats)
+    _check(q, k, v)
+    dtype, p_round = q.dtype, P_ROUND.get(v.dtype, 0)
+    q, k, v = _lib.operands("flash_attention", _lib.F32_BF16, q=q, k=k, v=v)
+    b, sq, h, hd = q.shape
+    out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m, l = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) for _ in range(2))
+    status = _lib.library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _lib.ptr(m), _lib.ptr(l),
+        b, h, sq, k.shape[1], hd, int(causal), hd ** -0.5, int(q.dtype == torch.bfloat16),
+        p_round, _lib.stream(),
+    )
+    _lib.check(status, "flash_attention")
+    _lib.count_launch("flash_attention")
+    return (out.to(dtype), m, l) if stats else out.to(dtype)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward with its row statistics: (output, m, l), m and l (B, H,
+    Sq), what ``flash_attention_bwd`` takes."""
+    return _forward(q, k, v, causal, stats=True)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    m: torch.Tensor, l: torch.Tensor, *, causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in q's, k's and v's types, over the key tiles of 64 in
+    order (each tile's dk and dv whole, dq summed tile after tile)."""
+    _check(q, k, v)
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    scale = hd ** -0.5
+    ct = _compute_type(q, k, v, out, dout)
+    qf, kf, vf, of, dof = (x.transpose(1, 2).to(ct) for x in (q, k, v, out, dout))
+    delta = (dof * of).sum(-1)                           # (B, H, Sq)
+    m, l = m.to(ct), torch.clamp(l.to(ct), min=1e-30)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for k0 in range(0, sk, KV_TILE):
+        k1 = min(k0 + KV_TILE, sk)
+        kt, vt = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            s = torch.where(kpos <= qpos, s, NEG_INF)
+        p = torch.exp(s - m[..., None]) / l[..., None]
+        dvs.append(p.transpose(-1, -2) @ dof)
+        ds = p * (dof @ vt.transpose(-1, -2) - delta[..., None]) * scale
+        dq = dq + ds @ kt
+        dks.append(ds.transpose(-1, -2) @ qf)
+    dk = torch.cat(dks, 2) if dks else torch.zeros_like(kf)
+    dv = torch.cat(dvs, 2) if dvs else torch.zeros_like(vf)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    m: torch.Tensor, l: torch.Tensor, *, causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention``'s output ``out``
+    against ``dout``, from its forward's row statistics m and l (B, H, Sq)
+    f32. On the card two launches (one count): the dq kernel, which also
+    writes δ, then the dk/dv kernel; each gradient element is written by one
+    block, in a fixed order."""
+    if _lib.on_cpu(q):
+        return flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)
+    _check(q, k, v)
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    if hd > BWD_MAX_HD:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head width {hd} > {BWD_MAX_HD}; the backward past hd 256 is "
+            "ROADMAP queue 1's item 'the flash backward past hd 256' (no config of the zoo is "
+            "that wide)")
+    dtypes = q.dtype, k.dtype, v.dtype
+    q, k, v, out, dout = _lib.operands("flash_attention_bwd", _lib.F32_BF16, q=q, k=k, v=v,
+                                       out=out, dout=dout)
+    m, l = (t.float().contiguous() for t in (m, l))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    status = _lib.library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        m.data_ptr(), l.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), b, h, sq, sk, hd, int(causal), hd ** -0.5,
+        int(q.dtype == torch.bfloat16), _lib.stream(),
+    )
+    _lib.check(status, "flash_attention_bwd")
+    _lib.count_launch("flash_attention_bwd")
+    return dq.to(dtypes[0]), dk.to(dtypes[1]), dv.to(dtypes[2])
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward saves q, k, v, the
+    output and the row statistics, the backward recomputes the scores from
+    them (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, m, l = _forward(q, k, v, causal, stats=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, dout, m, l, causal=ctx.causal), None)
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
     """softmax(q·kᵀ·hd^−½ + mask)·v for q (B, Sq, H, hd), k, v (B, Sk, H,
-    hd); ``causal`` masks the keys after the query's row."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    _check(q, k, v)
-    dtype, p_round = q.dtype, P_ROUND.get(v.dtype, 0)
-    q, k, v = _lib.operands("flash_attention", _lib.F32_BF16, q=q, k=k, v=v)
-    b, sq, h, hd = q.shape
-    out = torch.empty_like(q)
-    status = _lib.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, k.shape[1], hd,
-        int(causal), hd ** -0.5, int(q.dtype == torch.bfloat16), p_round, _lib.stream(),
-    )
-    _lib.check(status, "flash_attention")
-    _lib.count_launch("flash_attention")
-    return out.to(dtype)
+    hd); ``causal`` masks the keys after the query's row. Differentiable
+    (``FlashAttention``) where a gradient is to be taken."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, stats=False)

@@ -17,6 +17,12 @@ chunk by chunk: f32 inside, the cumsum of log a sequential in token
 order, the gate by select, the carry S·e^{tot} + ΔS, padding with
 log a = 0 and zeroed q, k, v; its products are PyTorch's, so the two
 agree to f32 rounding, not bit for bit.
+
+The kernels have no backward yet (ROADMAP queue 1, "the GLA backward"): on
+the card, an operand that requires a gradient with grad mode on raises
+``NotImplementedError`` (``_lib.refuse_grad``), so an mLSTM or Mamba
+config does not train there. The plain version is ordinary PyTorch, which
+autograd differentiates on the CPU.
 """
 from __future__ import annotations
 
@@ -92,9 +98,10 @@ def gla_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of h_t = a_t·h_{t−1} + k_t v_tᵀ, y_t = q_tᵀ h_t."""
-    if q.device.type == "cpu":
+    if _lib.on_cpu(q):
         return gla_forward_plain(q, k, v, log_a)
     _check(q, k, v, log_a)
+    _lib.refuse_grad("gla_forward", q, k, v, log_a)
     dtype = q.dtype
     q, k, v = _lib.operands("gla_forward", _lib.F32_BF16, q=q, k=k, v=v)
     bf16 = int(q.dtype == torch.bfloat16)

@@ -1,7 +1,7 @@
-"""The model zoo's serving path (port of ``repro.models``): configs,
-every block kind (dense, sliding-window, hymba, xLSTM, MoE and arctic,
-encoder-decoder and VLM cross attention), the encoder and the frontend
-stubs, prefill and decode."""
+"""The model zoo (port of ``repro.models``): configs, every block kind
+(dense, sliding-window, hymba, xLSTM, MoE and arctic, encoder-decoder and
+VLM cross attention), the encoder and the frontend stubs, prefill and
+decode, and the training loss."""
 from repro_torch.models.config import INPUT_SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.model import (
     active_param_count,
@@ -9,6 +9,7 @@ from repro_torch.models.model import (
     encoder_forward,
     forward,
     init_params,
+    lm_loss,
     param_count,
     prefill,
 )
@@ -17,5 +18,5 @@ from repro_torch.models.moe import moe_ffn
 __all__ = [
     "INPUT_SHAPES", "ArchConfig", "ShapeConfig",
     "active_param_count", "decode_step", "encoder_forward", "forward", "init_params",
-    "moe_ffn", "param_count", "prefill",
+    "lm_loss", "moe_ffn", "param_count", "prefill",
 ]

@@ -1,15 +1,19 @@
 """Shared transformer layers: RMSNorm, RoPE, attention, FFNs; port of
-``repro.models.layers`` (forward only).
+``repro.models.layers``.
 
-``blockwise_attention`` is the fused attention of the prefill: it goes
-through ``repro_torch.kernels.flash_attention`` (the CUDA kernel on a
-card, its plain version on the CPU), and so is ``cross_attention_blockwise``
-(full attention from the decoder's queries to an encoder's output, Sq ≠
-Sk, one query row in a decode step). ``blockwise_attention_fwd_only`` is
-the reference's chunked online-softmax oracle in plain PyTorch, for
-tests. ``local_attention`` (exact sliding window, O(S·2w)) and
-``decode_attention`` (one token against a cache) are plain PyTorch here,
-as they are plain jnp in the reference.
+``blockwise_attention`` is the fused attention of the prefill and of
+training: it goes through ``repro_torch.kernels.flash_attention`` (the CUDA
+kernel on a card, its plain version on the CPU), and so is
+``cross_attention_blockwise`` (full attention from the decoder's queries to
+an encoder's output, Sq ≠ Sk, one query row in a decode step). Where a
+gradient is taken, that call is a ``torch.autograd.Function`` whose
+backward recomputes the scores from the forward's row statistics, as the
+reference's custom VJP does (``kernels.flash_attn.FlashAttention``).
+``blockwise_attention_fwd_only`` is the reference's chunked online-softmax
+oracle in plain PyTorch, for tests. ``local_attention`` (exact sliding
+window, O(S·2w)) and ``decode_attention`` (one token against a cache) are
+plain PyTorch here, as they are plain jnp in the reference, and autograd
+differentiates them as ``jax.grad`` does the reference's.
 """
 from __future__ import annotations
 

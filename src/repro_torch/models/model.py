@@ -1,5 +1,5 @@
-"""Model assembly: embedding → the layers in pattern order → logits;
-port of the serving half of ``repro.models.model``.
+"""Model assembly: embedding → the layers in pattern order → logits or
+the loss; port of ``repro.models.model``.
 
 Parameters are a nested dict of tensors with the reference's layout:
 ``{"embed", "final_norm", "layers": {kind: {...}}}``, plus ``enc_layers``
@@ -8,17 +8,24 @@ config with a frontend; each leaf of ``layers[kind]`` is stacked over
 that kind's layers in pattern order, so that
 ``repro_torch.convert.model_params_from_numpy`` carries the reference's
 pytree over as it is. The layers run as a plain Python loop (the port
-runs eagerly; nothing is traced or rematerialised). The frontends are
-stubs, as in the reference: precomputed embeddings (B, T, d_frontend)
-stand in for the speech encoder's frames and the ViT's patches.
-``lm_loss`` (ROADMAP queue 1, item 10d), ``input_specs`` and
-``cache_shape_structs`` (item 10e) are not ported yet.
+runs eagerly; nothing is traced). Where a gradient is taken, each layer
+runs under a non-reentrant ``torch.utils.checkpoint``, as the reference
+wraps each scanned block in ``jax.checkpoint`` (its ``remat``): the
+backward recomputes one layer's activations at a time, so training holds
+the layers' inputs and one layer's working set.
+The frontends are stubs, as in the reference: precomputed embeddings (B,
+T, d_frontend) stand in for the speech encoder's frames and the ViT's
+patches. ``lm_loss`` computes the cross-entropy in chunks of
+``loss_chunk`` tokens, each chunk's logits recomputed in the backward, so
+that (B, S, V) logits never exist at once. ``input_specs`` and
+``cache_shape_structs`` (ROADMAP queue 1, item 10e) are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models.blocks import BlockCtx, block_decode, block_fwd, init_block
@@ -27,8 +34,9 @@ from repro_torch.models.layers import rmsnorm, rope_tables
 
 PyTree = Any
 
-__all__ = ["active_param_count", "decode_step", "encoder_forward", "forward", "group_runs",
-           "init_params", "param_count", "param_dtype", "prefill"]
+__all__ = ["LB_WEIGHT", "Z_WEIGHT", "active_param_count", "decode_step", "encoder_forward",
+           "forward", "group_runs", "init_params", "lm_loss", "param_count", "param_dtype",
+           "prefill"]
 
 
 def group_runs(pattern: tuple[str, ...]) -> list[tuple[str, int]]:
@@ -153,13 +161,29 @@ def active_param_count(params: dict, cfg: ArchConfig) -> int:
     return int(total - expert_leaves * (1.0 - active_frac))
 
 
+def _needs_grad(x: torch.Tensor, tree) -> bool:
+    """Whether autograd records this layer: grad mode on, and x or a weight
+    requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(tree, dict):
+        return x.requires_grad or any(_needs_grad(x, t) for t in tree.values())
+    return tree.requires_grad
+
+
 def _run_layers(layers: dict, pattern: tuple[str, ...], x: torch.Tensor, ctx: BlockCtx):
     """Every layer in pattern order; returns (x, the aux vectors summed, the
-    caches stacked per kind or None)."""
+    caches stacked per kind or None). A layer that autograd records (and
+    that collects no cache) runs under a non-reentrant checkpoint: its
+    activations are recomputed in the backward."""
     aux_total = torch.zeros(3, dtype=torch.float32, device=x.device)
     caches: dict[str, list] = {}
     for kind, i in _layer_slots(pattern):
-        x, aux, cache = block_fwd(kind, _index(layers[kind], i), x, ctx)
+        p = _index(layers[kind], i)
+        if not ctx.collect_cache and _needs_grad(x, p):
+            x, aux, cache = checkpoint(block_fwd, kind, p, x, ctx, use_reentrant=False)
+        else:
+            x, aux, cache = block_fwd(kind, p, x, ctx)
         aux_total = aux_total + aux
         if ctx.collect_cache:
             caches.setdefault(kind, []).append(cache)
@@ -196,6 +220,51 @@ def forward(
                    collect_cache=collect_cache, cache_len=max(cache_len, s))
     x, aux, caches = _run_layers(params["layers"], cfg.layer_pattern(), x, ctx)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
+
+
+# ------------------------------------------------------------------ loss
+
+LB_WEIGHT = 0.01
+Z_WEIGHT = 1e-3
+
+
+def _chunk_ce(h_c: torch.Tensor, l_c: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Σ (logsumexp − the label's logit) over a chunk (B, c, D) of hidden
+    states, the logits in f32 from the product in the parameters' type."""
+    logits = (h_c @ embed.T).float()                                  # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+    return (lse - ll).sum()
+
+
+def lm_loss(
+    params: dict, cfg: ArchConfig, tokens: torch.Tensor, labels: torch.Tensor, *,
+    frontend: torch.Tensor | None = None, loss_chunk: int = 512,
+) -> tuple[torch.Tensor, dict]:
+    """The next-token cross-entropy over tokens (B, S) and labels (B, S),
+    plus ``LB_WEIGHT``·load balance and ``Z_WEIGHT``·z-loss of the MoE
+    kinds; returns (loss, metrics): ``ce``, ``lb_loss``, ``z_loss``,
+    ``dropped_frac`` and ``features``, the pooled final hidden state (B, D)
+    in f32, detached (the paper's feature tap). The cross-entropy runs over
+    chunks of ``loss_chunk`` tokens and, as the reference's, over the first
+    ⌊S / c⌋·c tokens; where a gradient is taken each chunk is checkpointed."""
+    hidden, aux, _ = forward(params, cfg, tokens, frontend=frontend)
+    b, s, _ = hidden.shape
+    embed = params["embed"]
+    c = min(loss_chunk, s)
+    n = s // c
+    grad = torch.is_grad_enabled() and (hidden.requires_grad or embed.requires_grad)
+    total = None
+    for i in range(n):
+        h_c, l_c = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        part = (checkpoint(_chunk_ce, h_c, l_c, embed, use_reentrant=False) if grad
+                else _chunk_ce(h_c, l_c, embed))
+        total = part if total is None else total + part
+    ce = total / (b * n * c)
+    loss = ce + LB_WEIGHT * aux[0] + Z_WEIGHT * aux[1]
+    metrics = {"ce": ce, "lb_loss": aux[0], "z_loss": aux[1], "dropped_frac": aux[2],
+               "features": hidden.detach().mean(dim=1).float()}
+    return loss, metrics
 
 
 def prefill(

@@ -1,0 +1,175 @@
+"""The port's attention backward against the reference's, on the CPU.
+
+``flash_attention_bwd_plain`` (the backward kernel's plain version, which
+``FlashAttention`` runs on CPU tensors) is held to the reference's custom
+VJP, ``models/layers.py::_fa_backward_impl`` fed its own forward's
+statistics, and to ``jax.grad`` of ``blockwise_attention``: causal and
+not, Sq ≠ Sk, lengths off the 64-key tile and off the reference's chunk,
+head widths 16 and 80, and GQA (the kv heads repeated by
+``_expand_kv`` in the reference and ``repeat_interleave`` in the port,
+their gradients summed by autograd). Bound: each gradient within 1e-5 of
+its own largest magnitude (f32 in both, the products summed in other
+orders; ``-s`` prints the measured spread), the forward's row statistics
+m within 1e-6 and l within 1e-5 of theirs. ``torch.autograd.gradcheck``
+holds the Function in f64 at a tiny size. On the card's branch (reached
+through ``_lib.on_cpu``, the wrappers' dispatch seam) an operand that
+requires a gradient is refused by ``gla_forward`` and by every wrapper
+that calls ``_lib.operands``, while ``flash_attention`` goes to its kernel
+and raises with no fallback where the kernel cannot be loaded.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.layers import _expand_kv, _fa_backward_impl, _fa_forward
+from repro.models.layers import blockwise_attention as ref_attention
+from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_attn import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
+from repro_torch.kernels.gla_scan import gla_forward
+
+torch.set_num_threads(2)
+
+GRAD_REL = 1e-5
+M_REL, L_REL = 1e-6, 1e-5
+
+# (B, Sq, Sk, H, KV, hd, causal, the reference's chunk)
+CASES = [
+    (2, 64, 64, 2, 2, 16, True, 32),
+    (2, 70, 70, 2, 1, 16, True, 64),      # off the tile, GQA
+    (1, 33, 130, 3, 3, 16, False, 64),    # Sq ≠ Sk (cross attention), both off the tile
+    (2, 96, 96, 4, 2, 80, True, 512),     # an untiled width, the reference's default chunk
+    (1, 130, 40, 2, 2, 16, True, 32),     # causal with Sq > Sk
+    (1, 100, 100, 2, 2, 16, False, 48),
+]
+
+
+def _inputs(seed, b, sq, sk, h, kv, hd):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kv, hd)).astype(np.float32)
+    dout = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
+    return q, k, v, dout
+
+
+def _rel(got: torch.Tensor, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(got.detach().float().numpy() - want).max() / np.abs(want).max())
+
+
+def _unchunk(stat, sq):
+    """The reference's chunked statistics (nq, B, H, cq) as (B, H, Sq)."""
+    s = np.asarray(stat)
+    nq, b, h, cq = s.shape
+    return s.transpose(1, 2, 0, 3).reshape(b, h, nq * cq)[:, :, :sq]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_backward_matches_the_reference_vjp(case):
+    b, sq, sk, h, kv, hd, causal, chunk = case
+    q, k, v, dout = _inputs(sum(case[:6]), b, sq, sk, h, h, hd)
+    out_r, (m_c, l_c) = _fa_forward(q, k, v, causal, chunk)
+    want = _fa_backward_impl(q, k, v, out_r, m_c, l_c, dout, causal=causal, chunk=chunk)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    out, m, l = flash_attention_plain(*t, causal=causal, stats=True)
+    got = flash_attention_bwd_plain(*t, out, torch.from_numpy(dout), m, l, causal=causal)
+    m_rel = float(np.abs(m.numpy() - _unchunk(m_c, sq)).max() / np.abs(m.numpy()).max())
+    l_rel = _rel(l, _unchunk(l_c, sq))
+    rels = [_rel(g, w) for g, w in zip(got, want)]
+    print(f"{case}: dq, dk, dv {rels} (bound {GRAD_REL}); m {m_rel:.2e}, l {l_rel:.2e}")
+    assert m_rel <= M_REL and l_rel <= L_REL
+    assert all(r <= GRAD_REL for r in rels), rels
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_function_gradients_match_jax_grad(case):
+    """The model's path: kv heads repeated to H, then the Function; the
+    gradients of q and of the unrepeated k and v against jax.grad of the
+    reference's blockwise_attention (its custom VJP) on the same loss."""
+    b, sq, sk, h, kv, hd, causal, chunk = case
+    q, k, v, dout = _inputs(sum(case[:6]) + 1, b, sq, sk, h, kv, hd)
+
+    def ref_loss(q, k, v):
+        g = h // kv
+        o = ref_attention(q, _expand_kv(k, g), _expand_kv(v, g), causal=causal, chunk=chunk)
+        return jnp.sum(o * dout)
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o = flash_attention(tq, torch.repeat_interleave(tk, h // kv, dim=2),
+                        torch.repeat_interleave(tv, h // kv, dim=2), causal=causal)
+    assert o.grad_fn is not None and "FlashAttention" in type(o.grad_fn).__name__
+    got = torch.autograd.grad((o * torch.from_numpy(dout)).sum(), (tq, tk, tv))
+    rels = [_rel(g, w) for g, w in zip(got, want)]
+    print(f"{case}: dq, dk, dv against jax.grad {rels} (bound {GRAD_REL})")
+    assert all(r <= GRAD_REL for r in rels), rels
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gradcheck_in_f64(causal):
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((1, 5, 2, 4), generator=gen, dtype=torch.float64, requires_grad=True)
+    k = torch.randn((1, 7, 2, 4), generator=gen, dtype=torch.float64, requires_grad=True)
+    v = torch.randn((1, 7, 2, 4), generator=gen, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda a, b, c: FlashAttention.apply(a, b, c, causal),
+                                    (q, k, v))
+
+
+def test_no_gradient_keeps_the_forward_as_it_was():
+    """Without a gradient to take there is no Function: the output is the
+    plain forward's, bit for bit, and has no grad_fn."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(9, 1, 20, 20, 2, 2, 16))
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is None and torch.equal(out, flash_attention_plain(q, k, v))
+    with torch.no_grad():
+        assert flash_attention(q.requires_grad_(True), k, v).grad_fn is None
+
+
+def test_card_branch_refuses_gla_gradients(monkeypatch):
+    """gla_forward's kernels have no backward: on the card's branch an
+    operand that requires a gradient raises NotImplementedError naming the
+    ROADMAP item, before anything is built or launched."""
+    monkeypatch.setattr(_lib, "on_cpu", lambda t: False)
+    monkeypatch.setattr(_lib, "library", _no_library)
+    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    k, v, log_a = torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1.*GLA backward"):
+        gla_forward(q, k, v, log_a)
+    with pytest.raises(NotImplementedError, match="gla_forward"):
+        gla_forward(q.detach(), k, v, log_a.requires_grad_(True))
+    with torch.no_grad(), pytest.raises(_NoLibrary):  # no gradient: on to the kernel
+        gla_forward(q, k, v, log_a)
+
+
+def test_operands_refuse_an_operand_that_requires_a_gradient():
+    x = torch.zeros((2, 3), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="hidden_proj.*no backward"):
+        _lib.operands("hidden_proj", x=x)
+    with torch.no_grad():
+        assert _lib.operands("hidden_proj", x=x)[0] is x
+
+
+class _NoLibrary(RuntimeError):
+    pass
+
+
+def _no_library():
+    raise _NoLibrary("the kernels cannot be loaded")
+
+
+def test_card_branch_of_flash_goes_to_its_kernel_with_no_fallback(monkeypatch):
+    monkeypatch.setattr(_lib, "on_cpu", lambda t: False)
+    monkeypatch.setattr(_lib, "library", _no_library)
+    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    k = v = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(_NoLibrary):
+        flash_attention(q, k, v)
+    with torch.no_grad(), pytest.raises(_NoLibrary):
+        flash_attention(q, k, v)

@@ -1952,3 +1952,103 @@ def test_paged_runtime_on_the_card_matches_the_cpu(cuda, topo, active):
     card.assert_compile_once()
     paging = card.last_paging
     assert paging["in_s"] > 0 and paging["out_s"] > 0 and paging["compute_s"] > 0
+
+
+# ------------------------------------------------------------ training
+
+# (B, Sq, Sk, H, hd, causal, dtype): chip_smoke.py phase 20 (a)'s shapes
+FLASH_BWD = [(8, 128, 128, 4, 256, True, torch.bfloat16), (2, 2048, 2048, 4, 256, True, torch.bfloat16),
+             (8, 512, 512, 32, 64, True, torch.bfloat16), (4, 512, 512, 32, 128, True, torch.bfloat16),
+             (4, 512, 1601, 32, 128, False, torch.bfloat16), (2, 512, 512, 8, 256, True, torch.float32),
+             (3, 200, 333, 5, 96, False, torch.bfloat16), (1, 77, 77, 2, 80, True, torch.float32)]
+# f32: sums in other orders; bf16: a result rounded to the other neighbour,
+# one bf16 step of the largest entry's binade (chip_smoke.py's BWD_TOL)
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD, ids=lambda s: "-".join(map(str, s)))
+def test_flash_backward_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels import flash_attention_bwd, flash_attention_bwd_plain
+    from repro_torch.kernels import flash_attention_fwd
+
+    b, sq, sk, h, hd, causal, dtype = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, h, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    out, m, l = flash_attention_fwd(q, k, v, causal=causal)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+    _, m_plain, l_plain = flash_attention_plain(q, k, v, causal=causal, stats=True)
+    assert float((m - m_plain).abs().max()) <= 1e-5 * float(m_plain.abs().max())
+    assert _rel(l, l_plain) <= 1e-5
+    got = flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)  # no atomics: the same bits
+        assert _rel(g.float(), w.float()) <= FLASH_BWD_TOL[dtype]
+
+
+def test_flash_backward_refuses_past_hd_256(cuda):
+    from repro_torch.kernels import flash_attention_bwd
+
+    q = torch.zeros((1, 4, 1, 320), device=cuda)
+    with pytest.raises(NotImplementedError, match="past hd 256"):
+        flash_attention_bwd(q, q, q, q, q, q[0, :, :, 0].T[None], q[0, :, :, 0].T[None])
+
+
+def test_flash_function_on_the_card_has_a_backward(cuda):
+    q = torch.randn((2, 70, 3, 64), device=cuda, requires_grad=True)
+    k = torch.randn((2, 70, 3, 64), device=cuda, requires_grad=True)
+    out = flash_attention(q, k, k, causal=True)
+    assert out.grad_fn is not None
+    before = launch_counts()["flash_attention_bwd"]
+    out.sum().backward()
+    assert launch_counts()["flash_attention_bwd"] == before + 1
+    qc, kc = (t.detach().cpu().requires_grad_(True) for t in (q, k))
+    flash_attention(qc, kc, kc, causal=True).sum().backward()
+    assert _rel(q.grad.cpu(), qc.grad) <= 1e-5 and _rel(k.grad.cpu(), kc.grad) <= 1e-5
+
+
+def test_gla_refuses_a_gradient_on_the_card(cuda):
+    q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
+    z = torch.zeros((1, 8, 2, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="GLA backward"):
+        gla_forward(q, z, z, torch.zeros((1, 8, 2), device=cuda))
+
+
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-moe-3b-a800m"])
+def test_train_step_on_the_card_is_the_cpus(cuda, name):
+    """Reduced (f32) configs, two sgd steps on the same weights and tokens:
+    the loss within 1e-5, the gradient norm within 1e-4, the parameters'
+    moves within 1e-4 of each leaf's largest move past f32 rounding."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import sgd, tree_leaves
+
+    cfg = get_config(name).reduced()
+    cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = _to(cpu, cuda)
+    rng = np.random.default_rng(1)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, 96))) for k in ("tokens",
+                                                                              "labels")}
+               for _ in range(2)]
+    out = {}
+    for where, params in (("cpu", cpu), ("cuda", card)):
+        step, opt = make_train_step(cfg, sgd(0.5)), sgd(0.5)
+        state, mets = opt.init(params), []
+        for b in batches:
+            params, state, met = step(params, state, {k: v.to(where) for k, v in b.items()})
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        out[where] = (params, mets)
+    for (lc, nc), (lg, ng) in zip(out["cpu"][1], out["cuda"][1]):
+        assert abs(lg - lc) <= 1e-5 and abs(ng - nc) <= 1e-4 * nc
+    for g, w, p0 in zip(tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0]), tree_leaves(cpu)):
+        move = float((w - p0).abs().max())
+        rounding = 2 * float(np.spacing(np.float32(w.abs().max())))
+        assert float((g.cpu() - w).abs().max()) - rounding <= 1e-4 * move
+
+
+def _to(tree, device):
+    return {k: _to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)

@@ -30,6 +30,8 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = list(_modules())
     assert "repro_torch.runtime.runtime" in mods
+    assert {"repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.optim.optimizers"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -105,6 +107,21 @@ def test_paper_eval_entry_points_raise_without_a_card(monkeypatch):
         torch_paper_eval.eval_scenario("har", torch_paper_eval.SMOKE_SIZES, ("star",))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_paper_tables.main(["--scenario", "har"])
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """A training step's parameters come from ``init_params``, which puts
+    them on the card by default, and ``train.main`` runs on the card unless
+    ``--device cpu``: without a card both raise before anything is built."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator().manual_seed(0), get_config("gemma3-1b").reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "gemma3-1b", "--reduced", "--steps", "1"])
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -1,6 +1,6 @@
 """Rank programs of the port's multi-process CPU tests
 (``tests/test_torch_mesh.py``, ``test_torch_sharded.py``,
-``test_torch_mesh_federation.py``). ``repro_torch.launch.mesh.spawn``
+``test_torch_mesh_federation.py``, ``test_torch_train.py``). ``repro_torch.launch.mesh.spawn``
 imports this module by name in every rank, so it imports numpy, torch and
 ``repro_torch`` only, never JAX or the reference: the tests hand their
 inputs over as numpy arrays and hold what the ranks return to the
@@ -172,3 +172,35 @@ def federation_checks(rank: int, devices: list[dict], streams: np.ndarray, ridge
     one_shot = mesh_cooperative_update(stacked, mesh, ridge=ridge)
     chain = mesh_federated_train(boot, streams, mesh, merge_every=merge_every, ridge=ridge)
     return {"one_shot": _np(one_shot), "chain": _np(chain)}
+
+
+# ------------------------------------------------------------ training
+
+
+def step_checks(rank: int, state: dict, feats: np.ndarray, ridge: float, arch: str,
+                batch: dict) -> dict:
+    """``launch.steps.make_detector_step`` on this rank's block of ``feats``
+    (shards, k, D), without the merge and with it; then one
+    ``make_train_step(mesh=)`` sgd step of the reduced ``arch`` on this
+    rank's block of ``batch``, its gradients averaged over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import data_axes, make_host_mesh
+    from repro_torch.launch.steps import make_detector_step, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import sgd, tree_leaves
+
+    mesh = make_host_mesh()
+    axes = data_axes(mesh)
+    x = torch.from_numpy(feats[mesh.index(axes)])
+    start = _state(state)
+    alone = make_detector_step(mesh, axes, merge=False, ridge=ridge)(start, x)
+    merged = make_detector_step(mesh, axes, merge=True, ridge=ridge)(start, x)
+    calls = mesh.stats.calls
+    cfg = get_config(arch).reduced()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    lo, hi = mesh.block(len(batch["tokens"]), axes)
+    step = make_train_step(cfg, sgd(0.5), mesh=mesh, axes=axes)
+    params, _, met = step(params, sgd(0.5).init(params),
+                          {k: torch.from_numpy(v[lo:hi]) for k, v in batch.items()})
+    return {"alone": _np(alone), "merged": _np(merged), "calls": calls,
+            "loss": float(met["loss"]), "params": [t.numpy() for t in tree_leaves(params)]}
