@@ -261,6 +261,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -4806,12 +4807,13 @@ TRAIN_STEPS = 20               # about 30 s of steps on the H100
 # the flash backward alone, (B, Sq, Sk, H, hd, causal, dtype): gemma3-1b's
 # global layer at the training run's shape and at S 2048 (H 4, its one kv head
 # repeated), granite-3-2b's (H 32, hd 64), hd 128 (B 4, S 512, H 32), the
-# VLM's cross attention (512 → 1601 patches, non-causal), one f32 case, and
-# Sq, Sk off the 64-row tiles (hd 96, masked in the 128 instance)
+# VLM's cross attention (512 → 1601 patches, non-causal), one f32 case,
+# Sq, Sk off the 64-row tiles (hd 96, masked in the 128 instance), and hd 100
+# in bf16, not a multiple of 8, which takes the CUDA cores' pair
 TRAIN_BWD = ((8, 128, 128, 4, 256, True, "bfloat16"), (2, 2048, 2048, 4, 256, True, "bfloat16"),
              (8, 512, 512, 32, 64, True, "bfloat16"), (4, 512, 512, 32, 128, True, "bfloat16"),
              (4, 512, 1601, 32, 128, False, "bfloat16"), (2, 512, 512, 8, 256, True, "float32"),
-             (3, 200, 333, 5, 96, False, "bfloat16"))
+             (3, 200, 333, 5, 96, False, "bfloat16"), (2, 70, 70, 3, 100, True, "bfloat16"))
 # max |kernel − plain| / max |plain| of each of dq, dk, dv on the card: f32
 # sums in other orders (measured up to 3.1e-7); bf16 results rounded once
 # from f32 values that differ in their last bits, so an entry may land on the
@@ -4837,11 +4839,12 @@ def flash_bwd_work(b, sq, sk, h, hd, causal, itemsize):
 
 def split_device_ms(fn, library, reps: int, kernels: tuple[str, ...]):
     """(ms of one call of ``fn``'s kernels, ms of one ``library`` call, the
-    library's longest kernel) from one torch.profiler session over ``reps``
-    calls of each (``benchmarks/torch_device_time.py``): ``fn`` launches each
-    kernel whose name holds one of ``kernels`` once a call, every other
-    kernel of the session is the library's. (None, None, "") when no
-    session saw ``kernels``."""
+    library's longest kernel, the names of ``fn``'s kernels) from one
+    torch.profiler session over ``reps`` calls of each
+    (``benchmarks/torch_device_time.py``): ``fn`` launches each kernel whose
+    name holds one of ``kernels`` once a call, every other kernel of the
+    session is the library's. (None, None, "", []) when no session saw
+    ``kernels``."""
     from benchmarks.torch_device_time import per_call_us, profile_sessions
 
     def mine(name):
@@ -4850,16 +4853,21 @@ def split_device_ms(fn, library, reps: int, kernels: tuple[str, ...]):
     try:
         ((by, _),) = profile_sessions(lambda: (fn(), library()), calls=reps, needs=kernels)
     except RuntimeError:
-        return None, None, ""
+        return None, None, "", []
     own = sum(mean for name, (mean, _) in by.items() if mine(name)) / 1e3
     lib = {k: v for k, v in per_call_us(by, reps).items() if not mine(k)}
-    return own, sum(lib.values()) / 1e3, max(lib, key=lib.get, default="")[:72]
+    names = [re.match(r"\w+(<[^>]*>)?", n[n.index(k):]).group(0)
+             for k in kernels for n in by if k in n]
+    return own, sum(lib.values()) / 1e3, max(lib, key=lib.get, default="")[:72], names
 
 
 def flash_bwd_rows():
     """(a) flash_attention_bwd against its plain version at TRAIN_BWD, the
-    forward with statistics bit for bit the forward without; returns the
-    kernel line's row (the training run's shape)."""
+    forward with statistics bit for bit the forward without, each shape's
+    route (the kernels the profiler saw: the tensor cores' ``_mma`` pair for
+    bf16 at hd a multiple of 8, every tensor here being on a 16-byte
+    boundary, else the CUDA cores' pair); returns the kernel line's row (the
+    training run's shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -4895,7 +4903,7 @@ def flash_bwd_rows():
         bnd = bound(*work, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
         r = dict(abs=abs_err, ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2),
                  library_ms=cuda_ms(library, 10), bound_ms=bnd[0], bound_by=bnd[1])
-        alone, lib_alone, lib_kernel = split_device_ms(fn, library, 5, BWD_KERNELS)
+        alone, lib_alone, lib_kernel, names = split_device_ms(fn, library, 5, BWD_KERNELS)
         log(f"  (a) flash_attention_bwd B={b} Sq={sq} Sk={sk} H={h} hd={hd}"
             f" {'causal' if causal else 'full'} {dname}: max rel dq, dk, dv"
             f" {', '.join(f'{x:.2e}' for x in rels)} (tol {BWD_TOL[dname]:.1e})"
@@ -4903,8 +4911,11 @@ def flash_bwd_rows():
             f" library_ms={r['library_ms']:.4f} (SDPA's backward; alone {ms_text(lib_alone)}:"
             f" {lib_kernel})"
             f"  bound_ms={bnd[0]:.4f} ({bnd[1]}: {work[0] / 1e9:.2f} GFLOP,"
-            f" {work[1] / 1e6:.1f} MB)")
+            f" {work[1] / 1e6:.1f} MB)  route: {', '.join(names)}")
         assert all(x <= BWD_TOL[dname] for x in rels), "flash_attention_bwd: kernel != plain"
+        mma = dname == "bfloat16" and hd % 8 == 0
+        assert len(names) == 2 and all(n.startswith(k) for n, k in zip(names, BWD_KERNELS)) \
+            and all(("_mma<" in n) == mma for n in names), f"flash_attention_bwd's route: {names}"
         if row is None:
             row = r
         del q, k, v, dout, out, m, l, got, want, qt, kt, vt, o_lib
@@ -5007,6 +5018,12 @@ def train_profile():
         f" step ({dev_ms / wall_ms:.3f} of the profiled one)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    bwd = [e for e in events if any(k in e.key for k in BWD_KERNELS)]
+    bwd_ms = sum(e.self_device_time_total for e in bwd) / 1e3
+    n_bwd = max((e.count for e in bwd), default=0)
+    log(f"  (b) the flash backward in the step: {bwd_ms:.3f} ms over {n_bwd} calls"
+        f" ({bwd_ms / max(n_bwd, 1):.4f} ms a call: {', '.join(sorted(e.key[:60] for e in bwd))}),"
+        f" {bwd_ms / dev_ms:.3f} of the step's kernels")
 
 
 def _train_rel(got, want) -> float:

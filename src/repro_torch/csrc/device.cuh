@@ -1,11 +1,15 @@
 // Facts of the card the launch plans read, and the thread-block cluster
 // launch and barrier, shared by the kernel sources.
 #pragma once
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxSmem = 232448;  // the shared memory a block may use on Hopper
+
+// whether p lies on a 16-byte boundary, as a 16-byte vector access needs
+inline bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 // Streaming multiprocessors of the current device (132 on an H100 SXM),
 // asked once.

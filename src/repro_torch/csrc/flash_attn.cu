@@ -41,8 +41,11 @@
 //   the same units, so a row with no valid key still gives p = 1. Shared
 //   rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall in 8
 //   different bank groups. The output goes back through the warp's own Q
-//   rows, for 16-byte stores. Shared memory: 45 KB at hd = 64, 85 KB at
-//   128, 165 KB at 256; registers 128, 168 and 241 a thread, none spilled.
+//   rows, for 16-byte stores. The tile loader, the fragment reads and the
+//   staged store are mma_tile.cuh's, shared with the backward. Shared
+//   memory: 45 KB at hd = 64, 85 KB at 128, 165 KB at 256; registers 129,
+//   176 and 241 a thread (the masked instances 135, 174 and 242), none
+//   spilled.
 // * f32, flash_fwd_kernel: the products on the CUDA cores in f32 (the
 //   tensor cores have no f32 input), with the tiles widened once into
 //   shared memory: 64 query rows for hd = 64, 32 for 128, 16 for 256
@@ -92,6 +95,8 @@
 
 #include <cstdint>
 
+#include "device.cuh"
+#include "mma_tile.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -398,10 +403,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 // ---- bf16 on the tensor cores
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaRows = 16 * kMmaWarps;  // query rows a block, 16 a warp
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMmaRows = 16 * kMmaWarps;  // query rows a block, 16 a warp (mma_tile.cuh)
 static_assert(kMmaRows == kBK, "q, k and v tiles share one shape and one loader");
 
 template <int HD>
@@ -434,11 +436,6 @@ __device__ __forceinline__ float row_tree(const float (&acc)[N][4], int r, Op op
   return t[0];
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // q, k, v, out as flash_fwd_kernel's, bf16, each on a 16-byte boundary (and
 // hd a multiple of 8 when kMasked); grid (B·H, nq) with kMmaRows query rows
 // a block.
@@ -450,8 +447,6 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      int hd, int causal, float scale) {
   using Tl = MmaTile<HD>;
   constexpr int LD = Tl::LD, TILE = kBK * LD;
-  constexpr int CH = HD / 8;               // 16-byte chunks a row
-  constexpr int RSTEP = kMmaThreads / CH;  // rows between one thread's chunks
   constexpr int NT = kBK / 8;              // 8-key column tiles of S
   constexpr int DT = HD / 8;               // 8-wide column tiles of O
   constexpr int KS = HD / 16;              // 16-deep steps of Q·Kᵀ
@@ -467,38 +462,13 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int q0 = qb * kMmaRows, w0 = q0 + 16 * warp;  // the block's and the warp's first row
   const int dim = kMasked ? hd : HD;
   const long long rs = (long long)H * dim;
-  const __nv_bfloat16* qbase = q + ((long long)b * SQ * H + h) * dim;
+  const long long qoff = ((long long)b * SQ * H + h) * dim;
+  const __nv_bfloat16* qbase = q + qoff;
   const __nv_bfloat16* kbase = k + ((long long)b * SK * H + h) * dim;
   const __nv_bfloat16* vbase = v + ((long long)b * SK * H + h) * dim;
   // s·log2(e), so that exp(s − m) is one exp2 of a difference; m, like s, in
   // those units, and a masked score is −1e30 in them
   const float scale2 = scale * kLog2e;
-
-  // Copy rows row0..row0+63 (those below n; the rest zero-filled) of a
-  // (·, H, hd) array into a padded tile. Thread tid copies the 16 bytes at
-  // column lc of rows lr, lr + RSTEP, ... (zeros at a column past hd); a
-  // tile wholly below n skips the row checks.
-  const int lr = tid / CH, lc = (tid % CH) * 8;
-  const bool col_in = !kMasked || lc < dim;
-  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* base, int row0, int n) {
-    dst += lr * LD + lc;
-    const __nv_bfloat16* src = base + (row0 + lr) * rs + lc;
-    if (row0 + kBK <= n) {
-#pragma unroll
-      for (int i = 0; i < kBK / RSTEP; ++i)
-        cp_async<16>(dst + i * RSTEP * LD, col_in ? src + i * RSTEP * rs : base, col_in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kBK / RSTEP; ++i) {
-        const bool in = col_in && row0 + lr + i * RSTEP < n;
-        cp_async<16>(dst + i * RSTEP * LD, in ? src + i * RSTEP * rs : base, in ? 16 : 0);
-      }
-    }
-  };
-  // the A fragment of the warp's rows at depth step ks, from shared memory
-  auto q_frag = [&](uint32_t (&a)[4], int ks) {
-    ldmatrix_x4(a, sq + (16 * warp + lane % 16) * LD + 16 * ks + (lane / 16) * 8);
-  };
 
   int n_tiles = (SK + kBK - 1) / kBK;
   if (causal) {
@@ -506,11 +476,11 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     n_tiles = min(n_tiles, last_q / kBK + 1);
   }
   // commit groups: q, then each key tile (k and v)
-  load_tile(sq, qbase, q0, SQ);
+  load_tile<kBK, HD, kMasked>(sq, qbase, rs, q0, SQ, dim);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_tile(sk, kbase, 0, SK);
-    load_tile(sv, vbase, 0, SK);
+    load_tile<kBK, HD, kMasked>(sk, kbase, rs, 0, SK, dim);
+    load_tile<kBK, HD, kMasked>(sv, vbase, rs, 0, SK, dim);
   }
   cp_async_commit();
 
@@ -519,7 +489,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     cp_async_wait<1>();  // q has landed
     __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) q_frag(qf[ks], ks);
+    for (int ks = 0; ks < KS; ++ks) a_frag<LD>(qf[ks], sq, 16 * warp, ks, lane);
   }
 
   float o[DT][4];
@@ -531,8 +501,8 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     cp_async_wait<0>();  // tile t has landed for this thread
     __syncthreads();     // ... and for every thread; tile t−1 is consumed, its stage free
     if (t + 1 < n_tiles) {
-      load_tile(sk + (t + 1) % 2 * TILE, kbase, (t + 1) * kBK, SK);
-      load_tile(sv + (t + 1) % 2 * TILE, vbase, (t + 1) * kBK, SK);
+      load_tile<kBK, HD, kMasked>(sk + (t + 1) % 2 * TILE, kbase, rs, (t + 1) * kBK, SK, dim);
+      load_tile<kBK, HD, kMasked>(sv + (t + 1) % 2 * TILE, vbase, rs, (t + 1) * kBK, SK, dim);
       cp_async_commit();
     }
     const __nv_bfloat16* kt = sk + t % 2 * TILE;
@@ -549,13 +519,12 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
         for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
       } else {
-        q_frag(a, ks);
+        a_frag<LD>(a, sq, 16 * warp, ks, lane);
       }
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (8 * j + lane % 8 + (lane / 16) * 8) * LD + 16 * ks
-                            + ((lane / 8) % 2) * 8);
+        b_frag_rows<LD>(kb, kt, j, ks, lane);
         mma_bf16_16816(s[j], a, kb[0], kb[1]);
         mma_bf16_16816(s[j + 1], a, kb[2], kb[3]);
       }
@@ -613,8 +582,7 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
       for (int j = 0; j < DT; j += 2) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * LD + 8 * j
-                                  + (lane / 16) * 8);
+        b_frag_trans<LD>(vb, vt, j, kk, lane);
         mma_bf16_16816(o[j], a, vb[0], vb[1]);
         mma_bf16_16816(o[j + 1], a, vb[2], vb[3]);
       }
@@ -623,9 +591,8 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   cp_async_wait<0>();  // a call with no key tile still has q in flight
   __syncthreads();
 
-  // the row sums over the 4 lanes of a row; the output through the warp's
-  // own rows of q (no other warp reads them), then 16-byte stores
-  __nv_bfloat16* so = sq + 16 * warp * LD;
+  // the row sums over the 4 lanes of a row; the output divided by them,
+  // staged in the warp's own rows of q (no other warp reads them)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r];
@@ -638,19 +605,12 @@ flash_fwd_kernel_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       l_out[(long long)bh * SQ + s] = sum;
     }
 #pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(so + (g + 8 * r) * LD + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
+    for (int j = 0; j < DT; ++j) {
+      o[j][2 * r] /= denom;
+      o[j][2 * r + 1] /= denom;
+    }
   }
-  __syncwarp();
-  __nv_bfloat16* obase = out + ((long long)b * SQ * H + h) * dim;
-#pragma unroll
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, col = (c % CH) * 8, s = w0 + r;
-    if (s < SQ && (!kMasked || col < dim))
-      *reinterpret_cast<uint4*>(obase + s * rs + col) =
-          *reinterpret_cast<const uint4*>(so + r * LD + col);
-  }
+  store_rows<HD, kMasked>(o, sq + 16 * warp * LD, out + qoff, rs, w0, SQ, dim, lane);
 }
 
 // The dynamic shared memory above 48 KB is allowed once per kernel instance
@@ -698,8 +658,6 @@ int launch_wide(const void* q, const void* k, const void* v, void* out, float* m
       static_cast<T*>(out), m_out, l_out, H, SQ, SK, hd, causal, scale, p_round);
   return cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 // hd ≤ 256 on the instance of the next width up (masked past hd unless
 // equal); bf16 on the tensor cores where its 16-byte copies go, else on

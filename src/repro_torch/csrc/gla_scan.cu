@@ -790,8 +790,6 @@ cudaError_t launch_gla_wide(const T* q, const T* k, const T* v, const float* log
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
-
 // The vector path takes rows of whole 16-byte vectors on 16-byte boundaries
 // (and y's four columns a thread on an 8- or 16-byte boundary).
 template <typename T>

@@ -248,8 +248,6 @@ quantize_pack_kernel(const float* __restrict__ u, const float* __restrict__ v,
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
-
 template <int R, bool kVec, bool kMore = false>
 cudaError_t launch_quantize_pack(const float* u, const float* v, const float* r,
                                  signed char* codes, float* scales, float* resid, int D, int n,

@@ -983,8 +983,6 @@ dense_mix_kernel(const float* __restrict__ mt, const float* __restrict__ X,
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
-
 // Row registers a slot, rounded up to one of six tiles (rows past n are
 // zeros and are never stored). A thread keeps ⌊64/Q⌋ slots, so a cluster of
 // 8 blocks holds 512 at Q = 8 (Ñ ≤ 256: 3 clusters split V at m = 561) and

@@ -25,8 +25,18 @@ backward is ``flash_attention_bwd``, the kernels of
 ``csrc/flash_attn_bwd.cu`` on the card (``flash_attention_bwd_plain`` on
 the CPU). The backward follows ``_fa_backward_inner``: δ = rowsum(dout ∘
 out), p = exp(s − m) / max(l, 1e-30) with s masked to −1e30, dv = pᵀ·dout,
-dp = dout·vᵀ, ds = p ∘ (dp − δ)·hd^−½, dq = ds·k, dk = dsᵀ·q, all in f32,
-the results in q's, k's and v's types. It takes head widths up to 256.
+dp = dout·vᵀ, ds = p ∘ (dp − δ)·hd^−½, dq = ds·k, dk = dsᵀ·q, with f32
+sums, the results in q's, k's and v's types. It takes head widths up to
+256. bf16 runs on the tensor cores where the forward's does (hd a
+multiple of 8, every tensor on a 16-byte boundary), else (hd not a
+multiple of 8, a view off 16 bytes) on the CUDA cores; on both routes p
+is rounded to bf16 before pᵀ·dout and ds before ds·k and dsᵀ·q, as
+FlashAttention-2 and cuDNN round them, and the plain version takes these
+two roundings, and no other, when q, k, v, out and dout are all bf16.
+That is where the port's bf16 backward departs from the reference's,
+which keeps p and ds in f32 and rounds s to bf16 instead
+(``models/layers.py:220``, ``:227-230``): the two differ by about one
+bf16 rounding of the terms.
 Without a gradient to take, the forward runs as before, with no statistics.
 The plain versions compute in f64 where every operand is f64 (so that
 ``torch.autograd.gradcheck`` can hold the Function), else in f32.
@@ -125,17 +135,15 @@ def flash_attention_fwd(
     return _forward(q, k, v, causal, stats=True)
 
 
-def flash_attention_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
-    m: torch.Tensor, l: torch.Tensor, *, causal: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in q's, k's and v's types, over the key tiles of 64 in
-    order (each tile's dk and dv whole, dq summed tile after tile)."""
+def _bwd_plain(q, k, v, out, dout, m, l, causal: bool):
+    """(dq, dk, dv) (B, S, H, hd) in the compute type, before the rounding
+    to the operands' types: ``flash_attention_bwd_plain``'s arithmetic."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     scale = hd ** -0.5
     ct = _compute_type(q, k, v, out, dout)
+    rounded = all(t.dtype == torch.bfloat16 for t in (q, k, v, out, dout))
     qf, kf, vf, of, dof = (x.transpose(1, 2).to(ct) for x in (q, k, v, out, dout))
     delta = (dof * of).sum(-1)                           # (B, H, Sq)
     m, l = m.to(ct), torch.clamp(l.to(ct), min=1e-30)
@@ -150,14 +158,27 @@ def flash_attention_bwd_plain(
             kpos = torch.arange(k0, k1, device=q.device)[None, :]
             s = torch.where(kpos <= qpos, s, NEG_INF)
         p = torch.exp(s - m[..., None]) / l[..., None]
-        dvs.append(p.transpose(-1, -2) @ dof)
         ds = p * (dof @ vt.transpose(-1, -2) - delta[..., None]) * scale
+        if rounded:  # the bf16 kernels' operands: p and ds in bf16
+            p, ds = (x.to(torch.bfloat16).to(ct) for x in (p, ds))
+        dvs.append(p.transpose(-1, -2) @ dof)
         dq = dq + ds @ kt
         dks.append(ds.transpose(-1, -2) @ qf)
     dk = torch.cat(dks, 2) if dks else torch.zeros_like(kf)
     dv = torch.cat(dvs, 2) if dvs else torch.zeros_like(vf)
-    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
-            dv.transpose(1, 2).to(v.dtype))
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
+    m: torch.Tensor, l: torch.Tensor, *, causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in q's, k's and v's types, over the key tiles of 64 in
+    order (each tile's dk and dv whole, dq summed tile after tile); with
+    q, k, v, out and dout all bf16, p and ds rounded to bf16 before the
+    products they enter."""
+    grads = _bwd_plain(q, k, v, out, dout, m, l, causal)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
 
 
 def flash_attention_bwd(
@@ -167,8 +188,9 @@ def flash_attention_bwd(
     """The gradients (dq, dk, dv) of ``flash_attention``'s output ``out``
     against ``dout``, from its forward's row statistics m and l (B, H, Sq)
     f32. On the card two launches (one count): the dq kernel, which also
-    writes δ, then the dk/dv kernel; each gradient element is written by one
-    block, in a fixed order."""
+    writes δ, then the dk/dv kernel, on the tensor cores for bf16 where
+    their 16-byte copies go, else on the CUDA cores; each gradient element
+    is written by one block, in a fixed order."""
     if _lib.on_cpu(q):
         return flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)
     _check(q, k, v)

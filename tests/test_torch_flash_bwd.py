@@ -16,6 +16,11 @@ through ``_lib.on_cpu``, the wrappers' dispatch seam) an operand that
 requires a gradient is refused by ``gla_forward`` and by every wrapper
 that calls ``_lib.operands``, while ``flash_attention`` goes to its kernel
 and raises with no fallback where the kernel cannot be loaded.
+
+With bf16 operands the plain version takes the bf16 kernels' two
+roundings, p and ds to bf16 before the products they enter, and no
+others: it is held to a numpy rendering of that arithmetic, and to the
+reference's own run on the same bf16 inputs.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +33,7 @@ from repro.models.layers import blockwise_attention as ref_attention
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attn import (
     FlashAttention,
+    _bwd_plain,
     flash_attention,
     flash_attention_bwd_plain,
     flash_attention_plain,
@@ -173,3 +179,109 @@ def test_card_branch_of_flash_goes_to_its_kernel_with_no_fallback(monkeypatch):
         flash_attention(q, k, v)
     with torch.no_grad(), pytest.raises(_NoLibrary):
         flash_attention(q, k, v)
+
+
+# ------------------------------------------------- bf16: the rounding points
+
+# off the tile (GQA in CASES, repeated here), Sq ≠ Sk, an untiled width
+BF16_CASES = [CASES[1], CASES[2], CASES[3]]
+BF16_REL = 1e-6
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 rounded to the nearest bf16, ties to even, as f32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _render(q, k, v, out, dout, m, l, causal, round_p, round_ds):
+    """The backward's arithmetic in numpy f32, (B, S, H, hd) in and out: f32
+    sums, exp in f64 rounded once to f32, p and ds rounded to bf16 where
+    asked."""
+    q, k, v, out, dout = (np.ascontiguousarray(x.transpose(0, 2, 1, 3)) for x in
+                          (q, k, v, out, dout))
+    sq, hd, sk = q.shape[2], q.shape[3], k.shape[2]
+    scale = np.float32(hd ** -0.5)
+    delta = (dout * out).sum(-1)
+    s = np.matmul(q, k.transpose(0, 1, 3, 2)) * scale
+    if causal:
+        s = np.where(np.arange(sk)[None, :] <= np.arange(sq)[:, None], s, np.float32(-1e30))
+    p = np.exp((s - m[..., None]).astype(np.float64)).astype(np.float32)
+    p = p / np.maximum(l, np.float32(1e-30))[..., None]
+    ds = p * (np.matmul(dout, v.transpose(0, 1, 3, 2)) - delta[..., None]) * scale
+    p = _bf16(p) if round_p else p
+    ds = _bf16(ds) if round_ds else ds
+    grads = np.matmul(ds, k), np.matmul(ds.transpose(0, 1, 3, 2), q), \
+        np.matmul(p.transpose(0, 1, 3, 2), dout)
+    return [g.transpose(0, 2, 1, 3) for g in grads]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_plain_backward_rounds_p_and_ds_only(case):
+    """Operands on a grid of eighths in [-2, 2], so that every score, dp and
+    δ is exact in f32 whatever the order of its sum, and the f32 values that
+    meet a bf16 rounding are the same bits in both: the plain version's
+    gradients (before their own rounding to bf16) equal the rendering with
+    p and ds rounded within 1e-6 of each gradient's largest magnitude, and
+    miss the renderings with one rounding or none by far more."""
+    b, sq, sk, h, _, hd, causal, _ = case
+    rng = np.random.default_rng(sum(case[:6]) + 2)
+    q, out, dout = (rng.integers(-16, 17, (b, sq, h, hd)).astype(np.float32) / 8
+                    for _ in range(3))
+    k, v = (rng.integers(-16, 17, (b, sk, h, hd)).astype(np.float32) / 8 for _ in range(2))
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, out, dout)]
+    _, m, l = flash_attention_plain(*t[:3], causal=causal, stats=True)
+    got = _bwd_plain(*t, m, l, causal)
+    assert all(g.dtype == torch.float32 for g in got)
+    rounded = flash_attention_bwd_plain(*t, m, l, causal=causal)
+    assert all(torch.equal(r, g.to(torch.bfloat16)) for r, g in zip(rounded, got))
+    args = (q, k, v, out, dout, m.numpy(), l.numpy(), causal)
+    rels = {pd: [_rel(g, w) for g, w in zip(got, _render(*args, *pd))]
+            for pd in ((True, True), (True, False), (False, True), (False, False))}
+    print(f"{case}: dq, dk, dv against the rendering with p and ds rounded "
+          f"{rels[True, True]} (bound {BF16_REL}); p only {rels[True, False]}, ds only "
+          f"{rels[False, True]}, neither {rels[False, False]}")
+    assert all(r <= BF16_REL for r in rels[True, True]), rels
+    assert max(rels[True, False]) > 100 * BF16_REL and max(rels[False, True]) > 100 * BF16_REL
+    assert max(rels[False, False]) > 100 * BF16_REL
+    # one operand in f32: no rounding (the kernels then compute in f32)
+    mixed = _bwd_plain(*t[:3], t[3].float(), t[4], m, l, causal)
+    unrounded = _render(*args, False, False)
+    assert all(_rel(g, w) <= BF16_REL for g, w in zip(mixed, unrounded))
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_bf16_plain_backward_matches_the_reference_in_bf16(case):
+    """The reference's custom VJP on bf16 inputs (it rounds s to bf16 and
+    keeps p and ds in f32) against the plain version on the same bf16
+    values and the reference's own forward statistics. Bound: twice the
+    reference's spread between that run and its run on the same values cast
+    to f32. Both of its runs end in its own rounding of the gradients (to
+    bf16, to f32), so the plain version's gradients are held to it before
+    their final rounding to bf16, which would count that step twice. The
+    gradients that callers receive, after that rounding, are held to the
+    same bound plus the rounding's own budget: half a bf16 step of the
+    binade of the gradient's largest magnitude."""
+    b, sq, sk, h, _, hd, causal, chunk = case
+    q, k, v, dout = (jnp.asarray(x, jnp.bfloat16) for x in _inputs(sum(case[:6]), b, sq, sk,
+                                                                    h, h, hd))
+    out, (m_c, l_c) = _fa_forward(q, k, v, causal, chunk)
+    ref = _fa_backward_impl(q, k, v, out, m_c, l_c, dout, causal=causal, chunk=chunk)
+    f32 = [x.astype(jnp.float32) for x in (q, k, v, out, dout)]
+    ref_f32 = _fa_backward_impl(*f32[:4], m_c, l_c, f32[4], causal=causal, chunk=chunk)
+    spread = [_rel(torch.from_numpy(np.array(a, np.float32)), w) for a, w in zip(ref, ref_f32)]
+    t = [torch.from_numpy(np.array(x)).to(torch.bfloat16) for x in f32]
+    m, l = (torch.tensor(_unchunk(s, sq)) for s in (m_c, l_c))
+    got = _bwd_plain(*t, m, l, causal)
+    rels = [_rel(g, np.asarray(w, np.float32)) for g, w in zip(got, ref)]
+    shipped = flash_attention_bwd_plain(*t, m, l, causal=causal)
+    shipped_rels = [_rel(g, np.asarray(w, np.float32)) for g, w in zip(shipped, ref)]
+    half_steps = [float(np.ldexp(1.0, np.frexp(float(g.abs().max()))[1] - 9))
+                  / float(np.abs(np.asarray(w, np.float32)).max()) for g, w in zip(got, ref)]
+    print(f"{case}: dq, dk, dv against the reference in bf16 {rels}; its own bf16-f32 spread "
+          f"{spread} (bound twice that); rounded to bf16 {shipped_rels} (bound twice the "
+          f"spread plus half a bf16 step {half_steps})")
+    assert all(r <= 2 * s for r, s in zip(rels, spread)), (rels, spread)
+    assert all(r <= 2 * s + e for r, s, e in zip(shipped_rels, spread, half_steps)), \
+        (shipped_rels, spread, half_steps)

@@ -1956,26 +1956,48 @@ def test_paged_runtime_on_the_card_matches_the_cpu(cuda, topo, active):
 
 # ------------------------------------------------------------ training
 
-# (B, Sq, Sk, H, hd, causal, dtype): chip_smoke.py phase 20 (a)'s shapes
+# (B, Sq, Sk, H, hd, causal, dtype): chip_smoke.py phase 20 (a)'s shapes; then
+# the tensor-core route's edges (Sq and Sk off 64, causal Sq > Sk, Sk < 64,
+# hd 80 and 200 on masked instances) and the CUDA cores' (f32, hd 100 in bf16)
 FLASH_BWD = [(8, 128, 128, 4, 256, True, torch.bfloat16), (2, 2048, 2048, 4, 256, True, torch.bfloat16),
              (8, 512, 512, 32, 64, True, torch.bfloat16), (4, 512, 512, 32, 128, True, torch.bfloat16),
              (4, 512, 1601, 32, 128, False, torch.bfloat16), (2, 512, 512, 8, 256, True, torch.float32),
-             (3, 200, 333, 5, 96, False, torch.bfloat16), (1, 77, 77, 2, 80, True, torch.float32)]
+             (3, 200, 333, 5, 96, False, torch.bfloat16), (1, 77, 77, 2, 80, True, torch.float32),
+             (2, 77, 190, 3, 128, False, torch.bfloat16), (2, 130, 77, 3, 64, True, torch.bfloat16),
+             (1, 100, 40, 2, 256, True, torch.bfloat16), (2, 33, 20, 2, 256, False, torch.bfloat16),
+             (2, 45, 45, 2, 80, True, torch.bfloat16), (2, 150, 150, 2, 200, True, torch.bfloat16),
+             (2, 70, 70, 3, 100, True, torch.bfloat16)]
 # f32: sums in other orders; bf16: a result rounded to the other neighbour,
 # one bf16 step of the largest entry's binade (chip_smoke.py's BWD_TOL)
 FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 
 
-@pytest.mark.parametrize("shape", FLASH_BWD, ids=lambda s: "-".join(map(str, s)))
-def test_flash_backward_kernel_matches_plain(cuda, shape):
+def _bwd_kernels_run(fn) -> list[str]:
+    """The names of the backward kernels one call of ``fn`` launched, from
+    torch.profiler. The profiler may drop a launch from its record, so a
+    session that did not see both kernels is run again, up to twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if any(k in e.key for k in BWD_KERNELS)]
+        if all(any(k in n for n in names) for k in BWD_KERNELS):
+            return names
+    return names
+
+
+def _check_backward(q, k, v, dout, causal, mma: bool):
+    """flash_attention_bwd on the card against its plain version, the same
+    bits on a second call, and its route: the tensor cores' pair or the
+    CUDA cores'."""
     from repro_torch.kernels import flash_attention_bwd, flash_attention_bwd_plain
     from repro_torch.kernels import flash_attention_fwd
 
-    b, sq, sk, h, hd, causal, dtype = shape
-    gen = torch.Generator(device=cuda).manual_seed(sq + hd)
-    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn((b, sk, h, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
-    dout = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    dtype = q.dtype
     out, m, l = flash_attention_fwd(q, k, v, causal=causal)
     assert torch.equal(out, flash_attention(q, k, v, causal=causal))
     _, m_plain, l_plain = flash_attention_plain(q, k, v, causal=causal, stats=True)
@@ -1987,6 +2009,33 @@ def test_flash_backward_kernel_matches_plain(cuda, shape):
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)  # no atomics: the same bits
         assert _rel(g.float(), w.float()) <= FLASH_BWD_TOL[dtype]
+    names = _bwd_kernels_run(lambda: flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal))
+    assert len(names) == 2 and all(("_mma<" in n) == mma for n in names), names
+
+
+@pytest.mark.parametrize("shape", FLASH_BWD, ids=lambda s: "-".join(map(str, s)))
+def test_flash_backward_kernel_matches_plain(cuda, shape):
+    b, sq, sk, h, hd, causal, dtype = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, h, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    _check_backward(q, k, v, dout, causal, mma=dtype == torch.bfloat16 and hd % 8 == 0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_backward_kernel_on_a_misaligned_view(cuda, hd):
+    """bf16 views one element into their storage (2 bytes, off the tensor
+    cores' 16-byte copies): the CUDA cores' pair, held to the same bound."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + 1)
+    shape = (2, 150, 3, hd)
+
+    def view():
+        flat = _draw(cuda, (int(np.prod(shape)) + 1,), torch.bfloat16, gen)
+        return flat[1:].view(shape)
+
+    q, k, v, dout = view(), view(), view(), view()
+    _check_backward(q, k, v, dout, causal=True, mma=False)
 
 
 def test_flash_backward_refuses_past_hd_256(cuda):
