@@ -69,8 +69,9 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    same topologies, lag 0 equal to (b), and a profile of 4 rounds of each
    on star and ring; (d) ``FleetRuntime`` with that
    schedule on ring and isolated hierarchical; every kernel's launches
-   equal to the rounds routed to it; (e) (b), (c) and (d) card against CPU
-   at D = 16;
+   equal to the rounds routed to it; (e) (b) and (c) on star, isolated
+   hierarchical, all_to_all and ring (one a route) and (d), card against
+   CPU at D = 16;
 9. serving ``hymba-1.5b`` at full width (32 layers, d_model 1600, bf16):
    (a) ``flash_attention`` (B = 4, S = 512, 1024 and 2048, H = 25,
    hd = 64, causal; S = 1000 full; hd = 256) and ``gla_forward`` (S = 512,
@@ -85,8 +86,8 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
    2 layers, card against CPU: prefill logits, features and caches and 8
    decode steps; (d) a profile of one prefill and 16 decode steps;
 10. wide layers and the other sizes past the cluster paths: (a) the
-    port's ``FleetRuntime`` at D = 8, Ñ = 256 and Ñ = 384 (past the cluster
-    solve and P chain), the har width otherwise, on f32 star, f32 ring,
+    port's ``FleetRuntime`` at D = 8, Ñ = 384 (past the cluster solve and
+    P chain), the har width otherwise, on f32 star, f32 ring,
     int8 star and the stale ring (lags up to 3), five ticks, the shifted
     device flagged at the last, one merge at the third, card against CPU
     (flags and decisions equal, losses within phase 4's bounds) and each
@@ -229,7 +230,7 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     drawn on the card), scores finite, tokens shaped, ``flash_attention``
     and ``gla_forward`` launched exactly as the layer pattern says, prefill
     ms, decode ms a token and peak memory beside a decode step's floor (its
-    weights read once at 3.35 TB/s); (c) an xlstm-1.3b prefill at S = 2048,
+    weights read once at 3.35 TB/s); (c) an xlstm-1.3b prefill at S = 1024,
     B = 1, with its sLSTM loop's share; (e) each config reduced (f32) card
     against CPU on the same weights, and a float8 KV cache on the card;
 20. training: (a) ``flash_attention_bwd`` (the attention's backward, two
@@ -239,16 +240,29 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     the VLM's cross attention (512 → 1601, non-causal), one f32 case and Sq,
     Sk off the tiles, each with CUDA-event, profiler, plain and SDPA-backward
     times and the bound, the forward with its row statistics bit for bit
-    the forward without; (b) ``repro_torch.launch.train`` for gemma3-1b at
-    full width (26 layers, d 1152, vocab 262 144), B 8, S 128, one nccl rank,
-    merges every 5 steps: the loss falling, step ms p50 and max, peak
-    memory, ``flash_attention`` and ``flash_attention_bwd`` launches equal to
-    the flash layers × steps × (2, 1), then one step profiled for the
-    device's busy share; (c) reduced gemma3-1b and granite-moe-3b-a800m
-    (f32) card against CPU: ``lm_loss`` and its gradients, two
+    the forward without; and ``gla_backward`` (the GLA's backward, four
+    launches, no atomics) against its plain version with a final-state
+    cotangent at hymba-1.5b's training shape (B 4, S 512, H 25, dk 16, dv
+    64, bf16 and f32), xLSTM's mLSTM (B 2, S 256, H 4, 512 × 513, bf16) and
+    S off the chunk (B 3, S 200, H 5), the same bits twice, each with
+    CUDA-event, profiler and plain times and the bound; (b)
+    ``repro_torch.launch.train`` at full width, one nccl rank: gemma3-1b
+    (26 layers, d 1152, vocab 262 144, B 8, S 128, merges every 5 steps),
+    then hymba-1.5b (32 layers, d 1600, vocab 32 001, B 4, S 512: four
+    chunks, 10 steps, merges every 5) with the loss falling, step ms p50
+    and max, peak memory, launches of ``flash_attention`` and
+    ``flash_attention_bwd`` equal to the flash layers × steps × (2, 1) and of
+    ``gla_forward`` and ``gla_backward`` to the GLA layers × steps × (2, 1),
+    each then one step profiled for the device's busy share; then
+    xlstm-1.3b (48 layers, d 2048, 42 mLSTM layers on GLA's wide path,
+    B 2, S 256, 3 steps): the loss finite, the GLA launches exact, step ms
+    and the sLSTM loops' share of a step; (c) reduced gemma3-1b,
+    granite-moe-3b-a800m, hymba-1.5b and xlstm-1.3b (f32; the last two at S
+    200, past a chunk) card against CPU: ``lm_loss`` and its gradients, two
     ``make_train_step`` steps with ``sgd`` and with ``make_optimizer``, one
-    with two micro-batches; (d) ``gla_forward`` refuses a CUDA input that
-    requires a gradient;
+    with two micro-batches; (d) ``gla_forward`` on CUDA inputs that require
+    a gradient runs ``GLAForward``, one ``gla_backward`` launch, its
+    gradients the CPU's;
 21. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -825,6 +839,9 @@ def topologies(d: int):
 
 
 INT8_TOPOLOGIES = ("star", "hierarchical", "ring")
+# phase 8 (e)'s card-against-CPU chains: one topology a route (hierarchical
+# with head exchange takes star's kernels in both chains)
+CPU_ROUND_TOPOLOGIES = ("star", "hierarchical_isolated", "all_to_all", "ring")
 
 
 def runtime_config(topology, precision="f32", merge_every=4, **hardened):
@@ -1931,6 +1948,8 @@ def phase_rounds_card_vs_cpu(fleet, ticks_np):
     streams = round_streams(torch.from_numpy(ticks_np), D_CPU)
     sched = async_schedule(D_CPU)
     for name, topo in topologies(D_CPU).items():
+        if name not in CPU_ROUND_TOPOLOGIES:
+            continue
         for label, fn, floor in (
             ("fleet_train_rounds", lambda f, x: fleet_train_rounds(
                 f, x, topo, rounds=ROUNDS, ridge=RIDGE), ROUNDS_TOL),
@@ -2290,14 +2309,14 @@ def phase_serving():
 # ------------------------------------------------ phase 10: a wide hidden layer
 
 D_WIDE = 16                # devices of the wide kernels' rows
-N_WIDE, N_WIDEST = 256, 320  # Ñ end to end; the widest the cluster solve and P chain take
+N_WIDEST = 320             # the widest the cluster solve and P chain take
 # past the cluster paths: the runtime at Ñ = 384 on D_WIDER devices (the
 # CPU's plain solves at Ñ = 384 and m = 561 take seconds a merge), and the
 # kernels at Ñ = 768, the mnist_like width's widest bottleneck (n = m = 784,
 # Ñ < n), and at 1024
 D_WIDER, N_WIDER = 8, 384
 N_MNIST = 784
-# the runtimes run D_WIDER devices at both widths over five ticks of
+# the runtime runs D_WIDER devices over five ticks of
 # make_streams', the shift (flagged) at the last, with one merge at the third
 # and two ticks after it: the CPU side's plain ingest and solves are most of
 # the phase's time, so its depth is cut there (fleet size, ticks, merges)
@@ -2456,10 +2475,8 @@ def wide_kernel_rows(n: int, m: int, windows: tuple[int, ...]):
 
 def phase_wide():
     """Phase 10."""
-    log(f"  (a) FleetRuntime at Ñ={N_WIDE} and Ñ={N_WIDER} (D={D_WIDER}) on four routes, card"
-        " against CPU")
+    log(f"  (a) FleetRuntime at Ñ={N_WIDER} (D={D_WIDER}) on four routes, card against CPU")
     t0 = time.perf_counter()
-    wide_runtimes(D_WIDER, N_WIDE)
     wide_runtimes(D_WIDER, N_WIDER)
     log(f"  (a) took {time.perf_counter() - t0:.1f} s")
     log(f"  (b) the kernels at Ñ={N_WIDEST} (m={N_FEAT}), 768 and 1024 (m={N_MNIST}) against"
@@ -4493,7 +4510,7 @@ ZOO = ("xlstm-1.3b", "granite-moe-3b-a800m", "seamless-m4t-medium", "llama-3.2-v
 ZOO_DEPTH = {"arctic-480b": 1}
 ZOO_PREFILLS = 2 + SERVE["rounds"]      # serve()'s two warm-up prefills, then one a round
 ZOO_STEPS = SERVE["rounds"] * SERVE["new_tokens"]
-ZOO_LONG = 2048                         # xLSTM's long prompt, B = 1
+ZOO_LONG = 1024                         # xLSTM's long prompt, B = 1
 # flash_attention's new shapes on this path (B, Sq, Sk, H, hd, causal), bf16:
 # seamless's cross attention from 512 text queries and from one decode query
 # to 1024 frames and its encoder over them (H 16, hd 64); the VLM's from 512
@@ -4824,9 +4841,25 @@ BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # gradient leaf within 1e-4 of its largest |g| (tests/test_torch_train.py's
 # bounds against the reference); the sgd moves past two f32 roundings of
 # p − lr·g at 1e-4 of each leaf's largest move; Adam's loss and grad norm
-TRAIN_CPU = ("gemma3-1b", "granite-moe-3b-a800m")
-TRAIN_CPU_S = 96               # past the reduced window of 64: a local and a global layer
+# each config's tokens a row: gemma3-1b's past the reduced window of 64 (a
+# local and a global layer), the GLA configs' past one chunk of 128
+TRAIN_CPU = {"gemma3-1b": 96, "granite-moe-3b-a800m": 96, "hymba-1.5b": 200, "xlstm-1.3b": 200}
 TRAIN_LOSS_ABS, TRAIN_GRAD_REL = 1e-5, 1e-4
+# the GLA configs' full-width runs, (arch, B, S, steps, merge every, the loss
+# must fall): S 512 is four of hymba's chunks, so the state's gradient is
+# carried; xLSTM's sLSTM token loops make its steps long
+TRAIN_GLA_RUNS = (("hymba-1.5b", 4, 512, 10, 5, True), ("xlstm-1.3b", 2, 256, 3, 5, False))
+# the GLA backward alone, (B, S, H, dk, dv, dtype): hymba-1.5b's Mamba heads at
+# the training run's shape, bf16 and f32, xLSTM's mLSTM at its training shape
+# (dk 512, dv 513, past one block's tiles), S off the chunk
+TRAIN_GLA = ((4, 512, 25, 16, 64, "bfloat16"), (4, 512, 25, 16, 64, "float32"),
+             (2, 256, 4, 512, 513, "bfloat16"), (3, 200, 5, 16, 64, "bfloat16"))
+# max |kernel − plain| / max |plain| of each of dq, dk, dv and dlog a: f32
+# sums in other orders; bf16 gradients rounded once from f32 values that
+# differ in their last bits (one bf16 step of the largest entry's binade)
+GLA_BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+GLA_BWD_KERNELS = ("gla_bwd_state_kernel", "gla_bwd_carry_kernel", "gla_bwd_chunk_kernel",
+                   "gla_bwd_dlog_a_kernel")
 
 
 def flash_bwd_work(b, sq, sk, h, hd, causal, itemsize):
@@ -4922,25 +4955,96 @@ def flash_bwd_rows():
     return row
 
 
+def gla_bwd_work(b, s, h, dk, dv, itemsize):
+    """(operations, bytes) of the GLA backward, each product counted once:
+    a chunk of L tokens takes 4·L·dk·dv fused multiply-adds (ΔG, dy·S_inᵀ,
+    v·Gᵀ, k·G) and, over its L(L+1)/2 kept pairs, 2·dv (dP, Pᵀ·dy) and 3·dk
+    (the scores, dP·k, dPᵀ·q), 2 operations each; q, k, v and dy read and
+    dq, dk and dv written once in their type, log a and dlog a, the states
+    entering the chunks, their decays, dS_final and S_final in f32."""
+    c = min(128, s)
+    fma = sum(4 * n * dk * dv + n * (n + 1) // 2 * (2 * dv + 3 * dk)
+              for n in (min(c, s - t0) for t0 in range(0, s, c)))
+    chunks = -(-s // c)
+    nbytes = itemsize * s * (4 * dk + 3 * dv) + 4 * (2 * s + (chunks + 2) * dk * dv + chunks)
+    return 2 * fma * b * h, nbytes * b * h
+
+
+def gla_bwd_rows(smi: str):
+    """(a) gla_backward against its plain version at TRAIN_GLA, with a
+    final-state cotangent, on the states its forward keeps; the same bits
+    on a second call; returns the kernel line's row (hymba-1.5b's bf16
+    training shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import gla_backward, gla_backward_plain
+    from repro_torch.kernels.gla_scan import _forward
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    row = None
+    for b, s, h, dk, dv, dname in TRAIN_GLA:
+        dtype = getattr(torch, dname)
+        q, k = (torch.randn((b, s, h, dk), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        v, dy = (torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dtype)
+                 for _ in range(2))
+        la = -F.softplus(torch.randn((b, s, h), generator=gen, device="cuda")) / 4
+        ds = torch.randn((b, h, dk, dv), generator=gen, device="cuda")
+        _, state, states, decay = _forward(q, k, v, la, keep=True)
+        fn = lambda: gla_backward(q, k, v, la, dy, ds, states, decay, state)  # noqa: E731
+        plain = lambda: gla_backward_plain(q, k, v, la, dy, ds, states, decay, state)  # noqa: E731
+        got, again, want = fn(), fn(), plain()
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        abs_err, rels = rel_err([g.float() for g in got], [w.float() for w in want])
+        work = gla_bwd_work(b, s, h, dk, dv, q.element_size())
+        bnd = bound(*work, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
+        r = dict(abs=abs_err, ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2), library_ms=None,
+                 bound_ms=bnd[0], bound_by=bnd[1])
+        alone = device_ms(fn, 5, GLA_BWD_KERNELS)
+        log(f"  (a) gla_backward B={b} S={s} H={h} dk={dk} dv={dv} {dname}, with dS_final: max rel"
+            f" dq, dk, dv, dlog a {', '.join(f'{x:.2e}' for x in rels)} (tol"
+            f" {GLA_BWD_TOL[dname]:.1e}), the same bits twice: {same}  ms={r['ms']:.4f} (kernels"
+            f" alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f} library_ms=none"
+            f"  bound_ms={bnd[0]:.4f} ({bnd[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB;"
+            f" at 67 TFLOP/s {work[0] / H100_F32_FLOPS * 1e3:.4f}) on {smi}")
+        assert same, "gla_backward: two calls differ"
+        assert all(x <= GLA_BWD_TOL[dname] for x in rels), "gla_backward: kernel != plain"
+        if row is None:
+            row = r
+        del q, k, v, dy, la, ds, state, states, decay, got, again, want
+    return row
+
+
 def train_flash_layers(cfg, seq: int) -> int:
     """The layers whose attention a forward at ``seq`` tokens sends to
     flash_attention: every global layer, and a sliding-window layer where
-    the sequence fits its window (local_attention takes it past the window)."""
+    the sequence fits its window (local_attention takes it past the window),
+    hymba's heads as the attention-only layers'."""
     pat = cfg.layer_pattern()
-    return pat.count("dense") + (pat.count("swa") if seq <= cfg.sliding_window else 0)
+    window = pat.count("swa") + pat.count("hymba_swa")
+    return pat.count("dense") + pat.count("hymba") + (window if seq <= cfg.sliding_window else 0)
+
+
+def train_gla_layers(cfg) -> int:
+    """The layers that run gla_forward: hymba's Mamba heads and xLSTM's mLSTM."""
+    pat = cfg.layer_pattern()
+    return pat.count("hymba") + pat.count("hymba_swa") + pat.count("mlstm")
 
 
 def train_launches(cfg, seq: int, steps: int) -> dict[str, int]:
-    """The training run's launches: a step runs each flash layer's forward twice
-    (the forward, then its recompute under the checkpoint in the backward)
-    and its backward once; the detector's init_oselm one hidden_proj and two
-    matmul_atb."""
-    n = train_flash_layers(cfg, seq) * steps
-    return {"flash_attention": 2 * n, "flash_attention_bwd": n, "hidden_proj": 1,
-            "matmul_atb": 2}
+    """The training run's launches: a step runs each flash and each GLA
+    layer's forward twice (the forward, then its recompute under the
+    checkpoint in the backward) and its backward once; the detector's
+    init_oselm one hidden_proj and two matmul_atb."""
+    flash, gla = train_flash_layers(cfg, seq) * steps, train_gla_layers(cfg) * steps
+    want = {"flash_attention": 2 * flash, "flash_attention_bwd": flash,
+            "gla_forward": 2 * gla, "gla_backward": gla, "hidden_proj": 1, "matmul_atb": 2}
+    return {k: v for k, v in want.items() if v}
 
 
-def train_run(smi: str) -> dict[str, int]:
+def train_run(smi: str, arch: str, batch: int, seq: int, steps: int, merge_every: int,
+              falling: bool = True) -> dict[str, int]:
     """(b) repro_torch.launch.train at full width, one nccl rank; returns its
     launches."""
     import numpy as np
@@ -4948,82 +5052,143 @@ def train_run(smi: str) -> dict[str, int]:
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    rec = train.main(["--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
-                      "--steps", str(TRAIN_STEPS), "--merge-every", str(TRAIN_MERGE_EVERY)])
+    rec = train.main(["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+                      "--steps", str(steps), "--merge-every", str(merge_every)])
     wall = time.perf_counter() - t0
     step_ms = np.asarray(rec["step_s"]) * 1e3
     losses = rec["losses"]
-    want = train_launches(cfg, TRAIN_S, TRAIN_STEPS)
+    want = train_launches(cfg, seq, steps)
     got = {k: v for k, v in rec["launches"].items() if v}
-    log(f"  (b) {TRAIN_ARCH} at full width ({cfg.n_layers} layers, d {cfg.d_model}, vocab"
-        f" {cfg.vocab}, hd {cfg.head_dim}, {cfg.layer_pattern().count('dense')} global layers),"
-        f" B {TRAIN_B}, S {TRAIN_S}, one rank ({rec['device']}), {TRAIN_STEPS} steps in"
-        f" {wall:.1f} s (spawn and set-up included) on {smi}: loss {losses[0]:.4f} ->"
-        f" {losses[-1]:.4f}; step ms p50 {np.median(step_ms):.2f}, max {step_ms.max():.2f}"
-        f" (host clock to the loss on the host); peak memory"
+    pat = cfg.layer_pattern()
+    log(f"  (b) {arch} at full width ({cfg.n_layers} layers: "
+        f"{', '.join(f'{pat.count(k)} {k}' for k in dict.fromkeys(pat))}; d {cfg.d_model}, vocab"
+        f" {cfg.vocab}, hd {cfg.head_dim}), B {batch}, S {seq}, one rank ({rec['device']}),"
+        f" {steps} steps in {wall:.1f} s (spawn and set-up included) on {smi}: loss"
+        f" {losses[0]:.4f} -> {losses[-1]:.4f}; step ms p50 {np.median(step_ms):.2f}, max"
+        f" {step_ms.max():.2f} (host clock to the loss on the host); peak memory"
         f" {rec['peak_bytes'] / 2**30:.2f} GiB; drift scores {rec['drifts'][0]:.4f} ->"
         f" {rec['drifts'][-1]:.4f}")
-    log(f"    launches {got}, expected {want}: {train_flash_layers(cfg, TRAIN_S)} layers take"
-        f" flash at S {TRAIN_S} (the sliding window is {cfg.sliding_window}), twice forward"
-        " (remat) and once backward a step")
-    assert losses[-1] < losses[0] and all(np.isfinite(losses)), losses
-    assert got == want, f"train launches {got}, expected {want}"
+    log(f"    launches {got}, expected {want}: {train_flash_layers(cfg, seq)} layers take flash"
+        f" at S {seq} (the sliding window is {cfg.sliding_window}) and"
+        f" {train_gla_layers(cfg)} GLA, twice forward (remat) and once backward a step")
+    assert all(np.isfinite(losses)) and (losses[-1] < losses[0] or not falling), losses
+    assert got == want, f"{arch} train launches {got}, expected {want}"
     return got
 
 
-def train_profile():
+def _slstm_timed(fwd: list, bwd: list):
+    """blocks.slstm_mix with each call timed between synchronizes into
+    ``fwd`` (the forward and the checkpoint's recompute) and the backward
+    from its output's gradient to its input's into ``bwd``; a recompute
+    inside that window is the window's."""
+    import torch
+
+    import repro_torch.models.blocks as blocks
+
+    plain, starts = blocks.slstm_mix, []
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, end):
+            ctx.end = end
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            torch.cuda.synchronize()
+            if ctx.end:
+                bwd.append(time.perf_counter() - starts.pop())
+            else:
+                starts.append(time.perf_counter())
+            return g, None
+
+    def timed(p, x, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = plain(p, Mark.apply(x, True), **kw)
+        torch.cuda.synchronize()
+        if not starts:
+            fwd.append(time.perf_counter() - t0)
+        return Mark.apply(out, False), st
+
+    return timed
+
+
+def train_profile(arch: str, batch: int, seq: int):
     """(b) the device's busy share of one full-width step: its kernels' time
     (torch.profiler) over the wall time of the step before it, in this
-    process, after a step that warms it up."""
+    process, after a step that warms it up; the backward kernels' time in
+    the step. For xLSTM instead one step (phase 19 has run its kernels in
+    this process) with its sLSTM layers' token loops (forward, recompute
+    and backward) timed between synchronizes: their share of the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import repro_torch.models.blocks as blocks
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import init_params
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda")
     params = init_params(gen.manual_seed(0), cfg, device="cuda")
     opt = make_optimizer(cfg, lr=1e-3)
     state = opt.init(params)
     step = make_train_step(cfg, opt)
-    batch = synthetic_batch(gen, cfg.vocab, TRAIN_B, TRAIN_S, 0, device="cuda")
-    t0 = time.perf_counter()
-    params, state, met = step(params, state, batch)
-    float(met["loss"])
-    torch.cuda.synchronize()
-    log(f"  (b) a first step in this process (after phase (a)): {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    params, state, met = step(params, state, batch)
-    float(met["loss"])
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    batch = synthetic_batch(gen, cfg.vocab, batch, seq, 0, device="cuda")
+
+    def one():
+        nonlocal params, state
         t0 = time.perf_counter()
         params, state, met = step(params, state, batch)
         float(met["loss"])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    if "slstm" in cfg.layer_pattern():  # xLSTM: its sLSTM loops' share of one step
+        fwd: list = []
+        bwd: list = []
+        plain_slstm = blocks.slstm_mix
+        blocks.slstm_mix = _slstm_timed(fwd, bwd)
+        try:
+            step_ms = one()
+        finally:
+            blocks.slstm_mix = plain_slstm
+        layers = cfg.layer_pattern().count("slstm")
+        assert len(bwd) == layers and layers <= len(fwd) <= 2 * layers, (len(fwd), len(bwd))
+        loops = (sum(fwd) + sum(bwd)) * 1e3
+        log(f"  (b) {arch}: a step in this process with its {layers} sLSTM layers' token loops"
+            f" timed between synchronizes: {step_ms:.1f} ms, the loops {loops:.1f} ms of it"
+            f" ({loops / step_ms:.3f}): forward and recompute {sum(fwd) * 1e3:.1f} ms, backward"
+            f" {sum(bwd) * 1e3:.1f} ms")
+        return
+    log(f"  (b) {arch}: a first step in this process: {one() / 1e3:.2f} s")
+    plain_ms = one()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_ms = one()
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not dev_ms:
-        log(f"  (b) one step profiled: wall {wall_ms:.2f} ms, device time not measured")
-        return
-    log(f"  (b) one step: wall {plain_ms:.2f} ms, then {wall_ms:.2f} ms under the profiler;"
-        f" device {dev_ms:.2f} ms (the kernels' sum): busy share {dev_ms / plain_ms:.3f} of the"
-        f" step ({dev_ms / wall_ms:.3f} of the profiled one)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    bwd = [e for e in events if any(k in e.key for k in BWD_KERNELS)]
-    bwd_ms = sum(e.self_device_time_total for e in bwd) / 1e3
-    n_bwd = max((e.count for e in bwd), default=0)
-    log(f"  (b) the flash backward in the step: {bwd_ms:.3f} ms over {n_bwd} calls"
-        f" ({bwd_ms / max(n_bwd, 1):.4f} ms a call: {', '.join(sorted(e.key[:60] for e in bwd))}),"
-        f" {bwd_ms / dev_ms:.3f} of the step's kernels")
+        log(f"  (b) {arch}: one step profiled: wall {wall_ms:.2f} ms, device time not measured")
+    else:
+        log(f"  (b) {arch}: one step: wall {plain_ms:.2f} ms, then {wall_ms:.2f} ms under the"
+            f" profiler; device {dev_ms:.2f} ms (the kernels' sum): busy share"
+            f" {dev_ms / plain_ms:.3f} of the step ({dev_ms / wall_ms:.3f} of the profiled one)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        for what, names in (("the flash backward", BWD_KERNELS),
+                            ("the GLA backward", GLA_BWD_KERNELS)):
+            mine = [e for e in events if any(k in e.key for k in names)]
+            if not mine:
+                continue
+            ms = sum(e.self_device_time_total for e in mine) / 1e3
+            n = max(e.count for e in mine)
+            log(f"  (b) {arch}: {what} in the step: {ms:.3f} ms over {n} calls ({ms / n:.4f} ms"
+                f" a call: {', '.join(sorted(e.key[:48] for e in mine))}), {ms / dev_ms:.3f} of"
+                " the step's kernels")
 
 
 def _train_rel(got, want) -> float:
@@ -5044,12 +5209,12 @@ def train_card_vs_cpu():
     from repro_torch.models import init_params
     from repro_torch.optim import sgd, tree_leaves
 
-    for name in TRAIN_CPU:
+    for name, seq in TRAIN_CPU.items():
         cfg = get_config(name).reduced()
         cpu = init_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
         card = to_card(cpu)
         rng = np.random.default_rng(SEED + 20)
-        batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, TRAIN_CPU_S)))
+        batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, seq)))
                     for k in ("tokens", "labels")} for _ in range(2)]
         on = [{k: v.cuda() for k, v in b.items()} for b in batches]
 
@@ -5060,9 +5225,9 @@ def train_card_vs_cpu():
         (lc, gc), (lg, gg) = grads(cpu, batches[0]), grads(card, on[0])
         worst = max(_train_rel(g, c) for g, c in zip(gg, gc))
         dl = abs(float(lg) - float(lc))
-        log(f"  (c) {name} reduced: lm_loss card {float(lg):.6f} CPU {float(lc):.6f} (|Δ| {dl:.2e},"
-            f" bound {TRAIN_LOSS_ABS}); the worst gradient leaf {worst:.2e} of its max |g|"
-            f" (bound {TRAIN_GRAD_REL})")
+        log(f"  (c) {name} reduced, S {seq}: lm_loss card {float(lg):.6f} CPU {float(lc):.6f}"
+            f" (|Δ| {dl:.2e}, bound {TRAIN_LOSS_ABS}); the worst gradient leaf {worst:.2e} of its"
+            f" max |g| (bound {TRAIN_GRAD_REL})")
         assert dl <= TRAIN_LOSS_ABS and worst <= TRAIN_GRAD_REL
 
         def run(c, params, opt, bs):
@@ -5097,38 +5262,60 @@ def train_card_vs_cpu():
             log(text + f" (bounds {TRAIN_LOSS_ABS}, {TRAIN_GRAD_REL})")
 
 
-def train_gla_refusal():
-    """(d) gla_forward on a CUDA input that requires a gradient."""
+def train_gla_function():
+    """(d) gla_forward on CUDA inputs that require a gradient: GLAForward, one
+    gla_backward launch, the gradients the CPU's within TRAIN_GRAD_REL of
+    each one's largest."""
     import torch
+    import torch.nn.functional as F
 
-    from repro_torch.kernels import gla_forward
+    from repro_torch.kernels import gla_forward, launch_counts
 
-    q = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
-    k, v, la = torch.zeros_like(q), torch.zeros_like(q), torch.zeros((1, 8, 2), device="cuda")
-    try:
-        gla_forward(q, k, v, la)
-    except NotImplementedError as e:
-        log(f"  (d) gla_forward refuses a CUDA input that requires a gradient: {e}")
-    else:
-        raise AssertionError("gla_forward took a CUDA input that requires a gradient")
+    gen = torch.Generator().manual_seed(SEED + 22)
+    x = [torch.randn(shape, generator=gen) for shape in ((2, 200, 3, 16), (2, 200, 3, 16),
+                                                         (2, 200, 3, 64))]
+    x.append(-F.softplus(torch.randn((2, 200, 3), generator=gen)) / 4)
+    dy, ds = torch.randn((2, 200, 3, 64), generator=gen), torch.randn((2, 3, 16, 64), generator=gen)
+    grads = {}
+    for where in ("cpu", "cuda"):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in x]
+        y, st = gla_forward(*leaves)
+        assert type(y.grad_fn).__name__ == "GLAForwardBackward", type(y.grad_fn)
+        before = launch_counts()["gla_backward"]
+        ((y * dy.to(where)).sum() + (st * ds.to(where)).sum()).backward()
+        launched = launch_counts()["gla_backward"] - before
+        assert launched == (where == "cuda"), f"{where}: {launched} gla_backward launches"
+        grads[where] = [t.grad for t in leaves]
+    rels = [_train_rel(g, c) for g, c in zip(grads["cuda"], grads["cpu"])]
+    log(f"  (d) gla_forward on CUDA inputs that require a gradient: GLAForward, one gla_backward"
+        f" launch; dq, dk, dv, dlog a against the CPU's {', '.join(f'{r:.2e}' for r in rels)}"
+        f" (bound {TRAIN_GRAD_REL})")
+    assert all(r <= TRAIN_GRAD_REL for r in rels)
 
 
-def phase_train(smi: str) -> tuple[dict, dict[str, int]]:
-    """Phase 20; returns the kernel line's flash_attention_bwd row and the
-    training run's launches."""
+def phase_train(smi: str) -> tuple[dict, dict, dict[str, int]]:
+    """Phase 20; returns the kernel line's flash_attention_bwd and
+    gla_backward rows and the training runs' launches."""
     t0 = time.perf_counter()
     log("  (a) the flash backward alone against its plain version, SDPA's backward beside it")
     row = flash_bwd_rows()
-    t1 = time.perf_counter()
-    launches = train_run(smi)
-    t2 = time.perf_counter()
-    train_profile()
+    log("  (a) the GLA backward alone against its plain version")
+    gla_row = gla_bwd_rows(smi)
+    parts = [f"(a) {time.perf_counter() - t0:.1f} s"]
+    launches: dict[str, int] = {}
+    for arch, batch, seq, steps, merge_every, falling in (
+            (TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_MERGE_EVERY, True),
+            *TRAIN_GLA_RUNS):
+        t1 = time.perf_counter()
+        for k, v in train_run(smi, arch, batch, seq, steps, merge_every, falling).items():
+            launches[k] = launches.get(k, 0) + v
+        train_profile(arch, batch, seq)
+        parts.append(f"(b) {arch} {time.perf_counter() - t1:.1f} s")
     t3 = time.perf_counter()
     train_card_vs_cpu()
-    train_gla_refusal()
-    log(f"  phase 20's parts: (a) {t1 - t0:.1f} s, (b) the training run {t2 - t1:.1f} s, the profiled"
-        f" step {t3 - t2:.1f} s, (c) and (d) {time.perf_counter() - t3:.1f} s")
-    return row, launches
+    train_gla_function()
+    log(f"  phase 20's parts: {', '.join(parts)}, (c) and (d) {time.perf_counter() - t3:.1f} s")
+    return row, gla_row, launches
 
 
 def main() -> int:
@@ -5209,7 +5396,7 @@ def main() -> int:
     launches.update(attn_launches)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
-    log("phase 10: wide layers (Ñ = 256 and 384 end to end, the kernels at Ñ = 320, 768 and"
+    log("phase 10: wide layers (Ñ = 384 end to end, the kernels at Ñ = 320, 768 and"
         " 1024) and the other sizes past the old limits (bands, trims, heads, GLA and flash"
         " widths)")
     t0 = time.perf_counter()
@@ -5275,10 +5462,11 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
-    log(f"phase 20: training {TRAIN_ARCH} at full width (the flash backward, the training run, a"
-        " profiled step, card against CPU, the GLA refusal)")
+    log(f"phase 20: training {TRAIN_ARCH}, hymba-1.5b and xlstm-1.3b at full width (the flash"
+        " and GLA backwards, the training runs, profiled steps, card against CPU, GLAForward on"
+        " the card)")
     t0 = time.perf_counter()
-    rows["flash_attention_bwd"], train_counts = phase_train(smi)
+    rows["flash_attention_bwd"], rows["gla_backward"], train_counts = phase_train(smi)
     for k, v in train_counts.items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
@@ -5318,6 +5506,8 @@ def main() -> int:
         # no pallas_call: the reference's custom VJP, _fa_backward_impl
         "flash_attention_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
                                 "src/repro/models/layers.py:192"),
+        # no pallas_call: jax's autodiff of the reference's chunked_linear_attention
+        "gla_backward": ("src/repro_torch/csrc/gla_scan_bwd.cu", "src/repro/models/ssm.py:33"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
     kernels = []
@@ -5329,7 +5519,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    assert len(kernels) == len(sources) == 16, f"{len(kernels)} kernels in the list"
+    assert len(kernels) == len(sources) == 17, f"{len(kernels)} kernels in the list"
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

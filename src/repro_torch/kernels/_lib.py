@@ -17,8 +17,9 @@ No kernel here writes a result that autograd can follow. So a CUDA
 operand that requires a gradient, with grad mode on, is refused
 (``refuse_grad``, from ``operands``, which every wrapper's CUDA branch
 calls) unless the wrapper is a ``torch.autograd.Function`` whose backward
-is a kernel too (``flash_attention``): the card never hands back a result
-without a ``grad_fn`` where the CPU's plain version would have one.
+is a kernel too (``flash_attention``, ``gla_forward``): the card never
+hands back a result without a ``grad_fn`` where the CPU's plain version
+would have one.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ KERNELS = ("fleet_ingest", "masked_segment_sum_mix", "from_uv_solve", "banded_me
            "quantize_pack", "robust_segment_sum_mix", "dense_mix",
            "hidden_proj", "matmul_atb", "rank1_add",
            "segment_sum_mix", "segment_broadcast", "banded_mix",
-           "flash_attention", "gla_forward", "flash_attention_bwd")
+           "flash_attention", "gla_forward", "flash_attention_bwd", "gla_backward")
 _launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -139,6 +140,7 @@ _SIGNATURES = {
     "repro_flash_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "repro_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _I, _P],
     "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
+    "repro_gla_backward": [_P] * 15 + [_I] * 7 + [_P],
     "repro_gla_smem": [_I] * 2,
     "repro_ingest_beta_tile": [],
     "repro_ingest_chunk": [_I],
@@ -147,6 +149,7 @@ _SIGNATURES = {
 _SIZES = {
     "repro_uv_solve_ws": [_I, _I, _I],
     "repro_robust_ws": [_I, _I, _L],
+    "repro_gla_bwd_parts": [_I] * 6,
 }
 
 
@@ -200,21 +203,13 @@ def on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-# where the backward of a kernel that has none yet is planned
-NO_BACKWARD = {
-    "gla_forward": "ROADMAP queue 1, 'the GLA backward' (so the mLSTM and Mamba, hymba and "
-                   "xlstm, train on the card)",
-}
-
-
 def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` where grad mode is on and one of
     ``tensors`` requires a gradient: ``kernel`` has no backward."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        where = NO_BACKWARD.get(kernel, "no backward is planned")
         raise NotImplementedError(
             f"{kernel}: an operand requires a gradient, and the kernel has no backward on the "
-            f"card ({where}); call it under torch.no_grad() or on the CPU")
+            f"card (no training path needs one); call it under torch.no_grad() or on the CPU")
 
 
 def operands(kernel: str, dtypes: tuple[torch.dtype, ...] = F32, *, unit_last: bool = False,

@@ -1,4 +1,6 @@
-"""Chunked gated-linear-attention forward; port of ``repro.kernels.gla_scan``.
+"""Chunked gated-linear-attention forward and backward; port of
+``repro.kernels.gla_scan`` and of jax's autodiff of the reference's
+``models/ssm.py::chunked_linear_attention``.
 
 ``gla_forward`` takes ``gla_forward_plain`` for CPU tensors and launches
 the kernels of ``csrc/gla_scan.cu`` for CUDA tensors, or raises. q and k
@@ -18,11 +20,23 @@ order, the gate by select, the carry S·e^{tot} + ΔS, padding with
 log a = 0 and zeroed q, k, v; its products are PyTorch's, so the two
 agree to f32 rounding, not bit for bit.
 
-The kernels have no backward yet (ROADMAP queue 1, "the GLA backward"): on
-the card, an operand that requires a gradient with grad mode on raises
-``NotImplementedError`` (``_lib.refuse_grad``), so an mLSTM or Mamba
-config does not train there. The plain version is ordinary PyTorch, which
-autograd differentiates on the CPU.
+Where grad mode is on and q, k, v or log a requires a gradient,
+``gla_forward`` is a ``torch.autograd.Function`` (``GLAForward``) on
+either device: its forward keeps what the kernels leave in their scratch,
+the state entering each chunk and each chunk's e^{tot}, and its backward
+is ``gla_backward``, the kernels of ``csrc/gla_scan_bwd.cu`` on the card
+(four launches, one count; any dk × dv, no atomics) and
+``gla_backward_plain`` on the CPU. It takes the cotangents of y and of the
+final state (either may be None) and returns dq, dk, dv and dlog a in
+their operands' types: the state's gradient carried from the last chunk
+to the first, G_{c−1} = G_c·e^{tot_c} + (q ⊙ e^{cum})ᵀ·dy_c, then each
+chunk's dq, dk and dv from its own tokens, S_in and G_c, and dlog a_t =
+⟨dS_final, S_final⟩ + Σ_{s ≥ t} (q_s·dq_s − k_s·dk_s), a reverse cumsum
+within each chunk and then the later chunks' sums carried in chunk order
+(``csrc/gla_scan_bwd.cu``'s header has the formulas). Without a gradient
+to take, the forward runs as before. The plain versions compute in f64
+where every operand is f64 (so that ``torch.autograd.gradcheck`` can hold
+the Function), else in f32.
 """
 from __future__ import annotations
 
@@ -30,9 +44,11 @@ import torch
 
 from repro_torch.kernels import _lib
 
-__all__ = ["CHUNK", "gla_forward", "gla_forward_plain", "wide_path"]
+__all__ = ["CHUNK", "GLAForward", "gla_backward", "gla_backward_plain", "gla_forward",
+           "gla_forward_plain", "wide_path"]
 
 CHUNK = 128  # tokens per chunk at most, the kernel's kMaxChunk
+STRIP = 64   # dk columns a block of the backward's chunk pass owns (the kernel's kTile)
 
 
 def wide_path(dk: int, dv: int) -> bool:
@@ -49,8 +65,29 @@ def _check(q, k, v, log_a) -> None:
         raise ValueError(f"gla_forward: log_a must be {tuple(q.shape[:3])}, got {tuple(log_a.shape)}")
 
 
+def _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state) -> None:
+    _check(q, k, v, log_a)
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    n = -(-s // min(CHUNK, s)) if s else 0
+    want = {"dy": (dy, v.shape), "states": (states, (b, h, n, dk, dv)),
+            "decay": (decay, (b, h, n))}
+    if dstate_final is not None:
+        if state is None:
+            raise ValueError("gla_backward: a final-state cotangent needs the final state")
+        want.update(dstate_final=(dstate_final, (b, h, dk, dv)), state=(state, (b, h, dk, dv)))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"gla_backward: {name} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _compute_type(*tensors: torch.Tensor) -> torch.dtype:
+    """The plain versions' type: f64 where every operand is f64, else f32."""
+    return torch.float64 if all(t.dtype == torch.float64 for t in tensors) else torch.float32
+
+
 def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive f32 cumsum over the last axis, one token after the other as
+    """Inclusive cumsum over the last axis, one token after the other as
     the kernels' scanning thread adds them (``torch.cumsum`` on the CPU sums
     in f64, on the card in a parallel scan)."""
     out = x.clone()
@@ -59,49 +96,75 @@ def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gla_forward_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
+def _chunks(x: torch.Tensor, n: int, c: int, ct: torch.dtype) -> torch.Tensor:
+    """(B, S, H, ...) → (B, H, n, c, ...) in ``ct``, zero-padded past S."""
+    b, s, h = x.shape[:3]
+    x = x.to(ct).transpose(1, 2)
+    x = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 3) + (0, n * c - s))
+    return x.reshape(b, h, n, c, *x.shape[3:])
+
+
+def _unchunk(x: torch.Tensor, s: int) -> torch.Tensor:
+    """(B, H, n, c, ...) → (B, S, H, ...), the padding cut."""
+    b, h, n, c = x.shape[:4]
+    return x.reshape(b, h, n * c, *x.shape[4:])[:, :, :s].transpose(1, 2)
+
+
+def _gates(cum: torch.Tensor) -> torch.Tensor:
+    """tril(e^{cum_t − cum_τ}) (..., c, c) by select: an exponent that
+    overflows above the diagonal never meets a 0."""
+    c = cum.shape[-1]
+    tri = torch.ones((c, c), dtype=torch.bool, device=cum.device).tril()
+    return torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+
+
+def _forward_plain(q, k, v, log_a):
+    """(y, final state, the state entering each chunk (B, H, n, dk, dv),
+    each chunk's e^{tot} (B, H, n)), the states in the compute type."""
     _check(q, k, v, log_a)
     b, s, h, dk = q.shape
     dv = v.shape[-1]
-    c = min(CHUNK, s)
-    state = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
+    ct = _compute_type(q, k, v, log_a)
+    state = torch.zeros((b, h, dk, dv), dtype=ct, device=q.device)
     if s == 0:
-        return torch.empty_like(v, dtype=q.dtype), state
+        return (torch.empty_like(v, dtype=q.dtype), state,
+                torch.zeros((b, h, 0, dk, dv), dtype=ct, device=q.device),
+                torch.zeros((b, h, 0), dtype=ct, device=q.device))
+    c = min(CHUNK, s)
     n = -(-s // c)
-    pad = n * c - s
-
-    def chunks(x):  # (B, S, H, ...) → (B, H, n, c, ...) f32, zero-padded
-        x = x.float().transpose(1, 2)
-        x = torch.nn.functional.pad(x, (0, 0) * (x.ndim - 3) + (0, pad))
-        return x.reshape(b, h, n, c, *x.shape[3:])
-
-    qc, kc, vc, lac = chunks(q), chunks(k), chunks(v), chunks(log_a)
+    qc, kc, vc, lac = (_chunks(x, n, c, ct) for x in (q, k, v, log_a))
     cum = _sequential_cumsum(lac)                        # (B, H, n, c)
-    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
-    ys = []
+    gates = _gates(cum)
+    ys, states, decays = [], [], []
     for i in range(n):
         qi, ki, vi, cu = qc[:, :, i], kc[:, :, i], vc[:, :, i], cum[:, :, i]
         tot = cu[..., -1]
+        states.append(state)
+        decays.append(torch.exp(tot))
         y = (qi * torch.exp(cu)[..., None]) @ state
-        gate = torch.where(tri, torch.exp(cu[..., :, None] - cu[..., None, :]), 0.0)
-        y = y + ((qi @ ki.transpose(-1, -2)) * gate) @ vi
+        y = y + ((qi @ ki.transpose(-1, -2)) * gates[:, :, i]) @ vi
         ys.append(y)
         w = torch.exp(tot[..., None] - cu)[..., None]
-        state = state * torch.exp(tot)[..., None, None] + (ki * w).transpose(-1, -2) @ vi
-    y = torch.stack(ys, 2).reshape(b, h, n * c, dv)[:, :, :s].transpose(1, 2)
-    return y.to(q.dtype), state
+        state = state * decays[-1][..., None, None] + (ki * w).transpose(-1, -2) @ vi
+    y = _unchunk(torch.stack(ys, 2), s)
+    return y.to(q.dtype), state, torch.stack(states, 2), torch.stack(decays, 2)
 
 
-def gla_forward(
+def gla_forward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(y, final state) of h_t = a_t·h_{t−1} + k_t v_tᵀ, y_t = q_tᵀ h_t."""
+    y, state, _, _ = _forward_plain(q, k, v, log_a)
+    return y, state
+
+
+def _forward(q, k, v, log_a, keep: bool):
+    """The forward on q's device: (y, final state), with ``keep`` also the
+    state entering each chunk and each chunk's e^{tot}, which the backward
+    takes."""
     if _lib.on_cpu(q):
-        return gla_forward_plain(q, k, v, log_a)
+        out = _forward_plain(q, k, v, log_a)
+        return out if keep else out[:2]
     _check(q, k, v, log_a)
-    _lib.refuse_grad("gla_forward", q, k, v, log_a)
     dtype = q.dtype
     q, k, v = _lib.operands("gla_forward", _lib.F32_BF16, q=q, k=k, v=v)
     bf16 = int(q.dtype == torch.bfloat16)
@@ -112,20 +175,159 @@ def gla_forward(
     dv = v.shape[-1]
     y = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     state = torch.empty((b, h, dk, dv), dtype=torch.float32, device=q.device)
-    if s == 0:
-        return y.to(dtype), state.zero_()
-    c = min(CHUNK, s)
+    c = min(CHUNK, s) if s else 1
     n = -(-s // c)
-    lib = _lib.library()
     # the kernels' scratch: each chunk's state increment, then the state
     # entering it, and each chunk's decay e^{tot}; (B, H, n, dk, dv) f32 is
     # 268 MB at B = 4, S = 2048, H = 4 and xLSTM's dk × dv = 512 × 513
     dstate = torch.empty((b, h, n, dk, dv), dtype=torch.float32, device=q.device)
     decay = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    status = lib.repro_gla_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), y.data_ptr(), state.data_ptr(),
-        dstate.data_ptr(), decay.data_ptr(), b, s, h, dk, dv, c, bf16, _lib.stream(),
-    )
-    _lib.check(status, "gla_forward")
-    _lib.count_launch("gla_forward")
-    return y.to(dtype), state
+    if s == 0:
+        state.zero_()
+    else:
+        status = _lib.library().repro_gla_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), y.data_ptr(),
+            state.data_ptr(), dstate.data_ptr(), decay.data_ptr(), b, s, h, dk, dv, c, bf16,
+            _lib.stream(),
+        )
+        _lib.check(status, "gla_forward")
+        _lib.count_launch("gla_forward")
+    return (y.to(dtype), state, dstate, decay) if keep else (y.to(dtype), state)
+
+
+def gla_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor, dy: torch.Tensor,
+    dstate_final: torch.Tensor | None, states: torch.Tensor, decay: torch.Tensor,
+    state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv, dlog a) in q's, k's, v's and log a's types, with the
+    kernels' arithmetic chunk by chunk: the state's gradient carried from
+    the last chunk (G·e^{tot} + ΔG, product and sum rounded apart), each
+    dC_t summed over dk in strips of ``STRIP`` taken in order, its reverse
+    cumsum token after token within each chunk, then the chunks' carry from
+    ⟨dS_final, S_final⟩ in chunk order from the last; its products are
+    PyTorch's."""
+    _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state)
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    ct = _compute_type(q, k, v, log_a, dy)
+    if s == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v),
+                torch.zeros_like(log_a))
+    c = min(CHUNK, s)
+    n = -(-s // c)
+    qc, kc, vc, dyc, lac = (_chunks(x, n, c, ct) for x in (q, k, v, dy, log_a))
+    cum = _sequential_cumsum(lac)                         # (B, H, n, c)
+    eq = torch.exp(cum)[..., None]
+    ew = torch.exp(cum[..., -1:] - cum)[..., None]
+    states, decay = states.to(ct), decay.to(ct)
+    # the gradient of the state leaving each chunk, from the last
+    inc = (qc * eq).transpose(-1, -2) @ dyc                # ΔG (B, H, n, dk, dv)
+    g = (torch.zeros((b, h, dk, dv), dtype=ct, device=q.device) if dstate_final is None
+         else dstate_final.to(ct))
+    gs = [g] * n
+    for i in reversed(range(n)):
+        gs[i] = g
+        g = g * decay[:, :, i, None, None] + inc[:, :, i]
+    gc = torch.stack(gs, 2)
+    gates = _gates(cum)
+    dp = (dyc @ vc.transpose(-1, -2)) * gates
+    dq = (dyc @ states.transpose(-1, -2)) * eq + dp @ kc
+    dk_ = dp.transpose(-1, -2) @ qc + (vc @ gc.transpose(-1, -2)) * ew
+    dv_ = ((qc @ kc.transpose(-1, -2)) * gates).transpose(-1, -2) @ dyc + (kc @ gc) * ew
+    dc = None
+    for i0 in range(0, dk, STRIP):
+        sl = slice(i0, i0 + STRIP)
+        part = (qc[..., sl] * dq[..., sl]).sum(-1) - (kc[..., sl] * dk_[..., sl]).sum(-1)
+        dc = part if dc is None else dc + part
+    local = _sequential_cumsum(dc.flip(-1)).flip(-1)       # Σ_{s ≥ t} within each chunk
+    carry = (torch.zeros((b, h), dtype=ct, device=q.device) if dstate_final is None
+             else (dstate_final.to(ct) * state.to(ct)).sum((-2, -1)))
+    carries = [carry] * n
+    for i in reversed(range(n)):
+        carries[i] = carry
+        carry = carry + local[:, :, i, 0]
+    dla = local + torch.stack(carries, 2)[..., None]
+    return (_unchunk(dq, s).to(q.dtype), _unchunk(dk_, s).to(k.dtype),
+            _unchunk(dv_, s).to(v.dtype), _unchunk(dla, s).to(log_a.dtype))
+
+
+def gla_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor, dy: torch.Tensor,
+    dstate_final: torch.Tensor | None, states: torch.Tensor, decay: torch.Tensor,
+    state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv, dlog a) of ``gla_forward``'s y and final
+    state against dy and ``dstate_final`` (None: no cotangent), from the
+    forward's ``states`` (the state entering each chunk, (B, H, n, dk, dv))
+    and ``decay`` (each chunk's e^{tot}, (B, H, n)), and its final
+    ``state`` where ``dstate_final`` is given. On the card four launches
+    (one count); each gradient element written by one block, in a fixed
+    order."""
+    if _lib.on_cpu(q):
+        return gla_backward_plain(q, k, v, log_a, dy, dstate_final, states, decay, state)
+    _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state)
+    dtypes = q.dtype, k.dtype, v.dtype, log_a.dtype
+    q, k, v, dy = _lib.operands("gla_backward", _lib.F32_BF16, q=q, k=k, v=v, dy=dy)
+    la, states, decay = (t.float().contiguous() for t in (log_a, states, decay))
+    ds = st = None
+    if dstate_final is not None:
+        ds, st = dstate_final.float().contiguous(), state.float().contiguous()
+    for name, t in (("log_a", la), ("states", states), ("decay", decay), ("dstate_final", ds),
+                    ("state", st)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"gla_backward: {name} is on {t.device}, q on {q.device}")
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    dq, dk_, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dla = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    if s:
+        c = min(CHUNK, s)
+        n = -(-s // c)
+        lib = _lib.library()
+        # the state's gradient G_c (over each chunk's ΔG), and the partial
+        # sums of dC and of ⟨dS_final, S_final⟩: (B, H, n, dk, dv) f32 is
+        # 16.8 MB at xLSTM's training shape (B 2, S 256, H 4, 512 × 513)
+        dgrad = torch.empty((b, h, n, dk, dv), dtype=torch.float32, device=q.device)
+        parts = _lib.workspace(lib.repro_gla_bwd_parts(b, s, h, dk, dv, c), q.device)
+        status = lib.repro_gla_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), dy.data_ptr(),
+            states.data_ptr(), decay.data_ptr(), _lib.ptr(ds), _lib.ptr(st), dq.data_ptr(),
+            dk_.data_ptr(), dv_.data_ptr(), dla.data_ptr(), dgrad.data_ptr(), parts.data_ptr(),
+            b, s, h, dk, dv, c, int(q.dtype == torch.bfloat16), _lib.stream(),
+        )
+        _lib.check(status, "gla_backward")
+        _lib.count_launch("gla_backward")
+    return dq.to(dtypes[0]), dk_.to(dtypes[1]), dv_.to(dtypes[2]), dla.to(dtypes[3])
+
+
+class GLAForward(torch.autograd.Function):
+    """``gla_forward`` with its backward: the forward keeps q, k, v, log a,
+    the state entering each chunk, each chunk's e^{tot} and the final state;
+    the backward (``gla_backward``) takes None for either cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a):
+        y, state, states, decay = _forward(q, k, v, log_a, keep=True)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_a, states, decay, state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        q, k, v, log_a, states, decay, state = ctx.saved_tensors
+        if dy is None and dstate is None:
+            return None, None, None, None
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=q.dtype, device=q.device)
+        return gla_backward(q, k, v, log_a, dy, dstate, states, decay, state)
+
+
+def gla_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of h_t = a_t·h_{t−1} + k_t v_tᵀ, y_t = q_tᵀ h_t.
+    Differentiable (``GLAForward``) where a gradient is to be taken."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, log_a)):
+        return GLAForward.apply(q, k, v, log_a)
+    return _forward(q, k, v, log_a, keep=False)

@@ -3,11 +3,12 @@ mLSTM and sLSTM; port of ``repro.models.ssm``.
 
     h_t = a_t · h_{t−1} + k_t v_tᵀ ,    y_t = h_tᵀ q_t
 
-``chunked_linear_attention`` is the prefill's engine for Mamba and the
-mLSTM: it goes through ``repro_torch.kernels.gla_forward`` (the CUDA
-kernel on a card, its plain version on the CPU), which returns the final
-state for the decode cache. ``linear_attention_decode_step`` is the O(1)
-recurrent step of decoding. The sLSTM's recurrence is nonlinear (h feeds
+``chunked_linear_attention`` is the engine of Mamba and the mLSTM, in the
+prefill and in training: it goes through ``repro_torch.kernels.gla_forward``
+(the CUDA kernels on a card, their plain version on the CPU; where a
+gradient is taken, ``GLAForward``, whose backward is a kernel family too),
+which returns the final state for the decode cache.
+``linear_attention_decode_step`` is the O(1) recurrent step of decoding. The sLSTM's recurrence is nonlinear (h feeds
 the gates), so it runs token by token in plain PyTorch, in f32, as the
 reference's ``lax.scan`` does.
 

@@ -13,9 +13,10 @@ orders; ``-s`` prints the measured spread), the forward's row statistics
 m within 1e-6 and l within 1e-5 of theirs. ``torch.autograd.gradcheck``
 holds the Function in f64 at a tiny size. On the card's branch (reached
 through ``_lib.on_cpu``, the wrappers' dispatch seam) an operand that
-requires a gradient is refused by ``gla_forward`` and by every wrapper
-that calls ``_lib.operands``, while ``flash_attention`` goes to its kernel
-and raises with no fallback where the kernel cannot be loaded.
+requires a gradient is refused by every wrapper that calls
+``_lib.operands`` outside a Function, while ``flash_attention`` and
+``gla_forward`` go to their kernels and raise with no fallback where the
+kernels cannot be loaded.
 
 With bf16 operands the plain version takes the bf16 kernels' two
 roundings, p and ds to bf16 before the products they enter, and no
@@ -38,7 +39,7 @@ from repro_torch.kernels.flash_attn import (
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
-from repro_torch.kernels.gla_scan import gla_forward
+from repro_torch.kernels.gla_scan import GLAForward, gla_forward
 
 torch.set_num_threads(2)
 
@@ -139,19 +140,31 @@ def test_no_gradient_keeps_the_forward_as_it_was():
 
 
 def test_card_branch_refuses_gla_gradients(monkeypatch):
-    """gla_forward's kernels have no backward: on the card's branch an
-    operand that requires a gradient raises NotImplementedError naming the
-    ROADMAP item, before anything is built or launched."""
+    """gla_forward's kernels have a backward now: on the card's branch an
+    operand that requires a gradient goes through GLAForward to the kernels,
+    so the missing library is what raises, never NotImplementedError; with
+    no gradient to take it goes to the kernel as before."""
     monkeypatch.setattr(_lib, "on_cpu", lambda t: False)
     monkeypatch.setattr(_lib, "library", _no_library)
     q = torch.zeros((1, 4, 2, 8), requires_grad=True)
     k, v, log_a = torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2, 8)), torch.zeros((1, 4, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1.*GLA backward"):
+    calls = []
+    monkeypatch.setattr(GLAForward, "forward", _recording(GLAForward.forward, calls))
+    with pytest.raises(_NoLibrary):
         gla_forward(q, k, v, log_a)
-    with pytest.raises(NotImplementedError, match="gla_forward"):
+    with pytest.raises(_NoLibrary):
         gla_forward(q.detach(), k, v, log_a.requires_grad_(True))
+    assert len(calls) == 2
     with torch.no_grad(), pytest.raises(_NoLibrary):  # no gradient: on to the kernel
         gla_forward(q, k, v, log_a)
+    assert len(calls) == 2
+
+
+def _recording(fn, calls):
+    def forward(ctx, *args):
+        calls.append(args)
+        return fn(ctx, *args)
+    return staticmethod(forward)
 
 
 def test_operands_refuse_an_operand_that_requires_a_gradient():

@@ -31,13 +31,18 @@ rows, whose values are a fraction of row 0's, count as much: flash at
 1e-5 in f32 (the plain version's dot products are PyTorch's, in other
 orders) and 2e-2 in bf16 (a p or an output that rounds to the other bf16
 neighbour), GLA at 1e-5 and 2^-8 (its plain version repeats the kernels'
-arithmetic, its products summed in PyTorch's order). ``banded_merge_solve``
+arithmetic, its products summed in PyTorch's order); the GLA backward
+(``gla_backward``) each gradient at 1e-5 of its largest in f32 and 2^-7
+in bf16, the same bits on a second call, and ``gla_forward`` on operands
+that require a gradient runs ``GLAForward`` to the CPU's gradients.
+``banded_merge_solve``
 is held bit for bit at the har width: its loader sums each band in the
 plain version's order and its elimination is ``from_uv_solve``'s; both
 solves stay bit for bit past Ñ = 320, where they take the blocked wide
 solve. The
 model's prefill and decode on the card are held to the CPU's at 1e-4
-(reduced hymba-1.5b, f32). A registered activation (a new name, or a
+(reduced hymba-1.5b, f32), and two training steps of reduced gemma3-1b,
+granite-moe, hymba-1.5b and xlstm-1.3b to the CPU's. A registered activation (a new name, or a
 built-in name registered again) goes through ``hidden_proj`` (k=1 and
 split) and ``fleet_ingest`` in one launch, at their plain versions'
 bounds; a snapshot written on the card restores on the CPU bit for bit,
@@ -2059,18 +2064,78 @@ def test_flash_function_on_the_card_has_a_backward(cuda):
     assert _rel(q.grad.cpu(), qc.grad) <= 1e-5 and _rel(k.grad.cpu(), kc.grad) <= 1e-5
 
 
+# (B, S, H, dk, dv, dtype): chip_smoke.py phase 20 (a)'s shapes, reduced
+# (hymba-1.5b's Mamba heads in bf16 and f32, xLSTM's mLSTM past one block's
+# tiles, S off the chunk), then S inside one chunk and widths off the tiles
+GLA_BWD = [(2, 256, 25, 16, 64, torch.bfloat16), (2, 256, 25, 16, 64, torch.float32),
+           (1, 256, 4, 512, 513, torch.bfloat16), (3, 200, 5, 16, 64, torch.float32),
+           (2, 70, 3, 24, 40, torch.float32), (1, 300, 2, 64, 65, torch.bfloat16)]
+# max |kernel − plain| / max |plain| of each of dq, dk, dv, dlog a: f32 sums
+# in other orders; bf16 results rounded once from f32 values that differ in
+# their last bits (chip_smoke.py's GLA_BWD_TOL)
+GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _gla_inputs(device, b, s, h, dk, dv, dtype, seed):
+    """q, k, v, dy in dtype, log a (decays of −softplus(N(0, 1))/4) and the
+    final state's cotangent in f32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k = (torch.randn((b, s, h, dk), generator=gen, device=device).to(dtype) for _ in range(2))
+    v, dy = (torch.randn((b, s, h, dv), generator=gen, device=device).to(dtype) for _ in range(2))
+    log_a = -torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=device)) / 4
+    dstate = torch.randn((b, h, dk, dv), generator=gen, device=device)
+    return q, k, v, log_a, dy, dstate
+
+
+@pytest.mark.parametrize("shape", GLA_BWD, ids=lambda s: "-".join(map(str, s)))
+def test_gla_backward_kernel_matches_plain(cuda, shape):
+    """gla_backward against its plain version on the same forward's states,
+    with and without the final state's cotangent: each gradient in its
+    operand's type, the same bits on a second call, one count a call."""
+    from repro_torch.kernels import gla_backward, gla_backward_plain
+    from repro_torch.kernels.gla_scan import _forward
+
+    b, s, h, dk, dv, dtype = shape
+    q, k, v, log_a, dy, ds = _gla_inputs(cuda, b, s, h, dk, dv, dtype, s + dk)
+    _, state, states, decay = _forward(q, k, v, log_a, keep=True)
+    for cot in (ds, None):
+        before = launch_counts()["gla_backward"]
+        got = gla_backward(q, k, v, log_a, dy, cot, states, decay, state)
+        again = gla_backward(q, k, v, log_a, dy, cot, states, decay, state)
+        assert launch_counts()["gla_backward"] == before + 2
+        want = gla_backward_plain(q, k, v, log_a, dy, cot, states, decay, state)
+        for g, a, w, t in zip(got, again, want, (q, k, v, log_a)):
+            assert g.dtype == t.dtype and torch.equal(g, a)  # no atomics: the same bits
+            assert _rel(g.float(), w.float()) <= GLA_BWD_TOL[dtype]
+
+
 def test_gla_refuses_a_gradient_on_the_card(cuda):
-    q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
-    z = torch.zeros((1, 8, 2, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="GLA backward"):
-        gla_forward(q, z, z, torch.zeros((1, 8, 2), device=cuda))
+    """gla_forward on CUDA operands that require a gradient no longer
+    refuses: it runs GLAForward, its backward launches gla_backward once,
+    and the gradients equal the CPU's within 1e-5 of each one's largest."""
+    cpu = _gla_inputs("cpu", 2, 200, 3, 16, 64, torch.float32, 9)
+    grads = {}
+    for where in ("cpu", "cuda"):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in cpu[:4]]
+        dy, ds = (t.to(where) for t in cpu[4:])
+        y, st = gla_forward(*leaves)
+        assert type(y.grad_fn).__name__ == "GLAForwardBackward"
+        before = launch_counts()["gla_backward"]
+        ((y * dy).sum() + (st * ds).sum()).backward()
+        assert launch_counts()["gla_backward"] == before + (where == "cuda")
+        grads[where] = [t.grad for t in leaves]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(g.cpu(), w) <= 1e-5
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "granite-moe-3b-a800m", "hymba-1.5b",
+                                  "xlstm-1.3b"])
 def test_train_step_on_the_card_is_the_cpus(cuda, name):
     """Reduced (f32) configs, two sgd steps on the same weights and tokens:
     the loss within 1e-5, the gradient norm within 1e-4, the parameters'
-    moves within 1e-4 of each leaf's largest move past f32 rounding."""
+    moves within 1e-4 of each leaf's largest move past f32 rounding. The
+    GLA configs run S 200, past one chunk, so that the state's gradient is
+    carried."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
@@ -2080,8 +2145,9 @@ def test_train_step_on_the_card_is_the_cpus(cuda, name):
     cpu = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     card = _to(cpu, cuda)
     rng = np.random.default_rng(1)
-    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, 96))) for k in ("tokens",
-                                                                              "labels")}
+    seq = 200 if name in ("hymba-1.5b", "xlstm-1.3b") else 96
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (4, seq))) for k in ("tokens",
+                                                                               "labels")}
                for _ in range(2)]
     out = {}
     for where, params in (("cpu", cpu), ("cuda", card)):
