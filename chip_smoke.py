@@ -241,11 +241,13 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     Sk off the tiles, each with CUDA-event, profiler, plain and SDPA-backward
     times and the bound, the forward with its row statistics bit for bit
     the forward without; and ``gla_backward`` (the GLA's backward, four
-    launches, no atomics) against its plain version with a final-state
-    cotangent at hymba-1.5b's training shape (B 4, S 512, H 25, dk 16, dv
-    64, bf16 and f32), xLSTM's mLSTM (B 2, S 256, H 4, 512 × 513, bf16) and
-    S off the chunk (B 3, S 200, H 5), the same bits twice, each with
-    CUDA-event, profiler and plain times and the bound; (b)
+    launches, no atomics: bf16 on the tensor cores, f32 on the CUDA cores)
+    against its plain version with a final-state cotangent at hymba-1.5b's
+    training shape (B 4, S 512, H 25, dk 16, dv 64, bf16 and f32), xLSTM's
+    mLSTM (B 2, S 256, H 4, 512 × 513, bf16) and S off the chunk (B 3, S
+    200, H 5), the same bits twice, each shape's route (the kernels the
+    profiler saw), CUDA-event, profiler and plain times and the bound (bf16
+    at the tensor cores' rate); (b)
     ``repro_torch.launch.train`` at full width, one nccl rank: gemma3-1b
     (26 layers, d 1152, vocab 262 144, B 8, S 128, merges every 5 steps),
     then hymba-1.5b (32 layers, d 1600, vocab 32 001, B 4, S 512: four
@@ -253,7 +255,8 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     and max, peak memory, launches of ``flash_attention`` and
     ``flash_attention_bwd`` equal to the flash layers × steps × (2, 1) and of
     ``gla_forward`` and ``gla_backward`` to the GLA layers × steps × (2, 1),
-    each then one step profiled for the device's busy share; then
+    each then one step profiled for the device's busy share and the
+    backwards' share of its kernels; then
     xlstm-1.3b (48 layers, d 2048, 42 mLSTM layers on GLA's wide path,
     B 2, S 256, 3 steps): the loss finite, the GLA launches exact, step ms
     and the sLSTM loops' share of a step; (c) reduced gemma3-1b,
@@ -4858,8 +4861,15 @@ TRAIN_GLA = ((4, 512, 25, 16, 64, "bfloat16"), (4, 512, 25, 16, 64, "float32"),
 # sums in other orders; bf16 gradients rounded once from f32 values that
 # differ in their last bits (one bf16 step of the largest entry's binade)
 GLA_BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
-GLA_BWD_KERNELS = ("gla_bwd_state_kernel", "gla_bwd_carry_kernel", "gla_bwd_chunk_kernel",
-                   "gla_bwd_dlog_a_kernel")
+# the GLA backward's kernels by route: bf16 on the tensor cores (after
+# GLA_BWD_PAD where a width is not a multiple of 8), f32 on the CUDA cores
+GLA_BWD_ROUTES = {"bfloat16": ("gla_bwd_state_mma_kernel", "gla_bwd_carry_kernel",
+                               "gla_bwd_chunk_mma_kernel", "gla_bwd_dlog_a_kernel"),
+                  "float32": ("gla_bwd_state_kernel", "gla_bwd_carry_kernel",
+                              "gla_bwd_chunk_kernel", "gla_bwd_dlog_a_kernel")}
+GLA_BWD_PAD = "gla_bwd_pad_kernel"
+GLA_BWD_KERNELS = tuple(sorted({*GLA_BWD_ROUTES["bfloat16"], *GLA_BWD_ROUTES["float32"],
+                                GLA_BWD_PAD}))
 
 
 def flash_bwd_work(b, sq, sk, h, hd, causal, itemsize):
@@ -4970,11 +4980,31 @@ def gla_bwd_work(b, s, h, dk, dv, itemsize):
     return 2 * fma * b * h, nbytes * b * h
 
 
+def gla_bwd_route(fn, kernels: tuple[str, ...]) -> tuple[float | None, list[str]]:
+    """(device ms of one call of ``fn``, the names of the gla_bwd_ kernels
+    it launched) from one torch.profiler session of 5 calls
+    (``benchmarks/torch_device_time.py``); (None, []) when five sessions
+    missed one of ``kernels``, each launched once a call."""
+    from benchmarks.torch_device_time import profile_sessions
+
+    try:
+        ((by, _),) = profile_sessions(fn, calls=5, needs=kernels)
+    except RuntimeError:
+        return None, []
+    names = sorted({re.match(r"\w+", n[n.index("gla_bwd_"):]).group(0)
+                    for n in by if "gla_bwd_" in n})
+    total = 0.0
+    for kernel in kernels:
+        hits = [(mean, n) for name, (mean, n) in by.items() if kernel in name]
+        total += sum(mean * n for mean, n in hits) / sum(n for _, n in hits)
+    return total / 1e3, names
+
+
 def gla_bwd_rows(smi: str):
     """(a) gla_backward against its plain version at TRAIN_GLA, with a
     final-state cotangent, on the states its forward keeps; the same bits
-    on a second call; returns the kernel line's row (hymba-1.5b's bf16
-    training shape)."""
+    on a second call; each shape's route asserted; returns the kernel line's
+    row (hymba-1.5b's bf16 training shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -5001,15 +5031,19 @@ def gla_bwd_rows(smi: str):
         bnd = bound(*work, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
         r = dict(abs=abs_err, ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2), library_ms=None,
                  bound_ms=bnd[0], bound_by=bnd[1])
-        alone = device_ms(fn, 5, GLA_BWD_KERNELS)
+        route = GLA_BWD_ROUTES[dname] + ((GLA_BWD_PAD,) if dname == "bfloat16" and (
+            dk % 8 or dv % 8) else ())
+        alone, names = gla_bwd_route(fn, route)
         log(f"  (a) gla_backward B={b} S={s} H={h} dk={dk} dv={dv} {dname}, with dS_final: max rel"
             f" dq, dk, dv, dlog a {', '.join(f'{x:.2e}' for x in rels)} (tol"
             f" {GLA_BWD_TOL[dname]:.1e}), the same bits twice: {same}  ms={r['ms']:.4f} (kernels"
             f" alone {ms_text(alone)}) plain_ms={r['plain_ms']:.4f} library_ms=none"
             f"  bound_ms={bnd[0]:.4f} ({bnd[1]}: {work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB;"
-            f" at 67 TFLOP/s {work[0] / H100_F32_FLOPS * 1e3:.4f}) on {smi}")
+            f" at 67 TFLOP/s {work[0] / H100_F32_FLOPS * 1e3:.4f}; {r['ms'] / bnd[0]:.1f}× the"
+            f" bound) on {smi}  route: {', '.join(names) or 'not seen'}")
         assert same, "gla_backward: two calls differ"
         assert all(x <= GLA_BWD_TOL[dname] for x in rels), "gla_backward: kernel != plain"
+        assert not names or names == sorted(route), f"gla_backward's route: {names}"
         if row is None:
             row = r
         del q, k, v, dy, la, ds, state, states, decay, got, again, want
@@ -5076,6 +5110,26 @@ def train_run(smi: str, arch: str, batch: int, seq: int, steps: int, merge_every
     assert all(np.isfinite(losses)) and (losses[-1] < losses[0] or not falling), losses
     assert got == want, f"{arch} train launches {got}, expected {want}"
     return got
+
+
+def _gla_bwd_timed(pairs: list):
+    """kernels.gla_scan.gla_backward with a pair of CUDA events recorded
+    around each call into ``pairs`` (read after the step's synchronize)."""
+    import torch
+
+    from repro_torch.kernels import gla_scan
+
+    plain = gla_scan.gla_backward
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    return timed
 
 
 def _slstm_timed(fwd: list, bwd: list):
@@ -5149,21 +5203,29 @@ def train_profile(arch: str, batch: int, seq: int):
         return (time.perf_counter() - t0) * 1e3
 
     if "slstm" in cfg.layer_pattern():  # xLSTM: its sLSTM loops' share of one step
+        from repro_torch.kernels import gla_scan
+
         fwd: list = []
         bwd: list = []
-        plain_slstm = blocks.slstm_mix
+        gla: list = []
+        plain_slstm, plain_gla = blocks.slstm_mix, gla_scan.gla_backward
         blocks.slstm_mix = _slstm_timed(fwd, bwd)
+        gla_scan.gla_backward = _gla_bwd_timed(gla)
         try:
             step_ms = one()
         finally:
-            blocks.slstm_mix = plain_slstm
+            blocks.slstm_mix, gla_scan.gla_backward = plain_slstm, plain_gla
         layers = cfg.layer_pattern().count("slstm")
         assert len(bwd) == layers and layers <= len(fwd) <= 2 * layers, (len(fwd), len(bwd))
+        assert len(gla) == train_gla_layers(cfg), len(gla)
         loops = (sum(fwd) + sum(bwd)) * 1e3
+        gla_ms = sum(a.elapsed_time(b) for a, b in gla)
         log(f"  (b) {arch}: a step in this process with its {layers} sLSTM layers' token loops"
             f" timed between synchronizes: {step_ms:.1f} ms, the loops {loops:.1f} ms of it"
             f" ({loops / step_ms:.3f}): forward and recompute {sum(fwd) * 1e3:.1f} ms, backward"
-            f" {sum(bwd) * 1e3:.1f} ms")
+            f" {sum(bwd) * 1e3:.1f} ms; the GLA backward (CUDA events around its {len(gla)}"
+            f" calls) {gla_ms:.2f} ms ({gla_ms / len(gla):.4f} a call, {gla_ms / step_ms:.4f} of"
+            " the step)")
         return
     log(f"  (b) {arch}: a first step in this process: {one() / 1e3:.2f} s")
     plain_ms = one()
@@ -5198,7 +5260,20 @@ def _train_rel(got, want) -> float:
 
 def train_card_vs_cpu():
     """(c) the reduced configs in f32 on the same weights and tokens, card
-    against CPU."""
+    against CPU, with torch's deterministic algorithms on: without them a
+    PyTorch op of the step adds in an order that changes from run to run on
+    the card, and reduced hymba's sgd moves drift between 6.2e-5 and 1.09e-4
+    of the bound's 1e-4 (H100; the same 7.23e-5 on every run with them)."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _train_card_vs_cpu()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _train_card_vs_cpu():
     import dataclasses
 
     import numpy as np
@@ -5510,6 +5585,9 @@ def main() -> int:
         "gla_backward": ("src/repro_torch/csrc/gla_scan_bwd.cu", "src/repro/models/ssm.py:33"),
     }
     log("  " + ", ".join(f"{k}: {v} launches" for k, v in launches.items()))
+    log("  gla_backward's kernels: bf16 " + ", ".join(GLA_BWD_ROUTES["bfloat16"]) +
+        f" ({GLA_BWD_PAD} first where a width is not a multiple of 8); f32 " +
+        ", ".join(GLA_BWD_ROUTES["float32"]))
     kernels = []
     for name, r in rows.items():
         src, replaces = sources[name]

@@ -1,6 +1,7 @@
 // The bf16 tensor-core tiles of the flash attention kernels, shared by the
-// forward (csrc/flash_attn.cu) and the backward (csrc/flash_attn_bwd.cu), so
-// that the tile layout is decided in one place: blocks of four warps; rows
+// forward (csrc/flash_attn.cu) and the backward (csrc/flash_attn_bwd.cu), and
+// by the GLA backward's (csrc/gla_scan_bwd.cu), so that the tile layout is
+// decided in one place: blocks of four warps; rows
 // of a (·, H, dim) bf16 array copied by cp.async into a row-major tile of
 // HD columns padded by 16 bytes (the 8 rows an ldmatrix reads then fall in
 // 8 bank groups); the operand fragments of mma.sync m16n8k16 read from such
@@ -54,6 +55,17 @@ template <int LD>
 __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* t, int r0, int ks,
                                        int lane) {
   ldmatrix_x4(a, t + (r0 + lane % 16) * LD + 16 * ks + (lane / 16) * 8);
+}
+
+// The A fragment (16 rows from r0, depth step ks) of a padded tile whose
+// rows are the depth and whose columns are the product's rows (the GLA
+// backward's q ⊙ e^{cum} for ΔG = (q ⊙ e^{cum})ᵀ·dy, its gated dSᵀ for
+// dS·k), through ldmatrix.trans.
+template <int LD>
+__device__ __forceinline__ void a_frag_trans(uint32_t (&a)[4], const __nv_bfloat16* t, int r0,
+                                             int ks, int lane) {
+  ldmatrix_x4_trans(a, t + (16 * ks + lane % 8 + (lane / 16) * 8) * LD + r0
+                           + ((lane / 8) % 2) * 8);
 }
 
 // The B fragments of column tiles j and j+1 at depth step ks, from a tile

@@ -140,7 +140,8 @@ _SIGNATURES = {
     "repro_flash_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
     "repro_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _I, _P],
     "repro_gla_forward": [_P] * 8 + [_I] * 7 + [_P],
-    "repro_gla_backward": [_P] * 15 + [_I] * 7 + [_P],
+    "repro_gla_backward": [_P] * 15 + [_I] * 10 + [_P],
+    "repro_gla_bwd_pad": [_P] * 4 + [_L, _I, _P],
     "repro_gla_smem": [_I] * 2,
     "repro_ingest_beta_tile": [],
     "repro_ingest_chunk": [_I],
@@ -149,7 +150,7 @@ _SIGNATURES = {
 _SIZES = {
     "repro_uv_solve_ws": [_I, _I, _I],
     "repro_robust_ws": [_I, _I, _L],
-    "repro_gla_bwd_parts": [_I] * 6,
+    "repro_gla_bwd_parts": [_I] * 7,
 }
 
 

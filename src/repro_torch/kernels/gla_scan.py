@@ -25,7 +25,10 @@ Where grad mode is on and q, k, v or log a requires a gradient,
 either device: its forward keeps what the kernels leave in their scratch,
 the state entering each chunk and each chunk's e^{tot}, and its backward
 is ``gla_backward``, the kernels of ``csrc/gla_scan_bwd.cu`` on the card
-(four launches, one count; any dk × dv, no atomics) and
+(four launches, one count; any dk × dv, no atomics): f32 on the CUDA
+cores, bf16 on the tensor cores in strips that ``bwd_plan`` picks, with q,
+k, v and dy on rows of a multiple of 8 elements on 16-byte boundaries (a
+fifth launch pads or moves them where they are not);
 ``gla_backward_plain`` on the CPU. It takes the cotangents of y and of the
 final state (either may be None) and returns dq, dk, dv and dlog a in
 their operands' types: the state's gradient carried from the last chunk
@@ -36,19 +39,55 @@ within each chunk and then the later chunks' sums carried in chunk order
 (``csrc/gla_scan_bwd.cu``'s header has the formulas). Without a gradient
 to take, the forward runs as before. The plain versions compute in f64
 where every operand is f64 (so that ``torch.autograd.gradcheck`` can hold
-the Function), else in f32.
+the Function), else in f32; for q, k, v and dy all bf16 the backward
+rounds to bf16 where the reference's autodiff does (the scores, P, dP,
+dS, each gradient's intra and inter terms) and splits the f32 operand of
+each state product into hi and lo, as the tensor-core kernels do.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _lib
 
-__all__ = ["CHUNK", "GLAForward", "gla_backward", "gla_backward_plain", "gla_forward",
-           "gla_forward_plain", "wide_path"]
+__all__ = ["CHUNK", "GLAForward", "bwd_plan", "gla_backward", "gla_backward_plain",
+           "gla_forward", "gla_forward_plain", "wide_path"]
 
 CHUNK = 128  # tokens per chunk at most, the kernel's kMaxChunk
-STRIP = 64   # dk columns a block of the backward's chunk pass owns (the kernel's kTile)
+STRIP = 64   # dk columns a block of the f32 backward's chunk pass owns (the kernel's kTile)
+
+
+def _padded(n: int) -> int:
+    """A bf16 row's width on the tensor-core route: n rounded up to 8 (16 bytes)."""
+    return -(-n // 8) * 8
+
+
+def bwd_plan(dk: int, dv: int, chunks: int, sms: int) -> tuple[int, int, bool]:
+    """(wk, wv, paired) of the bf16 backward's chunk pass at dk × dv over
+    ``chunks`` chunks on a card of ``sms`` SMs: its dq/dk strips of wk
+    columns, its dv strips of wv, and whether one block takes a dv strip and
+    then a dq/dk strip (a chunk's blocks max(na, nb), else na + nb). A
+    dq/dk strip holds 72 + 2·wk accumulators a thread during its walk, a dv
+    strip 72 + wv: 32 and 64 are the widest that keep two blocks an SM,
+    narrower strips recompute the scores or dP more often. Paired where that
+    alone fits the grid in one wave of two blocks an SM. Set from the plans
+    forced at phase 20 (a)'s shapes on an H100 (the chunk pass alone;
+    PERF.md §6, row 17): hymba's 16 × 64 over 400 chunks splits (800
+    blocks, 1.07–1.28× faster than paired), the mLSTM's 512 × 513 over 16
+    pairs (32 × 64, 256 blocks, 1.16–1.17× faster than split), S 200's 30
+    chunks split (1.5×)."""
+    dkp, dvp = _padded(dk), _padded(dv)
+    wk = 16 if dkp <= 16 else 32
+    wv = 32 if dvp <= 32 else 64
+    na, nb = -(-dkp // wk), -(-dvp // wv)
+    return wk, wv, chunks * (na + nb) > 2 * sms >= chunks * max(na, nb)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def wide_path(dk: int, dv: int) -> bool:
@@ -195,6 +234,86 @@ def _forward(q, k, v, log_a, keep: bool):
     return (y.to(dtype), state, dstate, decay) if keep else (y.to(dtype), state)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even) and back."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor, split: str) -> torch.Tensor:
+    """a @ b with the f32 operand (``split`` names it: "a" or "b") split
+    into hi = bf16(x) and lo = bf16(x − hi), each against the other, exact
+    bf16 operand, the two products summed in f32 (the tensor-core kernels'
+    state products)."""
+    x = a if split == "a" else b
+    hi = _bf16(x)
+    lo = _bf16(x - hi)
+    return (hi @ b + lo @ b) if split == "a" else (a @ hi + a @ lo)
+
+
+def _bwd_plain(q, k, v, log_a, dy, dstate_final, states, decay, state):
+    """(dq, dk, dv, dlog a) (B, S, H, ·) in the compute type, before the
+    rounding of dq, dk and dv to their operands' types."""
+    _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state)
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    ct = _compute_type(q, k, v, log_a, dy)
+    if s == 0:
+        return tuple(torch.zeros(t.shape, dtype=ct, device=q.device) for t in (q, k, v, log_a))
+    # q, k, v and dy all bf16: the reference's bf16 rounding points under
+    # autodiff (csrc/gla_scan_bwd.cu's header lists them) and the state
+    # products' f32 operand split into hi and lo
+    rounded = all(t.dtype == torch.bfloat16 for t in (q, k, v, dy))
+    c = min(CHUNK, s)
+    n = -(-s // c)
+    qc, kc, vc, dyc, lac = (_chunks(x, n, c, ct) for x in (q, k, v, dy, log_a))
+    cum = _sequential_cumsum(lac)                         # (B, H, n, c)
+    eq = torch.exp(cum)[..., None]
+    ew = torch.exp(cum[..., -1:] - cum)[..., None]
+    states, decay = states.to(ct), decay.to(ct)
+    # the gradient of the state leaving each chunk, from the last
+    qe_t = (qc * eq).transpose(-1, -2)
+    inc = _split_mm(qe_t, dyc, "a") if rounded else qe_t @ dyc   # ΔG (B, H, n, dk, dv)
+    g = (torch.zeros((b, h, dk, dv), dtype=ct, device=q.device) if dstate_final is None
+         else dstate_final.to(ct))
+    gs = [g] * n
+    for i in reversed(range(n)):
+        gs[i] = g
+        g = g * decay[:, :, i, None, None] + inc[:, :, i]
+    gc = torch.stack(gs, 2)
+    gates = _gates(cum)
+    if rounded:
+        p = _bf16(_bf16(qc @ kc.transpose(-1, -2)) * gates)
+        dp = _bf16(_bf16(dyc @ vc.transpose(-1, -2)) * gates)
+        # each gradient's inter and intra terms, f32 sums before any rounding
+        qi, qx = _split_mm(dyc, states.transpose(-1, -2), "b") * eq, dp @ kc
+        ki, kx = _split_mm(vc, gc.transpose(-1, -2), "b") * ew, dp.transpose(-1, -2) @ qc
+        dq, dk_ = _bf16(qi) + _bf16(qx), _bf16(ki) + _bf16(kx)
+        dv_ = _bf16(p.transpose(-1, -2) @ dyc) + _bf16(_split_mm(kc, gc, "b") * ew)
+        # dC from the sums before the roundings, as the reference's dlog a
+        # takes its f32 terms (its bf16 dP and scores times the f32 gate)
+        dq_c, dk_c = qi + qx, ki + kx
+    else:
+        dp = (dyc @ vc.transpose(-1, -2)) * gates
+        dq = (dyc @ states.transpose(-1, -2)) * eq + dp @ kc
+        dk_ = dp.transpose(-1, -2) @ qc + (vc @ gc.transpose(-1, -2)) * ew
+        dv_ = ((qc @ kc.transpose(-1, -2)) * gates).transpose(-1, -2) @ dyc + (kc @ gc) * ew
+        dq_c, dk_c = dq, dk_
+    dc = None
+    for i0 in range(0, dk, STRIP):
+        sl = slice(i0, i0 + STRIP)
+        part = (qc[..., sl] * dq_c[..., sl]).sum(-1) - (kc[..., sl] * dk_c[..., sl]).sum(-1)
+        dc = part if dc is None else dc + part
+    local = _sequential_cumsum(dc.flip(-1)).flip(-1)       # Σ_{s ≥ t} within each chunk
+    carry = (torch.zeros((b, h), dtype=ct, device=q.device) if dstate_final is None
+             else (dstate_final.to(ct) * state.to(ct)).sum((-2, -1)))
+    carries = [carry] * n
+    for i in reversed(range(n)):
+        carries[i] = carry
+        carry = carry + local[:, :, i, 0]
+    dla = local + torch.stack(carries, 2)[..., None]
+    return _unchunk(dq, s), _unchunk(dk_, s), _unchunk(dv_, s), _unchunk(dla, s)
+
+
 def gla_backward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_a: torch.Tensor, dy: torch.Tensor,
     dstate_final: torch.Tensor | None, states: torch.Tensor, decay: torch.Tensor,
@@ -205,51 +324,11 @@ def gla_backward_plain(
     the last chunk (G·e^{tot} + ΔG, product and sum rounded apart), each
     dC_t summed over dk in strips of ``STRIP`` taken in order, its reverse
     cumsum token after token within each chunk, then the chunks' carry from
-    ⟨dS_final, S_final⟩ in chunk order from the last; its products are
-    PyTorch's."""
-    _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state)
-    b, s, h, dk = q.shape
-    dv = v.shape[-1]
-    ct = _compute_type(q, k, v, log_a, dy)
-    if s == 0:
-        return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v),
-                torch.zeros_like(log_a))
-    c = min(CHUNK, s)
-    n = -(-s // c)
-    qc, kc, vc, dyc, lac = (_chunks(x, n, c, ct) for x in (q, k, v, dy, log_a))
-    cum = _sequential_cumsum(lac)                         # (B, H, n, c)
-    eq = torch.exp(cum)[..., None]
-    ew = torch.exp(cum[..., -1:] - cum)[..., None]
-    states, decay = states.to(ct), decay.to(ct)
-    # the gradient of the state leaving each chunk, from the last
-    inc = (qc * eq).transpose(-1, -2) @ dyc                # ΔG (B, H, n, dk, dv)
-    g = (torch.zeros((b, h, dk, dv), dtype=ct, device=q.device) if dstate_final is None
-         else dstate_final.to(ct))
-    gs = [g] * n
-    for i in reversed(range(n)):
-        gs[i] = g
-        g = g * decay[:, :, i, None, None] + inc[:, :, i]
-    gc = torch.stack(gs, 2)
-    gates = _gates(cum)
-    dp = (dyc @ vc.transpose(-1, -2)) * gates
-    dq = (dyc @ states.transpose(-1, -2)) * eq + dp @ kc
-    dk_ = dp.transpose(-1, -2) @ qc + (vc @ gc.transpose(-1, -2)) * ew
-    dv_ = ((qc @ kc.transpose(-1, -2)) * gates).transpose(-1, -2) @ dyc + (kc @ gc) * ew
-    dc = None
-    for i0 in range(0, dk, STRIP):
-        sl = slice(i0, i0 + STRIP)
-        part = (qc[..., sl] * dq[..., sl]).sum(-1) - (kc[..., sl] * dk_[..., sl]).sum(-1)
-        dc = part if dc is None else dc + part
-    local = _sequential_cumsum(dc.flip(-1)).flip(-1)       # Σ_{s ≥ t} within each chunk
-    carry = (torch.zeros((b, h), dtype=ct, device=q.device) if dstate_final is None
-             else (dstate_final.to(ct) * state.to(ct)).sum((-2, -1)))
-    carries = [carry] * n
-    for i in reversed(range(n)):
-        carries[i] = carry
-        carry = carry + local[:, :, i, 0]
-    dla = local + torch.stack(carries, 2)[..., None]
-    return (_unchunk(dq, s).to(q.dtype), _unchunk(dk_, s).to(k.dtype),
-            _unchunk(dv_, s).to(v.dtype), _unchunk(dla, s).to(log_a.dtype))
+    ⟨dS_final, S_final⟩ in chunk order from the last; for bf16 q, k, v and
+    dy the tensor-core kernels' roundings and hi/lo split; its products
+    are PyTorch's."""
+    dq, dk_, dv_, dla = _bwd_plain(q, k, v, log_a, dy, dstate_final, states, decay, state)
+    return dq.to(q.dtype), dk_.to(k.dtype), dv_.to(v.dtype), dla.to(log_a.dtype)
 
 
 def gla_backward(
@@ -263,7 +342,8 @@ def gla_backward(
     and ``decay`` (each chunk's e^{tot}, (B, H, n)), and its final
     ``state`` where ``dstate_final`` is given. On the card four launches
     (one count); each gradient element written by one block, in a fixed
-    order."""
+    order; bf16 on the tensor cores (the strips of ``bwd_plan``, rows padded
+    by ``_rows``), f32 on the CUDA cores."""
     if _lib.on_cpu(q):
         return gla_backward_plain(q, k, v, log_a, dy, dstate_final, states, decay, state)
     _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state)
@@ -279,6 +359,13 @@ def gla_backward(
             raise ValueError(f"gla_backward: {name} is on {t.device}, q on {q.device}")
     b, s, h, dk = q.shape
     dv = v.shape[-1]
+    bf16 = q.dtype == torch.bfloat16
+    chunks = b * h * -(-s // min(CHUNK, s)) if s else 0
+    wk, wv, paired = (bwd_plan(dk, dv, chunks, _sm_count(q.device)) if bf16
+                      else (STRIP, 0, False))
+    if bf16:  # the tensor cores' 16-byte copies: rows of a multiple of 8, aligned
+        q, k = _rows(q, k)
+        v, dy = _rows(v, dy)
     dq, dk_, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dla = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
     if s:
@@ -289,16 +376,36 @@ def gla_backward(
         # sums of dC and of ⟨dS_final, S_final⟩: (B, H, n, dk, dv) f32 is
         # 16.8 MB at xLSTM's training shape (B 2, S 256, H 4, 512 × 513)
         dgrad = torch.empty((b, h, n, dk, dv), dtype=torch.float32, device=q.device)
-        parts = _lib.workspace(lib.repro_gla_bwd_parts(b, s, h, dk, dv, c), q.device)
+        strips = -(-q.shape[-1] // wk)
+        parts = _lib.workspace(lib.repro_gla_bwd_parts(b, s, h, dk, dv, c, strips), q.device)
         status = lib.repro_gla_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), dy.data_ptr(),
             states.data_ptr(), decay.data_ptr(), _lib.ptr(ds), _lib.ptr(st), dq.data_ptr(),
             dk_.data_ptr(), dv_.data_ptr(), dla.data_ptr(), dgrad.data_ptr(), parts.data_ptr(),
-            b, s, h, dk, dv, c, int(q.dtype == torch.bfloat16), _lib.stream(),
+            b, s, h, dk, dv, c, int(bf16), wk, wv, int(paired), _lib.stream(),
         )
         _lib.check(status, "gla_backward")
         _lib.count_launch("gla_backward")
+    dq, dk_, dv_ = dq[..., :dk], dk_[..., :dk], dv_[..., :dv]
     return dq.to(dtypes[0]), dk_.to(dtypes[1]), dv_.to(dtypes[2]), dla.to(dtypes[3])
+
+
+def _rows(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """a and b (contiguous bf16 of one shape) with their rows zero-padded to
+    a multiple of 8 elements on 16-byte boundaries: each itself where it is
+    both, else a copy, one launch for the two (zero columns add nothing to
+    any product of the backward or to dC)."""
+    width = a.shape[-1]
+    wide = _padded(width)
+    out = [t if width == wide and t.data_ptr() % 16 == 0 else
+           torch.empty(t.shape[:-1] + (wide,), dtype=t.dtype, device=t.device) for t in (a, b)]
+    moved = [(t, o) for t, o in zip((a, b), out) if o is not t]
+    if moved:
+        (s0, d0), (s1, d1) = moved[0], moved[1] if len(moved) > 1 else (None, None)
+        _lib.check(_lib.library().repro_gla_bwd_pad(
+            s0.data_ptr(), d0.data_ptr(), _lib.ptr(s1), _lib.ptr(d1), a.numel() // max(width, 1),
+            width, _lib.stream()), "gla_backward")
+    return out[0], out[1]
 
 
 class GLAForward(torch.autograd.Function):

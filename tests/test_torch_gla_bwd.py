@@ -19,12 +19,17 @@ returns NaN in dlog a, while the port's gate, by select in the backward too,
 stays finite; a test below holds the port there to a token-by-token
 recurrence in f64.
 
-In bf16 the plain version widens the inputs to f32 and rounds each
-gradient once; it is held to the reference's own run on the same bf16
-values at twice the reference's spread between that run and its run on
-the values cast to f32. ``torch.autograd.gradcheck`` holds the Function in
-f64, the plain backward equals torch's autograd of ``gla_forward_plain`` in
-f64 within 1e-12, and either cotangent may be None.
+In bf16 the plain version rounds where the reference's autodiff does (the
+scores, P, dP, dS, each gradient's intra and inter terms, and their sum)
+and splits the f32 operand of each state product into hi and lo, as the
+tensor-core kernels do: on operands on a grid of eighths, where every sum
+is exact in f32, it equals a numpy rendering of exactly those roundings,
+and misses the renderings with one of them left out by far more. It is
+held to the reference's own run on the same bf16 values at twice the
+reference's spread between that run and its run on the values cast to f32.
+``torch.autograd.gradcheck`` holds the Function in f64, the plain backward
+equals torch's autograd of ``gla_forward_plain`` in f64 within 1e-12, and
+either cotangent may be None.
 """
 import functools
 
@@ -37,6 +42,8 @@ import torch
 from repro.models.ssm import chunked_linear_attention as ref_engine
 from repro_torch.kernels.gla_scan import (
     GLAForward,
+    _bwd_plain,
+    bwd_plan,
     _forward_plain,
     gla_backward_plain,
     gla_forward,
@@ -47,6 +54,7 @@ torch.set_num_threads(2)
 
 GRAD_REL = 1e-5
 F64_REL = 1e-12
+BF16_REL = 1e-6  # the grid's sums are exact in f32: only the orders' last bits could differ
 
 # (B, S, H, dk, dv)
 SHAPES = [(2, 33, 2, 16, 64), (2, 100, 2, 8, 64), (2, 256, 2, 16, 64), (2, 300, 2, 16, 64),
@@ -124,8 +132,96 @@ def test_bf16_backward_matches_the_reference_in_bf16(shape):
     assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
     rels = [_rel(g, w) for g, w in zip(got, ref_bf16)]
     print(f"{shape} bf16: dq, dk, dv, dlog a against the reference in bf16 {rels}; its own "
-          f"bf16-f32 spread {spread} (bound twice that)")
+          f"bf16-f32 spread {spread} (bound twice that); ratios "
+          f"{[round(r / s, 3) for r, s in zip(rels, spread)]}")
     assert all(r <= 2 * s for r, s in zip(rels, spread)), (rels, spread)
+
+
+def _bf16_np(x):
+    """x (each value exact in f32) rounded to the nearest bf16, ties to even."""
+    b = np.asarray(x, np.float64).astype(np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) >> 16 << 16
+    return b.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def _render_bf16(q, k, v, dy, ds, *, scores=True, dp=True, intra=True, inter=True, split=True):
+    """numpy's dq, dk and dv before their final rounding, log a = 0 (every
+    gate and decay 1, so P = bf16(bf16(scores)·1) is one rounding of the
+    scores, dS one of dP), chunks of 128: the scores and dP rounded as they
+    leave their sums, each gradient's intra and inter terms rounded apart and
+    added, the states S_in and G_c taken as hi + lo (``split``) or rounded
+    once to bf16; each switch off leaves its rounding out."""
+    def rnd(x, on):
+        return _bf16_np(x) if on else x
+
+    def state(x):
+        hi = _bf16_np(x)
+        return hi + _bf16_np(x - hi) if split else hi
+
+    b, s, h, dk = q.shape
+    out = [np.zeros(q.shape), np.zeros(k.shape), np.zeros(v.shape)]
+    bounds = [(t0, min(t0 + 128, s)) for t0 in range(0, s, 128)]
+    for bi in range(b):
+        for hh in range(h):
+            Q, K, V, Y = (x[bi, :, hh].astype(np.float64) for x in (q, k, v, dy))
+            st, s_in = np.zeros((dk, v.shape[-1])), []
+            for t0, t1 in bounds:
+                s_in.append(st)
+                st = st + K[t0:t1].T @ V[t0:t1]
+            g, gs = ds[bi, hh].astype(np.float64), [None] * len(bounds)
+            for n in reversed(range(len(bounds))):
+                gs[n] = g
+                g = g + Q[bounds[n][0]:bounds[n][1]].T @ Y[bounds[n][0]:bounds[n][1]]
+            for n, (t0, t1) in enumerate(bounds):
+                Qc, Kc, Vc, Yc = Q[t0:t1], K[t0:t1], V[t0:t1], Y[t0:t1]
+                tri = np.tril(np.ones((t1 - t0, t1 - t0)))
+                p = rnd(Qc @ Kc.T, scores) * tri
+                dS = rnd(Yc @ Vc.T, dp) * tri
+                sx, gx = state(s_in[n]), state(gs[n])
+                out[0][bi, t0:t1, hh] = rnd(Yc @ sx.T, inter) + rnd(dS @ Kc, intra)
+                out[1][bi, t0:t1, hh] = rnd(dS.T @ Qc, intra) + rnd(Vc @ gx.T, inter)
+                out[2][bi, t0:t1, hh] = rnd(p.T @ Yc, intra) + rnd(Kc @ gx, inter)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 2, 16, 64), (1, 200, 2, 24, 40)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_bf16_plain_backward_rounds_at_the_reference_points(shape):
+    """q, k, v, dy and the final state's cotangent on a grid of eighths in
+    [-1, 1] and log a = 0, so that every sum of the backward is exact in f32
+    whatever its order: the plain version's dq, dk and dv before their own
+    rounding to bf16 equal the rendering with every bf16 point within
+    BF16_REL of each one's largest magnitude, and miss the renderings with
+    the scores', dP's, the intra terms' or the inter terms' rounding left
+    out, or the states rounded once in place of hi and lo, by more than 100
+    times that."""
+    b, s, h, dk, dv = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k = (rng.integers(-8, 9, (b, s, h, dk)).astype(np.float32) / 8 for _ in range(2))
+    v, dy = (rng.integers(-8, 9, (b, s, h, dv)).astype(np.float32) / 8 for _ in range(2))
+    ds = rng.integers(-8, 9, (b, h, dk, dv)).astype(np.float32) / 8
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, dy)]
+    log_a = torch.zeros((b, s, h))
+    _, state, states, decay = _forward_plain(*t[:3], log_a)
+    got = _bwd_plain(*t[:3], log_a, t[3], torch.from_numpy(ds), states, decay, state)
+    assert all(g.dtype == torch.float32 for g in got)
+    rounded = gla_backward_plain(*t[:3], log_a, t[3], torch.from_numpy(ds), states, decay, state)
+    assert all(torch.equal(r, g.to(r.dtype)) for r, g in zip(rounded, got))
+
+    def rels(**off):
+        return [_rel(g, w) for g, w in zip(got, _render_bf16(q, k, v, dy, ds, **off))]
+
+    every = rels()
+    missing = {name: max(rels(**{name: False})) for name in
+               ("scores", "dp", "intra", "inter", "split")}
+    print(f"{shape}: dq, dk, dv against the rendering with every bf16 point {every} (bound "
+          f"{BF16_REL}); with one left out {missing}")
+    assert all(r <= BF16_REL for r in every), every
+    assert all(r > 100 * BF16_REL for r in missing.values()), missing
+    # one operand in f32: no rounding and no split (the f32 route)
+    mixed = _bwd_plain(*t[:3], log_a, t[3].float(), torch.from_numpy(ds), states, decay, state)
+    unrounded = _render_bf16(q, k, v, dy, ds, scores=False, dp=False, intra=False, inter=False)
+    assert all(_rel(g, w) <= BF16_REL for g, w in zip(mixed, unrounded))
 
 
 def _recurrence(q, k, v, log_a):
@@ -225,3 +321,22 @@ def test_no_gradient_keeps_the_forward_as_it_was():
     assert y.grad_fn is None and torch.equal(y, want_y) and torch.equal(state, want_state)
     with torch.no_grad():
         assert gla_forward(q.requires_grad_(True), k, v, log_a)[0].grad_fn is None
+
+
+def test_bwd_plan_takes_the_sweeps_plans():
+    """The bf16 chunk pass's plan on a card of 132 SMs: hymba-1.5b's 16 × 64
+    over 400 chunks (B 4, S 512, H 25) and S 200's 30 split, the mLSTM's
+    512 × 513 over 16 (B 2, S 256, H 4) paired, as the forced sweep on an
+    H100 ranked them; every width takes an instance the kernel has (16 or
+    32 × 32 or 64) and pairs only where that fits one wave of two blocks an
+    SM and splitting does not."""
+    assert bwd_plan(16, 64, 400, 132) == (16, 64, False)
+    assert bwd_plan(16, 64, 30, 132) == (16, 64, False)
+    assert bwd_plan(512, 513, 16, 132) == (32, 64, True)
+    for dk in (1, 8, 16, 17, 24, 64, 512):
+        for dv in (1, 32, 33, 40, 65, 513):
+            for chunks in (1, 16, 400):
+                wk, wv, paired = bwd_plan(dk, dv, chunks, 132)
+                assert wk in (16, 32) and wv in (32, 64)
+                na, nb = -(-(-(-dk // 8) * 8) // wk), -(-(-(-dv // 8) * 8) // wv)
+                assert paired == (chunks * (na + nb) > 264 >= chunks * max(na, nb))

@@ -2067,13 +2067,22 @@ def test_flash_function_on_the_card_has_a_backward(cuda):
 # (B, S, H, dk, dv, dtype): chip_smoke.py phase 20 (a)'s shapes, reduced
 # (hymba-1.5b's Mamba heads in bf16 and f32, xLSTM's mLSTM past one block's
 # tiles, S off the chunk), then S inside one chunk and widths off the tiles
+# (24 × 40 in both types: dk not a multiple of 16)
 GLA_BWD = [(2, 256, 25, 16, 64, torch.bfloat16), (2, 256, 25, 16, 64, torch.float32),
            (1, 256, 4, 512, 513, torch.bfloat16), (3, 200, 5, 16, 64, torch.float32),
-           (2, 70, 3, 24, 40, torch.float32), (1, 300, 2, 64, 65, torch.bfloat16)]
+           (2, 70, 3, 24, 40, torch.float32), (1, 300, 2, 64, 65, torch.bfloat16),
+           (2, 70, 3, 24, 40, torch.bfloat16)]
 # max |kernel − plain| / max |plain| of each of dq, dk, dv, dlog a: f32 sums
 # in other orders; bf16 results rounded once from f32 values that differ in
 # their last bits (chip_smoke.py's GLA_BWD_TOL)
 GLA_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# the backward's kernels: (bf16 on the tensor cores, f32 on the CUDA cores);
+# bf16 launches gla_bwd_pad_kernel first where rows are off its 16-byte copies
+GLA_BWD_ROUTES = {torch.bfloat16: ("gla_bwd_state_mma_kernel", "gla_bwd_carry_kernel",
+                                   "gla_bwd_chunk_mma_kernel", "gla_bwd_dlog_a_kernel"),
+                  torch.float32: ("gla_bwd_state_kernel", "gla_bwd_carry_kernel",
+                                  "gla_bwd_chunk_kernel", "gla_bwd_dlog_a_kernel")}
+GLA_BWD_PAD = "gla_bwd_pad_kernel"
 
 
 def _gla_inputs(device, b, s, h, dk, dv, dtype, seed):
@@ -2087,16 +2096,33 @@ def _gla_inputs(device, b, s, h, dk, dv, dtype, seed):
     return q, k, v, log_a, dy, dstate
 
 
-@pytest.mark.parametrize("shape", GLA_BWD, ids=lambda s: "-".join(map(str, s)))
-def test_gla_backward_kernel_matches_plain(cuda, shape):
+def _gla_bwd_kernels_run(fn, want: int) -> list[str]:
+    """The names of the kernels one call of ``fn`` launched whose name holds
+    ``gla_bwd_``, from torch.profiler; a session that did not see ``want``
+    is run again, up to twice (the profiler may drop a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key.split("::")[-1] for e in prof.key_averages() if "gla_bwd_" in e.key]
+        if len(names) == want:
+            return names
+    return names
+
+
+def _check_gla_backward(q, k, v, log_a, dy, ds):
     """gla_backward against its plain version on the same forward's states,
     with and without the final state's cotangent: each gradient in its
-    operand's type, the same bits on a second call, one count a call."""
+    operand's type, the same bits on a second call, one count a call; and
+    its route, the kernels the profiler saw: the tensor cores' family for
+    bf16 (with the pad kernel where a width is not a multiple of 8 or an
+    operand is off a 16-byte boundary), the CUDA cores' for f32."""
     from repro_torch.kernels import gla_backward, gla_backward_plain
     from repro_torch.kernels.gla_scan import _forward
 
-    b, s, h, dk, dv, dtype = shape
-    q, k, v, log_a, dy, ds = _gla_inputs(cuda, b, s, h, dk, dv, dtype, s + dk)
     _, state, states, decay = _forward(q, k, v, log_a, keep=True)
     for cot in (ds, None):
         before = launch_counts()["gla_backward"]
@@ -2105,8 +2131,38 @@ def test_gla_backward_kernel_matches_plain(cuda, shape):
         assert launch_counts()["gla_backward"] == before + 2
         want = gla_backward_plain(q, k, v, log_a, dy, cot, states, decay, state)
         for g, a, w, t in zip(got, again, want, (q, k, v, log_a)):
-            assert g.dtype == t.dtype and torch.equal(g, a)  # no atomics: the same bits
-            assert _rel(g.float(), w.float()) <= GLA_BWD_TOL[dtype]
+            assert g.dtype == t.dtype and g.shape == t.shape and torch.equal(g, a)  # no atomics
+            assert _rel(g.float(), w.float()) <= GLA_BWD_TOL[q.dtype]
+    want = list(GLA_BWD_ROUTES[q.dtype])
+    if q.dtype == torch.bfloat16 and (q.shape[-1] % 8 or v.shape[-1] % 8 or any(
+            t.data_ptr() % 16 for t in (q, k, v, dy))):
+        want.append(GLA_BWD_PAD)
+    names = _gla_bwd_kernels_run(lambda: gla_backward(q, k, v, log_a, dy, ds, states, decay,
+                                                      state), len(want))
+    assert len(names) == len(want) and all(any(n.startswith(k) for n in names)
+                                           for k in want), names
+
+
+@pytest.mark.parametrize("shape", GLA_BWD, ids=lambda s: "-".join(map(str, s)))
+def test_gla_backward_kernel_matches_plain(cuda, shape):
+    b, s, h, dk, dv, dtype = shape
+    _check_gla_backward(*_gla_inputs(cuda, b, s, h, dk, dv, dtype, s + dk))
+
+
+def test_gla_backward_kernel_on_a_misaligned_view(cuda):
+    """bf16 q, k, v and dy one element into their storage (2 bytes off the
+    tensor cores' 16-byte copies): the wrapper copies them onto a boundary,
+    the tensor-core route, held to the same bound."""
+    q, k, v, log_a, dy, ds = _gla_inputs(cuda, 2, 150, 3, 16, 64, torch.bfloat16, 151)
+
+    def view(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    q, k, v, dy = (view(t) for t in (q, k, v, dy))
+    assert all(t.data_ptr() % 16 for t in (q, k, v, dy))
+    _check_gla_backward(q, k, v, log_a, dy, ds)
 
 
 def test_gla_refuses_a_gradient_on_the_card(cuda):

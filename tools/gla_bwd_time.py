@@ -18,6 +18,13 @@ shape, ``events_ms`` (CUDA events around the call, per call), ``alone_ms``
 (torch.profiler's device time of one call: the sum of every kernel it
 launches) with ``by_kernel``, the forward's ``gla_forward`` beside it by
 the same two clocks, and the plain version's events.
+
+``--plans 16x64p,32x64s,...`` (a tree with ``kernels.gla_scan.bwd_plan``)
+times each bf16 shape again on each plan forced: dq/dk strips of 16 or 32
+columns, dv strips of 32 or 64, ``p`` paired (one block a strip of each)
+or ``s`` split; each such line has the plan, both clocks, ``by_kernel`` and
+the largest of dq's, dk's, dv's and dlog a's distance from the plain
+version over its largest magnitude.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", default=None, help="a file to append the JSON lines to")
     ap.add_argument("--reps", type=int, default=20, help="calls a timing")
+    ap.add_argument("--plans", default="", help="bf16 plans to force, e.g. 16x64p,32x64s")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -53,7 +61,12 @@ def main() -> int:
         print("gla_bwd_time: no CUDA device is available", file=sys.stderr)
         return 2
     from repro_torch.kernels import gla_backward, gla_backward_plain, gla_forward
+    from repro_torch.kernels import gla_scan
     from repro_torch.kernels.gla_scan import _forward
+
+    rule = getattr(gla_scan, "bwd_plan", None)
+    plans = [(int(p[:p.index("x")]), int(p[p.index("x") + 1:-1]), p[-1] == "p")
+             for p in args.plans.split(",") if p]
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -89,10 +102,27 @@ def main() -> int:
             "forward_alone_ms": profiled(forward, args.reps)[0],
             "plain_events_ms": events_ms(plain, 2),
         })
-        print(line, flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(line + "\n")
+        lines = [line]
+        if dtype == torch.bfloat16 and rule is not None:
+            want = plain()
+            for plan in plans:
+                gla_scan.bwd_plan = lambda *_, plan=plan: plan
+                got = fn()
+                rel = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                          for g, w in zip(got, want))
+                dev, _, by = profiled(fn, args.reps)
+                lines.append(json.dumps({
+                    "label": args.label, "card": smi,
+                    "what": f"gla_backward B={b} S={s} H={h} dk={dk} dv={dv} {dname}",
+                    "plan": "%dx%d%s" % (plan[0], plan[1], "p" if plan[2] else "s"),
+                    "events_ms": events_ms(fn, args.reps), "alone_ms": dev, "by_kernel": by,
+                    "max_rel_vs_plain": rel}))
+            gla_scan.bwd_plan = rule
+        for line in lines:
+            print(line, flush=True)
+            if args.out:
+                with open(args.out, "a") as f:
+                    f.write(line + "\n")
         del q, k, v, dy, log_a, ds, state, states, decay
     return 0
 
