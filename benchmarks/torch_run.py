@@ -13,9 +13,9 @@ benchmark seeds its baseline).
 
     python benchmarks/torch_run.py [--only NAME] [--check-regression] [--device cpu]
 
-The reference benchmark not yet ported, and the ROADMAP queue 1 item
-that ports it: ``roofline_report`` (item 10, the model zoo's dry run and
-roofline).
+Reference benchmarks not yet ported: none. The last of them,
+``torch_roofline_report``, renders the dry run's records (``python -m
+repro_torch.launch.dryrun``), which need no card.
 """
 from __future__ import annotations
 
@@ -47,6 +47,7 @@ BENCHES = [
     ("torch_serve_runtime", "ours — resident serve-runtime soak: drift gating, SLO, int8"),
     ("torch_serve_ingress", "ours — async ingress front-end: load, flood, crash, degraded"),
     ("torch_mesh_merge", "ours — cooperative update as one all-reduce pair across ranks"),
+    ("torch_roofline_report", "ours — roofline table from the dry-run records"),
 ]
 
 

@@ -20,7 +20,10 @@ controller + degraded ladder + write-ahead log) in front of a resident
     continuous, and the recovered front-end serves fresh traffic.
   - **degraded** — injected worker stalls drive the ladder up
     (skip-merge vetoes governor rounds, shed rejects ingress) and calm
-    ticks drive it back down to NORMAL with merges resumed.
+    ticks drive it back down to NORMAL with merges resumed. Each stall
+    holds its tick past the deadline until the watchdog has seen it (the
+    ladder climbs a rung), so the climb and the walk back down do not
+    depend on how fast a calm tick runs on a shared host.
 
 The reference counts its jit caches to show that the tick loop compiled
 once. The port runs eagerly; its counterpart, on the card, is that the
@@ -91,6 +94,13 @@ RPS_FLOOR = 1000.0       # acceptance: sustained requests/sec
 CRASH_DEVICES = 64
 CRASH_SNAPSHOT_EVERY = 8
 CRASH_KILL_AT_TICK = 28  # mid snapshot window: several WAL-only ticks
+# The crash leg's tick deadline sits far above a snapshot tick. The leg
+# claims recovery, not the ladder (the degraded leg claims that): with the
+# default 1 s deadline, a D = 64 snapshot at the har width (np.savez_compressed
+# of ~38 MB; one of half that fleet takes 1.6 s on an H100's host) read as a
+# stall, the ladder climbed to SHED, and fresh requests that arrived during
+# it were shed.
+CRASH_TICK_DEADLINE_S = 60.0
 
 
 def build_runtime(
@@ -300,7 +310,7 @@ def _crash_frontend(workdir: Path, *, device: torch.device, seed: int = 0,
     )
     frontend = ServeFrontend(runtime, ServeConfig(
         batch=BATCH, max_delay_s=0.004, close_at_requests=32,
-        wal_dir=str(workdir / "wal"), seed=seed,
+        wal_dir=str(workdir / "wal"), tick_deadline_s=CRASH_TICK_DEADLINE_S, seed=seed,
     ))
     return runtime, frontend
 
@@ -453,6 +463,18 @@ def run_crash(workdir: Path, *, device: torch.device, n_features: int = N_FEATUR
     assert replay_summary["replayed_ticks"] == replayed, replay_summary
 
     # ---- the recovered front-end still serves fresh traffic
+    fresh_ticks: list[float] = []
+    replay_tick = runtime.tick
+
+    def timed_tick(batch, **kw):
+        t = time.perf_counter()
+        rep = replay_tick(batch, **kw)
+        fresh_ticks.append(time.perf_counter() - t)
+        return rep
+
+    runtime.tick = timed_tick
+    tick_before_fresh = runtime.tick_no
+
     async def fresh():
         await frontend.start()
         acks = await _pipelined_clients(
@@ -464,7 +486,11 @@ def run_crash(workdir: Path, *, device: torch.device, n_features: int = N_FEATUR
 
     acks = asyncio.run(fresh())
     _no_failure(frontend, acks, "crash (fresh traffic)")
-    assert all(a.ok for a in acks), {a.status for a in acks}
+    assert all(a.ok for a in acks), ({a.status for a in acks}, frontend.ladder.transitions,
+                                     max(fresh_ticks))
+    assert frontend.ladder.transitions == [], frontend.ladder.transitions
+    fresh_snapshots = sum(t % CRASH_SNAPSHOT_EVERY == 0
+                          for t in range(tick_before_fresh + 1, runtime.tick_no + 1))
     return {
         "n_devices": CRASH_DEVICES,
         "snapshot_every": CRASH_SNAPSHOT_EVERY,
@@ -479,6 +505,8 @@ def run_crash(workdir: Path, *, device: torch.device, n_features: int = N_FEATUR
         "replay_launches": replay_launches,
         "telemetry_ticks_after_replay": tel_ticks,
         "fresh_requests_ok": len(acks),
+        "fresh_tick_max_s": max(fresh_ticks),
+        "fresh_snapshots": fresh_snapshots,
         "post_recovery_ticks": runtime.tick_no,
     }
 
@@ -486,21 +514,36 @@ def run_crash(workdir: Path, *, device: torch.device, n_features: int = N_FEATUR
 # ----------------------------------------------------------------- degraded
 
 
+STALL_DEADLINE_S = 0.25   # the degraded leg's tick deadline: far above a calm tick
+STALL_CAP_S = 60.0        # an injected stall that no watchdog check sees fails the leg
+
+
 def run_degraded(*, device: torch.device, seed: int = 0) -> dict:
     n_devices = 32
     runtime = build_runtime(n_devices, device=device, seed=seed, merge_every=4)
-    stall_until = {"tick": 0}
+    stall_until = {"tick": 0, "top": Mode.NORMAL}
 
     def pre_tick(window):
-        # injected stall: the worker hangs long past the tick deadline
-        if window.seq < stall_until["tick"]:
-            time.sleep(0.08)
+        # injected stall: the worker hangs past the tick deadline until the
+        # watchdog has seen it, i.e. until the ladder climbs a rung above
+        # the highest it has reached (or sits at the top), so that each
+        # stall climbs one rung whatever the ladder did between stalls. The
+        # leg drives its own stall: a fixed sleep against a tight deadline
+        # let calm ticks on a loaded host read as stalls too, and the
+        # ladder then never walked back down.
+        if window.seq >= stall_until["tick"]:
+            return
+        ladder, t0 = frontend.ladder, time.perf_counter()
+        while ladder.mode <= stall_until["top"] < Mode.SHED:
+            assert time.perf_counter() - t0 < STALL_CAP_S, "no watchdog check saw the stall"
+            time.sleep(0.002)
+        stall_until["top"] = max(stall_until["top"], ladder.mode)
 
     frontend = ServeFrontend(runtime, ServeConfig(
         batch=BATCH, max_delay_s=0.003, close_at_requests=16,
         admission=AdmissionConfig(max_queue_per_device=8, client_cap=64),
         ladder=LadderConfig(escalate_after=2, recover_after=4),
-        tick_deadline_s=0.03, watchdog_interval_s=0.01,
+        tick_deadline_s=STALL_DEADLINE_S, watchdog_interval_s=0.01,
         pre_tick=pre_tick, seed=seed,
     ))
     make = _request_stream(n_devices, seed=seed + 3)

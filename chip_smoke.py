@@ -237,10 +237,12 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     launches, no atomics) against its plain version at gemma3-1b's global
     layer (B 8, S 128 and B 2, S 2048, H 4, hd 256, causal, bf16),
     granite-3-2b's (B 8, S 512, H 32, hd 64), hd 128 (B 4, S 512, H 32),
-    the VLM's cross attention (512 → 1601, non-causal), one f32 case and Sq,
-    Sk off the tiles, each with CUDA-event, profiler, plain and SDPA-backward
-    times and the bound, the forward with its row statistics bit for bit
-    the forward without; and ``gla_backward`` (the GLA's backward, four
+    the VLM's cross attention (512 → 1601, non-causal), one f32 case, Sq,
+    Sk off the tiles and, past hd 256, the wide pair (B 2, S 512, H 4, hd
+    320, causal, bf16; B 2, Sq 256, Sk 333, H 4, hd 512, full, f32), each
+    with its route, CUDA-event, profiler, plain and SDPA-backward times and
+    the bound, the forward with its row statistics bit for bit the forward
+    without; and ``gla_backward`` (the GLA's backward, four
     launches, no atomics: bf16 on the tensor cores, f32 on the CUDA cores)
     against its plain version with a final-state cotangent at hymba-1.5b's
     training shape (B 4, S 512, H 25, dk 16, dv 64, bf16 and f32), xLSTM's
@@ -265,7 +267,11 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from
     ``make_train_step`` steps with ``sgd`` and with ``make_optimizer``, one
     with two micro-batches; (d) ``gla_forward`` on CUDA inputs that require
     a gradient runs ``GLAForward``, one ``gla_backward`` launch, its
-    gradients the CPU's;
+    gradients the CPU's; (e) the dry run on the host (``repro_torch.launch.
+    dryrun_detector`` on the 16 × 16 layout and ``dryrun`` of gemma3-1b ×
+    decode_32k, fake tensors, nothing on the card): the detector's
+    collective bytes a device equal to its U/V payload, and each count equal
+    to what the CPU-only test host counts (``DRYRUN_COUNTS``), with seconds;
 21. the kernel list, one JSON object per kernel, then the result line.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -3507,7 +3513,11 @@ def frontend_crash():
         f" {c['replayed_windows']} windows ({c['replayed_compared']} digests bit for bit"
         f" against the child's; recover {c['recover_seconds']:.3f} s), launches"
         f" {c['replay_launches']}; telemetry ticks {c['telemetry_ticks_after_replay']};"
-        f" {c['fresh_requests_ok']} fresh requests ok")
+        f" {c['fresh_requests_ok']} fresh requests ok over"
+        f" {c['post_recovery_ticks'] - c['telemetry_ticks_after_replay']} ticks"
+        f" ({c['fresh_snapshots']} snapshotting, the longest tick"
+        f" {c['fresh_tick_max_s']:.3f} s against the leg's"
+        f" {si.CRASH_TICK_DEADLINE_S:.0f} s stall deadline), the ladder at NORMAL")
     return c["replay_launches"]
 
 
@@ -4828,18 +4838,21 @@ TRAIN_STEPS = 20               # about 30 s of steps on the H100
 # global layer at the training run's shape and at S 2048 (H 4, its one kv head
 # repeated), granite-3-2b's (H 32, hd 64), hd 128 (B 4, S 512, H 32), the
 # VLM's cross attention (512 → 1601 patches, non-causal), one f32 case,
-# Sq, Sk off the 64-row tiles (hd 96, masked in the 128 instance), and hd 100
-# in bf16, not a multiple of 8, which takes the CUDA cores' pair
+# Sq, Sk off the 64-row tiles (hd 96, masked in the 128 instance), hd 100
+# in bf16, not a multiple of 8, which takes the CUDA cores' pair, and past hd
+# 256 the wide pair, bf16 causal and f32 full with Sq ≠ Sk
 TRAIN_BWD = ((8, 128, 128, 4, 256, True, "bfloat16"), (2, 2048, 2048, 4, 256, True, "bfloat16"),
              (8, 512, 512, 32, 64, True, "bfloat16"), (4, 512, 512, 32, 128, True, "bfloat16"),
              (4, 512, 1601, 32, 128, False, "bfloat16"), (2, 512, 512, 8, 256, True, "float32"),
-             (3, 200, 333, 5, 96, False, "bfloat16"), (2, 70, 70, 3, 100, True, "bfloat16"))
+             (3, 200, 333, 5, 96, False, "bfloat16"), (2, 70, 70, 3, 100, True, "bfloat16"),
+             (2, 512, 512, 4, 320, True, "bfloat16"), (2, 256, 333, 4, 512, False, "float32"))
 # max |kernel − plain| / max |plain| of each of dq, dk, dv on the card: f32
 # sums in other orders (measured up to 3.1e-7); bf16 results rounded once
 # from f32 values that differ in their last bits, so an entry may land on the
 # other bf16 neighbour, at most one bf16 step of the largest entry's binade
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+WIDE_BWD_KERNELS = ("flash_bwd_wide_dq_kernel", "flash_bwd_wide_dkdv_kernel")
 # card against CPU on the reduced configs (f32): the loss within 1e-5, each
 # gradient leaf within 1e-4 of its largest |g| (tests/test_torch_train.py's
 # bounds against the reference); the sgd moves past two f32 roundings of
@@ -4908,8 +4921,9 @@ def flash_bwd_rows():
     """(a) flash_attention_bwd against its plain version at TRAIN_BWD, the
     forward with statistics bit for bit the forward without, each shape's
     route (the kernels the profiler saw: the tensor cores' ``_mma`` pair for
-    bf16 at hd a multiple of 8, every tensor here being on a 16-byte
-    boundary, else the CUDA cores' pair); returns the kernel line's row (the
+    bf16 at hd a multiple of 8 up to 256, every tensor here being on a
+    16-byte boundary, the wide pair past 256, else the CUDA cores' pair);
+    returns the kernel line's row (the
     training run's shape)."""
     import torch
     import torch.nn.functional as F
@@ -4946,7 +4960,8 @@ def flash_bwd_rows():
         bnd = bound(*work, H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
         r = dict(abs=abs_err, ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2),
                  library_ms=cuda_ms(library, 10), bound_ms=bnd[0], bound_by=bnd[1])
-        alone, lib_alone, lib_kernel, names = split_device_ms(fn, library, 5, BWD_KERNELS)
+        kernels = WIDE_BWD_KERNELS if hd > 256 else BWD_KERNELS
+        alone, lib_alone, lib_kernel, names = split_device_ms(fn, library, 5, kernels)
         log(f"  (a) flash_attention_bwd B={b} Sq={sq} Sk={sk} H={h} hd={hd}"
             f" {'causal' if causal else 'full'} {dname}: max rel dq, dk, dv"
             f" {', '.join(f'{x:.2e}' for x in rels)} (tol {BWD_TOL[dname]:.1e})"
@@ -4956,8 +4971,8 @@ def flash_bwd_rows():
             f"  bound_ms={bnd[0]:.4f} ({bnd[1]}: {work[0] / 1e9:.2f} GFLOP,"
             f" {work[1] / 1e6:.1f} MB)  route: {', '.join(names)}")
         assert all(x <= BWD_TOL[dname] for x in rels), "flash_attention_bwd: kernel != plain"
-        mma = dname == "bfloat16" and hd % 8 == 0
-        assert len(names) == 2 and all(n.startswith(k) for n, k in zip(names, BWD_KERNELS)) \
+        mma = dname == "bfloat16" and hd % 8 == 0 and hd <= 256
+        assert len(names) == 2 and all(n.startswith(k) for n, k in zip(names, kernels)) \
             and all(("_mma<" in n) == mma for n in names), f"flash_attention_bwd's route: {names}"
         if row is None:
             row = r
@@ -5337,6 +5352,37 @@ def _train_card_vs_cpu():
             log(text + f" (bounds {TRAIN_LOSS_ABS}, {TRAIN_GRAD_REL})")
 
 
+# phase 20 (e): the dry run's per-device counts (FLOPs, bytes, collective
+# bytes) as the CPU-only test host counts them (torch 2.13.0+cpu): the
+# detector on the 16 × 16 layout and gemma3-1b × decode_32k
+DRYRUN_COUNTS = {"oselm-detector": (998244352.0, 62456378.0, 2162688.0),
+                 "gemma3-1b": (20660092928.0, 26296786104.0, 0.0)}
+
+
+def train_dryrun():
+    """(e) the dry run on the host, fake tensors only: the detector's
+    collective bytes a device equal to its U/V payload, and every count
+    equal to ``DRYRUN_COUNTS``."""
+    import tempfile
+
+    from repro_torch.launch import dryrun, dryrun_detector
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        recs = [dryrun_detector.run(False, out_dir=Path(d)),
+                dryrun.run_combo("gemma3-1b", "decode_32k", multi_pod=False, out_dir=Path(d))]
+    seconds = time.perf_counter() - t0
+    det = recs[0]
+    assert det["coll_bytes_per_device"] == det["uv_payload_bytes"], det
+    for rec in recs:
+        got = tuple(rec[k] / rec["chips"] for k in ("hlo_flops", "hlo_bytes", "coll_bytes"))
+        log(f"  (e) dry run {rec['arch']} × {rec['shape']} × {rec['mesh']}: per device"
+            f" {got[0]:.6e} FLOPs, {got[1]:.6e} bytes, {got[2]:.6e} collective bytes"
+            f" (the test host's {DRYRUN_COUNTS[rec['arch']]}), dominant {rec['dominant']}")
+        assert got == DRYRUN_COUNTS[rec["arch"]], (rec["arch"], got)
+    log(f"  (e) the dry run took {seconds:.1f} s on the host")
+
+
 def train_gla_function():
     """(d) gla_forward on CUDA inputs that require a gradient: GLAForward, one
     gla_backward launch, the gradients the CPU's within TRAIN_GRAD_REL of
@@ -5389,7 +5435,10 @@ def phase_train(smi: str) -> tuple[dict, dict, dict[str, int]]:
     t3 = time.perf_counter()
     train_card_vs_cpu()
     train_gla_function()
-    log(f"  phase 20's parts: {', '.join(parts)}, (c) and (d) {time.perf_counter() - t3:.1f} s")
+    parts.append(f"(c) and (d) {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
+    train_dryrun()
+    log(f"  phase 20's parts: {', '.join(parts)}, (e) {time.perf_counter() - t4:.1f} s")
     return row, gla_row, launches
 
 

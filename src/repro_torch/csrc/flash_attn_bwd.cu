@@ -73,8 +73,22 @@
 //   columns a tile step; at hd = 256 the dq kernel holds q, dout, k and v
 //   tiles in 169 KB of shared memory and the dk/dv kernel 173 KB, its dk and
 //   dv accumulators (16 keys × 256) in registers.
-// Widths under 256 run the next larger instance masked at hd; past 256 the
-// entry refuses.
+// * Past hd 256 (any type, any alignment) the wide pair on the CUDA cores,
+//   flash_bwd_wide_dq_kernel and flash_bwd_wide_dkdv_kernel, modelled on the
+//   forward's flash_fwd_wide_kernel: a block owns 16 query rows (dq) or 16
+//   keys (dk/dv) and one slice of 64 gradient columns (grid.z), streams q·kᵀ
+//   and dout·vᵀ over the width in slices of 64 through shared memory, then
+//   adds ds·k, or pᵀ·dout and dsᵀ·q, on its own slice. A row tile's f32
+//   accumulators at the full width (16 × 512 × 4 bytes, twice for dk and dv)
+//   would not fit the static 48 KB beside the tiles the products stream, and
+//   a global scratch would add its bytes to every tile step; so each block
+//   keeps only its slice's accumulators in registers (8 or 16 a thread) and
+//   recomputes s and dp once a slice, ⌈hd/64⌉ times in all: 5× at hd 320, 8×
+//   at 512. Both kernels stay in static shared memory (45 and 42 KB), bf16 is
+//   widened on load, p and ds are rounded to bf16 at the same two points as
+//   the narrow pair's, δ is written by the first column slice's dq blocks,
+//   and each gradient element is written once, with no atomics.
+// Widths under 256 run the next larger instance masked at hd.
 //
 // Bound on an H100 (the larger of the two): the eight tensors (q, k, v, out,
 // dout and dq, dk, dv) read or written once, at 3.35 TB/s, and about
@@ -793,6 +807,317 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out, con
   return cudaGetLastError();
 }
 
+// ---- head widths past 256: the wide pair, on the CUDA cores
+
+constexpr int kSlice = 64;     // head dims a step of q·kᵀ and dout·vᵀ, and gradient columns a block
+constexpr int kWideRows = 16;  // dq: query rows a block; dk/dv: keys a block
+constexpr int kWideStep = 64;  // dq: keys a tile step; dk/dv: queries a tile step
+
+// A kRows × kSlice slice (columns c0..) of rows row0.. of a (·, H, HD) array
+// into a padded f32 tile (zeros past n rows and past HD columns).
+template <typename T, int R>
+__device__ __forceinline__ void load_slice(float* dst, const T* base, long long rs, int row0,
+                                           int n, int c0, int HD) {
+  constexpr int S = kSlice + 1;
+  for (int e = threadIdx.x; e < R * kSlice; e += kThreads) {
+    const int r = e / kSlice, d = e % kSlice, s = row0 + r;
+    dst[r * S + d] = s < n && c0 + d < HD ? widen(base[s * rs + c0 + d]) : 0.f;
+  }
+}
+
+// As flash_bwd_dq_kernel, for any HD; grid (B·H, ⌈SQ/16⌉, ⌈HD/64⌉), the
+// longest causal blocks first: blockIdx.z is the block's slice of 64 dq
+// columns. Every block of a row tile recomputes the same s and dp over the
+// whole width (the slices of 64 in order) and δ of its rows; the first
+// column slice's block writes δ.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ out,
+                         const T* __restrict__ dout, const float* __restrict__ m_in,
+                         const float* __restrict__ l_in, T* __restrict__ dq,
+                         float* __restrict__ delta, int H, int SQ, int SK, int HD, int causal,
+                         float scale) {
+  constexpr int BQ = kWideRows, BK = kWideStep, S = kSlice + 1, PS = BK + 1;
+  constexpr int RM = BQ / 8, CN = BK / 16, DN = kSlice / 16;
+  __shared__ float sq[BQ * S], sdo[BQ * S], sk[BK * S], sv[BK * S], sds[BQ * PS];  // 45 KB
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = qb * BQ, c0 = blockIdx.z * kSlice;
+  const long long rs = (long long)H * HD;
+  const long long qoff = ((long long)b * SQ * H + h) * HD;
+  const long long koff = ((long long)b * SK * H + h) * HD;
+  const long long roff = (long long)bh * SQ;
+
+  // δ of the block's rows, in the narrow kernels' order: each of a row's 16
+  // threads sums its columns, then the 16 add up
+  float mi[RM], li[RM], di[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int s = q0 + ty + 8 * i;
+    float part = 0.f;
+    if (s < SQ)
+      for (int d = tx; d < HD; d += 16)
+        part = fmaf(widen(dout[qoff + s * rs + d]), widen(out[qoff + s * rs + d]), part);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    di[i] = part;
+    mi[i] = s < SQ ? m_in[roff + s] : 0.f;
+    li[i] = s < SQ ? fmaxf(l_in[roff + s], 1e-30f) : 1.f;
+    if (s < SQ && tx == 0 && blockIdx.z == 0) delta[roff + s] = part;
+  }
+
+  float acc[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+
+  int n_tiles = (SK + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + BQ, SQ) - 1) / BK + 1);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    // s = q·kᵀ and dp = dout·vᵀ over the width, a slice of 64 at a time
+    float st[RM][CN], dp[RM][CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) st[i][j] = dp[i][j] = 0.f;
+    for (int d0 = 0; d0 < HD; d0 += kSlice) {
+      __syncthreads();  // the previous slice, and the previous tile's k and ds, are consumed
+      load_slice<T, BQ>(sq, q + qoff, rs, q0, SQ, d0, HD);
+      load_slice<T, BQ>(sdo, dout + qoff, rs, q0, SQ, d0, HD);
+      load_slice<T, BK>(sk, k + koff, rs, k0, SK, d0, HD);
+      load_slice<T, BK>(sv, v + koff, rs, k0, SK, d0, HD);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kSlice; ++d) {
+        float a[RM], ad[RM], c[CN], cv[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          a[i] = sq[(ty + 8 * i) * S + d];
+          ad[i] = sdo[(ty + 8 * i) * S + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          c[j] = sk[(tx + 16 * j) * S + d];
+          cv[j] = sv[(tx + 16 * j) * S + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            st[i][j] = fmaf(a[i], c[j], st[i][j]);
+            dp[i][j] = fmaf(ad[i], cv[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qpos = q0 + ty + 8 * i;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool valid = qpos < SQ && kpos < SK && (!causal || kpos <= qpos);
+        const float p = valid ? expf(st[i][j] * scale - mi[i]) / li[i] : 0.f;
+        sds[(ty + 8 * i) * PS + tx + 16 * j] = round_as<T>(p * (dp[i][j] - di[i]) * scale);
+      }
+    }
+    __syncthreads();  // ds is written and the last slice of k is consumed
+    load_slice<T, BK>(sk, k + koff, rs, k0, SK, c0, HD);
+    __syncthreads();
+
+    // dq[:, c0 slice] += ds·k[:, c0 slice]
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float ds[RM], w[DN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) ds[i] = sds[(ty + 8 * i) * PS + c];
+#pragma unroll
+      for (int j = 0; j < DN; ++j) w[j] = sk[c * S + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(ds[i], w[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int s = q0 + ty + 8 * i;
+    if (s >= SQ) continue;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col < HD) dq[qoff + s * rs + col] = narrow<T>(acc[i][j]);
+    }
+  }
+}
+
+// As flash_bwd_dkdv_kernel, for any HD; grid (B·H, ⌈SK/16⌉, ⌈HD/64⌉):
+// blockIdx.z is the block's slice of 64 dk and dv columns. Each block
+// recomputes sᵀ and dpᵀ of its 16 keys against a tile of 64 queries over the
+// whole width, then adds pᵀ·dout and dsᵀ·q on its slice. The k and v slices
+// of the recompute and the p and ds tiles of the sums share their shared
+// memory (42 KB in all).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ m_in, const float* __restrict__ l_in,
+                           const float* __restrict__ delta, T* __restrict__ dk,
+                           T* __restrict__ dv, int H, int SQ, int SK, int HD, int causal,
+                           float scale) {
+  constexpr int BKV = kWideRows, BQ = kWideStep, S = kSlice + 1, PS = BQ + 1;
+  constexpr int RM = BKV / 8, CN = BQ / 16, DN = kSlice / 16;
+  static_assert(PS == S, "the p and ds tiles reuse the k and v slices' memory");
+  __shared__ float skv[2 * BKV * S], sq[BQ * S], sdo[BQ * S];
+  __shared__ float sm[BQ], sl[BQ], sdelta[BQ];
+  float* sk = skv;              // BKV × S, while s and dp are recomputed
+  float* sv = skv + BKV * S;
+  float* sp = skv;              // BKV × PS, while dv and dk are summed
+  float* sds = skv + BKV * PS;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * BKV, c0 = blockIdx.z * kSlice;
+  const long long rs = (long long)H * HD;
+  const long long qoff = ((long long)b * SQ * H + h) * HD;
+  const long long koff = ((long long)b * SK * H + h) * HD;
+  const long long roff = (long long)bh * SQ;
+
+  float gk[RM][DN], gv[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < DN; ++j) gk[i][j] = gv[i][j] = 0.f;
+
+  const int n_tiles = (SQ + BQ - 1) / BQ;
+  for (int qt = causal ? k0 / BQ : 0; qt < n_tiles; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's statistics, q, dout, p and ds are consumed
+    for (int r = tid; r < BQ; r += kThreads) {
+      const int s = q0 + r;
+      sm[r] = s < SQ ? m_in[roff + s] : 0.f;
+      sl[r] = s < SQ ? fmaxf(l_in[roff + s], 1e-30f) : 1.f;
+      sdelta[r] = s < SQ ? delta[roff + s] : 0.f;
+    }
+    // sᵀ = k·qᵀ and dpᵀ = v·doutᵀ on the thread's RM keys × CN queries
+    float st[RM][CN], dpt[RM][CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) st[i][j] = dpt[i][j] = 0.f;
+    for (int d0 = 0; d0 < HD; d0 += kSlice) {
+      __syncthreads();
+      load_slice<T, BKV>(sk, k + koff, rs, k0, SK, d0, HD);
+      load_slice<T, BKV>(sv, v + koff, rs, k0, SK, d0, HD);
+      load_slice<T, BQ>(sq, q + qoff, rs, q0, SQ, d0, HD);
+      load_slice<T, BQ>(sdo, dout + qoff, rs, q0, SQ, d0, HD);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kSlice; ++d) {
+        float a[RM], av[RM], c[CN], cd[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          a[i] = sk[(ty + 8 * i) * S + d];
+          av[i] = sv[(ty + 8 * i) * S + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          c[j] = sq[(tx + 16 * j) * S + d];
+          cd[j] = sdo[(tx + 16 * j) * S + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            st[i][j] = fmaf(a[i], c[j], st[i][j]);
+            dpt[i][j] = fmaf(av[i], cd[j], dpt[i][j]);
+          }
+      }
+    }
+    __syncthreads();  // the k and v slices are consumed: their memory takes p and ds
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int kpos = k0 + ty + 8 * i;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        const int c = tx + 16 * j, qpos = q0 + c;
+        const bool valid = qpos < SQ && kpos < SK && (!causal || kpos <= qpos);
+        const float p = valid ? expf(st[i][j] * scale - sm[c]) / sl[c] : 0.f;
+        sp[(ty + 8 * i) * PS + c] = round_as<T>(p);
+        sds[(ty + 8 * i) * PS + c] = round_as<T>(p * (dpt[i][j] - sdelta[c]) * scale);
+      }
+    }
+    load_slice<T, BQ>(sq, q + qoff, rs, q0, SQ, c0, HD);
+    load_slice<T, BQ>(sdo, dout + qoff, rs, q0, SQ, c0, HD);
+    __syncthreads();
+
+    // dv[:, c0 slice] += pᵀ·dout[:, c0 slice], dk[:, c0 slice] += dsᵀ·q[:, c0 slice]
+#pragma unroll 4
+    for (int c = 0; c < BQ; ++c) {
+      float p[RM], ds[RM], wdo[DN], wq[DN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        p[i] = sp[(ty + 8 * i) * PS + c];
+        ds[i] = sds[(ty + 8 * i) * PS + c];
+      }
+#pragma unroll
+      for (int j = 0; j < DN; ++j) {
+        wdo[j] = sdo[c * S + tx + 16 * j];
+        wq[j] = sq[c * S + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < DN; ++j) {
+          gv[i][j] = fmaf(p[i], wdo[j], gv[i][j]);
+          gk[i][j] = fmaf(ds[i], wq[j], gk[i][j]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int s = k0 + ty + 8 * i;
+    if (s >= SK) continue;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col < HD) {
+        dk[koff + s * rs + col] = narrow<T>(gk[i][j]);
+        dv[koff + s * rs + col] = narrow<T>(gv[i][j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const void* out, const void* dout,
+                const float* m, const float* l, void* dq, void* dk, void* dv, float* delta,
+                int B, int H, int SQ, int SK, int HD, int causal, float scale, cudaStream_t st) {
+  const int slices = (HD + kSlice - 1) / kSlice;
+  const dim3 grid_q(B * H, (SQ + kWideRows - 1) / kWideRows, slices);
+  const dim3 grid_k(B * H, (SK + kWideRows - 1) / kWideRows, slices);
+  if (grid_q.y > 65535 || grid_k.y > 65535) return cudaErrorInvalidValue;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  flash_bwd_wide_dq_kernel<T><<<grid_q, kThreads, 0, st>>>(
+      tq, tk, tv, static_cast<const T*>(out), tdo, m, l, static_cast<T*>(dq), delta, H, SQ, SK,
+      HD, causal, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || SK == 0) return err;
+  flash_bwd_wide_dkdv_kernel<T><<<grid_k, kThreads, 0, st>>>(
+      tq, tk, tv, tdo, m, l, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, SQ, SK, HD,
+      causal, scale);
+  return cudaGetLastError();
+}
+
 // ---- dispatch
 
 // The dynamic shared memory above 48 KB is allowed once per kernel instance
@@ -881,16 +1206,17 @@ extern "C" {
 // q, out, dout, dq (B, SQ, H, HD); k, v, dk, dv (B, SK, H, HD): device
 // pointers to contiguous arrays of one type (f32, or bf16 when bf16 is 1),
 // any alignment; m and l (B, H, SQ) f32 from repro_flash_attention; delta a
-// (B, H, SQ) f32 scratch. 1 ≤ HD ≤ 256 (else cudaErrorInvalidValue), any SQ
-// and SK, causal as the forward's. bf16 runs on the tensor cores where HD is
-// a multiple of 8 and every array is on a 16-byte boundary, else on the CUDA
-// cores. Returns the first launch error, or 0.
+// (B, H, SQ) f32 scratch. Any HD ≥ 1 (else cudaErrorInvalidValue), any SQ and
+// SK, causal as the forward's. Up to HD 256 bf16 runs on the tensor cores
+// where HD is a multiple of 8 and every array is on a 16-byte boundary, else
+// on the CUDA cores; past 256 the wide pair, on the CUDA cores. Returns the
+// first launch error, or 0.
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                               const void* dout, const void* m, const void* l, void* dq,
                               void* dk, void* dv, void* delta, int B, int H, int SQ, int SK,
                               int HD, int causal, float scale, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (HD < 1 || HD > 256) return cudaErrorInvalidValue;
+  if (HD < 1) return cudaErrorInvalidValue;
   if (B * H == 0 || SQ == 0) {  // no query: dk and dv are zero
     if (B * H == 0 || SK == 0) return cudaSuccess;
     const size_t bytes = (size_t)B * SK * H * HD * (bf16 ? 2 : 4);
@@ -901,6 +1227,11 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
   const float* fm = static_cast<const float*>(m);
   const float* fl = static_cast<const float*>(l);
   float* fd = static_cast<float*>(delta);
+  if (HD > 256)
+    return bf16 ? launch_wide<__nv_bfloat16>(q, k, v, out, dout, fm, fl, dq, dk, dv, fd, B, H,
+                                             SQ, SK, HD, causal, scale, st)
+                : launch_wide<float>(q, k, v, out, dout, fm, fl, dq, dk, dv, fd, B, H, SQ, SK, HD,
+                                     causal, scale, st);
   if (bf16)
     return dispatch_bf16(q, k, v, out, dout, fm, fl, dq, dk, dv, fd, B, H, SQ, SK, HD, causal,
                          scale, st);

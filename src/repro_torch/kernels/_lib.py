@@ -204,6 +204,28 @@ def on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+# what listens to the plain versions' runs: the dry run's op counter
+# (repro_torch.roofline.op_costs.OpCounter) while it counts, else None
+plain_listener = None
+
+
+def plain(kernel: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, ``kernel``'s plain version, on the route a
+    wrapper takes where ``on_cpu`` says so. A listener set in
+    ``plain_listener`` is told where the run begins and ends, so that the
+    ops inside it can be told apart as the kernel's interior."""
+    listener = plain_listener
+    if listener is None:
+        return fn(*args, **kwargs)
+    listener.enter_plain(kernel)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        listener.exit_plain(kernel)
+    listener.kernel_operands(kernel, (args, kwargs), out)
+    return out
+
+
 def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` where grad mode is on and one of
     ``tensors`` requires a gradient: ``kernel`` has no backward."""

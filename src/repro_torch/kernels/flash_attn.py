@@ -26,11 +26,13 @@ backward is ``flash_attention_bwd``, the kernels of
 the CPU). The backward follows ``_fa_backward_inner``: δ = rowsum(dout ∘
 out), p = exp(s − m) / max(l, 1e-30) with s masked to −1e30, dv = pᵀ·dout,
 dp = dout·vᵀ, ds = p ∘ (dp − δ)·hd^−½, dq = ds·k, dk = dsᵀ·q, with f32
-sums, the results in q's, k's and v's types. It takes head widths up to
-256. bf16 runs on the tensor cores where the forward's does (hd a
-multiple of 8, every tensor on a 16-byte boundary), else (hd not a
-multiple of 8, a view off 16 bytes) on the CUDA cores; on both routes p
-is rounded to bf16 before pᵀ·dout and ds before ds·k and dsᵀ·q, as
+sums, the results in q's, k's and v's types. It takes every head width
+the forward takes. Up to 256, bf16 runs on the tensor cores where the
+forward's does (hd a multiple of 8, every tensor on a 16-byte boundary),
+else (hd not a multiple of 8, a view off 16 bytes) on the CUDA cores; past
+256 both types run the wide pair on the CUDA cores, which streams q·kᵀ
+and dout·vᵀ over hd in slices of 64, as the wide forward does. On every
+route p is rounded to bf16 before pᵀ·dout and ds before ds·k and dsᵀ·q, as
 FlashAttention-2 and cuDNN round them, and the plain version takes these
 two roundings, and no other, when q, k, v, out and dout are all bf16.
 That is where the port's bf16 backward departs from the reference's,
@@ -52,7 +54,6 @@ __all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
 
 NEG_INF = -1e30
 KV_TILE = 64               # keys per tile, the kernel's kBK
-BWD_MAX_HD = 256           # the backward kernel's widest instance
 # the C entry's p_round: where v came as bf16 or f16 and the kernel runs in
 # f32 (a mix of types, or f16), p is rounded to v's type before p·v
 P_ROUND = {torch.bfloat16: 1, torch.float16: 2}
@@ -108,7 +109,8 @@ def flash_attention_plain(
 def _forward(q, k, v, causal: bool, stats: bool):
     """The forward on q's device: (out, m, l) with ``stats``, else out."""
     if _lib.on_cpu(q):
-        return flash_attention_plain(q, k, v, causal=causal, stats=stats)
+        return _lib.plain("flash_attention", flash_attention_plain, q, k, v, causal=causal,
+                          stats=stats)
     _check(q, k, v)
     dtype, p_round = q.dtype, P_ROUND.get(v.dtype, 0)
     q, k, v = _lib.operands("flash_attention", _lib.F32_BF16, q=q, k=k, v=v)
@@ -189,18 +191,15 @@ def flash_attention_bwd(
     against ``dout``, from its forward's row statistics m and l (B, H, Sq)
     f32. On the card two launches (one count): the dq kernel, which also
     writes δ, then the dk/dv kernel, on the tensor cores for bf16 where
-    their 16-byte copies go, else on the CUDA cores; each gradient element
-    is written by one block, in a fixed order."""
+    their 16-byte copies go, else on the CUDA cores, and past hd 256 the
+    wide pair; each gradient element is written by one block, in a fixed
+    order."""
     if _lib.on_cpu(q):
-        return flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)
+        return _lib.plain("flash_attention_bwd", flash_attention_bwd_plain, q, k, v, out, dout,
+                          m, l, causal=causal)
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
-    if hd > BWD_MAX_HD:
-        raise NotImplementedError(
-            f"flash_attention_bwd: head width {hd} > {BWD_MAX_HD}; the backward past hd 256 is "
-            "ROADMAP queue 1's item 'the flash backward past hd 256' (no config of the zoo is "
-            "that wide)")
     dtypes = q.dtype, k.dtype, v.dtype
     q, k, v, out, dout = _lib.operands("flash_attention_bwd", _lib.F32_BF16, q=q, k=k, v=v,
                                        out=out, dout=dout)

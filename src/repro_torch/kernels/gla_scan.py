@@ -201,7 +201,7 @@ def _forward(q, k, v, log_a, keep: bool):
     state entering each chunk and each chunk's e^{tot}, which the backward
     takes."""
     if _lib.on_cpu(q):
-        out = _forward_plain(q, k, v, log_a)
+        out = _lib.plain("gla_forward", _forward_plain, q, k, v, log_a)
         return out if keep else out[:2]
     _check(q, k, v, log_a)
     dtype = q.dtype
@@ -345,7 +345,8 @@ def gla_backward(
     order; bf16 on the tensor cores (the strips of ``bwd_plan``, rows padded
     by ``_rows``), f32 on the CUDA cores."""
     if _lib.on_cpu(q):
-        return gla_backward_plain(q, k, v, log_a, dy, dstate_final, states, decay, state)
+        return _lib.plain("gla_backward", gla_backward_plain, q, k, v, log_a, dy, dstate_final,
+                          states, decay, state)
     _check_bwd(q, k, v, log_a, dy, dstate_final, states, decay, state)
     dtypes = q.dtype, k.dtype, v.dtype, log_a.dtype
     q, k, v, dy = _lib.operands("gla_backward", _lib.F32_BF16, q=q, k=k, v=v, dy=dy)

@@ -5,10 +5,12 @@ decode, and the training loss."""
 from repro_torch.models.config import INPUT_SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.model import (
     active_param_count,
+    cache_shape_structs,
     decode_step,
     encoder_forward,
     forward,
     init_params,
+    input_specs,
     lm_loss,
     param_count,
     prefill,
@@ -17,6 +19,6 @@ from repro_torch.models.moe import moe_ffn
 
 __all__ = [
     "INPUT_SHAPES", "ArchConfig", "ShapeConfig",
-    "active_param_count", "decode_step", "encoder_forward", "forward", "init_params",
-    "lm_loss", "moe_ffn", "param_count", "prefill",
+    "active_param_count", "cache_shape_structs", "decode_step", "encoder_forward", "forward",
+    "init_params", "input_specs", "lm_loss", "moe_ffn", "param_count", "prefill",
 ]

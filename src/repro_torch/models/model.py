@@ -18,7 +18,9 @@ T, d_frontend) stand in for the speech encoder's frames and the ViT's
 patches. ``lm_loss`` computes the cross-entropy in chunks of
 ``loss_chunk`` tokens, each chunk's logits recomputed in the backward, so
 that (B, S, V) logits never exist at once. ``input_specs`` and
-``cache_shape_structs`` (ROADMAP queue 1, item 10e) are not ported yet.
+``cache_shape_structs`` give the model's inputs and decode caches as
+tensors on the ``meta`` device, shapes and types that allocate nothing (the
+reference's ``ShapeDtypeStruct`` trees, leaf by leaf), for the dry run.
 """
 from __future__ import annotations
 
@@ -28,15 +30,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch.models.blocks import BlockCtx, block_decode, block_fwd, init_block
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.blocks import BlockCtx, block_decode, block_fwd, cache_spec, init_block
+from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.layers import rmsnorm, rope_tables
 
 PyTree = Any
 
-__all__ = ["LB_WEIGHT", "Z_WEIGHT", "active_param_count", "decode_step", "encoder_forward",
-           "forward", "group_runs", "init_params", "lm_loss", "param_count", "param_dtype",
-           "prefill"]
+__all__ = ["LB_WEIGHT", "Z_WEIGHT", "active_param_count", "cache_shape_structs", "decode_step",
+           "encoder_forward", "forward", "group_runs", "init_params", "input_specs", "lm_loss",
+           "param_count", "param_dtype", "prefill"]
 
 
 def group_runs(pattern: tuple[str, ...]) -> list[tuple[str, int]]:
@@ -301,3 +303,46 @@ def decode_step(
                 cache[name].copy_(t)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["embed"].T).float(), caches
+
+
+# ------------------------------------------------------------ input specs
+
+
+def _spec(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """A shape-and-type stand-in: a tensor on the ``meta`` device."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def cache_shape_structs(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """{kind: {name: stand-in}} matching ``decode_step``'s caches, each leaf
+    stacked over that kind's layers."""
+    counts: dict[str, int] = {}
+    for kind in cfg.layer_pattern():
+        counts[kind] = counts.get(kind, 0) + 1
+    return {kind: {name: _spec((n, *shape), dtype)
+                   for name, (shape, dtype) in cache_spec(kind, cfg, batch, seq_len).items()}
+            for kind, n in counts.items()}
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every model input of ``shape`` (no allocation): tokens
+    and labels (train), tokens (prefill), or one token, the caches of a
+    ``seq_len`` context and the position (decode); the frontend's
+    embeddings, or for decode the encoder's output, where ``cfg`` has a
+    frontend."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+    specs: dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = _spec((b, s), i32)
+        if shape.kind == "train":
+            specs["labels"] = _spec((b, s), i32)
+        if cfg.frontend is not None:
+            specs["frontend"] = _spec((b, cfg.n_frontend_tokens, cfg.d_frontend), f32)
+    else:  # decode: one token against a seq_len cache
+        specs["token"] = _spec((b,), i32)
+        specs["caches"] = cache_shape_structs(cfg, b, s)
+        specs["pos"] = _spec((), i32)
+        if cfg.frontend is not None:
+            specs["enc_out"] = _spec((b, cfg.n_frontend_tokens, cfg.d_model), f32)
+    return specs

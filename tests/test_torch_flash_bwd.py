@@ -7,7 +7,8 @@ statistics, and to ``jax.grad`` of ``blockwise_attention``: causal and
 not, Sq ≠ Sk, lengths off the 64-key tile and off the reference's chunk,
 head widths 16 and 80, and GQA (the kv heads repeated by
 ``_expand_kv`` in the reference and ``repeat_interleave`` in the port,
-their gradients summed by autograd). Bound: each gradient within 1e-5 of
+their gradients summed by autograd), and past hd 256 (320 and 512, the
+widths of the card's wide pair). Bound: each gradient within 1e-5 of
 its own largest magnitude (f32 in both, the products summed in other
 orders; ``-s`` prints the measured spread), the forward's row statistics
 m within 1e-6 and l within 1e-5 of theirs. ``torch.autograd.gradcheck``
@@ -54,6 +55,10 @@ CASES = [
     (2, 96, 96, 4, 2, 80, True, 512),     # an untiled width, the reference's default chunk
     (1, 130, 40, 2, 2, 16, True, 32),     # causal with Sq > Sk
     (1, 100, 100, 2, 2, 16, False, 48),
+    # past hd 256, the widths of the card's wide pair
+    (1, 40, 40, 2, 2, 320, True, 32),     # causal self-attention
+    (1, 20, 70, 2, 2, 512, False, 64),    # Sq ≠ Sk, not causal
+    (1, 70, 70, 2, 1, 320, True, 64),     # GQA, off the tile
 ]
 
 
@@ -196,8 +201,9 @@ def test_card_branch_of_flash_goes_to_its_kernel_with_no_fallback(monkeypatch):
 
 # ------------------------------------------------- bf16: the rounding points
 
-# off the tile (GQA in CASES, repeated here), Sq ≠ Sk, an untiled width
-BF16_CASES = [CASES[1], CASES[2], CASES[3]]
+# off the tile (GQA in CASES, repeated here), Sq ≠ Sk, an untiled width, and
+# hd 320 (the wide pair's rounding points)
+BF16_CASES = [CASES[1], CASES[2], CASES[3], CASES[6]]
 BF16_REL = 1e-6
 
 

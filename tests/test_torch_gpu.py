@@ -1976,12 +1976,23 @@ FLASH_BWD = [(8, 128, 128, 4, 256, True, torch.bfloat16), (2, 2048, 2048, 4, 256
 # one bf16 step of the largest entry's binade (chip_smoke.py's BWD_TOL)
 FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+WIDE_BWD_KERNELS = ("flash_bwd_wide_dq_kernel", "flash_bwd_wide_dkdv_kernel")
+# past hd 256 the wide pair, f32 and bf16: S 77 and 512, causal and not, and a
+# single query row against 77 keys, not causal. (A query that sees one key,
+# as causal row 0 does, has p = 1, so dp − δ cancels and its dq and the key's
+# dk are 0 but for rounding: a bound relative to their largest magnitude
+# would measure noise.)
+FLASH_BWD_WIDE = [(2, s, s, 2, hd, causal, dtype) for hd in (320, 512) for s in (77, 512)
+                  for causal in (True, False) for dtype in (torch.float32, torch.bfloat16)] + \
+                 [(2, 1, 77, 2, hd, False, dtype) for hd in (320, 512)
+                  for dtype in (torch.float32, torch.bfloat16)]
 
 
-def _bwd_kernels_run(fn) -> list[str]:
-    """The names of the backward kernels one call of ``fn`` launched, from
-    torch.profiler. The profiler may drop a launch from its record, so a
-    session that did not see both kernels is run again, up to twice."""
+def _bwd_kernels_run(fn, kernels=BWD_KERNELS) -> list[str]:
+    """The names of the backward kernels (those named by ``kernels``) one
+    call of ``fn`` launched, from torch.profiler. The profiler may drop a
+    launch from its record, so a session that did not see both kernels is
+    run again, up to twice."""
     from torch.profiler import ProfilerActivity, profile
 
     names = []
@@ -1989,16 +2000,17 @@ def _bwd_kernels_run(fn) -> list[str]:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() if any(k in e.key for k in BWD_KERNELS)]
-        if all(any(k in n for n in names) for k in BWD_KERNELS):
+        names = [e.key for e in prof.key_averages() if any(k in e.key for k in kernels)]
+        if all(any(k in n for n in names) for k in kernels):
             return names
     return names
 
 
-def _check_backward(q, k, v, dout, causal, mma: bool):
+def _check_backward(q, k, v, dout, causal, route: str):
     """flash_attention_bwd on the card against its plain version, the same
-    bits on a second call, and its route: the tensor cores' pair or the
-    CUDA cores'."""
+    bits on a second call, one launch count a call, and its route: the
+    tensor cores' pair ("mma"), the CUDA cores' ("cuda") or, past hd 256,
+    the wide pair ("wide")."""
     from repro_torch.kernels import flash_attention_bwd, flash_attention_bwd_plain
     from repro_torch.kernels import flash_attention_fwd
 
@@ -2008,14 +2020,18 @@ def _check_backward(q, k, v, dout, causal, mma: bool):
     _, m_plain, l_plain = flash_attention_plain(q, k, v, causal=causal, stats=True)
     assert float((m - m_plain).abs().max()) <= 1e-5 * float(m_plain.abs().max())
     assert _rel(l, l_plain) <= 1e-5
+    before = launch_counts()["flash_attention_bwd"]
     got = flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal)
+    assert launch_counts()["flash_attention_bwd"] == before + 1
     again = flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal)
     want = flash_attention_bwd_plain(q, k, v, out, dout, m, l, causal=causal)
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)  # no atomics: the same bits
         assert _rel(g.float(), w.float()) <= FLASH_BWD_TOL[dtype]
-    names = _bwd_kernels_run(lambda: flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal))
-    assert len(names) == 2 and all(("_mma<" in n) == mma for n in names), names
+    kernels = WIDE_BWD_KERNELS if route == "wide" else BWD_KERNELS
+    names = _bwd_kernels_run(lambda: flash_attention_bwd(q, k, v, out, dout, m, l, causal=causal),
+                             kernels)
+    assert len(names) == 2 and all(("_mma<" in n) == (route == "mma") for n in names), names
 
 
 @pytest.mark.parametrize("shape", FLASH_BWD, ids=lambda s: "-".join(map(str, s)))
@@ -2025,7 +2041,8 @@ def test_flash_backward_kernel_matches_plain(cuda, shape):
     q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((b, sk, h, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
     dout = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
-    _check_backward(q, k, v, dout, causal, mma=dtype == torch.bfloat16 and hd % 8 == 0)
+    _check_backward(q, k, v, dout, causal, "mma" if dtype == torch.bfloat16 and hd % 8 == 0
+                    else "cuda")
 
 
 @pytest.mark.parametrize("hd", [64, 128])
@@ -2040,15 +2057,34 @@ def test_flash_backward_kernel_on_a_misaligned_view(cuda, hd):
         return flat[1:].view(shape)
 
     q, k, v, dout = view(), view(), view(), view()
-    _check_backward(q, k, v, dout, causal=True, mma=False)
+    _check_backward(q, k, v, dout, causal=True, route="cuda")
 
 
-def test_flash_backward_refuses_past_hd_256(cuda):
-    from repro_torch.kernels import flash_attention_bwd
+@pytest.mark.parametrize("shape", FLASH_BWD_WIDE, ids=lambda s: "-".join(map(str, s)))
+def test_flash_backward_wide_matches_plain(cuda, shape):
+    """Past hd 256: the wide pair (one launch count, two kernels), within
+    FLASH_BWD_TOL of the plain version, the same bits twice."""
+    b, sq, sk, h, hd, causal, dtype = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + hd + causal)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, h, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    _check_backward(q, k, v, dout, causal, route="wide")
 
-    q = torch.zeros((1, 4, 1, 320), device=cuda)
-    with pytest.raises(NotImplementedError, match="past hd 256"):
-        flash_attention_bwd(q, q, q, q, q, q[0, :, :, 0].T[None], q[0, :, :, 0].T[None])
+
+def test_flash_function_backward_past_hd_256(cuda):
+    """FlashAttention's autograd backward at hd 320 runs the wide pair once
+    and gives the CPU's gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(320)
+    q = torch.randn((2, 70, 3, 320), generator=gen, device=cuda).requires_grad_(True)
+    k = torch.randn((2, 70, 3, 320), generator=gen, device=cuda).requires_grad_(True)
+    out = flash_attention(q, k, k, causal=True)
+    before = launch_counts()["flash_attention_bwd"]
+    out.sum().backward()
+    assert launch_counts()["flash_attention_bwd"] == before + 1
+    qc, kc = (t.detach().cpu().requires_grad_(True) for t in (q, k))
+    flash_attention(qc, kc, kc, causal=True).sum().backward()
+    assert _rel(q.grad.cpu(), qc.grad) <= 1e-5 and _rel(k.grad.cpu(), kc.grad) <= 1e-5
 
 
 def test_flash_function_on_the_card_has_a_backward(cuda):

@@ -3,7 +3,7 @@ one CUDA card, from the source tree given, each beside the backward of
 ``scaled_dot_product_attention`` on the same inputs. Run from the root of a
 checkout:
 
-    python3 tools/flash_bwd_time.py [--src PATH] [--label NAME] [--out FILE]
+    python3 tools/flash_bwd_time.py [--src PATH] [--label NAME] [--out FILE] [--wide]
 
 ``--src`` is the ``src`` directory of the tree to time (by default this
 checkout's), so that two trees unpacked side by side are timed by one
@@ -15,7 +15,9 @@ granite-3-2b's (8, 512, 512, 32, 64), hd 128 (4, 512, 512, 32, 128), the
 VLM's cross attention (4, 512, 1601, 32, 128, full), all bf16 and causal
 unless said, one f32 case (2, 512, 512, 8, 256), one off the tiles
 (3, 200, 333, 5, 96, full, bf16) and one on the CUDA cores in bf16 (2, 70,
-70, 3, 100: hd not a multiple of 8).
+70, 3, 100: hd not a multiple of 8), then past hd 256, on the wide pair:
+(2, 512, 512, 4, 320, causal, bf16) and (2, 256, 333, 4, 512, full, f32).
+``--wide`` times only those two.
 
 Each line printed, and appended to ``--out``, is one JSON object: the
 label, the card's name and power limit as ``nvidia-smi`` gives them, the
@@ -41,7 +43,9 @@ SEED = 0
 SHAPES = ((8, 128, 128, 4, 256, True, "bfloat16"), (2, 2048, 2048, 4, 256, True, "bfloat16"),
           (8, 512, 512, 32, 64, True, "bfloat16"), (4, 512, 512, 32, 128, True, "bfloat16"),
           (4, 512, 1601, 32, 128, False, "bfloat16"), (2, 512, 512, 8, 256, True, "float32"),
-          (3, 200, 333, 5, 96, False, "bfloat16"), (2, 70, 70, 3, 100, True, "bfloat16"))
+          (3, 200, 333, 5, 96, False, "bfloat16"), (2, 70, 70, 3, 100, True, "bfloat16"),
+          (2, 512, 512, 4, 320, True, "bfloat16"), (2, 256, 333, 4, 512, False, "float32"))
+WIDE = SHAPES[-2:]
 
 
 def main() -> int:
@@ -50,6 +54,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--out", default=None, help="a file to append the JSON lines to")
     ap.add_argument("--reps", type=int, default=20, help="calls a timing")
+    ap.add_argument("--wide", action="store_true", help="only the shapes past hd 256")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -67,7 +72,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for b, sq, sk, h, hd, causal, dname in SHAPES:
+    for b, sq, sk, h, hd, causal, dname in WIDE if args.wide else SHAPES:
         dtype = getattr(torch, dname)
         q = torch.randn((b, sq, h, hd), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((b, sk, h, hd), generator=gen, device="cuda").to(dtype)
